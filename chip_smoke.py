@@ -1,0 +1,544 @@
+#!/usr/bin/env python3
+"""Run the PyTorch/CUDA port's main path on one GPU and check it.
+
+    python3 chip_smoke.py
+
+From the repository root, on a machine with one NVIDIA H100 and the CUDA
+toolkit. Phases, one JSON line each:
+
+1. build — the four CUDA kernels from ``src/repro_torch/kernels/csrc``
+   (``nvcc``, ``sm_90a``), with the build seconds and the card's name and
+   power limit.
+2. main path at 2^28 slots — ``repro_torch.amq.make("cuckoo",
+   capacity=floor(0.95 * 2^28))`` (fp 16, bucket 16, XOR, fmix32: a
+   512 MiB table, ten times the L2), filled to load 0.95 in 16 batches of
+   at most 2^24 keys from a seeded CUDA generator (the last four with
+   ``bulk=True``). Every key placed; ``count`` equal to the keys placed;
+   the table holds exactly the placed keys (see :func:`table_codes`);
+   every inserted key found by the query kernel and by the plain query;
+   the FPR of 2^24 fresh keys inside the Eq. 4 band; 2^24 deletes all
+   ``ok``, after which the table holds exactly the other keys. Launch
+   counts are zeroed just before and read just after; every kernel must
+   have launched.
+3. kernels against their plain PyTorch versions on the card, at the main
+   path's shapes: hash and query on 2^24 keys, bit-exact. The direct
+   insert (2^24 keys into the table at load 0.5 and before the last
+   batch) and the delete (2^24 stored keys) are held to what every
+   sequential order gives — the plain loop's is one — on the whole batch,
+   and exactly to the plain loop on a 2^12-key sub-batch (equal ``ok`` and
+   equal tag multiset in every touched bucket; slots may differ by CAS
+   order), as is a 2^12 mixed stream and a delete stream with duplicates.
+4. timings at the main path's shapes (median of CUDA-event runs) beside
+   each kernel's bound. A warm-up pass of the main path at 2^16 slots runs
+   before anything is timed.
+5. the main path again at 2^22 slots (an 8 MiB table, resident in L2).
+
+Before the last line: the ``nvidia-smi`` name and power limit, then the
+``kernels`` line. The last line is ``{"ok": true, "device": {...}}``. Any
+failed check raises and exits non-zero without it. Nothing here imports
+JAX or the JAX package.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+from repro_torch import amq  # noqa: E402
+from repro_torch.core import cuckoo_filter as CF  # noqa: E402
+from repro_torch.core import layout as L  # noqa: E402
+from repro_torch.core.bits64 import from_i32  # noqa: E402
+from repro_torch.core.hashing import normalize_keys  # noqa: E402
+from repro_torch.kernels import build, roofline  # noqa: E402
+from repro_torch.kernels import ops as K  # noqa: E402
+from repro_torch.kernels.cuckoo_insert import (  # noqa: E402
+    cuckoo_insert_direct_plain, cuckoo_insert_launch)
+from repro_torch.kernels.cuckoo_mixed import (  # noqa: E402
+    cuckoo_mixed_launch, cuckoo_mixed_plain, segments)
+from repro_torch.kernels.cuckoo_query import cuckoo_query_plain  # noqa: E402
+from repro_torch.kernels.hash64 import hash64_plain  # noqa: E402
+
+SEED = 20260316
+FULL_CAPACITY = 255_013_683      # floor(0.95 * 2**28)
+L2_CAPACITY = 3_984_588          # floor(0.95 * 2**22)
+BATCHES = 16
+PROBES = 1 << 24
+SUB = 1 << 12
+CHUNK = 1 << 20                  # buckets unpacked at a time
+# H100 SXM HBM3 rate (NVIDIA data sheet, at the full 700 W).
+HBM_BYTES_PER_S = 3.35e12
+TPU_KERNELS = {
+    "hash64": "src/repro/kernels/hash64.py:25",
+    "cuckoo_query": "src/repro/kernels/cuckoo_query.py:131",
+    "cuckoo_insert_direct": "src/repro/kernels/cuckoo_insert.py:187",
+    "cuckoo_mixed": "src/repro/kernels/cuckoo_mixed.py:129",
+}
+SOURCES = {
+    "hash64": "src/repro_torch/kernels/csrc/hash64.cu",
+    "cuckoo_query": "src/repro_torch/kernels/csrc/cuckoo_query.cu",
+    "cuckoo_insert_direct": "src/repro_torch/kernels/csrc/cuckoo_insert.cu",
+    "cuckoo_mixed": "src/repro_torch/kernels/csrc/cuckoo_mixed.cu",
+}
+
+
+class CheckFailed(RuntimeError):
+    """A check of the run failed."""
+
+
+def check(cond, msg: str) -> None:
+    if not cond:
+        raise CheckFailed(msg)
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def nvidia_smi(query: str) -> str:
+    out = subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int = 5, setup=None) -> float:
+    """Median CUDA-event time of ``fn`` over ``reps`` runs after a warm-up;
+    ``setup`` runs before each, outside the timed window."""
+    times = []
+    for _ in range(reps + 1):
+        if setup is not None:
+            setup()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times[1:])
+
+
+def random_keys(gen, n: int, top_half: bool = False):
+    """n uint64 keys (int64 bits) in [0, 2^63), or in [2^63, 2^64)."""
+    keys = torch.randint(0, 2**63 - 1, (n,), generator=gen, device="cuda")
+    return keys | -(1 << 63) if top_half else keys
+
+
+# ---------------------------------------------------------------------------
+# Order-free checks of a whole table. Under the XOR policy a key's tag sits
+# in one of its two buckets {i1, i1 ^ H(tag)}, and a stored tag's pair
+# follows from (bucket, tag), so the code min(i1, i2) << fp | tag names
+# where one key's tag may sit. The table holds exactly a set of keys iff
+# the sorted codes of its stored tags equal those of the keys: a lost CAS
+# update, a tag dropped or doubled by an eviction, or a stray write breaks
+# the equality. The codes of keys use the plain hash, not the kernel.
+# ---------------------------------------------------------------------------
+
+def key_codes(cfg, batches):
+    """Sorted (pair, tag) codes of the keys in ``batches``."""
+    codes = []
+    for keys in batches:
+        tag, i1, i2 = CF.prepare_keys_plain(cfg, normalize_keys(keys))
+        codes.append((torch.minimum(i1, i2) << cfg.fp_bits) | tag)
+    return torch.sort(torch.cat(codes)).values
+
+
+def bucket_lanes(cfg, table, b0: int, b1: int):
+    """Tags of buckets [b0, b1) -> int64[b1 - b0, bucket_size]."""
+    wpb = cfg.layout.words_per_bucket
+    words = from_i32(table[b0 * wpb:b1 * wpb]).view(b1 - b0, wpb)
+    return L.unpack_words(words, cfg.fp_bits)
+
+
+def table_codes(cfg, table):
+    """Sorted (pair, tag) codes of every tag stored in ``table``."""
+    codes = []
+    for b0 in range(0, cfg.num_buckets, CHUNK):
+        b1 = min(b0 + CHUNK, cfg.num_buckets)
+        tags = bucket_lanes(cfg, table, b0, b1)
+        live = tags != 0
+        bucket = torch.arange(b0, b1, device=table.device)[:, None].expand_as(tags)[live]
+        tag = tags[live]
+        alt = cfg.placement.alt_bucket(bucket, tag)
+        codes.append((torch.minimum(bucket, alt) << cfg.fp_bits) | tag)
+    return torch.sort(torch.cat(codes)).values
+
+
+def check_codes(label: str, got, want) -> None:
+    check(got.shape == want.shape,
+          f"{label}: {got.shape[0]} tags stored, {want.shape[0]} expected")
+    bad = int((got != want).sum())
+    check(bad == 0, f"{label}: {bad} stored (bucket pair, tag) codes differ "
+                    "from the keys'")
+
+
+def moved_lanes(cfg, before, after, fills: bool) -> int:
+    """Lanes an insert (``fills``) or a delete may not change: a lane that
+    held a tag before (insert) or holds one after (delete), yet differs."""
+    bad = 0
+    for b0 in range(0, cfg.num_buckets, CHUNK):
+        b1 = min(b0 + CHUNK, cfg.num_buckets)
+        tb, ta = bucket_lanes(cfg, before, b0, b1), bucket_lanes(cfg, after, b0, b1)
+        bad += int((((tb if fills else ta) != 0) & (ta != tb)).sum())
+    return bad
+
+
+def check_direct_insert(cfg, state, base, keys, label: str) -> int:
+    """The direct-insert kernel on a whole batch, against what the plain
+    loop gives in every order: no stored tag moves; the tags added are
+    exactly the placed keys'; a key is turned down only if both its
+    buckets are full. Returns the keys turned down."""
+    table = base.clone()
+    _, ok = K.cuckoo_insert_direct(cfg, state._replace(table=table), keys)
+    check(moved_lanes(cfg, base, table, fills=True) == 0,
+          f"{label}: a stored tag changed")
+    check_codes(label, table_codes(cfg, table),
+                torch.sort(torch.cat([table_codes(cfg, base),
+                                      key_codes(cfg, [keys[ok]])])).values)
+    _, i1, i2 = CF.prepare_keys_plain(cfg, keys[~ok])
+    full = ((L.bucket_tags(table, i1, cfg.layout) != 0).all(-1)
+            & (L.bucket_tags(table, i2, cfg.layout) != 0).all(-1))
+    check(bool(full.all()), f"{label}: {int((~full).sum())} keys turned "
+                            "down with a free slot left")
+    return int((~ok).sum())
+
+
+def check_delete(cfg, state, base, keys, label: str) -> None:
+    """The delete on a whole batch of stored keys, against what the plain
+    loop gives in every order: every delete ``ok`` (each key's code is
+    stored at least as often as keys carry it); only lanes are cleared; the
+    tags removed are exactly the deleted keys'."""
+    table = base.clone()
+    ops = torch.full((keys.shape[0],), amq.OP_DELETE, dtype=torch.int32,
+                     device=keys.device)
+    _, ok = K.cuckoo_apply_ops(cfg, state._replace(table=table), keys, ops)
+    check(bool(ok.all()), f"{label}: {int((~ok).sum())} deletes failed")
+    check(moved_lanes(cfg, base, table, fills=False) == 0,
+          f"{label}: a lane other than a cleared one changed")
+    check_codes(label, torch.sort(torch.cat([table_codes(cfg, table),
+                                             key_codes(cfg, [keys])])).values,
+                table_codes(cfg, base))
+
+
+def bucket_tags(cfg, table, buckets):
+    """Sorted tags of each bucket in ``buckets`` (order-free multisets)."""
+    return torch.sort(L.bucket_tags(table, buckets, cfg.layout), dim=-1).values
+
+
+def same_outcome(cfg, base, keys, run_kernel, run_plain):
+    """Run both on clones of ``base``; equal ok, equal tag multisets in the
+    touched buckets, and no other word changed. Returns the ok mismatches."""
+    t_kernel, t_plain = base.clone(), base.clone()
+    ok_k = run_kernel(t_kernel)
+    ok_p = run_plain(t_plain)
+    torch.cuda.synchronize()
+    check(torch.equal(ok_k, ok_p),
+          f"ok differs on {int((ok_k != ok_p).sum())} of {ok_k.shape[0]}")
+    _, i1, i2 = CF.prepare_keys_plain(cfg, keys)
+    buckets = torch.unique(torch.cat([i1, i2]))
+    check(torch.equal(bucket_tags(cfg, t_kernel, buckets),
+                      bucket_tags(cfg, t_plain, buckets)),
+          "bucket tag multisets differ")
+    words = (buckets[:, None] * cfg.layout.words_per_bucket
+             + torch.arange(cfg.layout.words_per_bucket, device=base.device))
+    outside = torch.ones_like(base, dtype=torch.bool)
+    outside[words.reshape(-1)] = False
+    check(torch.equal(t_kernel[outside], base[outside])
+          and torch.equal(t_plain[outside], base[outside]),
+          "a word outside the touched buckets changed")
+    return int((ok_k != ok_p).sum())
+
+
+# ---------------------------------------------------------------------------
+# The main path.
+# ---------------------------------------------------------------------------
+
+def main_path(capacity: int, gen, label: str):
+    """Fill, query, measure the FPR and delete through ``amq.make``.
+
+    Returns the handle, clones of the table at load 0.5 and before the
+    last batch, and every batch's keys."""
+    K.reset_launches()
+    h = amq.make("cuckoo", capacity=capacity)
+    cfg = h.config
+    check(cfg.policy == "xor", "the table checks need the XOR policy")
+    batch = min(1 << 24, -(-capacity // (BATCHES - 1)))
+    sizes = [m for m in (min(batch, capacity - b * batch)
+                         for b in range(BATCHES)) if m > 0]
+    batches, half, high = [], None, None
+    insert_s, per_batch = 0.0, []
+    for b, m in enumerate(sizes):
+        if b == len(sizes) - 1:
+            high = h.state.table.clone()
+        keys = random_keys(gen, m)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = h.insert(keys, bulk=b >= BATCHES - 4)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        insert_s += dt
+        placed = int(rep.ok.sum())
+        check(placed == m, f"{label}: batch {b}: {m - placed} of {m} keys "
+                           f"not placed at load {h.load_factor:.4f}")
+        per_batch.append({"keys": m, "s": dt, "rounds": int(rep.rounds),
+                          "load": h.load_factor})
+        batches.append(keys)
+        if half is None and h.count() >= cfg.num_slots // 2:
+            half = h.state.table.clone()
+    inserted = sum(sizes)
+    check(h.count() == inserted,
+          f"{label}: count {h.count()} != {inserted} keys placed")
+    check_codes(f"{label}: table after the fill",
+                table_codes(cfg, h.state.table), key_codes(cfg, batches))
+    load = h.load_factor
+
+    query_s, misses, plain_misses = [], 0, 0
+    for keys in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hits = h.query(keys).hits
+        torch.cuda.synchronize()
+        if keys.shape[0] == batch:
+            query_s.append(time.perf_counter() - t0)
+        misses += int((~hits).sum())
+        plain = cuckoo_query_plain(cfg, h.state.table, normalize_keys(keys))
+        plain_misses += int((~plain).sum())
+    check(misses == 0, f"{label}: {misses} false negatives (query kernel)")
+    check(plain_misses == 0, f"{label}: {plain_misses} false negatives "
+                             "(plain query)")
+
+    fresh = random_keys(gen, PROBES, top_half=True)
+    fpr = int(h.query(fresh).hits.sum()) / PROBES
+    expected = h.expected_fpr()
+    lo, hi = amq.fpr_tolerance(expected, PROBES)
+    check(lo <= fpr <= hi, f"{label}: FPR {fpr} outside [{lo}, {hi}] "
+                           f"(Eq. 4: {expected})")
+
+    first = batches[0]
+    before = h.count()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rep = h.delete(first)
+    torch.cuda.synchronize()
+    delete_s = time.perf_counter() - t0
+    check(bool(rep.ok.all()), f"{label}: {int((~rep.ok).sum())} deletes failed")
+    check(before - h.count() == first.shape[0],
+          f"{label}: count fell by {before - h.count()}, not {first.shape[0]}")
+    check_codes(f"{label}: table after the delete",
+                table_codes(cfg, h.state.table), key_codes(cfg, batches[1:]))
+
+    launches = dict(K.LAUNCHES)
+    for name, n in launches.items():
+        check(n > 0, f"{label}: kernel {name} was not launched on the main path")
+    emit({"phase": f"main_path_{label}", "slots": cfg.num_slots,
+          "table_bytes": cfg.table_bytes, "config": repr(cfg),
+          "keys_inserted": inserted, "load": load, "batches": per_batch,
+          "false_negatives": misses, "plain_false_negatives": plain_misses,
+          "keys_queried": inserted, "fpr": fpr, "fpr_expected": expected,
+          "fpr_band": [lo, hi], "deleted": first.shape[0],
+          "count_after_delete": h.count(),
+          "table_checks": "stored (pair, tag) codes == keys' after fill "
+                          "and after delete",
+          "launches": launches,
+          "insert_keys_per_s": inserted / insert_s,
+          "query_keys_per_s": batch / statistics.median(query_s),
+          "delete_keys_per_s": first.shape[0] / delete_s})
+    return h, half, high, batches, launches
+
+
+def warm_up(gen) -> float:
+    """The main path once at 2^16 slots, so that library loading and first
+    calls are paid before anything is timed. Returns its seconds."""
+    t0 = time.perf_counter()
+    h = amq.make("cuckoo", capacity=62_259)     # floor(0.95 * 2**16)
+    keys = random_keys(gen, 62_259)
+    for part in keys.chunk(BATCHES):
+        h.insert(part, bulk=True)
+    h.query(keys)
+    h.delete(keys[:1000])
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    device_name = torch.cuda.get_device_name(0)
+    smi = nvidia_smi("name,power.limit")
+    sm_clock_hz = float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6
+    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
+    int_ops_per_s = roofline.int32_ops_per_s(sm_count, sm_clock_hz)
+    t0 = time.perf_counter()
+    logs = build.build_all()
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "compiled": sorted(logs), "gpu": smi, "sm_count": sm_count,
+          "sm_clock_max_hz": sm_clock_hz, "int32_ops_per_s": int_ops_per_s,
+          "torch": torch.__version__, "cuda": torch.version.cuda})
+    for name in build.SOURCES:
+        build.load(name)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    emit({"phase": "warm_up", "seconds": warm_up(gen)})
+
+    # --- the main path at full size -------------------------------------
+    t0 = time.perf_counter()
+    h, half, high, batches, launches = main_path(FULL_CAPACITY, gen, "2^28")
+    cfg = h.config
+    first, second = (normalize_keys(k) for k in batches[:2])
+    main_s = time.perf_counter() - t0
+
+    # --- kernels against their plain versions -----------------------------
+    t0 = time.perf_counter()
+    n = 1 << 24
+    errs = {}
+    for kind in ("fmix32", "xxhash64"):
+        got, want = K.hash64(second, cfg.seed, kind), hash64_plain(second, cfg.seed, kind)
+        torch.cuda.synchronize()
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"hash64 ({kind}) differs from its plain version")
+    errs["hash64"] = 0
+
+    fresh = normalize_keys(random_keys(gen, PROBES // 2, top_half=True))
+    probe = torch.cat([second[:PROBES // 2], fresh])
+    for kind in ("fmix32", "xxhash64"):
+        c = dataclasses.replace(cfg, hash_kind=kind)
+        got = K.cuckoo_query(c, h.state, probe)
+        want = cuckoo_query_plain(c, h.state.table, probe)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want),
+              f"cuckoo_query ({kind}) differs on {int((got != want).sum())} keys")
+    errs["cuckoo_query"] = 0
+
+    ins_keys = normalize_keys(random_keys(gen, n))
+    turned_down = {
+        "load_0.5": check_direct_insert(cfg, h.state, half, ins_keys,
+                                        "cuckoo_insert_direct at load 0.5"),
+        "before_last_batch": check_direct_insert(
+            cfg, h.state, high, ins_keys,
+            "cuckoo_insert_direct before the last batch"),
+    }
+    sub = ins_keys[:SUB]
+    valid = torch.rand(SUB, device="cuda", generator=gen) < 0.9
+    errs["cuckoo_insert_direct"] = same_outcome(
+        cfg, half, sub,
+        lambda t: K.cuckoo_insert_direct(cfg, h.state._replace(table=t), sub,
+                                          valid)[1],
+        lambda t: cuckoo_insert_direct_plain(cfg, t, sub, valid))
+
+    check_delete(cfg, h.state, h.state.table, second, "cuckoo_mixed delete")
+    universe = torch.cat([first[:SUB // 8], sub[:SUB // 8]])
+    picks = torch.randint(0, universe.shape[0], (SUB,), device="cuda",
+                          generator=gen)
+    mixed_ops = torch.randint(0, 3, (SUB,), device="cuda", generator=gen,
+                              dtype=torch.int32)
+    deletes = torch.full((SUB,), amq.OP_DELETE, dtype=torch.int32, device="cuda")
+    dup = first[torch.randint(0, SUB // 4, (SUB,), device="cuda", generator=gen)]
+    errs["cuckoo_mixed"] = 0
+    for keys, ops in ((universe[picks], mixed_ops), (dup, deletes)):
+        errs["cuckoo_mixed"] = max(errs["cuckoo_mixed"], same_outcome(
+            cfg, half, keys,
+            lambda t, k=keys, o=ops: K.cuckoo_apply_ops(
+                cfg, h.state._replace(table=t), k, o)[1],
+            lambda t, k=keys, o=ops: cuckoo_mixed_plain(cfg, t, k, o)))
+    emit({"phase": "kernels_vs_plain", "max_abs_err": errs,
+          "direct_insert_turned_down": turned_down,
+          "seconds": time.perf_counter() - t0,
+          "tolerance": "exact (0). hash, query: bit-exact at 2^24 keys. "
+                       "insert, delete at 2^24 keys: the order-free "
+                       "outcome of the plain loop (stored codes, lanes, "
+                       "ok); at 2^12 keys: equal ok and equal tag "
+                       "multisets per touched bucket"})
+
+    # --- timings at the main path's shapes ---------------------------------
+    keys = second
+    full_table = h.state.table.clone()
+    work = torch.empty_like(full_table)
+    timing = {}
+
+    def restore(src):
+        return lambda: work.copy_(src)
+
+    timing["hash64"] = (
+        cuda_ms(lambda: K.hash64(keys, cfg.seed, cfg.hash_kind)),
+        cuda_ms(lambda: hash64_plain(keys, cfg.seed, cfg.hash_kind)),
+        n, n, "hash")
+    timing["cuckoo_query"] = (
+        cuda_ms(lambda: K.cuckoo_query(cfg, h.state, keys)),
+        cuda_ms(lambda: cuckoo_query_plain(cfg, h.state.table, keys), reps=3),
+        n, n, "query")
+    ins_valid = torch.ones(n, dtype=torch.bool, device="cuda")
+    ins_ok = torch.empty(n, dtype=torch.bool, device="cuda")
+    sub_valid = torch.ones(SUB, dtype=torch.bool, device="cuda")
+    timing["cuckoo_insert_direct"] = (
+        cuda_ms(lambda: cuckoo_insert_launch(cfg, work, ins_keys, ins_valid,
+                                             ins_ok),
+                reps=3, setup=restore(half)),
+        cuda_ms(lambda: cuckoo_insert_direct_plain(cfg, work, sub, sub_valid),
+                reps=3, setup=restore(half)),
+        n, SUB, "insert")
+    del_ops = torch.full((n,), amq.OP_DELETE, dtype=torch.int32, device="cuda")
+    order, seg_start = segments(keys)
+    del_ok = torch.empty(n, dtype=torch.bool, device="cuda")
+    wrapper_ms = cuda_ms(
+        lambda: K.cuckoo_apply_ops(cfg, h.state._replace(table=work), keys,
+                                   del_ops, ins_valid),
+        reps=3, setup=restore(full_table))
+    timing["cuckoo_mixed"] = (
+        cuda_ms(lambda: cuckoo_mixed_launch(cfg, work, keys, del_ops,
+                                            ins_valid, order, seg_start,
+                                            del_ok),
+                reps=3, setup=restore(full_table)),
+        cuda_ms(lambda: cuckoo_mixed_plain(cfg, work, dup, deletes),
+                reps=3, setup=restore(full_table)),
+        n, SUB, "delete")
+
+    copy_src = torch.empty(1 << 28, dtype=torch.int32, device="cuda")
+    copy_dst = torch.empty_like(copy_src)
+    copy_ms = cuda_ms(lambda: copy_dst.copy_(copy_src))
+    copy_bytes_per_s = 2 * copy_src.numel() * 4 / (copy_ms * 1e-3)
+
+    kernels = []
+    for name, (ms, plain_ms, kn, plain_n, op) in timing.items():
+        nbytes = roofline.least_batch_bytes(cfg, op, kn)
+        nops = roofline.int_ops_per_key(cfg, op) * kn
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = nops / int_ops_per_s * 1e3
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": TPU_KERNELS[name], "launches": launches[name],
+            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None, "n": kn, "plain_n": plain_n,
+            "bound_bytes": nbytes, "bound_int32_ops": nops,
+            "ops_ms": ops_ms,
+            "bytes_ms_at_measured_copy": nbytes / copy_bytes_per_s * 1e3})
+    kernels[-1]["wrapper_ms"] = wrapper_ms
+    emit({"phase": "timings", "copy_bytes_per_s": copy_bytes_per_s,
+          "table_load": h.load_factor, "main_path_2^28_seconds": main_s})
+    del work, full_table, half, high, batches, copy_src, copy_dst, h
+    torch.cuda.empty_cache()
+
+    # --- the main path at 2^22 slots --------------------------------------
+    main_path(L2_CAPACITY, gen, "2^22")
+
+    print(smi, flush=True)
+    emit({"kernels": kernels})
+    emit({"ok": True, "device": {"platform": "gpu", "kind": device_name,
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

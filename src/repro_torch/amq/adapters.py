@@ -1,0 +1,105 @@
+"""The ``cuckoo`` backend behind the unified AMQ protocol.
+
+Port of the ``CUCKOO`` adapter of ``repro.amq.adapters``. Where the JAX
+adapter runs the XLA core, this one runs the hot operations on the CUDA
+kernels (``kernels/ops.py``; on CPU tensors, their plain versions):
+
+* ``insert`` / ``insert_bulk``: the direct-insert kernel over the whole
+  batch; the keys it could not place (both buckets full) are compacted in
+  batch order and handed to the core's eviction round loop; ``ok`` and
+  ``evictions`` are scattered back to batch order. ``rounds`` counts the
+  kernel pass as one round plus the loop's rounds.
+* ``query``: the query kernel.
+* ``delete``: the mixed-op kernel with every op a DELETE.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Optional
+
+import torch
+
+from ..core import cuckoo_filter as CF
+from ..kernels import ops as K
+from .protocol import (
+    OP_DELETE,
+    Capabilities,
+    DeleteReport,
+    InsertReport,
+    QueryResult,
+    all_routed,
+    ensure_valid,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class AMQAdapter:
+    """One backend behind the AMQ protocol (plain callables, no state)."""
+
+    name: str
+    capabilities: Capabilities
+    make_config: Callable[..., Any]      # (capacity, **kw) -> config
+    init: Callable[..., Any]             # (config, device) -> fresh state
+    insert: Callable[..., Any]
+    query: Callable[..., Any]
+    delete: Optional[Callable[..., Any]] = None
+    insert_bulk: Optional[Callable[..., Any]] = None
+
+
+def _cuckoo_insert(config, state, keys, *, valid=None,
+                   dedup_within_batch=False):
+    CF.resolve_engine(config)
+    n = keys.shape[0]
+    valid0 = ensure_valid(keys, valid)
+    pending = valid0
+    if dedup_within_batch:
+        first, rep = CF._batch_dedup(keys, valid0)
+        pending = pending & first
+    state, ok = K.cuckoo_insert_direct(config, state, keys, valid=pending)
+    evictions = torch.zeros((n,), dtype=torch.int32, device=keys.device)
+    rounds = torch.ones((), dtype=torch.int32, device=keys.device)
+    residue = (pending & ~ok).nonzero().squeeze(1)
+    if residue.numel():
+        state, ok_res, stats = CF._insert_rounds(config, state, keys[residue])
+        ok[residue] = ok_res
+        evictions[residue] = stats.evictions
+        rounds = rounds + stats.rounds
+    if dedup_within_batch:
+        ok = torch.where(first, ok, ok[rep] & valid0)
+    return state, InsertReport(ok, evictions, rounds, all_routed(keys))
+
+
+def _cuckoo_query(config, state, keys, *, valid=None):
+    hits = K.cuckoo_query(config, state, keys) & ensure_valid(keys, valid)
+    return state, QueryResult(hits, all_routed(keys))
+
+
+def _cuckoo_delete(config, state, keys, *, valid=None):
+    ops = torch.full((keys.shape[0],), OP_DELETE, dtype=torch.int32,
+                     device=keys.device)
+    state, ok = K.cuckoo_apply_ops(config, state, keys, ops,
+                                   ensure_valid(keys, valid))
+    return state, DeleteReport(ok, all_routed(keys))
+
+
+def _cuckoo_make_config(capacity, **kw):
+    # Registry default: the fmix32 pair-hash, as in the JAX package (the
+    # paper's xxhash64 stays available via hash_kind="xxhash64").
+    kw.setdefault("hash_kind", "fmix32")
+    return CF.CuckooConfig.for_capacity(capacity, **kw)
+
+
+CUCKOO = AMQAdapter(
+    name="cuckoo",
+    capabilities=Capabilities(supports_delete=True, supports_bulk=True,
+                              counting=True),
+    make_config=_cuckoo_make_config,
+    init=lambda cfg, device: cfg.init(device),
+    insert=_cuckoo_insert,
+    insert_bulk=_cuckoo_insert,     # the same path until slice 2 (ROADMAP)
+    query=_cuckoo_query,
+    delete=_cuckoo_delete,
+)
+
+DEFAULT_ADAPTERS = {CUCKOO.name: CUCKOO}

@@ -1,0 +1,48 @@
+"""Carry filter state and config between the JAX package and the port.
+
+* :func:`state_from_numpy` / :func:`state_to_numpy` use the dict format of
+  the JAX package's snapshots (``{"table": uint32[num_words], "count":
+  int32[]}``), so ``jax_handle.snapshot().arrays`` loads straight into the
+  port and back.
+* :func:`config_from_reference` rebuilds the port's ``CuckooConfig`` from
+  a JAX ``CuckooConfig``'s field values (duck-typed: this module imports
+  nothing of the JAX package) and checks that the two reprs — the
+  snapshot fingerprint — are equal.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .core.cuckoo_filter import CuckooConfig, CuckooState
+
+
+def state_from_numpy(arrays: dict, device) -> CuckooState:
+    """``{"table": uint32[num_words], "count": int32[]}`` -> CuckooState."""
+    table = np.array(arrays["table"], np.uint32)  # a writable copy
+    count = np.asarray(arrays["count"], np.int32)
+    if table.ndim != 1 or count.shape != ():
+        raise ValueError(
+            f"expected table uint32[num_words] and count int32[], got "
+            f"{list(table.shape)} and {list(count.shape)}")
+    return CuckooState(torch.from_numpy(table.view(np.int32)).to(device),
+                       torch.tensor(int(count), dtype=torch.int32, device=device))
+
+
+def state_to_numpy(state: CuckooState) -> dict:
+    """CuckooState -> ``{"table": uint32[num_words], "count": int32[]}``."""
+    return {"table": state.table.detach().cpu().numpy().view(np.uint32),
+            "count": np.asarray(int(state.count), np.int32)}
+
+
+def config_from_reference(cfg) -> CuckooConfig:
+    """The port's CuckooConfig with the same field values as ``cfg``."""
+    port = CuckooConfig(**{f.name: getattr(cfg, f.name)
+                           for f in dataclasses.fields(CuckooConfig)})
+    if repr(port) != repr(cfg):
+        raise ValueError(f"config fingerprints differ:\n  reference: {cfg!r}"
+                         f"\n  port:      {port!r}")
+    return port

@@ -1,0 +1,26 @@
+"""Core library of the port: the Cuckoo-GPU filter on torch tensors.
+
+* :class:`CuckooConfig` / :class:`CuckooState` — static config + state.
+* :func:`insert` / :func:`query` — batch functional ops (the legacy
+  eviction round loop and the unpack-based query).
+* :class:`CuckooFilter` — convenience object wrapper.
+"""
+
+from .cuckoo_filter import (  # noqa: F401
+    CuckooConfig,
+    CuckooFilter,
+    CuckooState,
+    InsertStats,
+    insert,
+    prepare_keys,
+    query,
+    resolve_engine,
+)
+from .hashing import (  # noqa: F401
+    hash_key,
+    keys_from_numpy,
+    keys_to_numpy,
+    normalize_keys,
+)
+from .layout import BucketLayout  # noqa: F401
+from .policies import OffsetPolicy, XorPolicy, make_policy  # noqa: F401

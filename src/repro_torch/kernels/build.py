@@ -1,0 +1,132 @@
+"""Build and load the CUDA kernels.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
+shared library with a plain C interface, and loaded with ``ctypes``. The
+build runs at first use — nothing is compiled when a module is imported —
+and all sources compile in parallel, one ``nvcc`` process each. Libraries
+are cached in :func:`build_dir` (``build/repro_torch/`` of the checkout by
+default) under a hash of their sources and flags, so an unchanged kernel
+is not rebuilt.
+
+Every C entry point returns the ``cudaError_t`` of its launch;
+:func:`check` raises on anything but 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = ("hash64", "cuckoo_query", "cuckoo_insert", "cuckoo_mixed")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I64, _U32, _U64 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint32,
+                        ctypes.c_uint64)
+_GEOMETRY = [_U32, _U32, _U32, _U32, _U32, _U64, _P]
+ARGTYPES = {
+    "hash64_launch": [_P, _P, _P, _I64, _U32, _U64, _P],
+    "cuckoo_query_launch": [_P, _P, _P, _I64] + _GEOMETRY,
+    "cuckoo_insert_launch": [_P, _P, _P, _P, _I64] + _GEOMETRY,
+    "cuckoo_mixed_launch": [_P, _P, _P, _P, _P, _P, _I64, _I64, _P] + _GEOMETRY,
+}
+
+_LIBS: dict = {}
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(nvcc):
+        raise RuntimeError("nvcc not found: the CUDA kernels are built with "
+                           "the CUDA toolkit on a machine with the GPU")
+    return nvcc
+
+
+def build_dir() -> Path:
+    """Where the libraries go: ``$REPRO_TORCH_BUILD_DIR`` if set; else
+    ``build/repro_torch/`` of the checkout when the package runs from its
+    ``src/`` tree; else ``repro_torch-build/`` under the temporary
+    directory (an installed package writes nothing beside site-packages)."""
+    env = os.environ.get("REPRO_TORCH_BUILD_DIR")
+    if env:
+        return Path(env)
+    src = Path(__file__).resolve().parents[2]
+    if src.name == "src" and (src.parent / "pyproject.toml").exists():
+        return src.parent / "build" / "repro_torch"
+    return Path(tempfile.gettempdir()) / "repro_torch-build"
+
+
+def _lib_path(name: str) -> Path:
+    digest = hashlib.sha256()
+    for part in (CSRC / f"{name}.cu", CSRC / "cuckoo_common.cuh"):
+        digest.update(part.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return build_dir() / f"{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build_all() -> dict:
+    """Compile every kernel that is not built yet, in parallel.
+
+    Returns ``{name: compiler output}`` for what was compiled (``-Xptxas
+    -v`` prints each kernel's registers and spills). Raises if any
+    compilation fails.
+    """
+    build_dir().mkdir(parents=True, exist_ok=True)
+    todo = [n for n in SOURCES if not _lib_path(n).exists()]
+    if not todo:
+        return {}
+    nvcc = _nvcc()
+    procs = {}
+    for name in todo:
+        path = _lib_path(name)
+        tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        procs[name] = (tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs, failed = {}, []
+    for name, (tmp, proc) in procs.items():
+        logs[name] = proc.communicate()[0]
+        if proc.returncode:
+            failed.append(name)
+        else:
+            os.replace(tmp, _lib_path(name))
+    if failed:
+        raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
+                           + "\n".join(logs[n] for n in failed))
+    return logs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built first if needed."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        path = _lib_path(name)
+        if not path.exists():
+            build_all()
+        lib = ctypes.CDLL(str(path))
+        fn = getattr(lib, f"{name}_launch")
+        fn.argtypes = ARGTYPES[f"{name}_launch"]
+        fn.restype = ctypes.c_int
+        _LIBS[name] = lib
+    return lib
+
+
+def geometry(config) -> tuple:
+    """The geometry arguments every cuckoo kernel takes, from a config."""
+    return (config.num_buckets, config.bucket_size, config.fp_bits,
+            {"xor": 0, "offset": 1}[config.policy],
+            {"xxhash64": 0, "fmix32": 1}[config.hash_kind],
+            config.seed & ((1 << 64) - 1))
+
+
+def check(rc: int, name: str) -> None:
+    """Raise if a launch returned a CUDA error."""
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {rc}")

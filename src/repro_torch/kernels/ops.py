@@ -1,0 +1,180 @@
+"""Public wrappers around the CUDA kernels.
+
+Each wrapper checks device, dtype, shape and contiguity and raises on what
+its kernel does not take. Where the tensors live decides the route: CPU
+tensors take the kernel's plain PyTorch version; CUDA tensors launch the
+kernel on the current stream (outputs allocated with ``torch.empty``, no
+padding — the kernels bound-check ``n``) or raise. A launch adds one to
+:data:`LAUNCHES`, so a run can show that its path went through the
+kernels; the plain versions count nothing.
+
+Mutating wrappers update ``state.table`` in place and return a state that
+holds the same table tensor with the new count.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..amq.protocol import OP_DELETE, OP_INSERT
+from ..core.cuckoo_filter import CuckooConfig, CuckooState
+from .cuckoo_insert import cuckoo_insert_direct_plain, cuckoo_insert_launch
+from .cuckoo_mixed import cuckoo_mixed_launch, cuckoo_mixed_plain, segments
+from .cuckoo_query import cuckoo_query_launch, cuckoo_query_plain
+from .hash64 import HASH_KINDS, hash64_launch, hash64_plain
+
+LAUNCHES = {"hash64": 0, "cuckoo_query": 0, "cuckoo_insert_direct": 0,
+            "cuckoo_mixed": 0}
+
+_KERNEL_WPB = (1, 2, 4, 8, 16, 32)
+
+
+def reset_launches() -> None:
+    """Set every launch count to 0."""
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _on_cuda(*tensors: torch.Tensor) -> bool:
+    """True to launch the kernel, False for the plain version."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"tensors on different devices: {sorted(map(str, devices))}")
+    device = devices.pop()
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {device}")
+    return device.type == "cuda"
+
+
+def _check(t, name: str, dtype: torch.dtype, shape: tuple) -> None:
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a torch.Tensor, got {type(t).__name__}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected dtype {dtype}, got {t.dtype}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name}: expected shape {list(shape)}, got {list(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def _check_keys(keys) -> int:
+    n = keys.shape[0] if isinstance(keys, torch.Tensor) and keys.ndim else -1
+    _check(keys, "keys", torch.int32, (n, 2))
+    return n
+
+
+def _check_state(config: CuckooConfig, state: CuckooState) -> None:
+    _check(state.table, "state.table", torch.int32, (config.layout.num_words,))
+
+
+def _check_kernel_layout(config: CuckooConfig, table: torch.Tensor,
+                         keys: torch.Tensor) -> None:
+    """Layouts and alignment the CUDA kernels are built for."""
+    lay = config.layout
+    if lay.bucket_size > 32 or lay.words_per_bucket not in _KERNEL_WPB:
+        raise ValueError(
+            f"the CUDA kernels take at most 32 slots per bucket in 1, 2, 4, "
+            f"8, 16 or 32 words; got bucket_size={lay.bucket_size}, "
+            f"fp_bits={lay.fp_bits}")
+    if not 2 <= config.num_buckets < 2 ** 32:
+        raise ValueError(f"num_buckets={config.num_buckets} out of range")
+    if table.data_ptr() % 16 or keys.data_ptr() % 8:
+        raise ValueError("table must be 16-byte and keys 8-byte aligned")
+
+
+def _valid_mask(valid, n: int, device) -> torch.Tensor:
+    if valid is None:
+        return torch.ones((n,), dtype=torch.bool, device=device)
+    _check(valid, "valid", torch.bool, (n,))
+    return valid
+
+
+def hash64(keys: torch.Tensor, seed: int = 0, kind: str = "xxhash64"):
+    """Hash int32[n, 2] (lo, hi) keys -> (hi, lo) int32[n] bit views.
+
+    ``kind`` is ``"xxhash64"`` (the JAX kernel's function, the default) or
+    ``"fmix32"``.
+    """
+    n = _check_keys(keys)
+    if kind not in HASH_KINDS:
+        raise ValueError(f"unknown hash kind: {kind!r}")
+    if not _on_cuda(keys):
+        return hash64_plain(keys, seed, kind)
+    if keys.data_ptr() % 8:
+        raise ValueError("keys must be 8-byte aligned")
+    hi = torch.empty((n,), dtype=torch.int32, device=keys.device)
+    lo = torch.empty((n,), dtype=torch.int32, device=keys.device)
+    if n:
+        with torch.cuda.device(keys.device):
+            hash64_launch(keys, seed, kind, hi, lo)
+        LAUNCHES["hash64"] += 1
+    return hi, lo
+
+
+def cuckoo_query(config: CuckooConfig, state: CuckooState,
+                 keys: torch.Tensor) -> torch.Tensor:
+    """Kernel-backed batch query. keys int32[n, 2] -> bool[n]."""
+    n = _check_keys(keys)
+    _check_state(config, state)
+    if not _on_cuda(state.table, keys):
+        return cuckoo_query_plain(config, state.table, keys)
+    _check_kernel_layout(config, state.table, keys)
+    hit = torch.empty((n,), dtype=torch.bool, device=keys.device)
+    if n:
+        with torch.cuda.device(keys.device):
+            cuckoo_query_launch(config, state.table, keys, hit)
+        LAUNCHES["cuckoo_query"] += 1
+    return hit
+
+
+def cuckoo_insert_direct(config: CuckooConfig, state: CuckooState,
+                         keys: torch.Tensor, valid: torch.Tensor = None):
+    """Kernel-backed direct insert, no eviction -> (state', ok bool[n]).
+
+    Keys with ``ok`` False (both buckets full) need the eviction-capable
+    core (``core.cuckoo_filter.insert``). ``valid`` (bool[n]) masks keys
+    out; masked keys report False.
+    """
+    n = _check_keys(keys)
+    _check_state(config, state)
+    valid = _valid_mask(valid, n, keys.device)
+    if not _on_cuda(state.table, keys, valid):
+        ok = cuckoo_insert_direct_plain(config, state.table, keys, valid)
+    else:
+        _check_kernel_layout(config, state.table, keys)
+        ok = torch.empty((n,), dtype=torch.bool, device=keys.device)
+        if n:
+            with torch.cuda.device(keys.device):
+                cuckoo_insert_launch(config, state.table, keys, valid, ok)
+            LAUNCHES["cuckoo_insert_direct"] += 1
+    count = state.count + ok.sum().to(torch.int32)
+    return CuckooState(state.table, count), ok
+
+
+def cuckoo_apply_ops(config: CuckooConfig, state: CuckooState,
+                     keys: torch.Tensor, ops: torch.Tensor,
+                     valid: torch.Tensor = None):
+    """Kernel-backed mixed-op pass -> (state', ok bool[n]).
+
+    ``ops``: int32[n] op codes (0 query / 1 insert / 2 delete); ``ok`` is
+    each op's outcome (hit / landed / removed). Operations on the same key
+    resolve in batch order (DESIGN.md §9). Inserts are direct only: an
+    insert with ``ok`` False needs the eviction-capable core.
+    """
+    n = _check_keys(keys)
+    _check_state(config, state)
+    _check(ops, "ops", torch.int32, (n,))
+    valid = _valid_mask(valid, n, keys.device)
+    if not _on_cuda(state.table, keys, ops, valid):
+        ok = cuckoo_mixed_plain(config, state.table, keys, ops, valid)
+    else:
+        _check_kernel_layout(config, state.table, keys)
+        ok = torch.empty((n,), dtype=torch.bool, device=keys.device)
+        if n:
+            order, seg_start = segments(keys)
+            with torch.cuda.device(keys.device):
+                cuckoo_mixed_launch(config, state.table, keys, ops, valid,
+                                    order, seg_start, ok)
+            LAUNCHES["cuckoo_mixed"] += 1
+    delta = (ok & (ops == OP_INSERT)).sum() - (ok & (ops == OP_DELETE)).sum()
+    return CuckooState(state.table, state.count + delta.to(torch.int32)), ok

@@ -1,0 +1,118 @@
+"""Oracles for the kernels (the ``ref.py`` contract of the JAX package).
+
+Each ``*_ref`` function keeps the signature of its counterpart in
+``repro.kernels.ref`` (separate ``keys_lo``/``keys_hi`` int32 tensors,
+functional: the input table is not modified) and computes exactly what the
+kernel must produce. :func:`apply_sequential` is the literal sequential op
+loop behind the insert and mixed oracles and the plain versions of those
+two kernels.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..amq.protocol import OP_DELETE, OP_INSERT
+from ..core import layout as L
+from ..core.bits64 import MASK32, from_i32, to_i32
+from ..core.cuckoo_filter import CuckooConfig, CuckooState, prepare_keys_plain
+from ..core.cuckoo_filter import query as cuckoo_query_core
+from ..core.hashing import xxhash64_u64
+
+
+def _pack_keys(keys_lo: torch.Tensor, keys_hi: torch.Tensor) -> torch.Tensor:
+    return torch.stack([keys_lo, keys_hi], dim=-1)
+
+
+def apply_sequential(config: CuckooConfig, table: torch.Tensor,
+                     keys: torch.Tensor, ops: torch.Tensor,
+                     valid: torch.Tensor = None) -> torch.Tensor:
+    """Apply an op stream one key at a time in batch order, in place.
+
+    QUERY is a match scan over both buckets, INSERT a first-empty-slot
+    claim, DELETE a first-match clear; each scans bucket i1 then i2
+    circularly from the tag-derived start, and operation ``i`` observes
+    every write of operations ``j < i``. No eviction: an insert with both
+    buckets full reports False. Returns ok bool[n] on the table's device.
+
+    The hashing and bucket gathers are vectorized; the loop itself runs on
+    host integers over the gathered words, with this batch's writes kept
+    in a dict and applied to the table at the end.
+    """
+    lay = config.layout
+    pol = config.placement
+    n = keys.shape[0]
+    wpb, tpw, fp, b = (lay.words_per_bucket, lay.tags_per_word, lay.fp_bits,
+                       lay.bucket_size)
+    fmask = lay.fp_mask
+    base_tag, i1, i2 = prepare_keys_plain(config, keys)
+    t1, t2 = pol.query_match_tags(base_tag)
+    cols = [x.tolist() for x in (
+        i1, i2, pol.place_tag(base_tag, False), pol.place_tag(base_tag, True),
+        t1, t2, L.scan_start(base_tag, lay), ops,
+        torch.ones((n,), dtype=torch.bool) if valid is None else valid)]
+    pre1 = L.gather_bucket_words(table, i1, lay).tolist()
+    pre2 = L.gather_bucket_words(table, i2, lay).tolist()
+
+    written = {}
+    ok = [False] * n
+    for i, (b1, b2, g1, g2, m1, m2, st, op, live) in enumerate(zip(*cols)):
+        if not live:
+            continue
+        for bucket, pre, match, store in ((b1, pre1[i], m1, g1),
+                                          (b2, pre2[i], m2, g2)):
+            words = [written.get(bucket * wpb + w, pre[w]) for w in range(wpb)]
+            target = 0 if op == OP_INSERT else match
+            slot = next((s for s in ((st + k) % b for k in range(b))
+                         if (words[s // tpw] >> (s % tpw * fp)) & fmask == target),
+                        None)
+            if slot is not None:
+                break
+        else:
+            continue
+        ok[i] = True
+        if op in (OP_INSERT, OP_DELETE):
+            w, shift = slot // tpw, slot % tpw * fp
+            value = store if op == OP_INSERT else 0
+            written[bucket * wpb + w] = (
+                (words[w] & ~(fmask << shift) & MASK32) | (value << shift))
+    if written:
+        addr = torch.tensor(list(written), dtype=torch.int64, device=table.device)
+        table[addr] = to_i32(torch.tensor(list(written.values()),
+                                          dtype=torch.int64, device=table.device))
+    return torch.tensor(ok, dtype=torch.bool, device=table.device)
+
+
+def cuckoo_query_ref(config: CuckooConfig, table: torch.Tensor,
+                     keys_lo: torch.Tensor, keys_hi: torch.Tensor) -> torch.Tensor:
+    """Oracle for the query kernel — reuses the core query (Alg. 2)."""
+    state = CuckooState(table, torch.zeros((), dtype=torch.int32,
+                                           device=table.device))
+    return cuckoo_query_core(config, state, _pack_keys(keys_lo, keys_hi))
+
+
+def cuckoo_insert_ref(config: CuckooConfig, table: torch.Tensor,
+                      keys_lo: torch.Tensor, keys_hi: torch.Tensor):
+    """Oracle for the direct-insert kernel: sequential first-free-slot
+    inserts in batch order, no eviction. Returns (table', ok bool[n])."""
+    table = table.clone()
+    keys = _pack_keys(keys_lo, keys_hi)
+    ops = torch.full((keys.shape[0],), OP_INSERT, dtype=torch.int32)
+    return table, apply_sequential(config, table, keys, ops)
+
+
+def cuckoo_mixed_ref(config: CuckooConfig, table: torch.Tensor,
+                     keys_lo: torch.Tensor, keys_hi: torch.Tensor,
+                     ops: torch.Tensor, valid: torch.Tensor = None):
+    """Oracle for the mixed kernel — exact sequential op-stream semantics.
+    Returns (table', ok bool[n])."""
+    table = table.clone()
+    ok = apply_sequential(config, table, _pack_keys(keys_lo, keys_hi), ops,
+                          valid)
+    return table, ok
+
+
+def hash64_ref(keys_lo: torch.Tensor, keys_hi: torch.Tensor, seed: int = 0):
+    """Oracle for the hash kernel — xxHash64 -> (hi, lo) int32 bit views."""
+    hi, lo = xxhash64_u64((from_i32(keys_hi), from_i32(keys_lo)), seed=seed)
+    return to_i32(hi), to_i32(lo)

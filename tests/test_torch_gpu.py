@@ -1,0 +1,192 @@
+"""The CUDA kernels against their plain versions, on the card.
+
+Every test here needs a CUDA device and the CUDA toolkit (the kernels are
+built with ``nvcc`` at first use); without them the tests skip. Run on a
+machine with the GPU:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
+
+The file imports only torch and the port, so it also runs where JAX is
+not installed. Each layout the kernels are built for is checked: hash64
+and query bit-exact; direct insert and the mixed op stream on batches
+small enough next to the table that concurrent inserts cannot contend,
+where the kernel must agree with the sequential plain loop on ``ok`` and
+on every bucket's tag multiset. Two tiny tables then force thousands of
+threads onto the same words, where the CAS kernels are held by
+invariants.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import CuckooConfig, keys_from_numpy
+from repro_torch.core import layout as L
+from repro_torch.core.cuckoo_filter import prepare_keys_plain
+from repro_torch.kernels import ops as K
+from repro_torch.kernels.cuckoo_insert import cuckoo_insert_direct_plain
+from repro_torch.kernels.cuckoo_mixed import cuckoo_mixed_plain
+from repro_torch.kernels.cuckoo_query import cuckoo_query_plain
+from repro_torch.kernels.hash64 import hash64_plain
+
+pytestmark = pytest.mark.gpu
+
+# (bucket_size, fp_bits, policy, hash_kind): every words-per-bucket width
+# (1, 2, 4, 8, 16, 32) and both policies and hashes.
+LAYOUTS = [
+    (4, 8, "xor", "fmix32"),
+    (8, 8, "offset", "xxhash64"),
+    (16, 8, "xor", "xxhash64"),
+    (32, 8, "xor", "fmix32"),
+    (4, 16, "offset", "fmix32"),
+    (16, 16, "xor", "fmix32"),
+    (16, 16, "offset", "xxhash64"),
+    (32, 16, "xor", "xxhash64"),
+    (4, 32, "xor", "fmix32"),
+    (16, 32, "offset", "fmix32"),
+    (32, 32, "xor", "xxhash64"),
+]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the GPU machine)")
+    return torch.device("cuda")
+
+
+def _keys(seed, n, device):
+    raw = np.random.default_rng(seed).integers(0, 2**64, size=n, dtype=np.uint64)
+    return keys_from_numpy(raw, device)
+
+
+def _cfg(bs, fb, policy, hash_kind, num_buckets=1 << 14):
+    if policy == "offset":
+        num_buckets -= 3
+    return CuckooConfig(num_buckets=num_buckets, fp_bits=fb, bucket_size=bs,
+                        policy=policy, hash_kind=hash_kind, seed=12345)
+
+
+def _half_full(cfg, device, seed):
+    """(state, keys it placed): a table at ~0.5 load, filled by the
+    direct-insert kernel."""
+    keys = _keys(seed, cfg.num_slots // 2, device)
+    state, ok = K.cuckoo_insert_direct(cfg, cfg.init(device), keys)
+    return state, keys[ok]
+
+
+def _bucket_multisets(cfg, table):
+    tags = L.unpack_words(L.gather_bucket_words(
+        table, torch.arange(cfg.num_buckets, device=table.device), cfg.layout),
+        cfg.fp_bits)
+    return torch.sort(tags, dim=-1).values
+
+
+def test_hash64_matches_plain(cuda):
+    keys = _keys(0, 1 << 16, cuda)
+    keys[:2] = torch.tensor([[0, 0], [-1, -1]], dtype=torch.int32)
+    for kind in ("xxhash64", "fmix32"):
+        for seed in (0, 0xDEADBEEFCAFEF00D):
+            got = K.hash64(keys, seed, kind)
+            want = hash64_plain(keys, seed, kind)
+            torch.cuda.synchronize()
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("layout", LAYOUTS, ids=lambda c: "b{}f{}{}{}".format(*c))
+def test_query_matches_plain(cuda, layout):
+    cfg = _cfg(*layout)
+    state, placed = _half_full(cfg, cuda, 1)
+    probe = torch.cat([placed[:4096], _keys(2, 4096, cuda)])
+    got = K.cuckoo_query(cfg, state, probe)
+    want = cuckoo_query_plain(cfg, state.table, probe)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert got[:4096].all()
+
+
+@pytest.mark.parametrize("layout", LAYOUTS, ids=lambda c: "b{}f{}{}{}".format(*c))
+def test_insert_and_mixed_match_plain(cuda, layout):
+    cfg = _cfg(*layout)
+    state, _ = _half_full(cfg, cuda, 3)
+    keys = _keys(4, 256, cuda)
+    valid = torch.rand(256, generator=torch.Generator().manual_seed(0)) < 0.9
+
+    t_kernel = state.table.clone()
+    t_plain = state.table.clone()
+    _, ok_kernel = K.cuckoo_insert_direct(
+        cfg, state._replace(table=t_kernel), keys, valid.to(cuda))
+    ok_plain = cuckoo_insert_direct_plain(cfg, t_plain, keys, valid.to(cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(ok_kernel, ok_plain)
+    assert torch.equal(_bucket_multisets(cfg, t_kernel),
+                       _bucket_multisets(cfg, t_plain))
+
+    # Mixed stream over a small key universe (same-key ops in one batch),
+    # and a delete-only stream with duplicate keys.
+    uni = torch.cat([keys[:8], _keys(5, 8, cuda)])
+    picks = torch.randint(0, 16, (512,), generator=torch.Generator().manual_seed(1))
+    mixed = torch.randint(0, 3, (512,), dtype=torch.int32,
+                          generator=torch.Generator().manual_seed(2))
+    for ops in (mixed, torch.full((512,), 2, dtype=torch.int32)):
+        sk, sp = t_kernel.clone(), t_plain.clone()
+        _, ok_k = K.cuckoo_apply_ops(cfg, state._replace(table=sk),
+                                     uni[picks.to(cuda)], ops.to(cuda))
+        ok_p = cuckoo_mixed_plain(cfg, sp, uni[picks.to(cuda)], ops.to(cuda))
+        torch.cuda.synchronize()
+        assert torch.equal(ok_k, ok_p)
+        assert torch.equal(_bucket_multisets(cfg, sk), _bucket_multisets(cfg, sp))
+
+
+def test_insert_under_contention_holds_invariants(cuda):
+    """4x more keys than slots in one launch: thousands of threads CAS the
+    same words. Every placed key is stored once and queryable, and every
+    key that failed has both of its buckets full."""
+    cfg = CuckooConfig(num_buckets=64, fp_bits=16, bucket_size=16,
+                       hash_kind="fmix32")
+    keys = _keys(6, 4 * cfg.num_slots, cuda)
+    state, ok = K.cuckoo_insert_direct(cfg, cfg.init(cuda), keys)
+    torch.cuda.synchronize()
+    tags = L.unpack_words(L.gather_bucket_words(
+        state.table, torch.arange(cfg.num_buckets, device=cuda), cfg.layout),
+        cfg.fp_bits)
+    assert int(state.count) == int(ok.sum()) == int((tags != 0).sum())
+    assert bool(K.cuckoo_query(cfg, state, keys[ok]).all())
+    full = (tags != 0).all(dim=-1)
+    _, i1, i2 = prepare_keys_plain(cfg, keys[~ok])
+    assert bool(full[i1].all()) and bool(full[i2].all())
+    tag, j1, j2 = prepare_keys_plain(cfg, keys[ok])
+    allowed = (set(zip(j1.tolist(), tag.tolist()))
+               | set(zip(j2.tolist(), tag.tolist())))
+    b, s = tags.nonzero(as_tuple=True)
+    assert set(zip(b.tolist(), tags[b, s].tolist())) <= allowed
+
+
+def test_deletes_under_contention_follow_batch_order(cuda):
+    """Duplicate copies of 256 keys, then a shuffled stream of duplicate
+    deletes: concurrent segments race on shared words, yet each key
+    removes exactly min(copies, deletes) copies — its first deletes in
+    batch order — and keeps the rest queryable."""
+    cfg = CuckooConfig(num_buckets=128, fp_bits=16, bucket_size=16,
+                       hash_kind="fmix32")
+    rng = np.random.default_rng(7)
+    uni = _keys(8, 256, cuda)
+    copies = rng.integers(1, 4, size=256)
+    dels = rng.integers(0, 5, size=256)
+    ins_idx = torch.from_numpy(np.repeat(np.arange(256), copies)).to(cuda)
+    state, ok = K.cuckoo_insert_direct(cfg, cfg.init(cuda), uni[ins_idx])
+    assert bool(ok.all())
+    order = rng.permutation(np.repeat(np.arange(256), dels))
+    ops = torch.full((order.size,), 2, dtype=torch.int32, device=cuda)
+    stream = uni[torch.from_numpy(order).to(cuda)]
+    state2, ok_del = K.cuckoo_apply_ops(cfg, state, stream, ops)
+    torch.cuda.synchronize()
+    seen = np.zeros(256, np.int64)
+    want = np.zeros(order.size, bool)
+    for j, k in enumerate(order):
+        want[j] = seen[k] < copies[k]
+        seen[k] += 1
+    np.testing.assert_array_equal(ok_del.cpu().numpy(), want)
+    assert int(state2.count) == int(copies.sum()) - int(want.sum())
+    left = torch.from_numpy(copies - np.minimum(copies, dels) > 0).to(cuda)
+    assert bool(K.cuckoo_query(cfg, state2, uni[left]).all())

@@ -1,0 +1,270 @@
+"""Plain versions of the port's kernels vs the JAX Pallas kernels, bit-exact.
+
+Each plain version (what the wrappers in ``repro_torch.kernels.ops`` run
+on CPU tensors) is held against its JAX counterpart run in interpret mode,
+as ``tests/test_kernel_differential.py`` does, and against the JAX
+oracles: the query on tables carried across with ``repro_torch.convert``;
+the direct insert and the mixed op stream with table and ``ok`` bit-exact.
+The wrappers must raise on what their kernels do not take, and count no
+launch on the CPU.
+"""
+
+import functools
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import CuckooConfig, keys_from_numpy
+from repro.core import cuckoo_filter as CF
+from repro.kernels import ref as R
+from repro.kernels.cuckoo_insert import cuckoo_insert_fused_pallas
+from repro.kernels.cuckoo_mixed import cuckoo_mixed_pallas
+from repro.kernels.cuckoo_query import cuckoo_query_fused_pallas
+from repro_torch import convert
+from repro_torch.core import CuckooState
+from repro_torch.kernels import ops as K
+from repro_torch.kernels import ref as TR
+from repro_torch.kernels import roofline
+from repro_torch.kernels.cuckoo_insert import cuckoo_insert_direct_plain
+from repro_torch.kernels.cuckoo_mixed import cuckoo_mixed_plain, segments
+from repro_torch.kernels.cuckoo_query import cuckoo_query_plain
+
+torch.set_num_threads(1)
+
+NUM_BUCKETS = 64
+BLOCK = 64
+
+# bucket_size x fp_bits x occupancy x policy x hash: every packed-word shape
+# from 1 to 16 words a bucket, both policies and both hashes.
+CELLS = [
+    (4, 8, 0.3, "xor", "fmix32"),
+    (4, 32, 0.7, "offset", "xxhash64"),
+    (8, 16, 0.5, "xor", "xxhash64"),
+    (16, 8, 0.7, "offset", "fmix32"),
+    (16, 16, 0.5, "xor", "fmix32"),
+]
+IDS = [f"b{c[0]}f{c[1]}o{int(c[2] * 100)}{c[3]}" for c in CELLS]
+
+
+def _cfg(bs, fb, policy, hash_kind):
+    nb = NUM_BUCKETS if policy == "xor" else NUM_BUCKETS - 3
+    return CuckooConfig(num_buckets=nb, fp_bits=fb, bucket_size=bs,
+                        policy=policy, hash_kind=hash_kind, seed=99)
+
+
+def _raw(rng, n):
+    return rng.integers(1, 2**64, size=n, dtype=np.uint64)
+
+
+@functools.lru_cache(maxsize=None)
+def _jit(fn, cfg):
+    return jax.jit(functools.partial(fn, cfg))
+
+
+@functools.lru_cache(maxsize=None)
+def _jit_blk(fn, cfg):
+    return jax.jit(functools.partial(fn, cfg, block_keys=BLOCK))
+
+
+@functools.lru_cache(maxsize=None)
+def _filled(cfg, occ):
+    """A JAX state at ~occ load (legacy round loop), and the same state
+    carried into the port."""
+    n = max(BLOCK, int(cfg.num_slots * occ))
+    keys = jnp.asarray(keys_from_numpy(_raw(np.random.default_rng(10), n)))
+    state, _, _ = _jit(CF._insert_rounds, cfg)(cfg.init(), keys)
+    tstate = convert.state_from_numpy(
+        {"table": np.asarray(state.table), "count": np.asarray(state.count)},
+        "cpu")
+    return state, tstate
+
+
+def _t(keys_np_u32):
+    return torch.from_numpy(np.ascontiguousarray(keys_np_u32).view(np.int32))
+
+
+def _u32(t):
+    return t.numpy().view(np.uint32)
+
+
+@pytest.mark.parametrize("cell", CELLS, ids=IDS)
+def test_query_plain_matches_pallas_and_core(cell):
+    bs, fb, occ, pol, hk = cell
+    cfg = _cfg(bs, fb, pol, hk)
+    tcfg = convert.config_from_reference(cfg)
+    rng = np.random.default_rng(11)
+    state, tstate = _filled(cfg, occ)
+    probe_np = keys_from_numpy(_raw(rng, 4 * BLOCK))
+    probe = jnp.asarray(probe_np)
+    want = np.asarray(_jit_blk(cuckoo_query_fused_pallas, cfg)(
+        state.table, probe[:, 0], probe[:, 1])).astype(bool)
+    np.testing.assert_array_equal(want, np.asarray(_jit(CF.query, cfg)(state, probe)))
+    keys = _t(probe_np)
+    got = cuckoo_query_plain(tcfg, tstate.table, keys)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(K.cuckoo_query(tcfg, tstate, keys).numpy(), want)
+    np.testing.assert_array_equal(
+        TR.cuckoo_query_ref(tcfg, tstate.table, keys[:, 0], keys[:, 1]).numpy(),
+        want)
+
+
+@pytest.mark.parametrize("cell", CELLS, ids=IDS)
+def test_insert_plain_matches_pallas(cell):
+    bs, fb, occ, pol, hk = cell
+    cfg = _cfg(bs, fb, pol, hk)
+    tcfg = convert.config_from_reference(cfg)
+    rng = np.random.default_rng(12)
+    state, tstate = _filled(cfg, occ / 2)
+    keys_np = keys_from_numpy(_raw(rng, 2 * BLOCK))
+    kj = jnp.asarray(keys_np)
+    valid = (rng.random(2 * BLOCK) < 0.9)
+    t_want, ok_want = _jit_blk(cuckoo_insert_fused_pallas, cfg)(
+        state.table, kj[:, 0], kj[:, 1], jnp.asarray(valid, jnp.uint32))
+    table = tstate.table.clone()
+    ok = cuckoo_insert_direct_plain(tcfg, table, _t(keys_np),
+                                    torch.from_numpy(valid))
+    np.testing.assert_array_equal(_u32(table), np.asarray(t_want))
+    np.testing.assert_array_equal(ok.numpy(), np.asarray(ok_want).astype(bool))
+    # The CPU route of the wrapper is the plain version; count follows ok.
+    st2, ok2 = K.cuckoo_insert_direct(
+        tcfg, CuckooState(tstate.table.clone(), tstate.count), _t(keys_np),
+        torch.from_numpy(valid))
+    assert torch.equal(ok2, ok) and torch.equal(st2.table, table)
+    assert int(st2.count) == int(tstate.count) + int(ok.sum())
+    # The oracle with the JAX signature is the plain loop, functionally.
+    t_ref, ok_ref = TR.cuckoo_insert_ref(tcfg, tstate.table, _t(keys_np)[:, 0],
+                                         _t(keys_np)[:, 1])
+    table_all = tstate.table.clone()
+    assert torch.equal(ok_ref, cuckoo_insert_direct_plain(tcfg, table_all,
+                                                          _t(keys_np)))
+    assert torch.equal(t_ref, table_all)
+
+
+@pytest.mark.parametrize("cell", CELLS, ids=IDS)
+@pytest.mark.parametrize("stream", ["mixed", "delete"])
+def test_mixed_plain_matches_pallas_and_ref(cell, stream):
+    bs, fb, occ, pol, hk = cell
+    cfg = _cfg(bs, fb, pol, hk)
+    tcfg = convert.config_from_reference(cfg)
+    rng = np.random.default_rng(13)
+    state, tstate = _filled(cfg, occ)
+    n = 2 * BLOCK
+    # A small universe: same-key inserts, deletes and queries collide.
+    uni = keys_from_numpy(_raw(rng, 24))
+    keys_np = uni[rng.integers(0, 24, size=n)]
+    ops_np = (rng.integers(0, 3, size=n) if stream == "mixed"
+              else np.full(n, 2)).astype(np.int32)
+    valid = rng.random(n) < 0.9
+    kj = jnp.asarray(keys_np)
+    args = (state.table, kj[:, 0], kj[:, 1], jnp.asarray(ops_np),
+            jnp.asarray(valid, jnp.uint32))
+    t_want, ok_want = _jit_blk(cuckoo_mixed_pallas, cfg)(*args)
+    t_ref, ok_ref = _jit(R.cuckoo_mixed_ref, cfg)(*args)
+    np.testing.assert_array_equal(np.asarray(t_want), np.asarray(t_ref))
+
+    keys, ops = _t(keys_np), torch.from_numpy(ops_np)
+    table = tstate.table.clone()
+    ok = cuckoo_mixed_plain(tcfg, table, keys, ops, torch.from_numpy(valid))
+    np.testing.assert_array_equal(_u32(table), np.asarray(t_want))
+    np.testing.assert_array_equal(ok.numpy(), np.asarray(ok_want).astype(bool))
+    t2, ok2 = TR.cuckoo_mixed_ref(tcfg, tstate.table, keys[:, 0], keys[:, 1],
+                                  ops, torch.from_numpy(valid))
+    assert torch.equal(t2, table) and torch.equal(ok2, ok)
+    st3, ok3 = K.cuckoo_apply_ops(tcfg, CuckooState(tstate.table.clone(),
+                                                    tstate.count),
+                                  keys, ops, torch.from_numpy(valid))
+    assert torch.equal(ok3, ok) and torch.equal(st3.table, table)
+    delta = int((ok & (ops == 1)).sum()) - int((ok & (ops == 2)).sum())
+    assert int(st3.count) == int(tstate.count) + delta
+
+
+def test_segments_group_keys_in_batch_order():
+    rng = np.random.default_rng(3)
+    uni = keys_from_numpy(_raw(rng, 10))
+    keys = _t(uni[rng.integers(0, 10, size=200)])
+    order, seg_start = segments(keys)
+    k64 = [tuple(k) for k in keys[order].tolist()]
+    heads = set(seg_start.tolist())
+    for j in range(1, len(k64)):
+        assert (j in heads) == (k64[j] != k64[j - 1])
+        if j not in heads:
+            assert order[j] > order[j - 1]       # batch order within a key
+    assert len(heads) == len(set(k64))
+
+
+def test_wrappers_raise_on_what_kernels_do_not_take():
+    cfg = convert.config_from_reference(_cfg(16, 16, "xor", "fmix32"))
+    state = cfg.init("cpu")
+    keys = torch.zeros((8, 2), dtype=torch.int32)
+    with pytest.raises(TypeError):
+        K.cuckoo_query(cfg, state, keys.to(torch.int64))
+    with pytest.raises(ValueError):
+        K.cuckoo_query(cfg, state, torch.zeros((8, 3), dtype=torch.int32))
+    with pytest.raises(ValueError):
+        K.hash64(torch.zeros((2, 8), dtype=torch.int32).t())  # not contiguous
+    with pytest.raises(ValueError):
+        K.cuckoo_query(cfg, state._replace(table=state.table[:-1]), keys)
+    with pytest.raises(ValueError):                              # wrong device
+        K.hash64(keys.to("meta"))
+    with pytest.raises(ValueError):
+        K.cuckoo_insert_direct(cfg, state, keys, valid=torch.ones(7, dtype=torch.bool))
+    with pytest.raises(TypeError):
+        K.cuckoo_apply_ops(cfg, state, keys, torch.zeros(8, dtype=torch.int64))
+    with pytest.raises(ValueError):
+        K.hash64(keys, kind="sha1")
+
+
+def test_cpu_route_counts_no_launch():
+    K.reset_launches()
+    cfg = convert.config_from_reference(_cfg(8, 16, "xor", "fmix32"))
+    state = cfg.init("cpu")
+    keys = _t(keys_from_numpy(_raw(np.random.default_rng(5), 32)))
+    K.hash64(keys)
+    state, _ = K.cuckoo_insert_direct(cfg, state, keys)
+    K.cuckoo_query(cfg, state, keys)
+    K.cuckoo_apply_ops(cfg, state, keys, torch.full((32,), 2, dtype=torch.int32))
+    assert K.LAUNCHES == dict.fromkeys(K.LAUNCHES, 0)
+
+
+def test_roofline_bytes_model():
+    cfg = convert.config_from_reference(CuckooConfig(num_buckets=1 << 24))
+    n = 1 << 24
+    per_key = roofline.min_batch_bytes(cfg, "query", n)
+    assert per_key == n * (8 + 1 + 2 * 32)
+    resident = roofline.min_batch_bytes(cfg, "insert", n, table_resident=True)
+    assert resident == n * 9 + 2 * cfg.table_bytes
+    assert roofline.least_batch_bytes(cfg, "hash", n) == n * 16
+    assert roofline.least_batch_bytes(cfg, "delete", n) == min(
+        n * (9 + 64 + 4), resident)
+    with pytest.raises(ValueError):
+        roofline.cuckoo_op_traffic(cfg, "bulk_insert")
+
+
+@pytest.mark.parametrize("hash_kind,want", [
+    ("fmix32", {"hash": 32, "query": 32 + 8 + 48, "insert": 32 + 8 + 24}),
+    ("xxhash64", {"hash": 15, "query": 15 + 8 + 48, "delete": 15 + 8 + 24}),
+])
+def test_roofline_int_ops_floor(hash_kind, want):
+    # fp 16 x bucket 16: 8 words a bucket, 3 SWAR instructions a word.
+    cfg = convert.config_from_reference(
+        CuckooConfig(num_buckets=1 << 10, hash_kind=hash_kind))
+    for op, ops in want.items():
+        assert roofline.int_ops_per_key(cfg, op) == ops
+    assert roofline.int32_ops_per_s(132, 1.98e9) == 132 * 64 * 1.98e9
+    with pytest.raises(ValueError):
+        roofline.int_ops_per_key(cfg, "bulk_insert")
+
+
+def test_build_dir_is_the_checkout_or_the_override(monkeypatch, tmp_path):
+    from repro_torch.kernels import build
+
+    monkeypatch.delenv("REPRO_TORCH_BUILD_DIR", raising=False)
+    src = Path(build.__file__).resolve().parents[2]
+    assert build.build_dir() == src.parent / "build" / "repro_torch"
+    monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path))
+    assert build.build_dir() == tmp_path
+    assert build._lib_path("hash64").parent == tmp_path
