@@ -6,32 +6,49 @@
 From the repository root, on a machine with one NVIDIA H100 and the CUDA
 toolkit. Phases, one JSON line each:
 
-1. build — the four CUDA kernels from ``src/repro_torch/kernels/csrc``
-   (``nvcc``, ``sm_90a``), with the build seconds and the card's name and
-   power limit.
+1. build — the five CUDA kernels from ``src/repro_torch/kernels/csrc``
+   (``nvcc``, ``sm_90a``, in parallel), with the build seconds and the
+   card's name and power limit.
 2. main path at 2^28 slots — ``repro_torch.amq.make("cuckoo",
    capacity=floor(0.95 * 2^28))`` (fp 16, bucket 16, XOR, fmix32: a
    512 MiB table, ten times the L2), filled to load 0.95 in 16 batches of
    at most 2^24 keys from a seeded CUDA generator (the last four with
-   ``bulk=True``). Every key placed; ``count`` equal to the keys placed;
-   the table holds exactly the placed keys (see :func:`table_codes`);
-   every inserted key found by the query kernel and by the plain query;
-   the FPR of 2^24 fresh keys inside the Eq. 4 band; 2^24 deletes all
-   ``ok``, after which the table holds exactly the other keys. Launch
-   counts are zeroed just before and read just after; every kernel must
-   have launched.
+   ``bulk=True``, which ``insert_engine="auto"`` routes to the orientation
+   build). Every key placed; ``count`` equal to the keys placed; the table
+   holds exactly the placed keys (see :func:`table_codes`); every inserted
+   key found by the query kernel and by the plain query; the FPR of 2^24
+   fresh keys inside the Eq. 4 band; 2^24 deletes all ``ok``, after which
+   the table holds exactly the other keys. Launch counts are zeroed just
+   before and read just after; every kernel the configuration routes to
+   must have launched. Per batch: bulk or not, seconds, rounds and the
+   residue (keys handed to the eviction round loop).
 3. kernels against their plain PyTorch versions on the card, at the main
    path's shapes: hash and query on 2^24 keys, bit-exact. The direct
-   insert (2^24 keys into the table at load 0.5 and before the last
-   batch) and the delete (2^24 stored keys) are held to what every
-   sequential order gives — the plain loop's is one — on the whole batch,
-   and exactly to the plain loop on a 2^12-key sub-batch (equal ``ok`` and
-   equal tag multiset in every touched bucket; slots may differ by CAS
-   order), as is a 2^12 mixed stream and a delete stream with duplicates.
+   insert and the bucket-major bulk insert (2^24 keys into the table at
+   load 0.5 and before the last batch) and the delete (2^24 stored keys)
+   are held to what every sequential order gives — the plain loop's is
+   one — on the whole batch, and exactly to the plain loop on a 2^12-key
+   sub-batch (equal ``ok`` and equal tag multiset in every touched bucket;
+   slots may differ by CAS order), as is a 2^12 mixed stream and a delete
+   stream with duplicates.
 4. timings at the main path's shapes (median of CUDA-event runs) beside
-   each kernel's bound. A warm-up pass of the main path at 2^16 slots runs
-   before anything is timed.
-5. the main path again at 2^22 slots (an 8 MiB table, resident in L2).
+   each kernel's bound, whose bytes count the buckets the timed batch's
+   own data touches (see :func:`touched_buckets`). Then the bulk kernel
+   against the direct-insert kernel where segments are long: 2^27 keys
+   into the empty 2^28-slot table (eight keys a primary bucket), both
+   held to the order-free outcome first. A warm-up pass of the main path
+   at 2^16 slots (and of the legacy bulk route) runs before anything is
+   timed.
+5. bulk build at 2^28 slots — two fresh handles at the main path's
+   capacity, each filled to 0.95 with ``insert(keys, bulk=True)`` in the
+   main path's batches: the default (``auto`` -> the orientation build)
+   and ``insert_engine="legacy"`` (the bulk kernel, then the round loop
+   on its residue). The main path's gates on each, with its own launch
+   counts, insert keys/s and per-batch seconds, rounds and residue. Then
+   one orientation batch (load 0.5 -> 0.5625) under ``torch.profiler``:
+   its wall and device-busy seconds and the operators that take the most
+   device time.
+6. the main path again at 2^22 slots (an 8 MiB table, resident in L2).
 
 Before the last line: the ``nvidia-smi`` name and power limit, then the
 ``kernels`` line. The last line is ``{"ok": true, "device": {...}}``. Any
@@ -63,8 +80,10 @@ from repro_torch.kernels import build, roofline  # noqa: E402
 from repro_torch.kernels import ops as K  # noqa: E402
 from repro_torch.kernels.cuckoo_insert import (  # noqa: E402
     cuckoo_insert_direct_plain, cuckoo_insert_launch)
+from repro_torch.kernels.cuckoo_insert_bulk import (  # noqa: E402
+    cuckoo_insert_bulk_launch, cuckoo_insert_bulk_plain)
 from repro_torch.kernels.cuckoo_mixed import (  # noqa: E402
-    cuckoo_mixed_launch, cuckoo_mixed_plain, segments)
+    cuckoo_mixed_launch, cuckoo_mixed_plain, segments, sorted_runs)
 from repro_torch.kernels.cuckoo_query import cuckoo_query_plain  # noqa: E402
 from repro_torch.kernels.hash64 import hash64_plain  # noqa: E402
 
@@ -81,14 +100,19 @@ TPU_KERNELS = {
     "hash64": "src/repro/kernels/hash64.py:25",
     "cuckoo_query": "src/repro/kernels/cuckoo_query.py:131",
     "cuckoo_insert_direct": "src/repro/kernels/cuckoo_insert.py:187",
+    "cuckoo_insert_bulk": "src/repro/kernels/cuckoo_insert.py:308",
     "cuckoo_mixed": "src/repro/kernels/cuckoo_mixed.py:129",
 }
 SOURCES = {
     "hash64": "src/repro_torch/kernels/csrc/hash64.cu",
     "cuckoo_query": "src/repro_torch/kernels/csrc/cuckoo_query.cu",
     "cuckoo_insert_direct": "src/repro_torch/kernels/csrc/cuckoo_insert.cu",
+    "cuckoo_insert_bulk": "src/repro_torch/kernels/csrc/cuckoo_insert_bulk.cu",
     "cuckoo_mixed": "src/repro_torch/kernels/csrc/cuckoo_mixed.cu",
 }
+# The insert kernel an entry point runs under the legacy engine; the
+# orientation build runs torch ops (and the hash kernel).
+INSERT_KERNEL = {False: "cuckoo_insert_direct", True: "cuckoo_insert_bulk"}
 
 
 class CheckFailed(RuntimeError):
@@ -193,13 +217,14 @@ def moved_lanes(cfg, before, after, fills: bool) -> int:
     return bad
 
 
-def check_direct_insert(cfg, state, base, keys, label: str) -> int:
-    """The direct-insert kernel on a whole batch, against what the plain
-    loop gives in every order: no stored tag moves; the tags added are
-    exactly the placed keys'; a key is turned down only if both its
-    buckets are full. Returns the keys turned down."""
+def check_direct_insert(cfg, state, base, keys, label: str,
+                        kernel=K.cuckoo_insert_direct) -> int:
+    """An insert kernel without eviction (direct or bulk) on a whole batch,
+    against what the plain loop gives in every order: no stored tag moves;
+    the tags added are exactly the placed keys'; a key is turned down only
+    if both its buckets are full. Returns the keys turned down."""
     table = base.clone()
-    _, ok = K.cuckoo_insert_direct(cfg, state._replace(table=table), keys)
+    _, ok = kernel(cfg, state._replace(table=table), keys)
     check(moved_lanes(cfg, base, table, fills=True) == 0,
           f"{label}: a stored tag changed")
     check_codes(label, table_codes(cfg, table),
@@ -228,6 +253,28 @@ def check_delete(cfg, state, base, keys, label: str) -> None:
     check_codes(label, torch.sort(torch.cat([table_codes(cfg, table),
                                              key_codes(cfg, [keys])])).values,
                 table_codes(cfg, base))
+
+
+def touched_buckets(cfg, base, keys, after=None, insert=False):
+    """The distinct buckets a batch of ``keys`` needs at least, from this
+    run's data -> (read, written). Read: every key's primary bucket; its
+    alternate where ``base`` cannot settle the key at the primary (no free
+    slot for an insert, no matching tag for a query or delete); every
+    bucket whose words differ between ``base`` and ``after``. Written:
+    those changed buckets. The bound charges each once (roofline)."""
+    lay = cfg.layout
+    tag, i1, i2 = CF.prepare_keys_plain(cfg, keys)
+    want = (torch.zeros_like(tag) if insert
+            else cfg.placement.place_tag(tag, False))
+    settled = torch.cat([
+        (L.bucket_tags(base, b, lay) == w[:, None]).any(-1)
+        for b, w in zip(i1.split(CHUNK), want.split(CHUNK))])
+    need, written = [i1, i2[~settled]], 0
+    if after is not None:
+        changed = (after != base).view(-1, lay.words_per_bucket).any(1)
+        need.append(changed.nonzero().squeeze(1))
+        written = int(changed.sum())
+    return torch.unique(torch.cat(need)).numel(), written
 
 
 def bucket_tags(cfg, table, buckets):
@@ -263,59 +310,118 @@ def same_outcome(cfg, base, keys, run_kernel, run_plain):
 # The main path.
 # ---------------------------------------------------------------------------
 
-def main_path(capacity: int, gen, label: str):
-    """Fill, query, measure the FPR and delete through ``amq.make``.
-
-    Returns the handle, clones of the table at load 0.5 and before the
-    last batch, and every batch's keys."""
-    K.reset_launches()
-    h = amq.make("cuckoo", capacity=capacity)
-    cfg = h.config
-    check(cfg.policy == "xor", "the table checks need the XOR policy")
+def batch_sizes(capacity: int):
+    """The main path's batches: at most 2^24 keys, ``BATCHES`` of them."""
     batch = min(1 << 24, -(-capacity // (BATCHES - 1)))
-    sizes = [m for m in (min(batch, capacity - b * batch)
-                         for b in range(BATCHES)) if m > 0]
-    batches, half, high = [], None, None
+    return [m for m in (min(batch, capacity - b * batch)
+                        for b in range(BATCHES)) if m > 0]
+
+
+def fill(h, label: str, batches, bulk, on_batch=None):
+    """Insert ``batches`` into handle ``h``; batch b with ``bulk[b]``.
+    Every key must be placed and ``count`` must equal the keys placed; the
+    table must hold exactly those keys. Returns (seconds, per-batch
+    records). ``on_batch(b)`` runs before batch b, outside the clock."""
     insert_s, per_batch = 0.0, []
-    for b, m in enumerate(sizes):
-        if b == len(sizes) - 1:
-            high = h.state.table.clone()
-        keys = random_keys(gen, m)
+    for b, keys in enumerate(batches):
+        if on_batch is not None:
+            on_batch(b)
+        m = keys.shape[0]
+        # Every insert route ends in the round loop with its residue (keys
+        # with both buckets full); the core records its size on the device.
+        CF.LOOP_KEYS = []
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        rep = h.insert(keys, bulk=b >= BATCHES - 4)
+        rep = h.insert(keys, bulk=bulk[b])
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         insert_s += dt
+        residue = int(sum(CF.LOOP_KEYS))
+        CF.LOOP_KEYS = None
         placed = int(rep.ok.sum())
         check(placed == m, f"{label}: batch {b}: {m - placed} of {m} keys "
                            f"not placed at load {h.load_factor:.4f}")
-        per_batch.append({"keys": m, "s": dt, "rounds": int(rep.rounds),
+        per_batch.append({"keys": m, "bulk": bulk[b], "s": dt,
+                          "rounds": int(rep.rounds), "residue": residue,
                           "load": h.load_factor})
-        batches.append(keys)
-        if half is None and h.count() >= cfg.num_slots // 2:
-            half = h.state.table.clone()
-    inserted = sum(sizes)
+    inserted = sum(k.shape[0] for k in batches)
     check(h.count() == inserted,
           f"{label}: count {h.count()} != {inserted} keys placed")
     check_codes(f"{label}: table after the fill",
-                table_codes(cfg, h.state.table), key_codes(cfg, batches))
-    load = h.load_factor
+                table_codes(h.config, h.state.table),
+                key_codes(h.config, batches))
+    return insert_s, per_batch
 
+
+def check_no_false_negatives(h, label: str, batches):
+    """Query every inserted key with the kernel and the plain query; both
+    must find all. Returns the median seconds of a full-size batch's query
+    and the misses (kernel, plain)."""
     query_s, misses, plain_misses = [], 0, 0
+    full = max(k.shape[0] for k in batches)
     for keys in batches:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         hits = h.query(keys).hits
         torch.cuda.synchronize()
-        if keys.shape[0] == batch:
+        if keys.shape[0] == full:
             query_s.append(time.perf_counter() - t0)
         misses += int((~hits).sum())
-        plain = cuckoo_query_plain(cfg, h.state.table, normalize_keys(keys))
+        plain = cuckoo_query_plain(h.config, h.state.table,
+                                   normalize_keys(keys))
         plain_misses += int((~plain).sum())
     check(misses == 0, f"{label}: {misses} false negatives (query kernel)")
     check(plain_misses == 0, f"{label}: {plain_misses} false negatives "
                              "(plain query)")
+    return statistics.median(query_s), misses, plain_misses
+
+
+def routed_kernels(cfg, bulk_flags, deletes: bool):
+    """The kernels a run must launch: the hash and query kernels always;
+    the insert kernel of each entry point its engine runs on a kernel; the
+    mixed kernel for deletes."""
+    names = {"hash64", "cuckoo_query"}
+    for bulk in set(bulk_flags):
+        if CF.resolve_engine(cfg, bulk) == "legacy":
+            names.add(INSERT_KERNEL[bulk])
+    if deletes:
+        names.add("cuckoo_mixed")
+    return sorted(names)
+
+
+def check_launches(label: str, expect):
+    launches = dict(K.LAUNCHES)
+    for name in expect:
+        check(launches[name] > 0,
+              f"{label}: kernel {name} was not launched on its path")
+    return launches
+
+
+def main_path(capacity: int, gen, label: str):
+    """Fill, query, measure the FPR and delete through ``amq.make``.
+
+    Returns the handle, clones of the table at load 0.5 and before the
+    last batch, every batch's keys and the launch counts."""
+    K.reset_launches()
+    h = amq.make("cuckoo", capacity=capacity)
+    cfg = h.config
+    check(cfg.policy == "xor", "the table checks need the XOR policy")
+    sizes = batch_sizes(capacity)
+    batches = [random_keys(gen, m) for m in sizes]
+    bulk = [b >= BATCHES - 4 for b in range(len(sizes))]
+    snaps = {}
+
+    def snapshot(b):
+        if b == len(sizes) - 1:
+            snaps["high"] = h.state.table.clone()
+        if "half" not in snaps and h.count() >= cfg.num_slots // 2:
+            snaps["half"] = h.state.table.clone()
+
+    insert_s, per_batch = fill(h, label, batches, bulk, snapshot)
+    inserted = sum(sizes)
+    load = h.load_factor
+    query_s, misses, plain_misses = check_no_false_negatives(h, label,
+                                                             batches)
 
     fresh = random_keys(gen, PROBES, top_half=True)
     fpr = int(h.query(fresh).hits.sum()) / PROBES
@@ -337,9 +443,8 @@ def main_path(capacity: int, gen, label: str):
     check_codes(f"{label}: table after the delete",
                 table_codes(cfg, h.state.table), key_codes(cfg, batches[1:]))
 
-    launches = dict(K.LAUNCHES)
-    for name, n in launches.items():
-        check(n > 0, f"{label}: kernel {name} was not launched on the main path")
+    expect = routed_kernels(cfg, bulk, True)
+    launches = check_launches(label, expect)
     emit({"phase": f"main_path_{label}", "slots": cfg.num_slots,
           "table_bytes": cfg.table_bytes, "config": repr(cfg),
           "keys_inserted": inserted, "load": load, "batches": per_batch,
@@ -349,25 +454,95 @@ def main_path(capacity: int, gen, label: str):
           "count_after_delete": h.count(),
           "table_checks": "stored (pair, tag) codes == keys' after fill "
                           "and after delete",
-          "launches": launches,
+          "launches": launches, "kernels_routed": expect,
           "insert_keys_per_s": inserted / insert_s,
-          "query_keys_per_s": batch / statistics.median(query_s),
+          "query_keys_per_s": max(sizes) / query_s,
           "delete_keys_per_s": first.shape[0] / delete_s})
-    return h, half, high, batches, launches
+    return h, snaps["half"], snaps["high"], batches, launches
 
 
 def warm_up(gen) -> float:
-    """The main path once at 2^16 slots, so that library loading and first
-    calls are paid before anything is timed. Returns its seconds."""
+    """The main path once at 2^16 slots, and the legacy bulk route, so that
+    library loading and first calls are paid before anything is timed.
+    Returns its seconds."""
     t0 = time.perf_counter()
-    h = amq.make("cuckoo", capacity=62_259)     # floor(0.95 * 2**16)
-    keys = random_keys(gen, 62_259)
-    for part in keys.chunk(BATCHES):
-        h.insert(part, bulk=True)
-    h.query(keys)
-    h.delete(keys[:1000])
+    keys = random_keys(gen, 62_259)             # floor(0.95 * 2**16)
+    for engine in ("auto", "legacy"):
+        h = amq.make("cuckoo", capacity=62_259, insert_engine=engine)
+        for b, part in enumerate(keys.chunk(BATCHES)):
+            h.insert(part, bulk=b % 2 == 0)
+        h.query(keys)
+        h.delete(keys[:1000])
     torch.cuda.synchronize()
     return time.perf_counter() - t0
+
+
+def profile_orientation(gen, batches_like, at: int = 8, top: int = 15):
+    """One orientation batch under ``torch.profiler``: a fresh 2^28-slot
+    handle takes the main path's batches 0..at-1 with ``bulk=True``
+    unprofiled, then batch ``at`` profiled. Returns the batch's wall
+    seconds, the device's busy seconds (sum of kernel self times) and the
+    ``top`` operators by self device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    h = amq.make("cuckoo", capacity=FULL_CAPACITY)
+    for k in batches_like[:at]:
+        h.insert(random_keys(gen, k.shape[0]), bulk=True)
+    keys = random_keys(gen, batches_like[at].shape[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        rep = h.insert(keys, bulk=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    check(bool(rep.ok.all()), "profiled orientation batch: keys not placed")
+    # Device-side events are the kernels (their sum is the busy time);
+    # host-side operators carry the device time of the kernels they launch.
+    cuda = torch.autograd.DeviceType.CUDA
+    stats = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in stats
+               if e.device_type == cuda) * 1e-6
+    events = sorted((e for e in stats if e.device_type != cuda
+                     and e.self_device_time_total > 0),
+                    key=lambda e: -e.self_device_time_total)
+    del h
+    torch.cuda.empty_cache()
+    return {"batch": at, "load_after": (at + 1) / BATCHES, "wall_s": wall,
+            "device_busy_s": busy, "device_idle_share": 1 - busy / wall,
+            "top_ops": [{"op": e.key, "calls": e.count,
+                         "device_ms": e.self_device_time_total * 1e-3,
+                         "cpu_ms": e.cpu_time_total * 1e-3}
+                        for e in events[:top]]}
+
+
+def bulk_build(gen, batches_like):
+    """Phase 5: fill two fresh 2^28-slot handles to 0.95 with bulk inserts,
+    one per engine, in the main path's batch sizes; the main path's gates
+    on each. Returns {engine: launch counts}."""
+    batches = [random_keys(gen, k.shape[0]) for k in batches_like]
+    inserted = sum(k.shape[0] for k in batches)
+    out = {}
+    for engine in ("auto", "legacy"):
+        label = f"bulk_build_{engine}"
+        K.reset_launches()
+        h = amq.make("cuckoo", capacity=FULL_CAPACITY, insert_engine=engine)
+        insert_s, per_batch = fill(h, label, batches, [True] * len(batches))
+        _, misses, plain_misses = check_no_false_negatives(h, label, batches)
+        expect = routed_kernels(h.config, [True], False)
+        out[engine] = check_launches(label, expect)
+        emit({"phase": label, "engine": CF.resolve_engine(h.config, True),
+              "slots": h.config.num_slots, "keys_inserted": inserted,
+              "load": h.load_factor, "insert_keys_per_s": inserted / insert_s,
+              "insert_s": insert_s, "batches": per_batch,
+              "residue_keys": sum(r["residue"] for r in per_batch),
+              "false_negatives": misses,
+              "plain_false_negatives": plain_misses,
+              "table_checks": "stored (pair, tag) codes == keys' after fill",
+              "launches": out[engine], "kernels_routed": expect})
+        del h
+        torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
@@ -421,13 +596,12 @@ def main() -> int:
     errs["cuckoo_query"] = 0
 
     ins_keys = normalize_keys(random_keys(gen, n))
-    turned_down = {
-        "load_0.5": check_direct_insert(cfg, h.state, half, ins_keys,
-                                        "cuckoo_insert_direct at load 0.5"),
-        "before_last_batch": check_direct_insert(
-            cfg, h.state, high, ins_keys,
-            "cuckoo_insert_direct before the last batch"),
-    }
+    turned_down = {}
+    for name in ("cuckoo_insert_direct", "cuckoo_insert_bulk"):
+        kernel = getattr(K, name)
+        for where, base in (("load_0.5", half), ("before_last_batch", high)):
+            turned_down[f"{name} {where}"] = check_direct_insert(
+                cfg, h.state, base, ins_keys, f"{name} {where}", kernel)
     sub = ins_keys[:SUB]
     valid = torch.rand(SUB, device="cuda", generator=gen) < 0.9
     errs["cuckoo_insert_direct"] = same_outcome(
@@ -435,6 +609,11 @@ def main() -> int:
         lambda t: K.cuckoo_insert_direct(cfg, h.state._replace(table=t), sub,
                                           valid)[1],
         lambda t: cuckoo_insert_direct_plain(cfg, t, sub, valid))
+    errs["cuckoo_insert_bulk"] = same_outcome(
+        cfg, half, sub,
+        lambda t: K.cuckoo_insert_bulk(cfg, h.state._replace(table=t), sub,
+                                        valid)[1],
+        lambda t: cuckoo_insert_bulk_plain(cfg, t, sub, valid))
 
     check_delete(cfg, h.state, h.state.table, second, "cuckoo_mixed delete")
     universe = torch.cat([first[:SUB // 8], sub[:SUB // 8]])
@@ -455,10 +634,10 @@ def main() -> int:
           "direct_insert_turned_down": turned_down,
           "seconds": time.perf_counter() - t0,
           "tolerance": "exact (0). hash, query: bit-exact at 2^24 keys. "
-                       "insert, delete at 2^24 keys: the order-free "
-                       "outcome of the plain loop (stored codes, lanes, "
-                       "ok); at 2^12 keys: equal ok and equal tag "
-                       "multisets per touched bucket"})
+                       "direct and bulk insert, delete at 2^24 keys: the "
+                       "order-free outcome of the plain loop (stored "
+                       "codes, lanes, ok); at 2^12 keys: equal ok and "
+                       "equal tag multisets per touched bucket"})
 
     # --- timings at the main path's shapes ---------------------------------
     keys = second
@@ -469,66 +648,152 @@ def main() -> int:
     def restore(src):
         return lambda: work.copy_(src)
 
+    # timing[name] = (ms, plain_ms, n, plain_n, roofline op, touched
+    # buckets (read, written) of the timed batch, None for no table).
     timing["hash64"] = (
         cuda_ms(lambda: K.hash64(keys, cfg.seed, cfg.hash_kind)),
         cuda_ms(lambda: hash64_plain(keys, cfg.seed, cfg.hash_kind)),
-        n, n, "hash")
+        n, n, "hash", None)
     timing["cuckoo_query"] = (
         cuda_ms(lambda: K.cuckoo_query(cfg, h.state, keys)),
         cuda_ms(lambda: cuckoo_query_plain(cfg, h.state.table, keys), reps=3),
-        n, n, "query")
+        n, n, "query", touched_buckets(cfg, h.state.table, keys))
     ins_valid = torch.ones(n, dtype=torch.bool, device="cuda")
     ins_ok = torch.empty(n, dtype=torch.bool, device="cuda")
     sub_valid = torch.ones(SUB, dtype=torch.bool, device="cuda")
+    # Each kernel's touched buckets are read from ``work`` as its last
+    # timed run left it, before the plain version overwrites it.
+    ms = cuda_ms(lambda: cuckoo_insert_launch(cfg, work, ins_keys, ins_valid,
+                                              ins_ok),
+                 reps=3, setup=restore(half))
+    touched = touched_buckets(cfg, half, ins_keys, work, insert=True)
     timing["cuckoo_insert_direct"] = (
-        cuda_ms(lambda: cuckoo_insert_launch(cfg, work, ins_keys, ins_valid,
-                                             ins_ok),
-                reps=3, setup=restore(half)),
-        cuda_ms(lambda: cuckoo_insert_direct_plain(cfg, work, sub, sub_valid),
-                reps=3, setup=restore(half)),
-        n, SUB, "insert")
+        ms, cuda_ms(lambda: cuckoo_insert_direct_plain(cfg, work, sub,
+                                                       sub_valid),
+                    reps=3, setup=restore(half)),
+        n, SUB, "insert", touched)
+    _, i1, _ = CF.prepare_keys(cfg, ins_keys)
+    bulk_order, bulk_seg = sorted_runs(i1)
+    # Wrapper times include the sort that precedes the launch.
+    wrapper_ms = {"cuckoo_insert_bulk": cuda_ms(
+        lambda: K.cuckoo_insert_bulk(cfg, h.state._replace(table=work),
+                                     ins_keys, ins_valid),
+        reps=3, setup=restore(half))}
+    ms = cuda_ms(lambda: cuckoo_insert_bulk_launch(cfg, work, ins_keys,
+                                                   ins_valid, bulk_order,
+                                                   bulk_seg, ins_ok),
+                 reps=3, setup=restore(half))
+    touched = touched_buckets(cfg, half, ins_keys, work, insert=True)
+    timing["cuckoo_insert_bulk"] = (
+        ms, cuda_ms(lambda: cuckoo_insert_bulk_plain(cfg, work, sub,
+                                                     sub_valid),
+                    reps=3, setup=restore(half)),
+        n, SUB, "bulk_insert", touched)
     del_ops = torch.full((n,), amq.OP_DELETE, dtype=torch.int32, device="cuda")
     order, seg_start = segments(keys)
     del_ok = torch.empty(n, dtype=torch.bool, device="cuda")
-    wrapper_ms = cuda_ms(
+    wrapper_ms["cuckoo_mixed"] = cuda_ms(
         lambda: K.cuckoo_apply_ops(cfg, h.state._replace(table=work), keys,
                                    del_ops, ins_valid),
         reps=3, setup=restore(full_table))
+    ms = cuda_ms(lambda: cuckoo_mixed_launch(cfg, work, keys, del_ops,
+                                             ins_valid, order, seg_start,
+                                             del_ok),
+                 reps=3, setup=restore(full_table))
+    touched = touched_buckets(cfg, full_table, keys, work)
     timing["cuckoo_mixed"] = (
-        cuda_ms(lambda: cuckoo_mixed_launch(cfg, work, keys, del_ops,
-                                            ins_valid, order, seg_start,
-                                            del_ok),
-                reps=3, setup=restore(full_table)),
-        cuda_ms(lambda: cuckoo_mixed_plain(cfg, work, dup, deletes),
-                reps=3, setup=restore(full_table)),
-        n, SUB, "delete")
+        ms, cuda_ms(lambda: cuckoo_mixed_plain(cfg, work, dup, deletes),
+                    reps=3, setup=restore(full_table)),
+        n, SUB, "delete", touched)
+
+    # Kernel #6 against kernel #4 where segments are long: 2^27 keys into
+    # the empty table, eight keys a primary bucket on average (load 0.5).
+    # Both held to the order-free outcome first; times are kernel only,
+    # plus #6's wrapper (hash and sort).
+    t1 = time.perf_counter()
+    long_n = 1 << 27
+    long_keys = normalize_keys(random_keys(gen, long_n))
+    empty = torch.zeros_like(work)
+    long_turned_down = {
+        name: check_direct_insert(cfg, h.state, empty, long_keys,
+                                  f"{name} long segments", getattr(K, name))
+        for name in ("cuckoo_insert_direct", "cuckoo_insert_bulk")}
+    long_valid = torch.ones(long_n, dtype=torch.bool, device="cuda")
+    long_ok = torch.empty(long_n, dtype=torch.bool, device="cuda")
+    _, long_i1, _ = CF.prepare_keys(cfg, long_keys)
+    long_order, long_seg = sorted_runs(long_i1)
+    long_ms = {
+        "cuckoo_insert_direct": cuda_ms(
+            lambda: cuckoo_insert_launch(cfg, work, long_keys, long_valid,
+                                         long_ok),
+            reps=3, setup=restore(empty)),
+        "cuckoo_insert_bulk": cuda_ms(
+            lambda: cuckoo_insert_bulk_launch(cfg, work, long_keys,
+                                              long_valid, long_order,
+                                              long_seg, long_ok),
+            reps=3, setup=restore(empty)),
+        "cuckoo_insert_bulk_wrapper": cuda_ms(
+            lambda: K.cuckoo_insert_bulk(cfg, h.state._replace(table=work),
+                                         long_keys, long_valid),
+            reps=3, setup=restore(empty))}
+    long_touched = touched_buckets(cfg, empty, long_keys, work, insert=True)
+    long_bytes = roofline.least_batch_bytes(cfg, "bulk_insert", long_n,
+                                            long_touched)
+    emit({"phase": "long_segments", "keys": long_n,
+          "buckets": cfg.num_buckets, "segments": long_seg.numel(),
+          "keys_per_segment": long_n / long_seg.numel(),
+          "turned_down": long_turned_down, "ms": long_ms,
+          "touched_buckets": long_touched, "bound_bytes": long_bytes,
+          "bytes_bound_ms": long_bytes / HBM_BYTES_PER_S * 1e3,
+          "seconds": time.perf_counter() - t1})
+    del long_keys, empty, long_valid, long_ok, long_i1, long_order, long_seg
+    torch.cuda.empty_cache()
 
     copy_src = torch.empty(1 << 28, dtype=torch.int32, device="cuda")
     copy_dst = torch.empty_like(copy_src)
     copy_ms = cuda_ms(lambda: copy_dst.copy_(copy_src))
     copy_bytes_per_s = 2 * copy_src.numel() * 4 / (copy_ms * 1e-3)
+    emit({"phase": "timings", "copy_bytes_per_s": copy_bytes_per_s,
+          "table_load": h.load_factor, "main_path_2^28_seconds": main_s})
+    del work, full_table, half, high, copy_src, copy_dst, h
+    torch.cuda.empty_cache()
 
+    # --- the bulk build at full size ---------------------------------------
+    t0 = time.perf_counter()
+    bulk_launches = bulk_build(gen, batches)
+    emit({"phase": "bulk_build_seconds", "seconds": time.perf_counter() - t0})
+    emit({"phase": "profile_orientation_batch",
+          **profile_orientation(gen, batches)})
+    del batches
+    torch.cuda.empty_cache()
+
+    # Each kernel's launches come from the path that routes to it: the main
+    # path, or (the bulk kernel) the legacy bulk fill.
+    path_launches = {name: ("main_path_2^28", launches[name])
+                     for name in launches}
+    path_launches["cuckoo_insert_bulk"] = (
+        "bulk_build_legacy", bulk_launches["legacy"]["cuckoo_insert_bulk"])
     kernels = []
-    for name, (ms, plain_ms, kn, plain_n, op) in timing.items():
-        nbytes = roofline.least_batch_bytes(cfg, op, kn)
+    for name, (ms, plain_ms, kn, plain_n, op, touched) in timing.items():
+        nbytes = roofline.least_batch_bytes(cfg, op, kn, touched)
         nops = roofline.int_ops_per_key(cfg, op) * kn
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = nops / int_ops_per_s * 1e3
+        path, count = path_launches[name]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": TPU_KERNELS[name], "launches": launches[name],
+            "replaces": TPU_KERNELS[name], "launches": count,
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": None, "n": kn, "plain_n": plain_n,
+            "launches_path": path,
             "bound_bytes": nbytes, "bound_int32_ops": nops,
+            "touched_buckets": touched,
             "ops_ms": ops_ms,
             "bytes_ms_at_measured_copy": nbytes / copy_bytes_per_s * 1e3})
-    kernels[-1]["wrapper_ms"] = wrapper_ms
-    emit({"phase": "timings", "copy_bytes_per_s": copy_bytes_per_s,
-          "table_load": h.load_factor, "main_path_2^28_seconds": main_s})
-    del work, full_table, half, high, batches, copy_src, copy_dst, h
-    torch.cuda.empty_cache()
+        if name in wrapper_ms:
+            kernels[-1]["wrapper_ms"] = wrapper_ms[name]
 
     # --- the main path at 2^22 slots --------------------------------------
     main_path(L2_CAPACITY, gen, "2^22")

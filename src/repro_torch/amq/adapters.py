@@ -2,13 +2,20 @@
 
 Port of the ``CUCKOO`` adapter of ``repro.amq.adapters``. Where the JAX
 adapter runs the XLA core, this one runs the hot operations on the CUDA
-kernels (``kernels/ops.py``; on CPU tensors, their plain versions):
+kernels (``kernels/ops.py``; on CPU tensors, their plain versions). Each
+insert entry point routes by ``core.resolve_engine(config, bulk)``:
 
-* ``insert`` / ``insert_bulk``: the direct-insert kernel over the whole
-  batch; the keys it could not place (both buckets full) are compacted in
-  batch order and handed to the core's eviction round loop; ``ok`` and
-  ``evictions`` are scattered back to batch order. ``rounds`` counts the
-  kernel pass as one round plus the loop's rounds.
+* ``legacy``: an insert kernel over the whole batch — the direct-insert
+  kernel for ``insert``, the bucket-major bulk kernel for ``insert_bulk``
+  (in place of the core's two sorted phases). The keys it could not place
+  (both buckets full) are compacted in batch order and handed to the
+  core's eviction round loop; ``ok`` and ``evictions`` are scattered back
+  to batch order. ``rounds`` is the loop's rounds plus the kernel pass,
+  counted as the phases it stands for: one for ``insert``, two for
+  ``insert_bulk`` (the core's primary and alternate phases, as there).
+* ``orientation`` (``insert_bulk``'s ``auto``): the core's
+  graph-orientation build, torch ops on the table's device, as the JAX
+  adapter runs the XLA core there.
 * ``query``: the query kernel.
 * ``delete``: the mixed-op kernel with every op a DELETE.
 """
@@ -16,6 +23,7 @@ kernels (``kernels/ops.py``; on CPU tensors, their plain versions):
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Optional
 
 import torch
@@ -48,17 +56,25 @@ class AMQAdapter:
 
 
 def _cuckoo_insert(config, state, keys, *, valid=None,
-                   dedup_within_batch=False):
-    CF.resolve_engine(config)
+                   dedup_within_batch=False, _bulk=False):
+    if CF.resolve_engine(config, _bulk) == "orientation":
+        state, ok, stats = CF._insert_orient(
+            config, state, keys, ensure_valid(keys, valid),
+            dedup_within_batch=dedup_within_batch)
+        return state, InsertReport(ok, stats.evictions, stats.rounds,
+                                   all_routed(keys))
+    # legacy: an insert kernel over the batch, the round loop on its residue.
+    kernel = K.cuckoo_insert_bulk if _bulk else K.cuckoo_insert_direct
     n = keys.shape[0]
     valid0 = ensure_valid(keys, valid)
     pending = valid0
     if dedup_within_batch:
         first, rep = CF._batch_dedup(keys, valid0)
         pending = pending & first
-    state, ok = K.cuckoo_insert_direct(config, state, keys, valid=pending)
+    state, ok = kernel(config, state, keys, valid=pending)
     evictions = torch.zeros((n,), dtype=torch.int32, device=keys.device)
-    rounds = torch.ones((), dtype=torch.int32, device=keys.device)
+    rounds = torch.full((), 2 if _bulk else 1, dtype=torch.int32,
+                        device=keys.device)
     residue = (pending & ~ok).nonzero().squeeze(1)
     if residue.numel():
         state, ok_res, stats = CF._insert_rounds(config, state, keys[residue])
@@ -97,7 +113,7 @@ CUCKOO = AMQAdapter(
     make_config=_cuckoo_make_config,
     init=lambda cfg, device: cfg.init(device),
     insert=_cuckoo_insert,
-    insert_bulk=_cuckoo_insert,     # the same path until slice 2 (ROADMAP)
+    insert_bulk=functools.partial(_cuckoo_insert, _bulk=True),
     query=_cuckoo_query,
     delete=_cuckoo_delete,
 )

@@ -53,7 +53,7 @@ def make(name: str, capacity: Optional[int] = None, *,
     """
     adapter = get(name)
     if snapshot is not None:
-        raise _not_ported("make(snapshot=...)", "port slice 2")
+        raise _not_ported("make(snapshot=...)", "port slice 3")
     if auto_expand:
         raise _not_ported("make(auto_expand=...) (the cascade)",
                           "ROADMAP queue A item 12")

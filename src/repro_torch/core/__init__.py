@@ -1,8 +1,9 @@
 """Core library of the port: the Cuckoo-GPU filter on torch tensors.
 
 * :class:`CuckooConfig` / :class:`CuckooState` — static config + state.
-* :func:`insert` / :func:`query` — batch functional ops (the legacy
-  eviction round loop and the unpack-based query).
+* :func:`insert` / :func:`insert_bulk` / :func:`query` — batch
+  functional ops (the legacy eviction round loop, the bulk build with the
+  graph-orientation engine, and the unpack-based query).
 * :class:`CuckooFilter` — convenience object wrapper.
 """
 
@@ -12,6 +13,7 @@ from .cuckoo_filter import (  # noqa: F401
     CuckooState,
     InsertStats,
     insert,
+    insert_bulk,
     prepare_keys,
     query,
     resolve_engine,

@@ -3,17 +3,19 @@
 Port of the part of ``repro.core.cuckoo_filter`` that the ``cuckoo``
 backend's main path needs: the config and state types, key preparation,
 the word-claim election, the legacy lock-step eviction round loop
-(``_insert_rounds``, DFS and BFS eviction), ``insert`` and ``query``.
+(``_insert_rounds``, DFS and BFS eviction), the bulk build
+(``insert_bulk``: two sorted whole-bucket phases, or the graph-orientation
+engine ``_insert_orient``), engine routing, ``insert`` and ``query``.
 
-The round loop is the bit-exact bridge to the JAX package: claims are
-elected per table word by a stable sort (lowest batch index wins), so the
-tables, ``ok`` masks and statistics match ``repro.core`` word for word.
-On the GPU it is the residue path behind the direct-insert kernel: the
-``cuckoo`` adapter hands it only the keys the kernel could not place.
+Every insert engine here is the bit-exact bridge to the JAX package:
+claims are elected per table word by a stable sort (lowest batch index
+wins) and the bulk phases sort stably by bucket, so the tables, ``ok``
+masks and statistics match ``repro.core`` word for word. On the GPU the
+round loop is the residue path behind the insert kernels: the ``cuckoo``
+adapter hands it only the keys a kernel could not place.
 
-State tensors are updated in place: ``insert`` writes into
-``state.table`` and returns a state holding the same tensor, so a
-512 MiB table is never copied.
+State tensors are updated in place: the engines write into
+``state.table`` and return a state holding the same tensor.
 """
 
 from __future__ import annotations
@@ -72,9 +74,8 @@ class CuckooConfig:
     max_evictions: int = 64
     max_rounds: Optional[int] = None
     seed: int = 0
-    # Insertion engine. This port has the legacy round loop only: "auto"
-    # and "legacy" route to it, "frontier" and "orientation" raise (see
-    # resolve_engine).
+    # Insertion engine (see resolve_engine): "auto", "legacy" or
+    # "orientation"; "frontier" is not ported yet and raises.
     insert_engine: str = "auto"
     frontier_depth: int = 2
     orient_sweeps: int = 4
@@ -304,6 +305,25 @@ def _evictions(config, table, e_bucket, e_tag, e_words, e_tags, rnd):
             v_addr, v_desired, v_evicted)
 
 
+def _pending_keys(keys, valid, dedup_within_batch):
+    """(valid0, pending, first, rep): the valid mask, the keys to insert,
+    and the batch-dedup mapping (``first``/``rep`` None without dedup)."""
+    n = keys.shape[0]
+    valid0 = (torch.ones((n,), dtype=torch.bool, device=keys.device)
+              if valid is None else valid.to(keys.device, torch.bool))
+    if not dedup_within_batch:
+        return valid0, valid0.clone(), None, None
+    first, rep = _batch_dedup(keys, valid0)
+    return valid0, valid0 & first, first, rep
+
+
+# Keys handed to the round loop. While ``LOOP_KEYS`` holds a list, each
+# call of :func:`_insert_rounds` appends its count of pending keys as a
+# device tensor (no host sync); a reader sums the entries after its clock
+# stops. ``None`` (the default) records nothing.
+LOOP_KEYS: Optional[list] = None
+
+
 def _insert_rounds(
     config: CuckooConfig, state: CuckooState, keys: torch.Tensor,
     valid: Optional[torch.Tensor] = None,
@@ -330,12 +350,10 @@ def _insert_rounds(
     tag1 = pol.place_tag(base_tag, False)   # stored form @ i1
     tag2 = pol.place_tag(base_tag, True)    # stored form @ i2
 
-    valid0 = (torch.ones((n,), dtype=torch.bool, device=dev) if valid is None
-              else valid.to(dev, torch.bool))
-    pending = valid0.clone()
-    if dedup_within_batch:
-        first, rep = _batch_dedup(keys, valid0)
-        pending &= first
+    valid0, pending, first, rep = _pending_keys(keys, valid,
+                                                dedup_within_batch)
+    if LOOP_KEYS is not None:
+        LOOP_KEYS.append(pending.sum())
     cur_tag = base_tag.clone()
     cur_bucket = i1.clone()
     evict_mode = torch.zeros((n,), dtype=torch.bool, device=dev)
@@ -442,30 +460,212 @@ def _insert_rounds(
 
 
 # ---------------------------------------------------------------------------
+# Bulk-build insertion (paper §4.6.3 sorted insertion; DESIGN.md §6) and
+# the graph-orientation build (DESIGN.md §14).
+# ---------------------------------------------------------------------------
+
+def _bulk_place_phase(config: CuckooConfig, tags_flat: torch.Tensor,
+                      bucket: torch.Tensor, stored_tag: torch.Tensor,
+                      pend: torch.Tensor):
+    """One whole-bucket placement round over the unpacked per-slot table.
+
+    Sorts the pending keys by destination bucket (masked keys go past
+    every real segment via the ``num_buckets`` sentinel), ranks each key
+    within its bucket segment, and commits the rank-th free slot of every
+    bucket in one scatter: each key owns a distinct slot by construction,
+    so no claim election is needed.
+
+    ``tags_flat`` (int64[num_slots]) is updated in place. Returns
+    (tags_flat, placed: bool[n] in batch order).
+    """
+    n = bucket.shape[0]
+    b = config.bucket_size
+    nb = config.num_buckets
+
+    sort_key = torch.where(pend, bucket, nb)
+    sb, order = torch.sort(sort_key, stable=True)
+    rank = L.segment_ranks(sb)
+
+    safe_b = torch.clamp(sb, max=nb - 1)
+    btags = tags_flat.view(nb, b)[safe_b]                      # [n, b]
+    placed_s, slot_s = L.nth_free_slot(btags, rank)
+    placed_s &= sb < nb
+    dest = safe_b * b + slot_s
+    tags_flat[dest[placed_s]] = stored_tag[order][placed_s]
+
+    placed = torch.zeros((n,), dtype=torch.bool, device=bucket.device)
+    placed[order] = placed_s
+    return tags_flat, placed
+
+
+def _unpack_table(config: CuckooConfig, state: CuckooState) -> torch.Tensor:
+    """The per-slot view of the table: int64[num_slots] tags."""
+    return L.unpack_words(from_i32(state.table), config.fp_bits)
+
+
+def _place_and_spill(config, state, keys, tags_flat, phases, pending,
+                     valid0, first, rep):
+    """The two sorted commits, then the residue through the round loop.
+
+    ``phases``: two (bucket, stored tag) pairs, one per commit; a key the
+    first leaves pending gets the second. The packed result is written
+    into ``state.table`` in place. Keys still pending after both (both
+    buckets full) take the eviction-capable round loop. Returns (state',
+    ok, InsertStats) with ``rounds`` = the loop's rounds + 2, as in JAX.
+    """
+    placed = torch.zeros_like(pending)
+    for bucket, stored in phases:
+        tags_flat, got = _bulk_place_phase(config, tags_flat, bucket, stored,
+                                           pending)
+        pending = pending & ~got
+        placed |= got
+    table = state.table
+    table.copy_(to_i32(L.pack_tags(tags_flat, config.fp_bits)))
+    count = state.count + placed.sum().to(torch.int32)
+
+    # Residue: both candidate buckets full; only the round loop can evict.
+    state2, ok_res, res_stats = _insert_rounds(
+        config, CuckooState(table, count), keys, valid=pending)
+
+    ok = placed | ok_res
+    if first is not None:
+        ok = torch.where(first, ok, ok[rep] & valid0)
+    failed = (valid0 & ~ok).sum().to(torch.int32)
+    load = state2.count.to(torch.float32) / config.num_slots
+    stats = InsertStats(res_stats.evictions, res_stats.rounds + 2, failed,
+                        load)
+    return state2, ok, stats
+
+
+def _insert_orient(
+    config: CuckooConfig, state: CuckooState, keys: torch.Tensor,
+    valid: Optional[torch.Tensor] = None,
+    *, dedup_within_batch: bool = False,
+):
+    """Orient the batch's bucket-graph edges, then commit conflict-free.
+
+    Each key is an edge ``i1 -> i2``; its orientation picks the bucket it
+    will occupy. Sweeps flip edges into over-full buckets (indegree
+    against each bucket's free capacity; edges whose other end has room
+    flip first, ties broken by a per-sweep salted hash) until every
+    indegree fits or no productive flip is left. Two sorted commits then
+    place the keys, and the keys with both buckets already full (which
+    orientation never moves) take the round loop. Same result as the JAX
+    ``_insert_orient``, bit for bit.
+    """
+    pol = config.placement
+    b = config.bucket_size
+    nb = config.num_buckets
+    valid0, pending, first, rep = _pending_keys(keys, valid,
+                                                dedup_within_batch)
+
+    base_tag, i1, i2 = prepare_keys(config, keys)
+    aliased = i1 == i2  # XOR degenerate: both endpoints coincide
+
+    tags_flat = _unpack_table(config, state)
+    free = b - (tags_flat.view(nb, b) != 0).sum(dim=1)            # [nb]
+
+    # Edges with both buckets full can never be placed by orientation;
+    # they go straight to the residue. Active edges start at an endpoint
+    # with headroom.
+    active = pending & ((free[i1] > 0) | (free[i2] > 0))
+    orient = active & (free[i1] == 0) & ~aliased
+
+    # The JAX while_loop becomes a host loop: one device-to-host read per
+    # sweep decides the exit (feasible, or a fixed point with no flips).
+    for s in range(max(1, config.orient_sweeps)):
+        dest = torch.where(orient, i2, i1)
+        other = torch.where(orient, i1, i2)
+        dkey = torch.where(active, dest, nb)
+        indeg = torch.bincount(dkey, minlength=nb + 1)[:nb]
+        done = ~(indeg > free).any()
+
+        # Flip priority within an over-full bucket: other endpoint with
+        # headroom net of its inflow (bit 31), then other endpoint not
+        # full (bit 30); ties by a salted hash. The uint32 score is held
+        # in int64, under the bucket in one stable sort key.
+        flippable = free[other] > 0
+        spare = (free[other] - indeg[other]) > 0
+        score = ((_prng(base_tag, s) >> 2)
+                 | torch.where(spare, 0x80000000, 0)
+                 | torch.where(flippable, 0x40000000, 0))
+        sd, order = torch.sort((dkey << 32) | score, stable=True)
+        sd = sd >> 32
+        rank = L.segment_ranks(sd)
+        cap = free[torch.clamp(sd, max=nb - 1)]
+        flip = torch.zeros_like(orient)
+        flip[order] = (rank >= cap) & (sd < nb)
+        # A flip into a full bucket is pointless; masking it makes "no
+        # flips" a true, salt-independent fixed point.
+        flip &= ~aliased & flippable
+        orient = orient ^ flip
+        if bool(done | ~flip.any()):
+            break
+
+    phases = ((torch.where(orient, i2, i1), pol.place_tag(base_tag, orient)),
+              (torch.where(orient, i1, i2), pol.place_tag(base_tag, ~orient)))
+    return _place_and_spill(config, state, keys, tags_flat, phases, pending,
+                            valid0, first, rep)
+
+
+def insert_bulk(
+    config: CuckooConfig, state: CuckooState, keys: torch.Tensor,
+    valid: Optional[torch.Tensor] = None,
+    *, dedup_within_batch: bool = False,
+):
+    """Bulk-build insertion. Same contract as :func:`insert`.
+
+    ``insert_engine`` ``"auto"`` and ``"orientation"`` run the
+    graph-orientation build (:func:`_insert_orient`). ``"legacy"`` sorts
+    the batch by primary bucket and commits whole buckets (each key takes
+    the rank-th free slot of its bucket segment), re-sorts the overflow by
+    alternate bucket and commits again, and spills the residue (both
+    buckets full) into the round loop. ``stats.rounds`` counts the two
+    phases plus the loop's rounds.
+    """
+    if resolve_engine(config, bulk=True) == "orientation":
+        return _insert_orient(config, state, keys, valid,
+                              dedup_within_batch=dedup_within_batch)
+    pol = config.placement
+    valid0, pending, first, rep = _pending_keys(keys, valid,
+                                                dedup_within_batch)
+    base_tag, i1, i2 = prepare_keys(config, keys)
+    phases = ((i1, pol.place_tag(base_tag, False)),
+              (i2, pol.place_tag(base_tag, True)))
+    return _place_and_spill(config, state, keys,
+                            _unpack_table(config, state), phases, pending,
+                            valid0, first, rep)
+
+
+# ---------------------------------------------------------------------------
 # Engine routing.
 # ---------------------------------------------------------------------------
 
 INSERT_ENGINES = ("auto", "legacy", "frontier", "orientation")
 
 
-def resolve_engine(config: CuckooConfig) -> str:
-    """The concrete engine ``config`` routes inserts to: always ``"legacy"``.
+def resolve_engine(config: CuckooConfig, bulk: bool) -> str:
+    """The concrete engine a (config, entry point) pair routes to.
 
-    Deviation from the JAX package: there ``"auto"`` means the batched BFS
-    frontier for ``insert`` (under BFS eviction) and the graph-orientation
-    build for ``insert_bulk``. Those engines are not ported yet, so here
-    ``"auto"`` routes both entry points to the legacy round loop, and
-    ``"frontier"``/``"orientation"`` raise.
+    As in the JAX package, ``"auto"`` means the orientation build for
+    ``insert_bulk``. Deviation: for ``insert`` under BFS eviction the JAX
+    ``"auto"`` means the batched BFS frontier, which is not ported yet, so
+    here it means the legacy round loop; ``"frontier"`` raises.
     """
     eng = config.insert_engine
     if eng not in INSERT_ENGINES:
         raise ValueError(f"unknown insert_engine {eng!r} "
                          f"(want one of {INSERT_ENGINES})")
-    if eng in ("frontier", "orientation"):
+    if eng == "frontier":
         raise NotImplementedError(
-            f"insert_engine={eng!r} is not ported yet (port slice 2); use "
-            "'auto' or 'legacy'")
-    return "legacy"
+            "insert_engine='frontier' is not ported yet (port slice 3); "
+            "use 'auto', 'legacy' or 'orientation'")
+    if eng == "auto":
+        return "orientation" if bulk else "legacy"
+    return eng
+
+
+_ENGINE_FNS = {"legacy": _insert_rounds, "orientation": _insert_orient}
 
 
 def insert(
@@ -480,11 +680,12 @@ def insert(
     padding keys. By default the filter is a multiset (two equal keys in
     one batch store two copies); ``dedup_within_batch=True`` inserts only
     the first occurrence of each 64-bit key value and later copies report
-    the first copy's ``ok``.
+    the first copy's ``ok``. The engine is ``resolve_engine(config,
+    bulk=False)``'s.
     """
-    resolve_engine(config)
-    return _insert_rounds(config, state, keys, valid,
-                          dedup_within_batch=dedup_within_batch)
+    fn = _ENGINE_FNS[resolve_engine(config, bulk=False)]
+    return fn(config, state, keys, valid,
+              dedup_within_batch=dedup_within_batch)
 
 
 # ---------------------------------------------------------------------------
@@ -511,7 +712,7 @@ class CuckooFilter:
     New code should prefer :func:`repro_torch.amq.make`\\ ("cuckoo", ...),
     whose hot operations run on the CUDA kernels. This wrapper runs the
     torch core directly. Deletes and mixed batches are not ported to the
-    core yet (port slice 2) and raise.
+    core yet (port slice 3) and raise.
     """
 
     def __init__(self, config: CuckooConfig, state: Optional[CuckooState] = None,
@@ -522,15 +723,18 @@ class CuckooFilter:
 
     def insert(self, keys, *, bulk: bool = False,
                dedup_within_batch: Optional[bool] = None):
-        """Insert a batch; warns loudly when keys were left unplaced."""
+        """Insert a batch; ``bulk=True`` takes :func:`insert_bulk`.
+
+        Warns loudly (``RuntimeWarning``) when keys were left unplaced.
+        """
         import warnings
 
         dd = (self._default_dedup if dedup_within_batch is None
               else dedup_within_batch)
         keys = normalize_keys(keys, device=self.state.table.device)
-        del bulk  # both entry points take the legacy loop (resolve_engine)
-        self.state, ok, stats = insert(self.config, self.state, keys,
-                                       dedup_within_batch=dd)
+        fn = insert_bulk if bulk else insert
+        self.state, ok, stats = fn(self.config, self.state, keys,
+                                   dedup_within_batch=dd)
         failed = int(stats.failed)
         if failed:
             warnings.warn(
@@ -541,6 +745,15 @@ class CuckooFilter:
                 RuntimeWarning, stacklevel=2)
         return ok, stats
 
+    def insert_bulk(self, keys):
+        """Deprecated alias for ``insert(keys, bulk=True)``."""
+        import warnings
+
+        warnings.warn("CuckooFilter.insert_bulk is deprecated; use "
+                      "insert(keys, bulk=True)", DeprecationWarning,
+                      stacklevel=2)
+        return self.insert(keys, bulk=True)
+
     def query(self, keys) -> torch.Tensor:
         return query(self.config, self.state,
                      normalize_keys(keys, device=self.state.table.device))
@@ -548,12 +761,12 @@ class CuckooFilter:
     def delete(self, keys):
         raise NotImplementedError(
             "CuckooFilter.delete: the core delete is not ported yet (port "
-            "slice 2); repro_torch.amq.make('cuckoo').delete runs the "
+            "slice 3); repro_torch.amq.make('cuckoo').delete runs the "
             "mixed-op kernel")
 
     def apply_ops(self, keys, ops, valid=None):
         raise NotImplementedError(
-            "CuckooFilter.apply_ops: not ported yet (port slice 2)")
+            "CuckooFilter.apply_ops: not ported yet (port slice 3)")
 
     @property
     def load_factor(self) -> float:

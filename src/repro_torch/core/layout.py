@@ -174,6 +174,43 @@ def first_true_circular(flags: torch.Tensor, start: torch.Tensor):
     return found, (start + first_rel) % b
 
 
+# ---------------------------------------------------------------------------
+# Segmented-scan helpers of the bulk-build insertion path. Unpacking the
+# flat table gives the per-slot view in global slot order (slot s of bucket
+# b at b * bucket_size + s). For a batch sorted by destination bucket, each
+# key's rank in its bucket segment and the bucket's rank-th free slot give
+# every key a distinct slot, so a whole-bucket commit is conflict-free.
+# ---------------------------------------------------------------------------
+
+def segment_ranks(sorted_ids: torch.Tensor) -> torch.Tensor:
+    """Rank of each element within its run of equal values.
+
+    sorted_ids: int64[n] ascending (runs = segments). Returns int64[n] with
+    0, 1, 2, ... restarting at every segment boundary.
+    """
+    n = sorted_ids.shape[0]
+    first = torch.searchsorted(sorted_ids, sorted_ids, side="left")
+    return torch.arange(n, device=sorted_ids.device) - first
+
+
+def nth_free_slot(btags: torch.Tensor, rank: torch.Tensor):
+    """Position of the ``rank``-th empty slot in each bucket.
+
+    btags: [..., b] unpacked bucket tags; rank: int64[...] >= 0.
+    Returns (placed: bool[...], slot: int64[...]). ``placed`` is False when
+    the bucket has <= rank free slots (the key spills to the next phase).
+    """
+    free = btags == 0
+    # Inclusive count of free slots along the slot axis. The scan runs over
+    # a slot-major copy: torch's CUDA scan along an innermost axis of 4-32
+    # elements takes ~100 ms for 2^24 buckets, over the outer axis ~1 ms.
+    prefix = torch.cumsum(free.movedim(-1, 0).contiguous(), dim=0,
+                          dtype=torch.int32).movedim(0, -1)
+    hit = free & (prefix == rank[..., None] + 1)
+    placed = prefix[..., -1] > rank
+    return placed, hit.to(torch.uint8).argmax(dim=-1)
+
+
 def slot_to_word(slot: torch.Tensor, layout: BucketLayout):
     """Absolute slot index in bucket -> (word index in bucket, slot within word)."""
     tpw = layout.tags_per_word

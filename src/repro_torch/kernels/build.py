@@ -23,7 +23,8 @@ import tempfile
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("hash64", "cuckoo_query", "cuckoo_insert", "cuckoo_mixed")
+SOURCES = ("hash64", "cuckoo_query", "cuckoo_insert", "cuckoo_insert_bulk",
+           "cuckoo_mixed")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -34,6 +35,7 @@ ARGTYPES = {
     "hash64_launch": [_P, _P, _P, _I64, _U32, _U64, _P],
     "cuckoo_query_launch": [_P, _P, _P, _I64] + _GEOMETRY,
     "cuckoo_insert_launch": [_P, _P, _P, _P, _I64] + _GEOMETRY,
+    "cuckoo_insert_bulk_launch": [_P, _P, _P, _P, _P, _I64, _I64, _P] + _GEOMETRY,
     "cuckoo_mixed_launch": [_P, _P, _P, _P, _P, _P, _I64, _I64, _P] + _GEOMETRY,
 }
 

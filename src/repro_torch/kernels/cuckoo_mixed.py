@@ -30,18 +30,23 @@ def cuckoo_mixed_plain(config: CuckooConfig, table: torch.Tensor,
     return apply_sequential(config, table, keys, ops, valid)
 
 
-def segments(keys: torch.Tensor):
-    """Stable sort of the batch by 64-bit key value.
+def sorted_runs(values: torch.Tensor):
+    """Stable sort of int64[n] ``values`` into runs of equal values.
 
-    Returns (order int64[n]: batch positions in key-sorted order, batch
-    order within a key; seg_start int64[s]: the sorted position where each
-    key's run begins).
+    Returns (order int64[n]: batch positions in sorted order, batch order
+    within a run; seg_start int64[s]: the sorted position where each run
+    begins).
     """
-    k64 = (keys[:, 1].to(torch.int64) << 32) | (keys[:, 0].to(torch.int64) & MASK32)
-    sorted_k, order = torch.sort(k64, stable=True)
-    head = torch.ones_like(sorted_k, dtype=torch.bool)
-    head[1:] = sorted_k[1:] != sorted_k[:-1]
+    sorted_v, order = torch.sort(values, stable=True)
+    head = torch.ones_like(sorted_v, dtype=torch.bool)
+    head[1:] = sorted_v[1:] != sorted_v[:-1]
     return order, head.nonzero().squeeze(1)
+
+
+def segments(keys: torch.Tensor):
+    """:func:`sorted_runs` of the batch by 64-bit key value."""
+    return sorted_runs((keys[:, 1].to(torch.int64) << 32)
+                       | (keys[:, 0].to(torch.int64) & MASK32))
 
 
 def cuckoo_mixed_launch(config: CuckooConfig, table: torch.Tensor,

@@ -17,14 +17,16 @@ from __future__ import annotations
 import torch
 
 from ..amq.protocol import OP_DELETE, OP_INSERT
-from ..core.cuckoo_filter import CuckooConfig, CuckooState
+from ..core.cuckoo_filter import CuckooConfig, CuckooState, prepare_keys
 from .cuckoo_insert import cuckoo_insert_direct_plain, cuckoo_insert_launch
-from .cuckoo_mixed import cuckoo_mixed_launch, cuckoo_mixed_plain, segments
+from .cuckoo_insert_bulk import cuckoo_insert_bulk_launch, cuckoo_insert_bulk_plain
+from .cuckoo_mixed import (cuckoo_mixed_launch, cuckoo_mixed_plain, segments,
+                           sorted_runs)
 from .cuckoo_query import cuckoo_query_launch, cuckoo_query_plain
 from .hash64 import HASH_KINDS, hash64_launch, hash64_plain
 
 LAUNCHES = {"hash64": 0, "cuckoo_query": 0, "cuckoo_insert_direct": 0,
-            "cuckoo_mixed": 0}
+            "cuckoo_insert_bulk": 0, "cuckoo_mixed": 0}
 
 _KERNEL_WPB = (1, 2, 4, 8, 16, 32)
 
@@ -147,6 +149,36 @@ def cuckoo_insert_direct(config: CuckooConfig, state: CuckooState,
             with torch.cuda.device(keys.device):
                 cuckoo_insert_launch(config, state.table, keys, valid, ok)
             LAUNCHES["cuckoo_insert_direct"] += 1
+    count = state.count + ok.sum().to(torch.int32)
+    return CuckooState(state.table, count), ok
+
+
+def cuckoo_insert_bulk(config: CuckooConfig, state: CuckooState,
+                       keys: torch.Tensor, valid: torch.Tensor = None):
+    """Kernel-backed bucket-major direct insert, no eviction -> (state',
+    ok bool[n]).
+
+    Sorts the batch stably by primary bucket (the bulk-build order; on the
+    GPU the keys are hashed by the hash kernel), inserts the sorted stream
+    and returns ``ok`` in batch order. Keys with ``ok`` False (both buckets
+    full) need the eviction-capable core. ``valid`` (bool[n]) masks keys
+    out; masked keys report False.
+    """
+    n = _check_keys(keys)
+    _check_state(config, state)
+    valid = _valid_mask(valid, n, keys.device)
+    if not _on_cuda(state.table, keys, valid):
+        ok = cuckoo_insert_bulk_plain(config, state.table, keys, valid)
+    else:
+        _check_kernel_layout(config, state.table, keys)
+        _, i1, _ = prepare_keys(config, keys)        # the hash kernel
+        order, seg_start = sorted_runs(i1)
+        ok = torch.empty((n,), dtype=torch.bool, device=keys.device)
+        if n:
+            with torch.cuda.device(keys.device):
+                cuckoo_insert_bulk_launch(config, state.table, keys, valid,
+                                          order, seg_start, ok)
+            LAUNCHES["cuckoo_insert_bulk"] += 1
     count = state.count + ok.sum().to(torch.int32)
     return CuckooState(state.table, count), ok
 

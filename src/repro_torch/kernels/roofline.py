@@ -4,12 +4,18 @@ The port's own copy of the cuckoo part of ``repro.kernels.roofline``: from
 a config's layout alone it computes the least bytes each operation must
 move, which over the card's memory rate gives each kernel's bound.
 
-Two residency regimes, as in the JAX package:
+Two residency regimes:
 
 * ``table_resident=False``: every per-key bucket probe is charged at word
-  granularity (two bucket reads, one word write for a mutation);
-* ``table_resident=True``: the table is read once (and written once for a
-  mutating op) and the per-key probes are free.
+  granularity (two bucket reads, one word write for a mutation), as in
+  the JAX package;
+* ``table_resident=True``: each bucket the batch touches is read once
+  (and written once, if the op mutates) and the per-key probes are free.
+  The JAX package charges the whole table here; a batch of ``n`` uniform
+  keys touches only ``nb * (1 - (1 - 1/nb)^n)`` of its ``nb`` buckets
+  (about 63 % when ``n == nb``), so the port charges those
+  (:func:`expected_buckets`) or, given a batch's own data, the buckets it
+  really needs (``touched``), and never more than the whole table.
 
 :func:`least_batch_bytes` takes the smaller of the two — what a batch must
 move at the very least, whichever way a kernel is built. All figures are
@@ -23,6 +29,7 @@ key in, 8-byte digest out) is an op.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 # Bytes of one packed key on the stream (the 64-bit (lo, hi) pair).
 KEY_BYTES = 8
@@ -31,7 +38,8 @@ RESULT_BYTES = 1
 # Bytes of one digest of the hash kernel ((hi, lo) uint32).
 DIGEST_BYTES = 8
 
-OPS = ("hash", "query", "insert", "delete")
+OPS = ("hash", "query", "insert", "bulk_insert", "orient_bulk_insert",
+       "delete")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,21 +52,34 @@ class OpTraffic:
     table_write: float
 
     def batch_bytes(self, n: int, table_bytes: int = 0,
-                    table_resident: bool = False) -> float:
-        """Minimal bytes for an ``n``-key batch (see the module docstring)."""
+                    table_resident: bool = False,
+                    touched_bytes: tuple = (0.0, 0.0)) -> float:
+        """Minimal bytes for an ``n``-key batch (see the module docstring).
+        ``touched_bytes``: the (read, written) table bytes of the resident
+        regime; each is capped at ``table_bytes``."""
         stream = n * (self.stream_read + self.stream_write)
         if table_resident:
-            return stream + table_bytes * (2 if self.table_write else 1)
+            read, written = touched_bytes
+            return (stream + min(table_bytes, read)
+                    + (min(table_bytes, written) if self.table_write else 0))
         return stream + n * (self.table_read + self.table_write)
 
 
-def cuckoo_op_traffic(config, op: str) -> OpTraffic:
+def cuckoo_op_traffic(config, op: str, *, batch: int = None) -> OpTraffic:
     """Minimal per-key traffic for one cuckoo op, from the packed layout.
 
     * ``hash``: the key in, the digest out; no table.
     * ``query``: both candidate buckets (``2 * words_per_bucket`` words).
     * ``insert`` / ``delete``: the same two bucket reads plus one word
       read-modify-write.
+    * ``bulk_insert``: the bucket-major stream loads and flushes the
+      primary bucket once per segment, amortized over the expected run of
+      keys per bucket (``batch / num_buckets``); the secondary bucket is
+      read per key and one word written for a spilled key (charged fully).
+      The sort is excluded.
+    * ``orient_bulk_insert``: the orientation build streams the whole
+      table once in and once out, amortized over the batch; sweep traffic
+      and the residue are excluded.
     """
     bucket_bytes = config.layout.words_per_bucket * 4
     if op == "hash":
@@ -67,21 +88,59 @@ def cuckoo_op_traffic(config, op: str) -> OpTraffic:
         return OpTraffic(KEY_BYTES, RESULT_BYTES, 2 * bucket_bytes, 0.0)
     if op in ("insert", "delete"):
         return OpTraffic(KEY_BYTES, RESULT_BYTES, 2 * bucket_bytes, 4.0)
+    if op == "bulk_insert":
+        seg = max(1.0, (batch or 1) / config.num_buckets)
+        return OpTraffic(KEY_BYTES, RESULT_BYTES,
+                         bucket_bytes / seg + bucket_bytes,
+                         bucket_bytes / seg + 4.0)
+    if op == "orient_bulk_insert":
+        whole_table = float(config.table_bytes) / max(1, batch or 1)
+        return OpTraffic(KEY_BYTES, RESULT_BYTES, whole_table, whole_table)
     raise ValueError(f"unknown cuckoo op {op!r} (want one of {OPS})")
 
 
+def expected_buckets(num_buckets: int, draws: float) -> float:
+    """Expected distinct buckets among ``draws`` uniform picks of
+    ``num_buckets``: ``nb * (1 - (1 - 1/nb)^draws)``."""
+    if num_buckets <= 1:
+        return float(num_buckets)
+    return -num_buckets * math.expm1(draws * math.log1p(-1.0 / num_buckets))
+
+
+def expected_touched(config, op: str, n: int) -> tuple:
+    """Expected (read, written) buckets of an ``n``-key batch of uniform
+    keys: a query reads both candidate buckets of every key; a mutating op
+    reads and writes one bucket per key (the secondary bucket is needed
+    only where the primary cannot settle the key, which depends on the
+    data, so it is not counted)."""
+    nb = config.num_buckets
+    if op == "hash":
+        return 0.0, 0.0
+    if op == "query":
+        return expected_buckets(nb, 2 * n), 0.0
+    touched = expected_buckets(nb, n)
+    return touched, touched
+
+
 def min_batch_bytes(config, op: str, n: int, *,
-                    table_resident: bool = False) -> float:
-    """Minimal bytes an ``n``-key batch of ``op`` moves in one regime."""
+                    table_resident: bool = False, touched=None) -> float:
+    """Minimal bytes an ``n``-key batch of ``op`` moves in one regime.
+    ``touched``: the (read, written) buckets the batch's own data needs
+    in the resident regime; by default :func:`expected_touched`."""
+    traffic = cuckoo_op_traffic(config, op, batch=n)
     table = 0 if op == "hash" else int(config.table_bytes)
-    return cuckoo_op_traffic(config, op).batch_bytes(
-        n, table_bytes=table, table_resident=table_resident)
+    read, written = touched or expected_touched(config, op, n)
+    bucket_bytes = config.layout.words_per_bucket * 4
+    return traffic.batch_bytes(
+        n, table_bytes=table, table_resident=table_resident,
+        touched_bytes=(read * bucket_bytes, written * bucket_bytes))
 
 
-def least_batch_bytes(config, op: str, n: int) -> float:
+def least_batch_bytes(config, op: str, n: int, touched=None) -> float:
     """The smaller of the two regimes: the least any kernel must move."""
     return min(min_batch_bytes(config, op, n, table_resident=False),
-               min_batch_bytes(config, op, n, table_resident=True))
+               min_batch_bytes(config, op, n, table_resident=True,
+                               touched=touched))
 
 
 # The operations side of the bound: 32-bit integer instructions per key,
@@ -96,8 +155,9 @@ def least_batch_bytes(config, op: str, n: int) -> float:
 #   placement: the alternate bucket hashes the tag with fmix32 (both
 #     policies);
 #   SWAR test of one word: LOP3 (xor, and), IADD, LOP3 (or, not, and) = 3.
-# Query tests both buckets; insert and delete always scan bucket i1 and
-# bucket i2 only when i1 has no free (matching) slot, so only i1 counts.
+# Query tests both buckets; insert, bulk insert and delete always scan
+# bucket i1 and bucket i2 only when i1 has no free (matching) slot, so only
+# i1 counts.
 FMIX32_INSTRUCTIONS = 8
 HASH_INSTRUCTIONS = {"fmix32": 4 * FMIX32_INSTRUCTIONS, "xxhash64": 5 * 3}
 SWAR_WORD_INSTRUCTIONS = 3
@@ -115,7 +175,7 @@ def int_ops_per_key(config, op: str) -> int:
     probe = hash_ops + FMIX32_INSTRUCTIONS
     if op == "query":
         return probe + 2 * words * SWAR_WORD_INSTRUCTIONS
-    if op in ("insert", "delete"):
+    if op in ("insert", "bulk_insert", "delete"):
         return probe + words * SWAR_WORD_INSTRUCTIONS
     raise ValueError(f"unknown cuckoo op {op!r} (want one of {OPS})")
 

@@ -10,6 +10,7 @@ dedup and key preparation are held the same way, and a compacted residue
 the uncompacted, masked call gives.
 """
 
+import dataclasses
 import functools
 
 import jax
@@ -130,6 +131,27 @@ def test_compacted_residue_equals_masked_call():
     assert int(st_mask.rounds) == int(st_cmp.rounds)
 
 
+def test_loop_keys_records_each_round_loop_call(monkeypatch):
+    """``LOOP_KEYS`` records the keys each round-loop call works on (the
+    residue of a bulk insert) and nothing while it is None."""
+    cfg = convert.config_from_reference(_cfg(8, 16, "xor", "bfs", "fmix32"))
+    keys = torch.from_numpy(_keys(4, int(cfg.num_slots * 0.95)).view(np.int32))
+    mask = torch.from_numpy(np.random.default_rng(5).random(keys.shape[0]) < 0.4)
+    TCF._insert_rounds(cfg, cfg.init("cpu"), keys, mask)
+    assert TCF.LOOP_KEYS is None
+    monkeypatch.setattr(TCF, "LOOP_KEYS", [])
+    TCF._insert_rounds(cfg, cfg.init("cpu"), keys, mask)
+    TCF._insert_rounds(cfg, cfg.init("cpu"), keys[:10])
+    assert [int(k) for k in TCF.LOOP_KEYS] == [int(mask.sum()), 10]
+    # A bulk insert hands its round loop only the keys its two sorted
+    # phases left: at most the batch, at least none.
+    bulk = dataclasses.replace(cfg, insert_engine="legacy")
+    TCF.LOOP_KEYS.clear()
+    TCF.insert_bulk(bulk, bulk.init("cpu"), keys)
+    assert len(TCF.LOOP_KEYS) == 1
+    assert 0 <= int(TCF.LOOP_KEYS[0]) < keys.shape[0]
+
+
 def test_claims_dedup_and_prepare_match_reference():
     rng = np.random.default_rng(6)
     a1 = rng.integers(0, 40, size=300)
@@ -168,17 +190,31 @@ def test_config_identity_and_engine_routing():
         assert convert.config_from_reference(ref) == port
         assert port.expected_fpr(0.9) == ref.expected_fpr(0.9)
         assert (port.num_slots, port.table_bytes) == (ref.num_slots, ref.table_bytes)
-    cfg = TCF.CuckooConfig(num_buckets=64)
-    assert TCF.resolve_engine(cfg) == "legacy"
-    for eng in ("frontier", "orientation"):
-        with pytest.raises(NotImplementedError, match="slice 2"):
-            TCF.resolve_engine(TCF.CuckooConfig(64, insert_engine=eng))
-        with pytest.raises(NotImplementedError, match="slice 2"):
-            TCF.insert(TCF.CuckooConfig(64, insert_engine=eng),
-                       TCF.CuckooConfig(64).init("cpu"),
-                       torch.zeros((1, 2), dtype=torch.int32))
+    # auto: orientation for the bulk entry point, as in repro; the legacy
+    # loop for insert (repro's frontier is not ported: a kept deviation).
+    for eng, bulk in (("auto", True), ("auto", False), ("legacy", True),
+                      ("legacy", False), ("orientation", True),
+                      ("orientation", False)):
+        ref_cfg = CuckooConfig(64, insert_engine=eng, eviction="dfs")
+        port_cfg = TCF.CuckooConfig(64, insert_engine=eng, eviction="dfs")
+        assert (TCF.resolve_engine(port_cfg, bulk)
+                == CF.resolve_engine(ref_cfg, bulk))
+    assert TCF.resolve_engine(TCF.CuckooConfig(64), True) == "orientation"
+    assert TCF.resolve_engine(TCF.CuckooConfig(64), False) == "legacy"
+    keys = torch.from_numpy(_keys(10, 50).view(np.int32))
+    for fn in (TCF.insert, TCF.insert_bulk):
+        cfg = TCF.CuckooConfig(16, insert_engine="orientation")
+        state, ok, stats = fn(cfg, cfg.init("cpu"), keys)
+        assert bool(ok.all()) and int(state.count) == 50
+        assert int(stats.rounds) == 2     # two sorted commits, no residue
+        frontier = TCF.CuckooConfig(64, insert_engine="frontier")
+        with pytest.raises(NotImplementedError, match="slice 3"):
+            fn(frontier, frontier.init("cpu"), keys)
+    with pytest.raises(NotImplementedError, match="slice 3"):
+        TCF.resolve_engine(TCF.CuckooConfig(64, insert_engine="frontier"),
+                           True)
     with pytest.raises(ValueError):
-        TCF.resolve_engine(TCF.CuckooConfig(64, insert_engine="magic"))
+        TCF.resolve_engine(TCF.CuckooConfig(64, insert_engine="magic"), False)
 
 
 def test_core_insert_query_and_wrapper_match_reference():

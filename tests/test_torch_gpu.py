@@ -11,8 +11,12 @@ not installed. Each layout the kernels are built for is checked: hash64
 and query bit-exact; direct insert and the mixed op stream on batches
 small enough next to the table that concurrent inserts cannot contend,
 where the kernel must agree with the sequential plain loop on ``ok`` and
-on every bucket's tag multiset. Two tiny tables then force thousands of
-threads onto the same words, where the CAS kernels are held by
+on every bucket's tag multiset; the bucket-major bulk insert the same way
+against its plain loop on the primary-bucket-sorted stream. Tiny tables
+then force thousands of threads onto the same words, where the CAS
+kernels are held by invariants. The orientation bulk build (torch ops,
+deterministic) must leave the same table on the card as on the CPU, and
+the legacy bulk route (bulk kernel, then the round loop) holds the
 invariants.
 """
 
@@ -20,11 +24,13 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import amq
 from repro_torch.core import CuckooConfig, keys_from_numpy
 from repro_torch.core import layout as L
 from repro_torch.core.cuckoo_filter import prepare_keys_plain
 from repro_torch.kernels import ops as K
 from repro_torch.kernels.cuckoo_insert import cuckoo_insert_direct_plain
+from repro_torch.kernels.cuckoo_insert_bulk import cuckoo_insert_bulk_plain
 from repro_torch.kernels.cuckoo_mixed import cuckoo_mixed_plain
 from repro_torch.kernels.cuckoo_query import cuckoo_query_plain
 from repro_torch.kernels.hash64 import hash64_plain
@@ -138,17 +144,33 @@ def test_insert_and_mixed_match_plain(cuda, layout):
         assert torch.equal(_bucket_multisets(cfg, sk), _bucket_multisets(cfg, sp))
 
 
-def test_insert_under_contention_holds_invariants(cuda):
-    """4x more keys than slots in one launch: thousands of threads CAS the
-    same words. Every placed key is stored once and queryable, and every
-    key that failed has both of its buckets full."""
-    cfg = CuckooConfig(num_buckets=64, fp_bits=16, bucket_size=16,
-                       hash_kind="fmix32")
-    keys = _keys(6, 4 * cfg.num_slots, cuda)
-    state, ok = K.cuckoo_insert_direct(cfg, cfg.init(cuda), keys)
+@pytest.mark.parametrize("layout", LAYOUTS, ids=lambda c: "b{}f{}{}{}".format(*c))
+def test_bulk_insert_matches_plain(cuda, layout):
+    cfg = _cfg(*layout)
+    state, _ = _half_full(cfg, cuda, 9)
+    keys = _keys(10, 256, cuda)
+    valid = (torch.rand(256, generator=torch.Generator().manual_seed(3))
+             < 0.9).to(cuda)
+    t_kernel, t_plain = state.table.clone(), state.table.clone()
+    K.reset_launches()
+    st, ok_kernel = K.cuckoo_insert_bulk(cfg, state._replace(table=t_kernel),
+                                         keys, valid)
+    ok_plain = cuckoo_insert_bulk_plain(cfg, t_plain, keys, valid)
     torch.cuda.synchronize()
+    assert K.LAUNCHES["cuckoo_insert_bulk"] == 1
+    assert torch.equal(ok_kernel, ok_plain)
+    assert not ok_kernel[~valid].any()
+    assert int(st.count) == int(state.count) + int(ok_kernel.sum())
+    assert torch.equal(_bucket_multisets(cfg, t_kernel),
+                       _bucket_multisets(cfg, t_plain))
+
+
+def _hold_insert_invariants(cfg, state, keys, ok, device):
+    """count == ok.sum() == stored tags; every placed key is found; every
+    stored tag sits in one of a placed key's buckets; a key was turned down
+    only with both of its buckets full."""
     tags = L.unpack_words(L.gather_bucket_words(
-        state.table, torch.arange(cfg.num_buckets, device=cuda), cfg.layout),
+        state.table, torch.arange(cfg.num_buckets, device=device), cfg.layout),
         cfg.fp_bits)
     assert int(state.count) == int(ok.sum()) == int((tags != 0).sum())
     assert bool(K.cuckoo_query(cfg, state, keys[ok]).all())
@@ -160,6 +182,54 @@ def test_insert_under_contention_holds_invariants(cuda):
                | set(zip(j2.tolist(), tag.tolist())))
     b, s = tags.nonzero(as_tuple=True)
     assert set(zip(b.tolist(), tags[b, s].tolist())) <= allowed
+
+
+def test_bulk_insert_under_contention_holds_invariants(cuda):
+    """4x more keys than slots (64x more than buckets): primary-bucket
+    segments of ~64 keys overflow into secondaries that other segments
+    own, so cached words go stale and secondary CASes collide."""
+    cfg = CuckooConfig(num_buckets=64, fp_bits=16, bucket_size=16,
+                       hash_kind="fmix32")
+    keys = _keys(11, 4 * cfg.num_slots, cuda)
+    state, ok = K.cuckoo_insert_bulk(cfg, cfg.init(cuda), keys)
+    torch.cuda.synchronize()
+    assert int(ok.sum()) > cfg.num_slots * 0.9
+    _hold_insert_invariants(cfg, state, keys, ok, cuda)
+
+
+def test_bulk_fills_on_the_card(cuda):
+    """The orientation build equals the CPU run bit for bit; the legacy
+    bulk route (bulk kernel + round loop) places every key to 0.95."""
+    capacity = 62_259                                 # floor(0.95 * 2**16)
+    raw = np.random.default_rng(12).integers(0, 2**63, size=capacity,
+                                             dtype=np.uint64)
+    gpu = amq.make("cuckoo", capacity=capacity)
+    cpu = amq.make("cuckoo", capacity=capacity, device="cpu")
+    legacy = amq.make("cuckoo", capacity=capacity, insert_engine="legacy")
+    K.reset_launches()
+    for chunk in np.array_split(raw, 8):
+        rg, rc = gpu.insert(chunk, bulk=True), cpu.insert(chunk, bulk=True)
+        assert torch.equal(rg.ok.cpu(), rc.ok) and int(rg.rounds) == int(rc.rounds)
+        assert bool(legacy.insert(chunk, bulk=True).ok.all())
+    assert torch.equal(gpu.state.table.cpu(), cpu.state.table)
+    assert gpu.count() == cpu.count() == capacity
+    assert K.LAUNCHES["cuckoo_insert_bulk"] == 8
+    keys = keys_from_numpy(raw, cuda)
+    _hold_insert_invariants(legacy.config, legacy.state, keys,
+                            torch.ones(capacity, dtype=torch.bool,
+                                       device=cuda), cuda)
+
+
+def test_insert_under_contention_holds_invariants(cuda):
+    """4x more keys than slots in one launch: thousands of threads CAS the
+    same words. Every placed key is stored once and queryable, and every
+    key that failed has both of its buckets full."""
+    cfg = CuckooConfig(num_buckets=64, fp_bits=16, bucket_size=16,
+                       hash_kind="fmix32")
+    keys = _keys(6, 4 * cfg.num_slots, cuda)
+    state, ok = K.cuckoo_insert_direct(cfg, cfg.init(cuda), keys)
+    torch.cuda.synchronize()
+    _hold_insert_invariants(cfg, state, keys, ok, cuda)
 
 
 def test_deletes_under_contention_follow_batch_order(cuda):

@@ -10,6 +10,7 @@ launch on the CPU.
 """
 
 import functools
+import math
 from pathlib import Path
 
 import jax
@@ -212,6 +213,10 @@ def test_wrappers_raise_on_what_kernels_do_not_take():
         K.hash64(keys.to("meta"))
     with pytest.raises(ValueError):
         K.cuckoo_insert_direct(cfg, state, keys, valid=torch.ones(7, dtype=torch.bool))
+    with pytest.raises(ValueError):
+        K.cuckoo_insert_bulk(cfg, state, keys, valid=torch.ones(9, dtype=torch.bool))
+    with pytest.raises(TypeError):
+        K.cuckoo_insert_bulk(cfg, state, keys.to(torch.int64))
     with pytest.raises(TypeError):
         K.cuckoo_apply_ops(cfg, state, keys, torch.zeros(8, dtype=torch.int64))
     with pytest.raises(ValueError):
@@ -225,6 +230,7 @@ def test_cpu_route_counts_no_launch():
     keys = _t(keys_from_numpy(_raw(np.random.default_rng(5), 32)))
     K.hash64(keys)
     state, _ = K.cuckoo_insert_direct(cfg, state, keys)
+    state, _ = K.cuckoo_insert_bulk(cfg, state, keys)
     K.cuckoo_query(cfg, state, keys)
     K.cuckoo_apply_ops(cfg, state, keys, torch.full((32,), 2, dtype=torch.int32))
     assert K.LAUNCHES == dict.fromkeys(K.LAUNCHES, 0)
@@ -235,13 +241,27 @@ def test_roofline_bytes_model():
     n = 1 << 24
     per_key = roofline.min_batch_bytes(cfg, "query", n)
     assert per_key == n * (8 + 1 + 2 * 32)
+    # Resident: each touched bucket (32 bytes) read once and written once;
+    # n uniform keys into n buckets touch 1 - 1/e of them.
     resident = roofline.min_batch_bytes(cfg, "insert", n, table_resident=True)
-    assert resident == n * 9 + 2 * cfg.table_bytes
+    touched = roofline.expected_buckets(cfg.num_buckets, n)
+    assert touched == pytest.approx((1 - math.exp(-1)) * n, rel=1e-6)
+    assert resident == n * 9 + 2 * 32 * touched
     assert roofline.least_batch_bytes(cfg, "hash", n) == n * 16
     assert roofline.least_batch_bytes(cfg, "delete", n) == min(
         n * (9 + 64 + 4), resident)
+    # A query reads both buckets of every key and writes nothing.
+    assert roofline.min_batch_bytes(cfg, "query", n, table_resident=True) \
+        == n * 9 + 32 * roofline.expected_buckets(cfg.num_buckets, 2 * n)
+    # A batch's own bucket counts replace the expectation; the whole table
+    # caps each direction.
+    assert roofline.least_batch_bytes(cfg, "insert", n, touched=(10, 4)) \
+        == n * 9 + 32 * 14
+    assert roofline.min_batch_bytes(
+        cfg, "insert", n, table_resident=True, touched=(2 * n, 2 * n)) \
+        == n * 9 + 2 * cfg.table_bytes
     with pytest.raises(ValueError):
-        roofline.cuckoo_op_traffic(cfg, "bulk_insert")
+        roofline.cuckoo_op_traffic(cfg, "scan")
 
 
 @pytest.mark.parametrize("hash_kind,want", [
@@ -256,7 +276,7 @@ def test_roofline_int_ops_floor(hash_kind, want):
         assert roofline.int_ops_per_key(cfg, op) == ops
     assert roofline.int32_ops_per_s(132, 1.98e9) == 132 * 64 * 1.98e9
     with pytest.raises(ValueError):
-        roofline.int_ops_per_key(cfg, "bulk_insert")
+        roofline.int_ops_per_key(cfg, "orient_bulk_insert")
 
 
 def test_build_dir_is_the_checkout_or_the_override(monkeypatch, tmp_path):

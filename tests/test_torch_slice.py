@@ -2,10 +2,11 @@
 
 ``repro_torch.amq.make("cuckoo", ..., device="cpu")`` runs the plain
 versions of the kernels; it is held against ``repro.amq.make("cuckoo",
-...)`` on the same keys, made from a seed with numpy. Where the two place
-keys differently (the JAX registry default routes inserts to the frontier
-and orientation engines; the port runs direct insert + the legacy loop),
-the port is held by invariants: ``count == ok.sum()``, every accepted key
+...)`` on the same keys, made from a seed with numpy. The bulk path
+(``insert(keys, bulk=True)``, the orientation build in both packages) must
+leave the same table. Where the two place keys differently (the JAX
+registry default routes ``insert`` to the frontier engine; the port runs
+direct insert + the legacy loop), the port is held by invariants: ``count == ok.sum()``, every accepted key
 queryable, every stored tag in one of its key's buckets, every key placed
 where the reference places every key, and the FPR inside the Eq. 4 band.
 Query answers on a JAX table carried across are bit-exact, and deletes
@@ -68,6 +69,11 @@ def test_fill_to_095_holds_invariants(bulk):
         ok_port.append(rep.ok.numpy())
         assert rep.ok.shape == (len(chunk),) and int(rep.rounds) >= 1
     ok_ref, ok_port = np.concatenate(ok_ref), np.concatenate(ok_port)
+    if bulk:    # auto -> the orientation build in both: bit-exact
+        np.testing.assert_array_equal(ok_port, ok_ref)
+        np.testing.assert_array_equal(
+            port.state.table.numpy().view(np.uint32),
+            np.asarray(ref.state.table))
     assert port.count() == int(ok_port.sum())
     if ok_ref.all():
         assert ok_port.all()
