@@ -6,22 +6,24 @@
 From the repository root, on a machine with one NVIDIA H100 and the CUDA
 toolkit. Phases, one JSON line each:
 
-1. build — the five CUDA kernels from ``src/repro_torch/kernels/csrc``
+1. build — the eight CUDA kernels from ``src/repro_torch/kernels/csrc``
    (``nvcc``, ``sm_90a``, in parallel), with the build seconds and the
    card's name and power limit.
 2. main path at 2^28 slots — ``repro_torch.amq.make("cuckoo",
    capacity=floor(0.95 * 2^28))`` (fp 16, bucket 16, XOR, fmix32: a
    512 MiB table, ten times the L2), filled to load 0.95 in 16 batches of
-   at most 2^24 keys from a seeded CUDA generator (the last four with
-   ``bulk=True``, which ``insert_engine="auto"`` routes to the orientation
-   build). Every key placed; ``count`` equal to the keys placed; the table
-   holds exactly the placed keys (see :func:`table_codes`); every inserted
-   key found by the query kernel and by the plain query; the FPR of 2^24
-   fresh keys inside the Eq. 4 band; 2^24 deletes all ``ok``, after which
-   the table holds exactly the other keys. Launch counts are zeroed just
-   before and read just after; every kernel the configuration routes to
-   must have launched. Per batch: bulk or not, seconds, rounds and the
-   residue (keys handed to the eviction round loop).
+   at most 2^24 keys from a seeded CUDA generator: the first twelve
+   incremental (``insert_engine="auto"``: the direct-insert kernel, then
+   the BFS frontier on the keys it turns down), the last four with
+   ``bulk=True`` (the orientation build). Every key placed; ``count``
+   equal to the keys placed; the table holds exactly the placed keys (see
+   :func:`table_codes`); every inserted key found by the query kernel and
+   by the plain query; the FPR of 2^24 fresh keys inside the Eq. 4 band;
+   2^24 deletes all ``ok``, after which the table holds exactly the other
+   keys. Launch counts are zeroed just before and read just after; every
+   kernel the configuration routes to must have launched. Per batch:
+   bulk or not, seconds, rounds, the keys handed to the frontier and to
+   the round loop; per fill the peak of allocated device memory.
 3. kernels against their plain PyTorch versions on the card, at the main
    path's shapes: hash and query on 2^24 keys, bit-exact. The direct
    insert and the bucket-major bulk insert (2^24 keys into the table at
@@ -36,19 +38,31 @@ toolkit. Phases, one JSON line each:
    own data touches (see :func:`touched_buckets`). Then the bulk kernel
    against the direct-insert kernel where segments are long: 2^27 keys
    into the empty 2^28-slot table (eight keys a primary bucket), both
-   held to the order-free outcome first. A warm-up pass of the main path
-   at 2^16 slots (and of the legacy bulk route) runs before anything is
-   timed.
-5. bulk build at 2^28 slots — two fresh handles at the main path's
-   capacity, each filled to 0.95 with ``insert(keys, bulk=True)`` in the
-   main path's batches: the default (``auto`` -> the orientation build)
-   and ``insert_engine="legacy"`` (the bulk kernel, then the round loop
-   on its residue). The main path's gates on each, with its own launch
-   counts, insert keys/s and per-batch seconds, rounds and residue. Then
-   one orientation batch (load 0.5 -> 0.5625) under ``torch.profiler``:
-   its wall and device-busy seconds and the operators that take the most
-   device time.
-6. the main path again at 2^22 slots (an 8 MiB table, resident in L2).
+   held to the order-free outcome first. A warm-up pass at 2^16 slots
+   (both engines, and the k-mer and Bloom kernels) runs before anything
+   is timed.
+5. fills at 2^28 slots — four fresh handles at the main path's capacity,
+   each filled to 0.95 in the main path's batches: bulk under ``auto``
+   (orientation) and ``legacy`` (the bulk kernel, then the round loop),
+   incremental under ``auto`` (the direct kernel, then the frontier) and
+   ``legacy`` (the direct kernel, then the round loop). The main path's
+   gates on each, with its own launch counts. Then one orientation batch
+   (load 0.5 -> 0.5625) under ``torch.profiler``: its wall and
+   device-busy seconds and the operators that take the most device time.
+6. the k-mer case study (paper §5.5, fig8) — ``synthetic_genome`` of
+   248956422 bases (GRCh38 chromosome 1's length), made on the host, on
+   the card: its canonical 31-mers by ``kmer_keys`` (the plain keys of a
+   2^20-base prefix checked against Python integers); the distinct
+   k-mers into ``make("cuckoo", capacity=n_distinct)`` in a seeded
+   permutation, batches of 2^24 (the main path's gates, a query of every
+   position, the FPR of a foreign genome's k-mers, the delete of a
+   2^20-base region's k-mers: all ``ok``, ``count`` exact, their hits at
+   most the FPR band's edge); the same keys into ``make("bloom",
+   capacity=n_distinct)`` (every position found, FPR inside its band).
+   The k-mer pack, Bloom insert and Bloom query kernels are then held
+   exactly against their plain versions on the same inputs and timed.
+   Keys/s of each step and the cuckoo/Bloom query ratio.
+7. the main path again at 2^22 slots (an 8 MiB table, resident in L2).
 
 Before the last line: the ``nvidia-smi`` name and power limit, then the
 ``kernels`` line. The last line is ``{"ok": true, "device": {...}}``. Any
@@ -75,7 +89,9 @@ from repro_torch import amq  # noqa: E402
 from repro_torch.core import cuckoo_filter as CF  # noqa: E402
 from repro_torch.core import layout as L  # noqa: E402
 from repro_torch.core.bits64 import from_i32  # noqa: E402
-from repro_torch.core.hashing import normalize_keys  # noqa: E402
+from repro_torch.core.hashing import hash_key_plain, normalize_keys  # noqa: E402
+from repro_torch.data.kmer import (  # noqa: E402
+    canonicalize, kmer_keys, synthetic_genome)
 from repro_torch.kernels import build, roofline  # noqa: E402
 from repro_torch.kernels import ops as K  # noqa: E402
 from repro_torch.kernels.cuckoo_insert import (  # noqa: E402
@@ -86,6 +102,11 @@ from repro_torch.kernels.cuckoo_mixed import (  # noqa: E402
     cuckoo_mixed_launch, cuckoo_mixed_plain, segments, sorted_runs)
 from repro_torch.kernels.cuckoo_query import cuckoo_query_plain  # noqa: E402
 from repro_torch.kernels.hash64 import hash64_plain  # noqa: E402
+from repro_torch.kernels.bloom import (  # noqa: E402
+    bloom_insert_launch, bloom_insert_plain, bloom_query_launch,
+    bloom_query_plain)
+from repro_torch.kernels.kmer_pack import (  # noqa: E402
+    kmer_pack_launch, kmer_pack_plain)
 
 SEED = 20260316
 FULL_CAPACITY = 255_013_683      # floor(0.95 * 2**28)
@@ -94,6 +115,12 @@ BATCHES = 16
 PROBES = 1 << 24
 SUB = 1 << 12
 CHUNK = 1 << 20                  # buckets unpacked at a time
+GENOME_BASES = 248_956_422       # GRCh38 chromosome 1
+FOREIGN_BASES = 1 << 24          # a foreign genome for the FPR
+REGION_BASES = 1 << 20           # the deleted region; the checked prefix
+KMER_K = 31
+KMER_BATCH = 1 << 24
+PY_CHECKS = 300
 # H100 SXM HBM3 rate (NVIDIA data sheet, at the full 700 W).
 HBM_BYTES_PER_S = 3.35e12
 TPU_KERNELS = {
@@ -102,6 +129,9 @@ TPU_KERNELS = {
     "cuckoo_insert_direct": "src/repro/kernels/cuckoo_insert.py:187",
     "cuckoo_insert_bulk": "src/repro/kernels/cuckoo_insert.py:308",
     "cuckoo_mixed": "src/repro/kernels/cuckoo_mixed.py:129",
+    "bloom_query": "src/repro/kernels/bloom.py:35",
+    "bloom_insert": "src/repro/kernels/bloom.py:81",
+    "kmer_pack": "src/repro/kernels/kmer_pack.py:39",
 }
 SOURCES = {
     "hash64": "src/repro_torch/kernels/csrc/hash64.cu",
@@ -109,6 +139,9 @@ SOURCES = {
     "cuckoo_insert_direct": "src/repro_torch/kernels/csrc/cuckoo_insert.cu",
     "cuckoo_insert_bulk": "src/repro_torch/kernels/csrc/cuckoo_insert_bulk.cu",
     "cuckoo_mixed": "src/repro_torch/kernels/csrc/cuckoo_mixed.cu",
+    "bloom_query": "src/repro_torch/kernels/csrc/bloom_query.cu",
+    "bloom_insert": "src/repro_torch/kernels/csrc/bloom_insert.cu",
+    "kmer_pack": "src/repro_torch/kernels/csrc/kmer_pack.cu",
 }
 # The insert kernel an entry point runs under the legacy engine; the
 # orientation build runs torch ops (and the hash kernel).
@@ -323,34 +356,39 @@ def fill(h, label: str, batches, bulk, on_batch=None):
     table must hold exactly those keys. Returns (seconds, per-batch
     records). ``on_batch(b)`` runs before batch b, outside the clock."""
     insert_s, per_batch = 0.0, []
+    torch.cuda.reset_peak_memory_stats()
     for b, keys in enumerate(batches):
         if on_batch is not None:
             on_batch(b)
         m = keys.shape[0]
-        # Every insert route ends in the round loop with its residue (keys
-        # with both buckets full); the core records its size on the device.
-        CF.LOOP_KEYS = []
+        # The kernel routes hand their residue (keys with both buckets
+        # full) to the frontier or to the round loop, and the frontier its
+        # stragglers to the loop; the core records each hand-off's size on
+        # the device, read after the clock stops.
+        CF.FRONTIER_KEYS, CF.LOOP_KEYS = [], []
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         rep = h.insert(keys, bulk=bulk[b])
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         insert_s += dt
-        residue = int(sum(CF.LOOP_KEYS))
-        CF.LOOP_KEYS = None
+        frontier, residue = int(sum(CF.FRONTIER_KEYS)), int(sum(CF.LOOP_KEYS))
+        CF.FRONTIER_KEYS = CF.LOOP_KEYS = None
         placed = int(rep.ok.sum())
         check(placed == m, f"{label}: batch {b}: {m - placed} of {m} keys "
                            f"not placed at load {h.load_factor:.4f}")
         per_batch.append({"keys": m, "bulk": bulk[b], "s": dt,
-                          "rounds": int(rep.rounds), "residue": residue,
+                          "rounds": int(rep.rounds),
+                          "frontier_keys": frontier, "residue": residue,
                           "load": h.load_factor})
+    peak = torch.cuda.max_memory_allocated()
     inserted = sum(k.shape[0] for k in batches)
     check(h.count() == inserted,
           f"{label}: count {h.count()} != {inserted} keys placed")
     check_codes(f"{label}: table after the fill",
                 table_codes(h.config, h.state.table),
                 key_codes(h.config, batches))
-    return insert_s, per_batch
+    return insert_s, per_batch, peak
 
 
 def check_no_false_negatives(h, label: str, batches):
@@ -378,11 +416,12 @@ def check_no_false_negatives(h, label: str, batches):
 
 def routed_kernels(cfg, bulk_flags, deletes: bool):
     """The kernels a run must launch: the hash and query kernels always;
-    the insert kernel of each entry point its engine runs on a kernel; the
-    mixed kernel for deletes."""
+    the insert kernel of each entry point its engine runs on a kernel (the
+    legacy loop and the frontier take a kernel's residue); the mixed
+    kernel for deletes."""
     names = {"hash64", "cuckoo_query"}
     for bulk in set(bulk_flags):
-        if CF.resolve_engine(cfg, bulk) == "legacy":
+        if CF.resolve_engine(cfg, bulk) in ("legacy", "frontier"):
             names.add(INSERT_KERNEL[bulk])
     if deletes:
         names.add("cuckoo_mixed")
@@ -417,7 +456,7 @@ def main_path(capacity: int, gen, label: str):
         if "half" not in snaps and h.count() >= cfg.num_slots // 2:
             snaps["half"] = h.state.table.clone()
 
-    insert_s, per_batch = fill(h, label, batches, bulk, snapshot)
+    insert_s, per_batch, peak = fill(h, label, batches, bulk, snapshot)
     inserted = sum(sizes)
     load = h.load_factor
     query_s, misses, plain_misses = check_no_false_negatives(h, label,
@@ -456,14 +495,18 @@ def main_path(capacity: int, gen, label: str):
                           "and after delete",
           "launches": launches, "kernels_routed": expect,
           "insert_keys_per_s": inserted / insert_s,
+          "frontier_keys": sum(r["frontier_keys"] for r in per_batch),
+          "residue_keys": sum(r["residue"] for r in per_batch),
+          "max_memory_allocated": peak,
           "query_keys_per_s": max(sizes) / query_s,
           "delete_keys_per_s": first.shape[0] / delete_s})
     return h, snaps["half"], snaps["high"], batches, launches
 
 
 def warm_up(gen) -> float:
-    """The main path once at 2^16 slots, and the legacy bulk route, so that
-    library loading and first calls are paid before anything is timed.
+    """The main path once at 2^16 slots, the legacy bulk route, and the
+    k-mer and Bloom kernels, so that library loading and first calls are
+    paid before anything is timed.
     Returns its seconds."""
     t0 = time.perf_counter()
     keys = random_keys(gen, 62_259)             # floor(0.95 * 2**16)
@@ -473,6 +516,11 @@ def warm_up(gen) -> float:
             h.insert(part, bulk=b % 2 == 0)
         h.query(keys)
         h.delete(keys[:1000])
+    codes = torch.randint(0, 4, (1 << 16,), generator=gen, device="cuda",
+                          dtype=torch.uint8)
+    hb = amq.make("bloom", capacity=62_259)
+    hb.insert(kmer_keys(codes, KMER_K))
+    hb.query(keys)
     torch.cuda.synchronize()
     return time.perf_counter() - t0
 
@@ -516,39 +564,268 @@ def profile_orientation(gen, batches_like, at: int = 8, top: int = 15):
                         for e in events[:top]]}
 
 
-def bulk_build(gen, batches_like):
-    """Phase 5: fill two fresh 2^28-slot handles to 0.95 with bulk inserts,
-    one per engine, in the main path's batch sizes; the main path's gates
-    on each. Returns {engine: launch counts}."""
+def fills_2_28(gen, batches_like):
+    """Phase 5: fill fresh 2^28-slot handles to 0.95 in the main path's
+    batch sizes, one per route: bulk under ``auto`` (orientation) and
+    ``legacy`` (bulk kernel + loop), incremental under ``auto`` (direct
+    kernel + frontier) and ``legacy`` (direct kernel + loop). The main
+    path's gates on each. Returns {label: launch counts}."""
     batches = [random_keys(gen, k.shape[0]) for k in batches_like]
     inserted = sum(k.shape[0] for k in batches)
     out = {}
-    for engine in ("auto", "legacy"):
-        label = f"bulk_build_{engine}"
+    for bulk, engine in ((True, "auto"), (True, "legacy"), (False, "auto"),
+                         (False, "legacy")):
+        label = f"{'bulk_build' if bulk else 'incremental'}_{engine}"
+        t0 = time.perf_counter()
         K.reset_launches()
         h = amq.make("cuckoo", capacity=FULL_CAPACITY, insert_engine=engine)
-        insert_s, per_batch = fill(h, label, batches, [True] * len(batches))
+        insert_s, per_batch, peak = fill(h, label, batches,
+                                         [bulk] * len(batches))
         _, misses, plain_misses = check_no_false_negatives(h, label, batches)
-        expect = routed_kernels(h.config, [True], False)
-        out[engine] = check_launches(label, expect)
-        emit({"phase": label, "engine": CF.resolve_engine(h.config, True),
+        expect = routed_kernels(h.config, [bulk], False)
+        out[label] = check_launches(label, expect)
+        emit({"phase": label, "engine": CF.resolve_engine(h.config, bulk),
               "slots": h.config.num_slots, "keys_inserted": inserted,
               "load": h.load_factor, "insert_keys_per_s": inserted / insert_s,
               "insert_s": insert_s, "batches": per_batch,
+              "frontier_keys": sum(r["frontier_keys"] for r in per_batch),
               "residue_keys": sum(r["residue"] for r in per_batch),
+              "max_memory_allocated": peak,
               "false_negatives": misses,
               "plain_false_negatives": plain_misses,
               "table_checks": "stored (pair, tag) codes == keys' after fill",
-              "launches": out[engine], "kernels_routed": expect})
+              "launches": out[label], "kernels_routed": expect,
+              "seconds": time.perf_counter() - t0})
         del h
         torch.cuda.empty_cache()
     return out
+
+
+# ---------------------------------------------------------------------------
+# The k-mer case study (paper §5.5, fig8): a chromosome's k-mer set in the
+# cuckoo filter and in the blocked Bloom filter.
+# ---------------------------------------------------------------------------
+
+def u64_bits(keys):
+    """int32[n, 2] (lo, hi) keys -> int64[n] holding each key's 64 bits."""
+    return (from_i32(keys[:, 1]) << 32) | from_i32(keys[:, 0])
+
+
+def py_canonical(codes, i: int, k: int):
+    """The canonical k-mer at position ``i`` with Python ints -> (lo, hi)."""
+    fwd = rev = 0
+    for j in range(k):
+        fwd = (fwd << 2) | codes[i + j]
+        rev = (rev << 2) | (3 - codes[i + k - 1 - j])
+    c = min(fwd, rev)
+    return c & 0xFFFFFFFF, c >> 32
+
+
+def timed(fn):
+    """(result, seconds) of ``fn`` between two synchronizations."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def fpr_of(label, hits, expected):
+    """The measured FPR of ``hits`` (probes not in the set), held to the
+    band of ``expected``."""
+    n = hits.shape[0]
+    fpr = int(hits.sum()) / n
+    lo, hi = amq.fpr_tolerance(expected, n)
+    check(lo <= fpr <= hi, f"{label}: FPR {fpr} outside [{lo}, {hi}] "
+                           f"(expected {expected})")
+    return {"fpr": fpr, "fpr_expected": expected, "fpr_band": [lo, hi],
+            "probes": n}
+
+
+def kmer_case_study(gen):
+    """The k-mer set of a synthetic chromosome 1 through ``kmer_keys``,
+    the cuckoo filter and the blocked Bloom filter (see the module
+    docstring). Returns (timing records, launch counts)."""
+    secs = {}
+    t0 = time.perf_counter()
+    genome = synthetic_genome(GENOME_BASES, SEED)
+    foreign_codes = synthetic_genome(FOREIGN_BASES, SEED + 1)
+    secs["genome_on_host"] = time.perf_counter() - t0
+    codes = torch.from_numpy(genome).cuda()
+
+    # The plain canonical keys of a prefix against Python integers.
+    prefix = genome[:REGION_BASES].tolist()
+    plain = canonicalize(kmer_pack_plain(codes[:REGION_BASES], KMER_K),
+                         KMER_K).cpu()
+    last = REGION_BASES - KMER_K
+    picks = torch.randint(0, last + 1, (PY_CHECKS,), generator=gen,
+                          device="cuda").tolist() + [0, last]
+    for i in picks:
+        lo, hi = py_canonical(prefix, i, KMER_K)
+        got = (int(plain[i, 0]) & 0xFFFFFFFF, int(plain[i, 1]) & 0xFFFFFFFF)
+        check(got == (lo, hi), f"kmer: plain canonical key at {i} is {got}, "
+                               f"Python ints give {(lo, hi)}")
+
+    # --- the path: kmer_keys, then both filters ---------------------------
+    K.reset_launches()
+    keys, secs["kmer_keys"] = timed(lambda: kmer_keys(codes, KMER_K))
+    n_pos = keys.shape[0]
+    check(keys.shape == (GENOME_BASES - KMER_K + 1, 2),
+          f"kmer: keys of shape {list(keys.shape)}")
+    distinct = torch.unique(u64_bits(keys))                  # sorted
+    n_distinct = distinct.numel()
+    order = distinct[torch.randperm(n_distinct, generator=gen,
+                                    device="cuda")]
+    batches = list(order.split(KMER_BATCH))
+
+    h = amq.make("cuckoo", capacity=n_distinct)
+    cfg = h.config
+    insert_s, per_batch, peak = fill(h, "kmer_cuckoo", batches,
+                                     [False] * len(batches))
+    hits, query_s = timed(lambda: h.query(keys).hits)
+    misses = int((~hits).sum())
+    check(misses == 0, f"kmer_cuckoo: {misses} of {n_pos} positions missed")
+
+    foreign = torch.unique(u64_bits(kmer_keys(
+        torch.from_numpy(foreign_codes).cuda(), KMER_K)))
+    at = torch.searchsorted(distinct, foreign).clamp(max=n_distinct - 1)
+    probes = foreign[distinct[at] != foreign]
+    cuckoo_fpr = fpr_of("kmer_cuckoo", h.query(probes).hits,
+                        h.expected_fpr())
+
+    r0 = GENOME_BASES // 2
+    region = torch.unique(u64_bits(kmer_keys(codes[r0:r0 + REGION_BASES],
+                                             KMER_K)))
+    before = h.count()
+    rep, delete_s = timed(lambda: h.delete(region))
+    check(bool(rep.ok.all()),
+          f"kmer_cuckoo: {int((~rep.ok).sum())} deletes failed")
+    check(before - h.count() == region.numel(),
+          f"kmer_cuckoo: count fell by {before - h.count()}, not "
+          f"{region.numel()}")
+    at = torch.searchsorted(region, distinct).clamp(max=region.numel() - 1)
+    check_codes("kmer_cuckoo: table after the delete",
+                table_codes(cfg, h.state.table),
+                key_codes(cfg, [distinct[region[at] != distinct]]))
+    # A deleted k-mer hits only as a false positive: at most the band's
+    # upper edge.
+    gone = int(h.query(region).hits.sum()) / region.numel()
+    gone_hi = amq.fpr_tolerance(h.expected_fpr(), region.numel())[1]
+    check(gone <= gone_hi, f"kmer_cuckoo: deleted k-mers hit at {gone} > "
+                           f"{gone_hi}")
+
+    hb = amq.make("bloom", capacity=n_distinct)
+    bcfg = hb.config
+    bloom_insert_s = 0.0
+    for b in batches:
+        _, dt = timed(lambda b=b: hb.insert(b))
+        bloom_insert_s += dt
+    check(hb.count() == n_distinct, f"kmer_bloom: count {hb.count()}")
+    bhits, bloom_query_s = timed(lambda: hb.query(keys).hits)
+    bmisses = int((~bhits).sum())
+    check(bmisses == 0, f"kmer_bloom: {bmisses} of {n_pos} positions missed")
+    bloom_fpr = fpr_of("kmer_bloom", hb.query(probes).hits,
+                       bcfg.expected_fpr(1.0))
+    launches = check_launches("kmer_case_study", [
+        "kmer_pack", "hash64", "cuckoo_insert_direct", "cuckoo_query",
+        "cuckoo_mixed", "bloom_insert", "bloom_query"])
+
+    # --- the three kernels against their plain versions ------------------
+    # Each count is of differing elements (keys, table words, hits).
+    t0 = time.perf_counter()
+    packed, want = K.kmer_pack(codes, KMER_K), kmer_pack_plain(codes, KMER_K)
+    errs = {"kmer_pack": int((packed != want).sum())}
+    del packed, want
+    table = bcfg.init("cuda").table
+    bloom_insert_plain(bcfg, table, normalize_keys(order),
+                       torch.ones(n_distinct, dtype=torch.bool, device="cuda"))
+    errs["bloom_insert"] = int((table != hb.state.table).sum())
+    errs["bloom_query"] = sum(
+        int((got != bloom_query_plain(bcfg, table, part)).sum())
+        for part, got in zip(keys.split(KMER_BATCH), bhits.split(KMER_BATCH)))
+    for name, err in errs.items():
+        check(err == 0, f"{name}: {err} elements differ from its plain "
+                        "version's")
+    secs["kernels_vs_plain"] = time.perf_counter() - t0
+
+    # --- timings at the case study's shapes --------------------------------
+    t0 = time.perf_counter()
+    timing, wrapper = {}, {}
+    out = torch.empty_like(keys)
+    timing["kmer_pack"] = (
+        cuda_ms(lambda: kmer_pack_launch(codes, KMER_K, out)),
+        cuda_ms(lambda: kmer_pack_plain(codes, KMER_K), reps=3),
+        n_pos, n_pos, roofline.kmer_pack_bytes(GENOME_BASES, KMER_K),
+        roofline.kmer_int_ops_per_key(KMER_K) * n_pos, None)
+    wrapper["kmer_pack"] = cuda_ms(lambda: K.kmer_pack(codes, KMER_K))
+    del out
+
+    def blocks_of(k):
+        return torch.unique(hash_key_plain(k, bcfg.hash_kind, bcfg.seed)[1]
+                            % bcfg.num_blocks).numel()
+
+    sub = keys[:KMER_BATCH]
+    hit = torch.empty(n_pos, dtype=torch.bool, device="cuda")
+    touched = blocks_of(normalize_keys(distinct))   # every position's block
+    timing["bloom_query"] = (
+        cuda_ms(lambda: bloom_query_launch(bcfg, table, keys, hit)),
+        cuda_ms(lambda: bloom_query_plain(bcfg, table, sub), reps=3),
+        n_pos, sub.shape[0],
+        roofline.bloom_batch_bytes(bcfg, "query", n_pos, touched),
+        roofline.bloom_int_ops_per_key(bcfg) * n_pos, touched)
+    wrapper["bloom_query"] = cuda_ms(
+        lambda: K.bloom_query(bcfg, hb.state, keys))
+    first = normalize_keys(batches[0])
+    m = first.shape[0]
+    valid = torch.ones(m, dtype=torch.bool, device="cuda")
+    touched = blocks_of(first)
+    timing["bloom_insert"] = (
+        cuda_ms(lambda: bloom_insert_launch(bcfg, table, first, valid),
+                setup=table.zero_),
+        cuda_ms(lambda: bloom_insert_plain(bcfg, table, first, valid),
+                reps=3, setup=table.zero_),
+        m, m, roofline.bloom_batch_bytes(bcfg, "insert", m, touched),
+        roofline.bloom_int_ops_per_key(bcfg) * m, touched)
+    wrapper["bloom_insert"] = cuda_ms(
+        lambda: K.bloom_insert(bcfg, hb.state._replace(table=table), first,
+                               valid), setup=table.zero_)
+    secs["timings"] = time.perf_counter() - t0
+
+    emit({"phase": "kmer_case_study", "bases": GENOME_BASES, "k": KMER_K,
+          "positions": n_pos, "n_distinct": n_distinct,
+          "python_int_checks": len(picks),
+          "cuckoo": {"config": repr(cfg), "table_bytes": cfg.table_bytes,
+                     "load": h.load_factor, "batches": per_batch,
+                     "frontier_keys": sum(r["frontier_keys"] for r in per_batch),
+                     "residue_keys": sum(r["residue"] for r in per_batch),
+                     "max_memory_allocated": peak,
+                     "false_negatives": misses, **cuckoo_fpr,
+                     "deleted": region.numel(),
+                     "count_after_delete": h.count(),
+                     "deleted_hit_rate": gone,
+                     "deleted_hit_rate_max": gone_hi},
+          "bloom": {"config": repr(bcfg), "table_bytes": bcfg.table_bytes,
+                    "load": hb.load_factor, "false_negatives": bmisses,
+                    **bloom_fpr},
+          "keys_per_s": {
+              "kmer_keys": n_pos / secs["kmer_keys"],
+              "cuckoo_insert": n_distinct / insert_s,
+              "cuckoo_query": n_pos / query_s,
+              "cuckoo_delete": region.numel() / delete_s,
+              "bloom_insert": n_distinct / bloom_insert_s,
+              "bloom_query": n_pos / bloom_query_s},
+          "cuckoo_query_over_bloom_query": bloom_query_s / query_s,
+          "launches": launches, "max_abs_err": errs, "seconds": secs})
+    del h, hb, keys, distinct, order, batches, codes, table, hit
+    torch.cuda.empty_cache()
+    return timing, wrapper, launches, errs
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     device_name = torch.cuda.get_device_name(0)
     smi = nvidia_smi("name,power.limit")
     sm_clock_hz = float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6
@@ -760,23 +1037,40 @@ def main() -> int:
 
     # --- the bulk build at full size ---------------------------------------
     t0 = time.perf_counter()
-    bulk_launches = bulk_build(gen, batches)
-    emit({"phase": "bulk_build_seconds", "seconds": time.perf_counter() - t0})
+    fill_launches = fills_2_28(gen, batches)
+    emit({"phase": "fills_2^28_seconds", "seconds": time.perf_counter() - t0})
     emit({"phase": "profile_orientation_batch",
           **profile_orientation(gen, batches)})
     del batches
     torch.cuda.empty_cache()
 
+    # --- the k-mer case study -------------------------------------------
+    t0 = time.perf_counter()
+    kmer_timing, kmer_wrapper, kmer_launches, kmer_errs = kmer_case_study(gen)
+    emit({"phase": "kmer_case_study_seconds",
+          "seconds": time.perf_counter() - t0})
+
     # Each kernel's launches come from the path that routes to it: the main
-    # path, or (the bulk kernel) the legacy bulk fill.
+    # path, the legacy bulk fill (the bulk kernel) or the k-mer case study.
     path_launches = {name: ("main_path_2^28", launches[name])
                      for name in launches}
     path_launches["cuckoo_insert_bulk"] = (
-        "bulk_build_legacy", bulk_launches["legacy"]["cuckoo_insert_bulk"])
-    kernels = []
+        "bulk_build_legacy",
+        fill_launches["bulk_build_legacy"]["cuckoo_insert_bulk"])
+    for name in kmer_timing:
+        path_launches[name] = ("kmer_case_study", kmer_launches[name])
+    wrapper_ms.update(kmer_wrapper)
+    errs.update(kmer_errs)
+    # Every record: (ms, plain ms, n, plain n, bound bytes, bound int32
+    # instructions, touched buckets or blocks).
+    records = {}
     for name, (ms, plain_ms, kn, plain_n, op, touched) in timing.items():
-        nbytes = roofline.least_batch_bytes(cfg, op, kn, touched)
-        nops = roofline.int_ops_per_key(cfg, op) * kn
+        records[name] = (ms, plain_ms, kn, plain_n,
+                         roofline.least_batch_bytes(cfg, op, kn, touched),
+                         roofline.int_ops_per_key(cfg, op) * kn, touched)
+    records.update(kmer_timing)
+    kernels = []
+    for name, (ms, plain_ms, kn, plain_n, nbytes, nops, touched) in records.items():
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = nops / int_ops_per_s * 1e3
         path, count = path_launches[name]
@@ -789,14 +1083,18 @@ def main() -> int:
             "library_ms": None, "n": kn, "plain_n": plain_n,
             "launches_path": path,
             "bound_bytes": nbytes, "bound_int32_ops": nops,
-            "touched_buckets": touched,
+            "touched": touched,
             "ops_ms": ops_ms,
             "bytes_ms_at_measured_copy": nbytes / copy_bytes_per_s * 1e3})
         if name in wrapper_ms:
             kernels[-1]["wrapper_ms"] = wrapper_ms[name]
 
     # --- the main path at 2^22 slots --------------------------------------
+    t0 = time.perf_counter()
     main_path(L2_CAPACITY, gen, "2^22")
+    emit({"phase": "main_path_2^22_seconds",
+          "seconds": time.perf_counter() - t0})
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
 
     print(smi, flush=True)
     emit({"kernels": kernels})

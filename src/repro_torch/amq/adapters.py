@@ -1,18 +1,29 @@
-"""The ``cuckoo`` backend behind the unified AMQ protocol.
+"""The ``cuckoo`` and ``bloom`` backends behind the unified AMQ protocol.
 
-Port of the ``CUCKOO`` adapter of ``repro.amq.adapters``. Where the JAX
-adapter runs the XLA core, this one runs the hot operations on the CUDA
-kernels (``kernels/ops.py``; on CPU tensors, their plain versions). Each
-insert entry point routes by ``core.resolve_engine(config, bulk)``:
+Port of the ``CUCKOO`` and ``BLOOM`` adapters of ``repro.amq.adapters``.
+Where the JAX adapters run XLA code, these run the hot operations on the
+CUDA kernels (``kernels/ops.py``; on CPU tensors, their plain versions).
 
-* ``legacy``: an insert kernel over the whole batch — the direct-insert
-  kernel for ``insert``, the bucket-major bulk kernel for ``insert_bulk``
-  (in place of the core's two sorted phases). The keys it could not place
-  (both buckets full) are compacted in batch order and handed to the
-  core's eviction round loop; ``ok`` and ``evictions`` are scattered back
-  to batch order. ``rounds`` is the loop's rounds plus the kernel pass,
+``bloom`` (the blocked Bloom filter, append-only): insert is the Bloom
+insert kernel, query the Bloom query kernel; every valid insert is ``ok``
+and reports no evictions and no rounds.
+
+Each ``cuckoo`` insert entry point routes by ``core.resolve_engine(config,
+bulk)``:
+
+* ``frontier`` (``insert``'s ``auto`` under BFS eviction) and ``legacy``:
+  an insert kernel over the whole batch — the direct-insert kernel for
+  ``insert``, the bucket-major bulk kernel for ``insert_bulk`` (in place
+  of the core's two sorted phases). The keys it could not place (both
+  buckets full) are compacted in batch order and handed to the core's
+  engine: the batched BFS frontier (``insert`` under ``frontier``) or the
+  eviction round loop. ``ok`` and ``evictions`` are scattered back to
+  batch order. ``rounds`` is the engine's rounds plus the kernel pass,
   counted as the phases it stands for: one for ``insert``, two for
   ``insert_bulk`` (the core's primary and alternate phases, as there).
+  The kernel places keys in another order than the core's engines, so
+  the table differs from the JAX adapter's by placement (it holds the
+  same keys; core ``insert`` is the bit-exact one).
 * ``orientation`` (``insert_bulk``'s ``auto``): the core's
   graph-orientation build, torch ops on the table's device, as the JAX
   adapter runs the XLA core there.
@@ -29,6 +40,7 @@ from typing import Any, Callable, Optional
 import torch
 
 from ..core import cuckoo_filter as CF
+from ..filters import blocked_bloom as BB
 from ..kernels import ops as K
 from .protocol import (
     OP_DELETE,
@@ -57,13 +69,17 @@ class AMQAdapter:
 
 def _cuckoo_insert(config, state, keys, *, valid=None,
                    dedup_within_batch=False, _bulk=False):
-    if CF.resolve_engine(config, _bulk) == "orientation":
+    engine = CF.resolve_engine(config, _bulk)
+    if engine == "orientation":
         state, ok, stats = CF._insert_orient(
             config, state, keys, ensure_valid(keys, valid),
             dedup_within_batch=dedup_within_batch)
         return state, InsertReport(ok, stats.evictions, stats.rounds,
                                    all_routed(keys))
-    # legacy: an insert kernel over the batch, the round loop on its residue.
+    # legacy / frontier: an insert kernel over the batch, the engine on its
+    # residue (insert_bulk's frontier is the legacy bulk build, as in JAX).
+    place_residue = (CF._insert_frontier if engine == "frontier" and not _bulk
+                     else CF._insert_rounds)
     kernel = K.cuckoo_insert_bulk if _bulk else K.cuckoo_insert_direct
     n = keys.shape[0]
     valid0 = ensure_valid(keys, valid)
@@ -77,7 +93,7 @@ def _cuckoo_insert(config, state, keys, *, valid=None,
                         device=keys.device)
     residue = (pending & ~ok).nonzero().squeeze(1)
     if residue.numel():
-        state, ok_res, stats = CF._insert_rounds(config, state, keys[residue])
+        state, ok_res, stats = place_residue(config, state, keys[residue])
         ok[residue] = ok_res
         evictions[residue] = stats.evictions
         rounds = rounds + stats.rounds
@@ -118,4 +134,31 @@ CUCKOO = AMQAdapter(
     delete=_cuckoo_delete,
 )
 
-DEFAULT_ADAPTERS = {CUCKOO.name: CUCKOO}
+
+def _bloom_insert(config, state, keys, *, valid=None,
+                  dedup_within_batch=False):
+    del dedup_within_batch  # idempotent by construction
+    state, ok = K.bloom_insert(config, state, keys, ensure_valid(keys, valid))
+    n = keys.shape[0]
+    return state, InsertReport(
+        ok, torch.zeros((n,), dtype=torch.int32, device=keys.device),
+        torch.zeros((), dtype=torch.int32, device=keys.device),
+        all_routed(keys))
+
+
+def _bloom_query(config, state, keys, *, valid=None):
+    hits = K.bloom_query(config, state, keys) & ensure_valid(keys, valid)
+    return state, QueryResult(hits, all_routed(keys))
+
+
+BLOOM = AMQAdapter(
+    name="bloom",
+    capabilities=Capabilities(supports_delete=False, counting=False),
+    make_config=lambda capacity, **kw: BB.BloomConfig.for_capacity(
+        capacity, **kw),
+    init=lambda cfg, device: cfg.init(device),
+    insert=_bloom_insert,
+    query=_bloom_query,
+)
+
+DEFAULT_ADAPTERS = {CUCKOO.name: CUCKOO, BLOOM.name: BLOOM}

@@ -137,14 +137,14 @@ class FilterHandle:
     # -- later port slices ---------------------------------------------------
 
     def apply_ops(self, batch):
-        """Mixed op batches: port slice 3 (``FilterHandle.apply_ops`` on the
+        """Mixed op batches: port slice 4 (``FilterHandle.apply_ops`` on the
         mixed kernel)."""
-        raise _not_ported("FilterHandle.apply_ops", "port slice 3")
+        raise _not_ported("FilterHandle.apply_ops", "port slice 4")
 
     def snapshot(self):
-        """Snapshots: port slice 3 (``Snapshot``, ``save_snapshot``)."""
-        raise _not_ported("FilterHandle.snapshot", "port slice 3")
+        """Snapshots: port slice 4 (``Snapshot``, ``save_snapshot``)."""
+        raise _not_ported("FilterHandle.snapshot", "port slice 4")
 
     def restore(self, snap):
-        """Snapshots: port slice 3."""
-        raise _not_ported("FilterHandle.restore", "port slice 3")
+        """Snapshots: port slice 4."""
+        raise _not_ported("FilterHandle.restore", "port slice 4")

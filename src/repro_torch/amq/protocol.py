@@ -1,4 +1,4 @@
-"""The AMQ protocol subset the port's ``cuckoo`` backend needs.
+"""The AMQ protocol subset the port's ``cuckoo`` and ``bloom`` backends need.
 
 Port of the result types, capability model and helpers of
 ``repro.amq.protocol``:

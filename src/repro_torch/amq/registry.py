@@ -6,7 +6,9 @@
     report = handle.insert(keys, bulk=True)
     hits = handle.query(keys).hits
 
-This port slice registers the ``cuckoo`` backend only.
+The port registers the ``cuckoo`` backend and the blocked Bloom filter
+``bloom``; the other baselines, the sharded and the host backends are
+later port slices.
 """
 
 from __future__ import annotations
@@ -53,7 +55,7 @@ def make(name: str, capacity: Optional[int] = None, *,
     """
     adapter = get(name)
     if snapshot is not None:
-        raise _not_ported("make(snapshot=...)", "port slice 3")
+        raise _not_ported("make(snapshot=...)", "port slice 4")
     if auto_expand:
         raise _not_ported("make(auto_expand=...) (the cascade)",
                           "ROADMAP queue A item 12")

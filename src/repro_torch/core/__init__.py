@@ -2,8 +2,9 @@
 
 * :class:`CuckooConfig` / :class:`CuckooState` — static config + state.
 * :func:`insert` / :func:`insert_bulk` / :func:`query` — batch
-  functional ops (the legacy eviction round loop, the bulk build with the
-  graph-orientation engine, and the unpack-based query).
+  functional ops (the batched BFS frontier and the legacy eviction round
+  loop, the bulk build with the graph-orientation engine, and the
+  unpack-based query).
 * :class:`CuckooFilter` — convenience object wrapper.
 """
 

@@ -37,6 +37,16 @@ def rotl64(x: torch.Tensor, r: int) -> torch.Tensor:
     return (x << r) | shr64(x, 64 - r)
 
 
+def join64(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """(hi, lo) uint32 held in int64 -> the int64 with those 64 bits."""
+    return (hi << 32) | lo
+
+
+def split64(x: torch.Tensor):
+    """int64-held uint64 bits -> (hi, lo) uint32 held in int64."""
+    return shr64(x, 32), x & MASK32
+
+
 def to_i32(x: torch.Tensor) -> torch.Tensor:
     """uint32 held in int64 -> the int32 with the same bits (table words)."""
     return x.to(torch.int32)

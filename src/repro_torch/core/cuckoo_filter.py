@@ -2,17 +2,19 @@
 
 Port of the part of ``repro.core.cuckoo_filter`` that the ``cuckoo``
 backend's main path needs: the config and state types, key preparation,
-the word-claim election, the legacy lock-step eviction round loop
-(``_insert_rounds``, DFS and BFS eviction), the bulk build
-(``insert_bulk``: two sorted whole-bucket phases, or the graph-orientation
-engine ``_insert_orient``), engine routing, ``insert`` and ``query``.
+the word-claim elections, the legacy lock-step eviction round loop
+(``_insert_rounds``, DFS and BFS eviction), the batched BFS frontier
+(``_insert_frontier``), the bulk build (``insert_bulk``: two sorted
+whole-bucket phases, or the graph-orientation engine ``_insert_orient``),
+engine routing, ``insert`` and ``query``.
 
 Every insert engine here is the bit-exact bridge to the JAX package:
 claims are elected per table word by a stable sort (lowest batch index
 wins) and the bulk phases sort stably by bucket, so the tables, ``ok``
 masks and statistics match ``repro.core`` word for word. On the GPU the
-round loop is the residue path behind the insert kernels: the ``cuckoo``
-adapter hands it only the keys a kernel could not place.
+frontier and the round loop are the residue paths behind the insert
+kernels: the ``cuckoo`` adapter hands them only the keys a kernel could
+not place.
 
 State tensors are updated in place: the engines write into
 ``state.table`` and return a state holding the same tensor.
@@ -74,8 +76,8 @@ class CuckooConfig:
     max_evictions: int = 64
     max_rounds: Optional[int] = None
     seed: int = 0
-    # Insertion engine (see resolve_engine): "auto", "legacy" or
-    # "orientation"; "frontier" is not ported yet and raises.
+    # Insertion engine (see resolve_engine): "auto", "legacy",
+    # "frontier" or "orientation".
     insert_engine: str = "auto"
     frontier_depth: int = 2
     orient_sweeps: int = 4
@@ -182,6 +184,23 @@ def _resolve_claims(addr1: torch.Tensor, addr2: torch.Tensor, invalid: int):
     win_flat = torch.zeros((2 * n,), dtype=torch.bool, device=flat.device)
     win_flat[order] = first & (sa != invalid)
     return win_flat[0::2], win_flat[1::2]
+
+
+def _resolve_claims_multi(addrs: torch.Tensor, invalid: int) -> torch.Tensor:
+    """K-column generalisation of :func:`_resolve_claims`.
+
+    addrs: int64[n, K] flat word addresses (``invalid`` = no claim).
+    Returns win: bool[n, K]. The flat priority of key ``i``'s column ``k``
+    is ``i * K + k``, so the lowest pending key with any action wins all
+    of its claims (the progress guarantee of multi-word chains).
+    """
+    flat = addrs.reshape(-1)
+    sa, order = torch.sort(flat, stable=True)
+    first = torch.ones_like(sa, dtype=torch.bool)
+    first[1:] = sa[1:] != sa[:-1]
+    win = torch.zeros_like(first)
+    win[order] = first & (sa != invalid)
+    return win.view(addrs.shape)
 
 
 def _masked_write(table: torch.Tensor, addr: torch.Tensor,
@@ -460,6 +479,255 @@ def _insert_rounds(
 
 
 # ---------------------------------------------------------------------------
+# Batched BFS frontier insertion (DESIGN.md §14).
+# ---------------------------------------------------------------------------
+
+# Keys handed to the frontier engine, recorded as ``LOOP_KEYS`` is.
+FRONTIER_KEYS: Optional[list] = None
+
+# Rounds in a row without a commit before the frontier hands its
+# stragglers to the round loop (JAX's ``stall_limit``).
+_STALL_LIMIT = 8
+
+# Working set of the chain search, which runs over chunks of keys. Each
+# level keeps [b, wpb] words and per-branch bucket, slot, tag and victim
+# (int64) for every key, and unpacking a level's b buckets and scanning
+# them circularly takes about six [b, b] int64 temporaries. The chunk
+# keeps that under about 8 GiB (b = 16, depth 2: 559240 keys a chunk).
+_CHAIN_BYTES = 8 << 30
+
+
+def _chain_chunk(config: CuckooConfig) -> int:
+    b, wpb = config.bucket_size, config.layout.words_per_bucket
+    depth = max(1, config.frontier_depth)
+    per_key = 8 * b * (depth * (wpb + 4) + 6 * b)
+    return max(1024, _CHAIN_BYTES // per_key)
+
+
+def _chain_actions(config, table, rnd, base_tag, i1, i2, tag1, tag2,
+                   words1, words2, tags1, tags2):
+    """Frontier chain actions of keys whose both buckets are full.
+
+    The body of JAX's ``frontier_actions`` for these keys only: a salted
+    coin picks the root bucket, each of its ``b`` slots seeds a branch,
+    and each depth level gathers every branch's next bucket at once. The
+    shortest free path becomes up to ``depth + 1`` word writes (column 0
+    writes the key's own tag into the root). Reads only the round-start
+    table and the keys' own data, so any chunking of the keys is exact.
+    Returns (has_chain bool[m], addrs int64[m, K], desired int64[m, K],
+    depth_star int64[m]); duplicate addresses of one chain are folded
+    into their last column and the others set to ``invalid``.
+    """
+    lay = config.layout
+    pol = config.placement
+    b = config.bucket_size
+    fp = lay.fp_bits
+    depth = max(1, config.frontier_depth)
+    invalid = lay.num_words
+    m = base_tag.shape[0]
+    dev = base_tag.device
+
+    coin = (_prng(base_tag, rnd) & 1).bool()
+    e_bucket = torch.where(coin, i2, i1)
+    e_tag = torch.where(coin, tag2, tag1)
+    e_words = torch.where(coin[:, None], words2, words1)
+    e_tags = torch.where(coin[:, None], tags2, tags1)
+
+    # Lanes the chain displaces so far: the cycle guard kills a branch
+    # whose next victim revisits one.
+    pos = [(e_bucket[:, None].expand(m, b),
+            torch.arange(b, device=dev).expand(m, b))]
+    move = pol.on_relocate(e_tags)                  # tag entering level 1
+    nxt = pol.alt_bucket(e_bucket[:, None], e_tags)            # [m, b]
+    alive = torch.ones((m, b), dtype=torch.bool, device=dev)
+    levels = []          # (bucket, words, found, free slot, move, victim)
+    for d in range(1, depth + 1):
+        wds = L.gather_bucket_words(table, nxt, lay)           # [m, b, wpb]
+        tgs = L.unpack_words(wds, fp)                          # [m, b, b]
+        fnd, fslot = L.first_true_circular(tgs == 0, L.scan_start(move, lay))
+        vic = None
+        if d < depth:
+            vic = _prng(move ^ nxt, rnd + d) % b                # [m, b]
+        levels.append((nxt, wds, fnd & alive, fslot, move, vic))
+        if d < depth:
+            clash = torch.zeros_like(alive)
+            for pb, ps in pos:
+                clash |= (pb == nxt) & (ps == vic)
+            alive = alive & ~clash
+            pos.append((nxt, vic))
+            vtag = _take(tgs, vic)
+            move = pol.on_relocate(vtag)
+            nxt = pol.alt_bucket(nxt, vtag)
+
+    # Shortest free path: the first level with any live branch found.
+    taken = torch.zeros((m,), dtype=torch.bool, device=dev)
+    use_lv = []
+    for lv in levels:
+        fa = lv[2].any(dim=1)
+        use_lv.append(fa & ~taken)
+        taken = taken | fa
+    has_chain = taken
+    jstar = torch.zeros((m,), dtype=torch.int64, device=dev)
+    depth_star = torch.zeros((m,), dtype=torch.int64, device=dev)
+    for d in reversed(range(depth)):
+        jd = levels[d][2].to(torch.uint8).argmax(dim=1)
+        jstar = torch.where(use_lv[d], jd, jstar)
+        depth_star = torch.where(use_lv[d], d + 1, depth_star)
+    rows = torch.arange(m, device=dev)
+
+    # Column 0: the root slot receives the key's own tag.
+    r_widx, r_sw = L.slot_to_word(jstar, lay)
+    addrs = [torch.where(has_chain, L.word_addr(e_bucket, r_widx, lay),
+                         invalid)]
+    sws, wtags, cwords = [r_sw], [e_tag], [_take(e_words, r_widx)]
+    # Columns 1..depth: hop t shifts the displaced tag one level deeper;
+    # the last hop lands it in the free slot found there.
+    for t in range(1, depth + 1):
+        bkt, wds, _, fslot, mv, vic = levels[t - 1]
+        lane_vic = (_take(vic, jstar) if t < depth
+                    else torch.zeros_like(jstar))
+        lane = torch.where(depth_star == t, _take(fslot, jstar), lane_vic)
+        used = has_chain & (depth_star >= t)
+        widx, sw = L.slot_to_word(lane, lay)
+        addrs.append(torch.where(
+            used, L.word_addr(_take(bkt, jstar), widx, lay), invalid))
+        sws.append(sw)
+        wtags.append(_take(mv, jstar))
+        cwords.append(_take(wds[rows, jstar], widx))
+
+    A = torch.stack(addrs, dim=1)                              # [m, K]
+    K = depth + 1
+    # Same-word composition: every write of the chain that targets this
+    # address folds into one desired word (lanes are distinct by the
+    # cycle guard, so the fold order is immaterial). Only the last claim
+    # of a duplicated address scatters.
+    desired, scat = [], []
+    for k in range(K):
+        w = cwords[k]
+        for j in range(K):
+            hit = (A[:, j] == A[:, k]) & (A[:, j] != invalid)
+            w = torch.where(hit, L.replace_tag(w, sws[j], wtags[j], fp), w)
+        desired.append(w)
+        superseded = torch.zeros_like(has_chain)
+        for j in range(k + 1, K):
+            superseded |= A[:, j] == A[:, k]
+        scat.append(torch.where(superseded, invalid, A[:, k]))
+    return (has_chain, torch.stack(scat, dim=1), torch.stack(desired, dim=1),
+            depth_star)
+
+
+def _insert_frontier(
+    config: CuckooConfig, state: CuckooState, keys: torch.Tensor,
+    valid: Optional[torch.Tensor] = None,
+    *, dedup_within_batch: bool = False,
+):
+    """Fixed-depth, width-``bucket_size`` frontier search per round.
+
+    A round gives every pending key its direct placement (first free slot
+    of i1, then i2) or, when both buckets are full, the shortest eviction
+    chain of at most ``frontier_depth`` hops found by a breadth-first
+    search over the root bucket's slots (:func:`_chain_actions`), won
+    all-or-nothing through one claim election over the whole batch. After
+    ``_STALL_LIMIT`` rounds in a row without a commit (or at
+    ``max_rounds``) the stragglers take the legacy round loop. Same
+    rounds, claims and writes as the JAX engine, bit for bit: the JAX
+    ``while_loop`` is a host loop with one device read a round, and only
+    pending keys are computed (the others claim nothing). Returns
+    (state', ok bool[n], InsertStats); the table is updated in place.
+    """
+    lay = config.layout
+    pol = config.placement
+    n = keys.shape[0]
+    dev = keys.device
+    fp = lay.fp_bits
+    invalid = lay.num_words
+    K = max(1, config.frontier_depth) + 1
+    max_rounds = config.max_rounds or (4 * config.max_evictions + 64)
+    chunk = _chain_chunk(config)
+    table, count = state.table, state.count.clone()
+
+    base_tag, i1, i2 = prepare_keys(config, keys)
+    tag1 = pol.place_tag(base_tag, False)
+    tag2 = pol.place_tag(base_tag, True)
+    valid0, pending, first, rep = _pending_keys(keys, valid,
+                                                dedup_within_batch)
+    if FRONTIER_KEYS is not None:
+        FRONTIER_KEYS.append(pending.sum())
+    success = torch.zeros((n,), dtype=torch.bool, device=dev)
+    n_evict = torch.zeros((n,), dtype=torch.int32, device=dev)
+
+    rnd = stall = 0
+    live = bool(pending.any())
+    while live and rnd < max_rounds and stall < _STALL_LIMIT:
+        p = pending.nonzero().squeeze(1)
+        bt, j1, j2, g1, g2 = base_tag[p], i1[p], i2[p], tag1[p], tag2[p]
+
+        # --- direct phase: the legacy scan of (i1, i2).
+        words1 = L.gather_bucket_words(table, j1, lay)         # [m, wpb]
+        words2 = L.gather_bucket_words(table, j2, lay)
+        tags1 = L.unpack_words(words1, fp)                     # [m, b]
+        tags2 = L.unpack_words(words2, fp)
+        start = L.scan_start(bt, lay)
+        found1, slot1 = L.first_true_circular(tags1 == 0, start)
+        found2, slot2 = L.first_true_circular(tags2 == 0, start)
+        direct = found1 | found2
+        d_widx, d_sw = L.slot_to_word(torch.where(found1, slot1, slot2), lay)
+        d_word = _take(torch.where(found1[:, None], words1, words2), d_widx)
+
+        m = p.shape[0]
+        addrs = torch.full((m, K), invalid, dtype=torch.int64, device=dev)
+        desired = torch.zeros((m, K), dtype=torch.int64, device=dev)
+        depth_star = torch.zeros((m,), dtype=torch.int64, device=dev)
+        addrs[:, 0] = torch.where(
+            direct, L.word_addr(torch.where(found1, j1, j2), d_widx, lay),
+            invalid)
+        desired[:, 0] = L.replace_tag(d_word, d_sw,
+                                      torch.where(found1, g1, g2), fp)
+        has_action = direct.clone()
+
+        # --- chain phase for the keys with both buckets full, in chunks.
+        chained = (~direct).nonzero().squeeze(1)
+        for c in chained.split(chunk) if chained.numel() else ():
+            hc, ac, dc, ds = _chain_actions(
+                config, table, rnd, bt[c], j1[c], j2[c], g1[c], g2[c],
+                words1[c], words2[c], tags1[c], tags2[c])
+            addrs[c], desired[c], depth_star[c], has_action[c] = ac, dc, ds, hc
+        del words1, words2, tags1, tags2
+
+        # --- one claim election over the batch; a key commits all of its
+        #     writes or none.
+        win = _resolve_claims_multi(addrs, invalid)
+        claims = addrs != invalid
+        commit = has_action & (win | ~claims).all(dim=1)
+        for k in range(K):
+            _masked_write(table, addrs[:, k], desired[:, k],
+                          commit & claims[:, k])
+
+        pc = p[commit]
+        success[pc] = True
+        pending[pc] = False
+        count += commit.sum().to(torch.int32)
+        n_evict[p] += torch.where(commit, depth_star, 0).to(torch.int32)
+        live, moved = torch.stack([pending.any(), commit.any()]).tolist()
+        stall = 0 if moved else stall + 1
+        rnd += 1
+
+    # Residue: chains longer than ``frontier_depth`` (or claim-starved
+    # stragglers) take the legacy round loop; a no-op when none is pending.
+    state2, ok_res, res_stats = _insert_rounds(
+        config, CuckooState(table, count), keys, valid=pending)
+
+    ok = (success & ~pending) | ok_res
+    if dedup_within_batch:
+        ok = torch.where(first, ok, ok[rep] & valid0)
+    failed = (valid0 & ~ok).sum().to(torch.int32)
+    load = state2.count.to(torch.float32) / lay.num_slots
+    stats = InsertStats(n_evict + res_stats.evictions,
+                        res_stats.rounds + rnd, failed, load)
+    return state2, ok, stats
+
+
+# ---------------------------------------------------------------------------
 # Bulk-build insertion (paper §4.6.3 sorted insertion; DESIGN.md §6) and
 # the graph-orientation build (DESIGN.md §14).
 # ---------------------------------------------------------------------------
@@ -647,25 +915,24 @@ INSERT_ENGINES = ("auto", "legacy", "frontier", "orientation")
 def resolve_engine(config: CuckooConfig, bulk: bool) -> str:
     """The concrete engine a (config, entry point) pair routes to.
 
-    As in the JAX package, ``"auto"`` means the orientation build for
-    ``insert_bulk``. Deviation: for ``insert`` under BFS eviction the JAX
-    ``"auto"`` means the batched BFS frontier, which is not ported yet, so
-    here it means the legacy round loop; ``"frontier"`` raises.
+    As in the JAX package: ``"auto"`` means the orientation build for
+    ``insert_bulk``, and for ``insert`` the batched BFS frontier under BFS
+    eviction and the legacy round loop under DFS; the other values force
+    one engine.
     """
     eng = config.insert_engine
     if eng not in INSERT_ENGINES:
         raise ValueError(f"unknown insert_engine {eng!r} "
                          f"(want one of {INSERT_ENGINES})")
-    if eng == "frontier":
-        raise NotImplementedError(
-            "insert_engine='frontier' is not ported yet (port slice 3); "
-            "use 'auto', 'legacy' or 'orientation'")
     if eng == "auto":
-        return "orientation" if bulk else "legacy"
+        if bulk:
+            return "orientation"
+        return "frontier" if config.eviction == "bfs" else "legacy"
     return eng
 
 
-_ENGINE_FNS = {"legacy": _insert_rounds, "orientation": _insert_orient}
+_ENGINE_FNS = {"legacy": _insert_rounds, "frontier": _insert_frontier,
+               "orientation": _insert_orient}
 
 
 def insert(
@@ -712,7 +979,7 @@ class CuckooFilter:
     New code should prefer :func:`repro_torch.amq.make`\\ ("cuckoo", ...),
     whose hot operations run on the CUDA kernels. This wrapper runs the
     torch core directly. Deletes and mixed batches are not ported to the
-    core yet (port slice 3) and raise.
+    core yet (port slice 4) and raise.
     """
 
     def __init__(self, config: CuckooConfig, state: Optional[CuckooState] = None,
@@ -761,12 +1028,12 @@ class CuckooFilter:
     def delete(self, keys):
         raise NotImplementedError(
             "CuckooFilter.delete: the core delete is not ported yet (port "
-            "slice 3); repro_torch.amq.make('cuckoo').delete runs the "
+            "slice 4); repro_torch.amq.make('cuckoo').delete runs the "
             "mixed-op kernel")
 
     def apply_ops(self, keys, ops, valid=None):
         raise NotImplementedError(
-            "CuckooFilter.apply_ops: not ported yet (port slice 3)")
+            "CuckooFilter.apply_ops: not ported yet (port slice 4)")
 
     @property
     def load_factor(self) -> float:

@@ -67,8 +67,7 @@ def keys_to_numpy(keys: torch.Tensor) -> np.ndarray:
 
 def _split_u64_tensor(x: torch.Tensor) -> torch.Tensor:
     """int64[n] tensor (uint64 bits) -> int32[n, 2] (lo, hi), on its device."""
-    lo = x & MASK32
-    hi = b64.shr64(x, 32)
+    hi, lo = b64.split64(x)
     return b64.to_i32(torch.stack([lo, hi], dim=-1)).contiguous()
 
 

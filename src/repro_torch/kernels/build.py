@@ -24,12 +24,13 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("hash64", "cuckoo_query", "cuckoo_insert", "cuckoo_insert_bulk",
-           "cuckoo_mixed")
+           "cuckoo_mixed", "bloom_query", "bloom_insert", "kmer_pack")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I64, _U32, _U64 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint32,
                         ctypes.c_uint64)
+# Five uint32 sizes, the uint64 seed and the stream (cuckoo and Bloom).
 _GEOMETRY = [_U32, _U32, _U32, _U32, _U32, _U64, _P]
 ARGTYPES = {
     "hash64_launch": [_P, _P, _P, _I64, _U32, _U64, _P],
@@ -37,6 +38,9 @@ ARGTYPES = {
     "cuckoo_insert_launch": [_P, _P, _P, _P, _I64] + _GEOMETRY,
     "cuckoo_insert_bulk_launch": [_P, _P, _P, _P, _P, _I64, _I64, _P] + _GEOMETRY,
     "cuckoo_mixed_launch": [_P, _P, _P, _P, _P, _P, _I64, _I64, _P] + _GEOMETRY,
+    "bloom_query_launch": [_P, _P, _P, _I64] + _GEOMETRY,
+    "bloom_insert_launch": [_P, _P, _P, _I64] + _GEOMETRY,
+    "kmer_pack_launch": [_P, _P, _I64, _U32, _P],
 }
 
 _LIBS: dict = {}
@@ -66,7 +70,7 @@ def build_dir() -> Path:
 
 def _lib_path(name: str) -> Path:
     digest = hashlib.sha256()
-    for part in (CSRC / f"{name}.cu", CSRC / "cuckoo_common.cuh"):
+    for part in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
         digest.update(part.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return build_dir() / f"{name}-{digest.hexdigest()[:16]}.so"

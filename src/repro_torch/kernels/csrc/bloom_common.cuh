@@ -1,0 +1,43 @@
+// Shared device code of the blocked-Bloom kernels for Hopper (sm_90a).
+//
+// The k bit positions of a key, exactly as repro/filters/blocked_bloom.py:
+// _bit_positions derives them: the key's hash (cuckoo_common.cuh, the
+// xxHash64 or fmix32-pair digest) gives the block from its lower word,
+// and the in-block bits are peeled from its upper word in BITS-bit chunks
+// (BITS = bit_length(block_bits - 1)), re-mixed with fmix32(h + j) when a
+// word is used up.
+#pragma once
+
+#include "cuckoo_common.cuh"
+
+namespace bloom {
+
+struct Geometry {
+  uint32_t num_blocks;
+  uint32_t words_per_block;
+  uint32_t k;
+  uint32_t bits_needed;  // bit_length(words_per_block * 32 - 1)
+  uint32_t hash_kind;    // 0 = xxhash64, 1 = fmix32
+  uint64_t seed;
+};
+
+// Calls visit(word address, bit mask) for each of the key's k bits.
+template <typename Visit>
+__device__ __forceinline__ void for_each_bit(uint32_t lo, uint32_t hi,
+                                             const Geometry& g, Visit visit) {
+  const cuckoo::Geometry hg{0, 0, 0, 0, g.hash_kind, g.seed};
+  uint32_t h, hlo;
+  cuckoo::hash_key(lo, hi, hg, h, hlo);
+  const size_t base = size_t(hlo % g.num_blocks) * g.words_per_block;
+  const uint32_t block_bits = g.words_per_block * 32u;
+  uint32_t per_word = 32u / g.bits_needed;
+  if (per_word == 0) per_word = 1;
+  for (uint32_t j = 0; j < g.k; ++j) {
+    const uint32_t r = j % per_word;
+    if (r == 0 && j > 0) h = cuckoo::fmix32(h + j);
+    const uint32_t pos = (h >> (r * g.bits_needed)) % block_bits;
+    visit(base + (pos >> 5), 1u << (pos & 31u));
+  }
+}
+
+}  // namespace bloom

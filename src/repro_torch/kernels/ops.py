@@ -18,15 +18,20 @@ import torch
 
 from ..amq.protocol import OP_DELETE, OP_INSERT
 from ..core.cuckoo_filter import CuckooConfig, CuckooState, prepare_keys
+from ..filters.blocked_bloom import BloomConfig, BloomState
+from .bloom import (bloom_insert_launch, bloom_insert_plain,
+                    bloom_query_launch, bloom_query_plain)
 from .cuckoo_insert import cuckoo_insert_direct_plain, cuckoo_insert_launch
 from .cuckoo_insert_bulk import cuckoo_insert_bulk_launch, cuckoo_insert_bulk_plain
 from .cuckoo_mixed import (cuckoo_mixed_launch, cuckoo_mixed_plain, segments,
                            sorted_runs)
 from .cuckoo_query import cuckoo_query_launch, cuckoo_query_plain
 from .hash64 import HASH_KINDS, hash64_launch, hash64_plain
+from .kmer_pack import kmer_pack_launch, kmer_pack_plain
 
 LAUNCHES = {"hash64": 0, "cuckoo_query": 0, "cuckoo_insert_direct": 0,
-            "cuckoo_insert_bulk": 0, "cuckoo_mixed": 0}
+            "cuckoo_insert_bulk": 0, "cuckoo_mixed": 0, "bloom_query": 0,
+            "bloom_insert": 0, "kmer_pack": 0}
 
 _KERNEL_WPB = (1, 2, 4, 8, 16, 32)
 
@@ -210,3 +215,86 @@ def cuckoo_apply_ops(config: CuckooConfig, state: CuckooState,
             LAUNCHES["cuckoo_mixed"] += 1
     delta = (ok & (ops == OP_INSERT)).sum() - (ok & (ops == OP_DELETE)).sum()
     return CuckooState(state.table, state.count + delta.to(torch.int32)), ok
+
+
+def _check_bloom(config: BloomConfig, state: BloomState, keys) -> int:
+    n = _check_keys(keys)
+    _check(state.table, "state.table", torch.int32, (config.num_words,))
+    return n
+
+
+def _check_bloom_kernel(config: BloomConfig, table: torch.Tensor,
+                        keys: torch.Tensor) -> None:
+    """Sizes and alignment the Bloom kernels are built for."""
+    if not 1 <= config.num_blocks < 2 ** 32 or config.block_bits > 2 ** 31:
+        raise ValueError(f"num_blocks={config.num_blocks}, words_per_block="
+                         f"{config.words_per_block} out of range")
+    if config.hash_kind not in HASH_KINDS:
+        raise ValueError(f"unknown hash kind: {config.hash_kind!r}")
+    if keys.data_ptr() % 8:
+        raise ValueError("keys must be 8-byte aligned")
+
+
+def bloom_query(config: BloomConfig, state: BloomState,
+                keys: torch.Tensor) -> torch.Tensor:
+    """Kernel-backed blocked-Bloom query. keys int32[n, 2] -> bool[n]."""
+    n = _check_bloom(config, state, keys)
+    if not _on_cuda(state.table, keys):
+        return bloom_query_plain(config, state.table, keys)
+    _check_bloom_kernel(config, state.table, keys)
+    hit = torch.empty((n,), dtype=torch.bool, device=keys.device)
+    if n:
+        with torch.cuda.device(keys.device):
+            bloom_query_launch(config, state.table, keys, hit)
+        LAUNCHES["bloom_query"] += 1
+    return hit
+
+
+def bloom_insert(config: BloomConfig, state: BloomState, keys: torch.Tensor,
+                 valid: torch.Tensor = None):
+    """Kernel-backed blocked-Bloom insert -> (state', ok bool[n]).
+
+    Append-only: every valid key succeeds, so ``ok`` is ``valid`` (all
+    True without one) and ``count`` grows by the valid keys.
+    """
+    n = _check_bloom(config, state, keys)
+    valid = _valid_mask(valid, n, keys.device)
+    if not _on_cuda(state.table, keys, valid):
+        bloom_insert_plain(config, state.table, keys, valid)
+    else:
+        _check_bloom_kernel(config, state.table, keys)
+        if n:
+            with torch.cuda.device(keys.device):
+                bloom_insert_launch(config, state.table, keys, valid)
+            LAUNCHES["bloom_insert"] += 1
+    count = state.count + valid.sum().to(torch.int32)
+    return BloomState(state.table, count), valid.clone()
+
+
+def kmer_pack(bases: torch.Tensor, k: int = 31) -> torch.Tensor:
+    """2-bit base codes [n] -> packed k-mer keys int32[n - k + 1, 2] (lo,
+    hi): key i holds bases[i:i+k], the first base most significant.
+
+    ``bases`` is 1-D of any integer type; only the low two bits of each
+    code count. The kernel reads uint8 codes (other types are narrowed
+    first); a batch shorter than ``k`` gives no keys.
+    """
+    if not isinstance(bases, torch.Tensor) or bases.ndim != 1:
+        raise ValueError("bases: expected a 1-D tensor of base codes")
+    if bases.dtype.is_floating_point or bases.dtype.is_complex:
+        raise TypeError(f"bases: expected integer codes, got {bases.dtype}")
+    if not 1 <= k <= 31:
+        raise ValueError(f"k must be in [1, 31], got {k}")
+    m = max(0, bases.shape[0] - k + 1)
+    if not _on_cuda(bases):
+        if not m:
+            return torch.empty((0, 2), dtype=torch.int32)
+        return kmer_pack_plain(bases, k)
+    if bases.dtype != torch.uint8:
+        bases = (bases & 3).to(torch.uint8)
+    out = torch.empty((m, 2), dtype=torch.int32, device=bases.device)
+    if m:
+        with torch.cuda.device(bases.device):
+            kmer_pack_launch(bases.contiguous(), k, out)
+        LAUNCHES["kmer_pack"] += 1
+    return out

@@ -18,6 +18,8 @@ from ..core.bits64 import MASK32, from_i32, to_i32
 from ..core.cuckoo_filter import CuckooConfig, CuckooState, prepare_keys_plain
 from ..core.cuckoo_filter import query as cuckoo_query_core
 from ..core.hashing import xxhash64_u64
+from ..filters import blocked_bloom as BB
+from .kmer_pack import kmer_pack_plain
 
 
 def _pack_keys(keys_lo: torch.Tensor, keys_hi: torch.Tensor) -> torch.Tensor:
@@ -116,3 +118,33 @@ def hash64_ref(keys_lo: torch.Tensor, keys_hi: torch.Tensor, seed: int = 0):
     """Oracle for the hash kernel — xxHash64 -> (hi, lo) int32 bit views."""
     hi, lo = xxhash64_u64((from_i32(keys_hi), from_i32(keys_lo)), seed=seed)
     return to_i32(hi), to_i32(lo)
+
+
+def bloom_query_ref(config: BB.BloomConfig, table: torch.Tensor,
+                    keys_lo: torch.Tensor, keys_hi: torch.Tensor) -> torch.Tensor:
+    """Oracle for the Bloom query kernel — the filter's own query."""
+    state = BB.BloomState(table, torch.zeros((), dtype=torch.int32))
+    return BB.query(config, state, _pack_keys(keys_lo, keys_hi))
+
+
+def bloom_insert_ref(config: BB.BloomConfig, table: torch.Tensor,
+                     keys_lo: torch.Tensor, keys_hi: torch.Tensor) -> torch.Tensor:
+    """Oracle for the Bloom insert kernel — the filter's own insert on a
+    copy of ``table``. Returns table'."""
+    state = BB.BloomState(table.clone(), torch.zeros((), dtype=torch.int32))
+    state, _ = BB.insert(config, state, _pack_keys(keys_lo, keys_hi))
+    return state.table
+
+
+def kmer_pack_ref(bases: torch.Tensor, k: int = 31):
+    """Oracle for the k-mer pack kernel, on the JAX oracle's terms.
+
+    bases: [n] 2-bit codes. Returns (hi, lo) int32[n] bit views where
+    position i holds the 2k-bit k-mer starting at i, computed with zero
+    padding past the end (positions past n - k are the padding's).
+    """
+    padded = torch.cat([bases.to(torch.int64),
+                        torch.zeros((k - 1,), dtype=torch.int64,
+                                    device=bases.device)])
+    keys = kmer_pack_plain(padded, k)
+    return keys[:, 1], keys[:, 0]

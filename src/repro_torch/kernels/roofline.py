@@ -1,8 +1,9 @@
-"""Minimal-bytes-per-op model for the cuckoo kernels (DESIGN.md §13).
+"""Minimal-bytes-per-op model for the kernels (DESIGN.md §13).
 
-The port's own copy of the cuckoo part of ``repro.kernels.roofline``: from
-a config's layout alone it computes the least bytes each operation must
-move, which over the card's memory rate gives each kernel's bound.
+The port's own copy of the cuckoo and blocked-Bloom parts of
+``repro.kernels.roofline``, plus the k-mer pack: from a config's layout
+alone it computes the least bytes each operation must move, which over
+the card's memory rate gives each kernel's bound.
 
 Two residency regimes:
 
@@ -183,3 +184,73 @@ def int_ops_per_key(config, op: str) -> int:
 def int32_ops_per_s(sm_count: int, sm_clock_hz: float) -> float:
     """The card's peak 32-bit integer instruction rate (lanes x clock)."""
     return sm_count * INT32_LANES_PER_SM * sm_clock_hz
+
+
+# ---------------------------------------------------------------------------
+# Blocked Bloom: one 64-byte block per key.
+# ---------------------------------------------------------------------------
+
+BLOOM_OPS = ("query", "insert")
+
+
+def bloom_op_traffic(config, op: str) -> OpTraffic:
+    """Minimal per-key traffic of the blocked-Bloom baseline: every probe
+    reads its one block (``words_per_block`` words); an insert also writes
+    the <= k distinct words that carry its bits. Results are bool[n]."""
+    block_bytes = config.words_per_block * 4
+    if op == "query":
+        return OpTraffic(KEY_BYTES, RESULT_BYTES, block_bytes, 0.0)
+    if op == "insert":
+        return OpTraffic(KEY_BYTES, RESULT_BYTES, block_bytes,
+                         4.0 * min(config.k, config.words_per_block))
+    raise ValueError(f"unknown bloom op {op!r} (want one of {BLOOM_OPS})")
+
+
+def bloom_batch_bytes(config, op: str, n: int, touched=None) -> float:
+    """The least bytes an ``n``-key batch of ``op`` moves: per-key block
+    probes, or each block the batch touches read once (and, for an
+    insert, written once), capped at the table; the smaller of the two.
+    ``touched``: the distinct blocks of the batch's own keys, by default
+    the expected number for uniform keys."""
+    traffic = bloom_op_traffic(config, op)
+    blocks = (expected_buckets(config.num_blocks, n) if touched is None
+              else touched)
+    touched_bytes = blocks * config.words_per_block * 4
+    resident = traffic.batch_bytes(n, table_bytes=config.table_bytes,
+                                   table_resident=True,
+                                   touched_bytes=(touched_bytes,
+                                                  touched_bytes))
+    return min(traffic.batch_bytes(n), resident)
+
+
+def kmer_pack_bytes(n_codes: int, k: int) -> float:
+    """The least bytes of packing ``n_codes`` one-byte codes into their
+    ``n_codes - k + 1`` k-mers: every code read once, 8 bytes written a
+    k-mer."""
+    return n_codes + 8.0 * max(0, n_codes - k + 1)
+
+
+# The operations side of the Bloom and k-mer bounds, counted as above:
+#   a Bloom key hashes (HASH_INSTRUCTIONS), then per bit a shift of the
+#   hash word, the in-block modulo, the mask shift and one test or OR
+#   (4), and re-mixes the hash word with fmix32 + IADD every
+#   ``32 // bit_length(block_bits - 1)`` bits;
+#   a k-mer position shifts a 64-bit accumulator by two (two funnel
+#   shifts) and ORs in a code (LOP3) for each of its k bases.
+BLOOM_BIT_INSTRUCTIONS = 4
+KMER_BASE_INSTRUCTIONS = 3
+
+
+def bloom_int_ops_per_key(config) -> int:
+    """The floor on 32-bit integer instructions of one Bloom query or
+    insert key."""
+    per_word = max(1, 32 // max(1, (config.block_bits - 1).bit_length()))
+    remixes = (config.k - 1) // per_word
+    return (HASH_INSTRUCTIONS[config.hash_kind]
+            + config.k * BLOOM_BIT_INSTRUCTIONS
+            + remixes * (FMIX32_INSTRUCTIONS + 1))
+
+
+def kmer_int_ops_per_key(k: int) -> int:
+    """The floor on 32-bit integer instructions of one packed k-mer."""
+    return k * KMER_BASE_INSTRUCTIONS

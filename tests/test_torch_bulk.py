@@ -43,6 +43,12 @@ from repro_torch.kernels.cuckoo_insert_bulk import cuckoo_insert_bulk_plain
 
 torch.set_num_threads(1)
 
+# The JAX reference is compiled without XLA's backend optimisations: its
+# integer results do not depend on them, and each compile takes about a
+# fifth less time.
+_XLA_FAST = {"xla_backend_optimization_level": 0,
+             "xla_llvm_disable_expensive_passes": True}
+
 NUM_BUCKETS = 64
 BLOCK = 64
 
@@ -98,7 +104,8 @@ def _prefilled(cfg, n, seed=1):
 
 @functools.lru_cache(maxsize=None)
 def _jit(fn, cfg, **kw):
-    return jax.jit(functools.partial(fn, cfg, **kw))
+    return jax.jit(functools.partial(fn, cfg, **kw),
+                   compiler_options=_XLA_FAST)
 
 
 def _assert_same(out_j, out_t):
@@ -121,7 +128,10 @@ def _both_bulk(cfg, load, keys_seed=2, valid=None, dedup=False, fn="bulk"):
     n = int(cfg.num_slots * load)
     tcfg, tstate, jstate = _prefilled(cfg, int(n * 0.4))
     batch = _keys(keys_seed, n - int(n * 0.4), dup=0.2 if dedup else 0.0)
-    vj = None if valid is None else jnp.asarray(valid[:batch.shape[0]])
+    # Without ``valid`` the port gets None and JAX an all-True mask (which
+    # it treats exactly as None), so one JAX compile serves both calls.
+    vj = jnp.asarray(np.ones(batch.shape[0], bool) if valid is None
+                     else valid[:batch.shape[0]])
     vt = None if valid is None else torch.from_numpy(valid[:batch.shape[0]])
     jfn, tfn = {"bulk": (CF.insert_bulk, TCF.insert_bulk),
                 "orient": (CF._insert_orient, TCF._insert_orient)}[fn]

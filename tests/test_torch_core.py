@@ -26,6 +26,12 @@ from repro_torch.core import cuckoo_filter as TCF
 
 torch.set_num_threads(1)
 
+# The JAX reference is compiled without XLA's backend optimisations: its
+# integer results do not depend on them, and each compile takes about a
+# fifth less time.
+_XLA_FAST = {"xla_backend_optimization_level": 0,
+             "xla_llvm_disable_expensive_passes": True}
+
 NUM_BUCKETS = 64
 
 # (bucket_size, fp_bits, policy, load, eviction, hash)
@@ -50,7 +56,8 @@ def _cfg(bs, fb, policy, eviction, hash_kind, **kw):
 @functools.lru_cache(maxsize=None)
 def _jax_rounds(cfg, dedup):
     return jax.jit(functools.partial(CF._insert_rounds, cfg,
-                                     dedup_within_batch=dedup))
+                                     dedup_within_batch=dedup),
+                   compiler_options=_XLA_FAST)
 
 
 def _keys(seed, n, dup=0.0):
@@ -63,13 +70,18 @@ def _keys(seed, n, dup=0.0):
 
 
 def _both(cfg, keys_np, valid=None, dedup=False):
-    """Run both round loops on the same input; returns (jax, port) results."""
+    """Run both round loops on the same input; returns (jax, port) results.
+
+    Without ``valid`` the port gets None and JAX an all-True mask, which
+    its round loop treats exactly as None; one compiled JAX loop per
+    config then serves both kinds of call."""
     state = cfg.init()
     tcfg = convert.config_from_reference(cfg)
     tstate = convert.state_from_numpy(
         {"table": np.asarray(state.table), "count": np.asarray(state.count)},
         "cpu")
-    vj = None if valid is None else jnp.asarray(valid)
+    vj = jnp.asarray(np.ones(keys_np.shape[0], bool) if valid is None
+                     else valid)
     out_j = _jax_rounds(cfg, dedup)(state, jnp.asarray(keys_np), vj)
     vt = None if valid is None else torch.from_numpy(valid)
     keys = torch.from_numpy(keys_np.view(np.int32))
@@ -190,29 +202,30 @@ def test_config_identity_and_engine_routing():
         assert convert.config_from_reference(ref) == port
         assert port.expected_fpr(0.9) == ref.expected_fpr(0.9)
         assert (port.num_slots, port.table_bytes) == (ref.num_slots, ref.table_bytes)
-    # auto: orientation for the bulk entry point, as in repro; the legacy
-    # loop for insert (repro's frontier is not ported: a kept deviation).
-    for eng, bulk in (("auto", True), ("auto", False), ("legacy", True),
-                      ("legacy", False), ("orientation", True),
-                      ("orientation", False)):
-        ref_cfg = CuckooConfig(64, insert_engine=eng, eviction="dfs")
-        port_cfg = TCF.CuckooConfig(64, insert_engine=eng, eviction="dfs")
-        assert (TCF.resolve_engine(port_cfg, bulk)
-                == CF.resolve_engine(ref_cfg, bulk))
+    # Routing equals repro's for every (engine, entry point, eviction):
+    # auto is orientation for the bulk entry point, the frontier for
+    # insert under BFS and the legacy loop under DFS.
+    for eng in TCF.INSERT_ENGINES:
+        for bulk in (True, False):
+            for ev in ("bfs", "dfs"):
+                ref_cfg = CuckooConfig(64, insert_engine=eng, eviction=ev)
+                port_cfg = TCF.CuckooConfig(64, insert_engine=eng, eviction=ev)
+                assert (TCF.resolve_engine(port_cfg, bulk)
+                        == CF.resolve_engine(ref_cfg, bulk))
     assert TCF.resolve_engine(TCF.CuckooConfig(64), True) == "orientation"
-    assert TCF.resolve_engine(TCF.CuckooConfig(64), False) == "legacy"
+    assert TCF.resolve_engine(TCF.CuckooConfig(64), False) == "frontier"
     keys = torch.from_numpy(_keys(10, 50).view(np.int32))
     for fn in (TCF.insert, TCF.insert_bulk):
         cfg = TCF.CuckooConfig(16, insert_engine="orientation")
         state, ok, stats = fn(cfg, cfg.init("cpu"), keys)
         assert bool(ok.all()) and int(state.count) == 50
         assert int(stats.rounds) == 2     # two sorted commits, no residue
+        # "frontier" runs: the frontier for insert, the legacy bulk build
+        # (two sorted commits) for insert_bulk, as in repro.
         frontier = TCF.CuckooConfig(64, insert_engine="frontier")
-        with pytest.raises(NotImplementedError, match="slice 3"):
-            fn(frontier, frontier.init("cpu"), keys)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        TCF.resolve_engine(TCF.CuckooConfig(64, insert_engine="frontier"),
-                           True)
+        state, ok, stats = fn(frontier, frontier.init("cpu"), keys)
+        assert bool(ok.all()) and int(state.count) == 50
+        assert int(stats.rounds) >= (2 if fn is TCF.insert_bulk else 1)
     with pytest.raises(ValueError):
         TCF.resolve_engine(TCF.CuckooConfig(64, insert_engine="magic"), False)
 
@@ -221,7 +234,8 @@ def test_core_insert_query_and_wrapper_match_reference():
     cfg = _cfg(16, 16, "xor", "bfs", "fmix32")
     tcfg = convert.config_from_reference(cfg)
     keys = _keys(8, int(cfg.num_slots * 0.9))
-    sj, okj, _ = jax.jit(functools.partial(CF.insert, cfg))(cfg.init(),
+    sj, okj, _ = jax.jit(functools.partial(CF.insert, cfg),
+                         compiler_options=_XLA_FAST)(cfg.init(),
                                                             jnp.asarray(keys))
     filt = TCF.CuckooFilter(tcfg, device="cpu")
     ok, _ = filt.insert(keys)

@@ -17,7 +17,11 @@ then force thousands of threads onto the same words, where the CAS
 kernels are held by invariants. The orientation bulk build (torch ops,
 deterministic) must leave the same table on the card as on the CPU, and
 the legacy bulk route (bulk kernel, then the round loop) holds the
-invariants.
+invariants. The frontier engine (torch ops, deterministic) leaves the
+same table on the card as on the CPU, and the adapter's frontier route
+(direct-insert kernel, then the frontier) fills to 0.95 under the
+invariants. The k-mer pack and the Bloom kernels equal their plain
+versions bit for bit.
 """
 
 import numpy as np
@@ -26,7 +30,11 @@ import torch
 
 from repro_torch import amq
 from repro_torch.core import CuckooConfig, keys_from_numpy
+from repro_torch.core import cuckoo_filter as CF
 from repro_torch.core import layout as L
+from repro_torch.data.kmer import kmer_keys
+from repro_torch.filters.blocked_bloom import BloomConfig
+from repro_torch.kernels.bloom import bloom_insert_plain, bloom_query_plain
 from repro_torch.core.cuckoo_filter import prepare_keys_plain
 from repro_torch.kernels import ops as K
 from repro_torch.kernels.cuckoo_insert import cuckoo_insert_direct_plain
@@ -34,6 +42,7 @@ from repro_torch.kernels.cuckoo_insert_bulk import cuckoo_insert_bulk_plain
 from repro_torch.kernels.cuckoo_mixed import cuckoo_mixed_plain
 from repro_torch.kernels.cuckoo_query import cuckoo_query_plain
 from repro_torch.kernels.hash64 import hash64_plain
+from repro_torch.kernels.kmer_pack import kmer_pack_plain
 
 pytestmark = pytest.mark.gpu
 
@@ -260,3 +269,85 @@ def test_deletes_under_contention_follow_batch_order(cuda):
     assert int(state2.count) == int(copies.sum()) - int(want.sum())
     left = torch.from_numpy(copies - np.minimum(copies, dels) > 0).to(cuda)
     assert bool(K.cuckoo_query(cfg, state2, uni[left]).all())
+
+
+def test_frontier_on_the_card(cuda):
+    """Core ``_insert_frontier`` leaves the CPU's table, ok and stats on
+    the card; the adapter's frontier route (``auto``) fills to 0.95 in
+    eight batches under the invariants, launching the direct kernel."""
+    cfg = CuckooConfig(num_buckets=64, bucket_size=4, fp_bits=16,
+                       hash_kind="fmix32", max_evictions=256)
+    raw = np.random.default_rng(13).integers(0, 2**64, size=243,
+                                             dtype=np.uint64)
+    out = {dev: CF._insert_frontier(cfg, cfg.init(dev),
+                                    keys_from_numpy(raw, dev))
+           for dev in ("cpu", cuda)}
+    (sc, okc, stc), (sg, okg, stg) = out["cpu"], out[cuda]
+    assert torch.equal(sg.table.cpu(), sc.table)
+    assert torch.equal(okg.cpu(), okc)
+    assert torch.equal(stg.evictions.cpu(), stc.evictions)
+    assert int(stg.rounds) == int(stc.rounds)
+
+    capacity = 62_259                                 # floor(0.95 * 2**16)
+    raw = np.random.default_rng(14).integers(0, 2**63, size=capacity,
+                                             dtype=np.uint64)
+    h = amq.make("cuckoo", capacity=capacity)
+    assert CF.resolve_engine(h.config, False) == "frontier"
+    K.reset_launches()
+    CF.FRONTIER_KEYS = []
+    try:
+        for chunk in np.array_split(raw, 8):
+            assert bool(h.insert(chunk).ok.all())
+        residue = int(sum(CF.FRONTIER_KEYS))
+    finally:
+        CF.FRONTIER_KEYS = None
+    assert K.LAUNCHES["cuckoo_insert_direct"] == 8 and residue > 0
+    _hold_insert_invariants(h.config, h.state, keys_from_numpy(raw, cuda),
+                            torch.ones(capacity, dtype=torch.bool,
+                                       device=cuda), cuda)
+
+
+@pytest.mark.parametrize("k", [1, 21, 31])
+def test_kmer_pack_matches_plain(cuda, k):
+    codes = torch.from_numpy(np.random.default_rng(k).integers(
+        0, 4, size=(1 << 16) + 7, dtype=np.uint8)).to(cuda)
+    codes[:64] = 0                                     # an all-A run
+    codes[64:128] = 3                                  # an all-T run
+    K.reset_launches()
+    got = K.kmer_pack(codes, k)
+    want = kmer_pack_plain(codes, k)
+    wide = K.kmer_pack(codes.to(torch.int64) | 4, k)   # high bits ignored
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["kmer_pack"] == 2
+    assert got.shape == (codes.shape[0] - k + 1, 2)
+    assert torch.equal(got, want) and torch.equal(wide, want)
+    assert torch.equal(K.kmer_pack(codes[:k], k), want[:1])
+    assert torch.equal(kmer_keys(codes, k).cpu(),
+                       kmer_keys(codes.cpu(), k, device="cpu"))
+
+
+@pytest.mark.parametrize("wpb,k,hash_kind", [(16, 8, "fmix32"),
+                                             (16, 8, "xxhash64"),
+                                             (4, 11, "fmix32"),
+                                             (1, 3, "xxhash64")])
+def test_bloom_matches_plain(cuda, wpb, k, hash_kind):
+    cfg = BloomConfig.for_capacity(20_000, words_per_block=wpb, k=k,
+                                   hash_kind=hash_kind, seed=99)
+    keys = _keys(15, 20_000, cuda)
+    valid = (torch.rand(20_000, generator=torch.Generator().manual_seed(4))
+             < 0.9).to(cuda)
+    K.reset_launches()
+    state, ok = K.bloom_insert(cfg, cfg.init(cuda), keys, valid)
+    table = cfg.init(cuda).table
+    bloom_insert_plain(cfg, table, keys, valid)
+    torch.cuda.synchronize()
+    assert torch.equal(state.table, table)
+    assert torch.equal(ok, valid) and int(state.count) == int(valid.sum())
+    probe = torch.cat([keys, _keys(16, 20_000, cuda)])
+    hit = K.bloom_query(cfg, state, probe)
+    assert torch.equal(hit, bloom_query_plain(cfg, table, probe))
+    assert bool(hit[:20_000][valid].all())
+    assert K.LAUNCHES["bloom_insert"] == 1 and K.LAUNCHES["bloom_query"] == 1
+    h = amq.make("bloom", capacity=20_000)
+    h.insert(keys)
+    assert bool(h.query(keys).hits.all())

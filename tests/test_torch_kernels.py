@@ -27,6 +27,7 @@ from repro.kernels.cuckoo_mixed import cuckoo_mixed_pallas
 from repro.kernels.cuckoo_query import cuckoo_query_fused_pallas
 from repro_torch import convert
 from repro_torch.core import CuckooState
+from repro_torch.core import cuckoo_filter as TCF
 from repro_torch.kernels import ops as K
 from repro_torch.kernels import ref as TR
 from repro_torch.kernels import roofline
@@ -35,6 +36,12 @@ from repro_torch.kernels.cuckoo_mixed import cuckoo_mixed_plain, segments
 from repro_torch.kernels.cuckoo_query import cuckoo_query_plain
 
 torch.set_num_threads(1)
+
+# The JAX reference is compiled without XLA's backend optimisations: its
+# integer results do not depend on them, and each compile takes about a
+# fifth less time.
+_XLA_FAST = {"xla_backend_optimization_level": 0,
+             "xla_llvm_disable_expensive_passes": True}
 
 NUM_BUCKETS = 64
 BLOCK = 64
@@ -63,24 +70,27 @@ def _raw(rng, n):
 
 @functools.lru_cache(maxsize=None)
 def _jit(fn, cfg):
-    return jax.jit(functools.partial(fn, cfg))
+    return jax.jit(functools.partial(fn, cfg), compiler_options=_XLA_FAST)
 
 
 @functools.lru_cache(maxsize=None)
 def _jit_blk(fn, cfg):
-    return jax.jit(functools.partial(fn, cfg, block_keys=BLOCK))
+    return jax.jit(functools.partial(fn, cfg, block_keys=BLOCK),
+                   compiler_options=_XLA_FAST)
 
 
 @functools.lru_cache(maxsize=None)
 def _filled(cfg, occ):
-    """A JAX state at ~occ load (legacy round loop), and the same state
-    carried into the port."""
+    """A state at ~occ load (legacy round loop) in both packages: the
+    port's round loop, bit-exact with the JAX one (``test_torch_core``),
+    fills it, and the table is carried into a JAX state."""
     n = max(BLOCK, int(cfg.num_slots * occ))
-    keys = jnp.asarray(keys_from_numpy(_raw(np.random.default_rng(10), n)))
-    state, _, _ = _jit(CF._insert_rounds, cfg)(cfg.init(), keys)
-    tstate = convert.state_from_numpy(
-        {"table": np.asarray(state.table), "count": np.asarray(state.count)},
-        "cpu")
+    keys = keys_from_numpy(_raw(np.random.default_rng(10), n))
+    tcfg = convert.config_from_reference(cfg)
+    tstate, _, _ = TCF._insert_rounds(tcfg, tcfg.init("cpu"), _t(keys))
+    # A copy: jnp.asarray may alias the numpy view of the torch table.
+    state = CF.CuckooState(jnp.asarray(_u32(tstate.table).copy()),
+                           jnp.asarray(np.int32(int(tstate.count))))
     return state, tstate
 
 

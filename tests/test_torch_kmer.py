@@ -1,0 +1,100 @@
+"""The port's k-mer tooling vs the JAX package's, bit-exact.
+
+``synthetic_genome``, ``encode_bases``, ``kmer_keys`` (canonical or not,
+k 21 and 31, through ``kernels.ops.kmer_pack``) and the plain version of
+the k-mer pack kernel are deterministic in both packages: the same codes
+give the same keys, tolerance 0. The JAX ``kmer_keys`` runs
+``kmer_pack_pallas`` in interpret mode, as the JAX package's own tests
+do on the CPU. The edges: k = 31, n = k (one k-mer), and all-A / all-T
+runs (whose reverse complements are each other).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro.data import kmer as RK
+from repro.kernels import ref as RREF
+from repro_torch.data import kmer as TK
+from repro_torch.kernels import ops as K
+from repro_torch.kernels import ref as TREF
+from repro_torch.kernels.kmer_pack import kmer_pack_plain
+
+torch.set_num_threads(1)
+
+N_BASES = 4000
+
+
+def _genome():
+    """A few thousand bases with an all-A and an all-T run of 64."""
+    g = RK.synthetic_genome(N_BASES, seed=11).copy()
+    g[100:164] = 0
+    g[1000:1064] = 3
+    return g
+
+
+def _u32(keys):
+    return keys.numpy().view(np.uint32)
+
+
+def test_synthetic_genome_and_encode_bases_bit_exact():
+    for n, seed in ((N_BASES, 0), (20_000, 7), (300, 3)):
+        np.testing.assert_array_equal(TK.synthetic_genome(n, seed),
+                                      RK.synthetic_genome(n, seed))
+    seq = "ACGTacgtTTGCA" * 5
+    np.testing.assert_array_equal(TK.encode_bases(seq), RK.encode_bases(seq))
+    with pytest.raises(ValueError, match="non-ACGT"):
+        TK.encode_bases("ACGNT")
+
+
+@pytest.mark.parametrize("canonical", [False, True], ids=["raw", "canonical"])
+@pytest.mark.parametrize("k", [21, 31])
+def test_kmer_keys_bit_exact(k, canonical):
+    g = _genome()
+    want = np.asarray(RK.kmer_keys(g, k=k, canonical=canonical))
+    got = TK.kmer_keys(g, k=k, canonical=canonical, device="cpu")
+    assert got.dtype == torch.int32 and got.shape == (N_BASES - k + 1, 2)
+    np.testing.assert_array_equal(_u32(got), want)
+    # The same codes as a tensor stay on its device; any integer type.
+    t = torch.from_numpy(g.astype(np.int64))
+    assert torch.equal(TK.kmer_keys(t, k=k, canonical=canonical), got)
+
+
+def test_kmer_edges_bit_exact():
+    k = 31
+    g = _genome()
+    # n == k: one k-mer; an all-A and an all-T window are each other's
+    # reverse complement, so both canonicalize to all-A (0).
+    for window in (g[:k], g[100:100 + k], g[1000:1000 + k]):
+        want = np.asarray(RK.kmer_keys(window, k=k))
+        got = TK.kmer_keys(window, k=k, device="cpu")
+        assert got.shape == (1, 2)
+        np.testing.assert_array_equal(_u32(got), want)
+    assert not TK.kmer_keys(g[100:100 + k], k=k, device="cpu").any()
+    assert not TK.kmer_keys(g[1000:1000 + k], k=k, device="cpu").any()
+    assert K.kmer_pack(torch.from_numpy(g[:k - 1]), k).shape == (0, 2)
+    for bad in (0, 32):
+        with pytest.raises(ValueError, match="k must be"):
+            K.kmer_pack(torch.from_numpy(g), bad)
+
+
+@pytest.mark.parametrize("k", [21, 31])
+def test_kmer_pack_plain_matches_reference_oracle(k):
+    g = _genome()
+    hi_j, lo_j = RREF.kmer_pack_ref(np.asarray(g, np.uint32), k)
+    t = torch.from_numpy(g)
+    hi_t, lo_t = TREF.kmer_pack_ref(t, k)
+    np.testing.assert_array_equal(_u32(hi_t), np.asarray(hi_j))
+    np.testing.assert_array_equal(_u32(lo_t), np.asarray(lo_j))
+    got = kmer_pack_plain(t, k)
+    m = N_BASES - k + 1
+    np.testing.assert_array_equal(_u32(got[:, 0]), np.asarray(lo_j)[:m])
+    np.testing.assert_array_equal(_u32(got[:, 1]), np.asarray(hi_j)[:m])
+
+
+def test_kmer_keys_default_to_the_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TK.kmer_keys(_genome())
+    with pytest.raises(ValueError, match="not on device"):
+        TK.kmer_keys(torch.from_numpy(_genome()), device="meta")

@@ -4,9 +4,10 @@
 versions of the kernels; it is held against ``repro.amq.make("cuckoo",
 ...)`` on the same keys, made from a seed with numpy. The bulk path
 (``insert(keys, bulk=True)``, the orientation build in both packages) must
-leave the same table. Where the two place keys differently (the JAX
-registry default routes ``insert`` to the frontier engine; the port runs
-direct insert + the legacy loop), the port is held by invariants: ``count == ok.sum()``, every accepted key
+leave the same table. Where the two place keys differently (``insert``
+routes to the frontier engine in both, but the port runs the direct-insert
+kernel first and hands the frontier only its residue), the port is held by
+invariants: ``count == ok.sum()``, every accepted key
 queryable, every stored tag in one of its key's buckets, every key placed
 where the reference places every key, and the FPR inside the Eq. 4 band.
 Query answers on a JAX table carried across are bit-exact, and deletes
@@ -155,8 +156,10 @@ def test_make_needs_cuda_or_an_explicit_cpu(monkeypatch):
         with pytest.raises(NotImplementedError):
             call()
     with pytest.raises(KeyError):
-        tamq.make("bloom", capacity=10, device="cpu")
-    assert tamq.names() == ("cuckoo",)
+        tamq.make("tcf", capacity=10, device="cpu")
+    assert tamq.names() == ("cuckoo", "bloom")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tamq.make("bloom", capacity=1000)
 
 
 def test_port_imports_neither_jax_nor_the_reference():
