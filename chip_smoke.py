@@ -756,7 +756,7 @@ def kmer_case_study(gen):
         cuda_ms(lambda: kmer_pack_launch(codes, KMER_K, out)),
         cuda_ms(lambda: kmer_pack_plain(codes, KMER_K), reps=3),
         n_pos, n_pos, roofline.kmer_pack_bytes(GENOME_BASES, KMER_K),
-        roofline.kmer_int_ops_per_key(KMER_K) * n_pos, None)
+        roofline.kmer_pack_int_ops(GENOME_BASES), None)
     wrapper["kmer_pack"] = cuda_ms(lambda: K.kmer_pack(codes, KMER_K))
     del out
 

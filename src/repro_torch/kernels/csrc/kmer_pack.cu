@@ -11,7 +11,8 @@
 // read goes past the input and no padded copy is made.
 //
 // Bound: device-memory bytes — n code bytes read (uint8, the genome's own
-// form) and 8 bytes written per position; the pack is k shift-or pairs.
+// form) and 8 bytes written per position. The function needs one shift-or
+// step a code (a rolling pack); this design spends k a position.
 // The design: neighbouring threads read overlapping windows of neighbouring
 // bytes, so every code comes from device memory once and the rest of its
 // k reads hit L1; the 8-byte stores of a warp are contiguous. A shared-

@@ -235,10 +235,14 @@ def kmer_pack_bytes(n_codes: int, k: int) -> float:
 #   hash word, the in-block modulo, the mask shift and one test or OR
 #   (4), and re-mixes the hash word with fmix32 + IADD every
 #   ``32 // bit_length(block_bits - 1)`` bits;
-#   a k-mer position shifts a 64-bit accumulator by two (two funnel
-#   shifts) and ORs in a code (LOP3) for each of its k bases.
+#   the k-mer pack is a rolling pack at the least: each code enters a
+#   64-bit accumulator once, ``(acc << 2 | code) & mask``, a funnel shift
+#   of the upper word, a shift-add of the code into the lower word (LEA)
+#   and the mask of the upper word (LOP3). (The kernel repacks each
+#   position's whole window, k times this; that is its design, not the
+#   function's cost.)
 BLOOM_BIT_INSTRUCTIONS = 4
-KMER_BASE_INSTRUCTIONS = 3
+KMER_CODE_INSTRUCTIONS = 3
 
 
 def bloom_int_ops_per_key(config) -> int:
@@ -251,6 +255,7 @@ def bloom_int_ops_per_key(config) -> int:
             + remixes * (FMIX32_INSTRUCTIONS + 1))
 
 
-def kmer_int_ops_per_key(k: int) -> int:
-    """The floor on 32-bit integer instructions of one packed k-mer."""
-    return k * KMER_BASE_INSTRUCTIONS
+def kmer_pack_int_ops(n_codes: int) -> int:
+    """The floor on 32-bit integer instructions of packing ``n_codes``
+    codes: one rolling-pack step a code."""
+    return n_codes * KMER_CODE_INSTRUCTIONS

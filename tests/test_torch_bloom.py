@@ -205,5 +205,6 @@ def test_roofline_bloom_and_kmer():
         roofline.bloom_op_traffic(tcfg, "delete")
     # fmix32 pair (32) + 8 bits x 4 + two re-mixes x 9.
     assert roofline.bloom_int_ops_per_key(tcfg) == 32 + 32 + 18
-    assert roofline.kmer_int_ops_per_key(31) == 93
+    # A rolling pack: three instructions a code, whatever k is.
+    assert roofline.kmer_pack_int_ops(100) == 300
     assert roofline.kmer_pack_bytes(100, 31) == 100 + 8 * 70
