@@ -6,7 +6,7 @@
 From the repository root, on a machine with one NVIDIA H100 and the CUDA
 toolkit. Phases, one JSON line each:
 
-1. build — the eight CUDA kernels from ``src/repro_torch/kernels/csrc``
+1. build — the ten CUDA kernels from ``src/repro_torch/kernels/csrc``
    (``nvcc``, ``sm_90a``, in parallel), with the build seconds and the
    card's name and power limit.
 2. main path at 2^28 slots — ``repro_torch.amq.make("cuckoo",
@@ -14,7 +14,7 @@ toolkit. Phases, one JSON line each:
    512 MiB table, ten times the L2), filled to load 0.95 in 16 batches of
    at most 2^24 keys from a seeded CUDA generator: the first twelve
    incremental (``insert_engine="auto"``: the direct-insert kernel, then
-   the BFS frontier on the keys it turns down), the last four with
+   the round loop on the keys it turns down), the last four with
    ``bulk=True`` (the orientation build). Every key placed; ``count``
    equal to the keys placed; the table holds exactly the placed keys (see
    :func:`table_codes`); every inserted key found by the query kernel and
@@ -33,6 +33,17 @@ toolkit. Phases, one JSON line each:
    sub-batch (equal ``ok`` and equal tag multiset in every touched bucket;
    slots may differ by CAS order), as is a 2^12 mixed stream and a delete
    stream with duplicates.
+3b. the fused-vs-unfused comparison (the JAX package's
+   ``benchmarks/roofline_filters.py`` ``fused=False`` rows) through
+   ``kernels.ops.cuckoo_query(fused=...)`` and
+   ``cuckoo_insert_direct(fused=...)``, 2^24 keys against the 2^28-slot
+   table at load 0.5 and at 0.95, launch counts zeroed just before and
+   read just after: the unfused query's hits equal the fused query's; the
+   unfused insert is held as the fused one is (no stored tag moves, the
+   tags added are exactly the placed keys', a key turned down only with
+   both buckets full; on a 2^12 sub-batch the plain loop's ``ok`` and tag
+   multisets); the unfused query equals its plain version on 2^22 keys.
+   Both timed beside the fused kernels at both loads.
 4. timings at the main path's shapes (median of CUDA-event runs) beside
    each kernel's bound, whose bytes count the buckets the timed batch's
    own data touches (see :func:`touched_buckets`). Then the bulk kernel
@@ -41,11 +52,12 @@ toolkit. Phases, one JSON line each:
    held to the order-free outcome first. A warm-up pass at 2^16 slots
    (both engines, and the k-mer and Bloom kernels) runs before anything
    is timed.
-5. fills at 2^28 slots — four fresh handles at the main path's capacity,
+5. fills at 2^28 slots — five fresh handles at the main path's capacity,
    each filled to 0.95 in the main path's batches: bulk under ``auto``
    (orientation) and ``legacy`` (the bulk kernel, then the round loop),
-   incremental under ``auto`` (the direct kernel, then the frontier) and
-   ``legacy`` (the direct kernel, then the round loop). The main path's
+   incremental under ``auto`` and ``legacy`` (the direct kernel, then the
+   round loop) and ``frontier`` (the direct kernel, then the BFS
+   frontier). The main path's
    gates on each, with its own launch counts. Then one orientation batch
    (load 0.5 -> 0.5625) under ``torch.profiler``: its wall and
    device-busy seconds and the operators that take the most device time.
@@ -62,7 +74,21 @@ toolkit. Phases, one JSON line each:
    The k-mer pack, Bloom insert and Bloom query kernels are then held
    exactly against their plain versions on the same inputs and timed.
    Keys/s of each step and the cuckoo/Bloom query ratio.
-7. the main path again at 2^22 slots (an 8 MiB table, resident in L2).
+7. the mixed path at 2^28 slots — ``make("cuckoo")`` prefilled to load
+   0.5, then three batches of 2^24 ops through ``FilterHandle.apply_ops``
+   under each of the JAX package's ``benchmarks/mixed_workload.py`` mixes
+   (``ycsb_50_40_10``: query / insert / delete 0.50 / 0.40 / 0.10;
+   ``read_heavy_95_5``: 0.95 / 0.05 / 0), each from the prefilled table;
+   queries and deletes draw stored keys (a key deleted once is not drawn
+   again), inserts fresh ones, in a shuffled order. Every batch: ``ok``
+   equal to core ``apply_ops``'s on a copy of the same table on the card,
+   and all True; ``count`` equal to the stored non-zero tags; every key
+   inserted by the batch found by a later query. Launch counts zeroed
+   just before and read just after each ``apply_ops``; ops/s per mix and
+   seconds per batch; one more batch under ``torch.profiler``. Then ``handle.delete`` and core ``delete`` of 2^24
+   stored keys, each from the prefilled table: all ``ok``, ``count``
+   exact, and the two tables holding the same (pair, tag) codes.
+8. the main path again at 2^22 slots (an 8 MiB table, resident in L2).
 
 Before the last line: the ``nvidia-smi`` name and power limit, then the
 ``kernels`` line. The last line is ``{"ok": true, "device": {...}}``. Any
@@ -73,6 +99,7 @@ JAX or the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import statistics
@@ -95,12 +122,15 @@ from repro_torch.data.kmer import (  # noqa: E402
 from repro_torch.kernels import build, roofline  # noqa: E402
 from repro_torch.kernels import ops as K  # noqa: E402
 from repro_torch.kernels.cuckoo_insert import (  # noqa: E402
-    cuckoo_insert_direct_plain, cuckoo_insert_launch)
+    cuckoo_insert_direct_plain, cuckoo_insert_launch,
+    cuckoo_insert_unfused_launch)
 from repro_torch.kernels.cuckoo_insert_bulk import (  # noqa: E402
     cuckoo_insert_bulk_launch, cuckoo_insert_bulk_plain)
 from repro_torch.kernels.cuckoo_mixed import (  # noqa: E402
     cuckoo_mixed_launch, cuckoo_mixed_plain, segments, sorted_runs)
-from repro_torch.kernels.cuckoo_query import cuckoo_query_plain  # noqa: E402
+from repro_torch.kernels.cuckoo_query import (  # noqa: E402
+    cuckoo_query_plain, cuckoo_query_unfused_launch,
+    cuckoo_query_unfused_plain)
 from repro_torch.kernels.hash64 import hash64_plain  # noqa: E402
 from repro_torch.kernels.bloom import (  # noqa: E402
     bloom_insert_launch, bloom_insert_plain, bloom_query_launch,
@@ -121,12 +151,20 @@ REGION_BASES = 1 << 20           # the deleted region; the checked prefix
 KMER_K = 31
 KMER_BATCH = 1 << 24
 PY_CHECKS = 300
+MIXED_BATCH = 1 << 24
+MIXED_BATCHES = 3
+# The JAX package's benchmarks/mixed_workload.py mixes: (query, insert,
+# delete) fractions.
+MIXES = {"ycsb_50_40_10": (0.50, 0.40, 0.10),
+         "read_heavy_95_5": (0.95, 0.05, 0.0)}
 # H100 SXM HBM3 rate (NVIDIA data sheet, at the full 700 W).
 HBM_BYTES_PER_S = 3.35e12
 TPU_KERNELS = {
     "hash64": "src/repro/kernels/hash64.py:25",
     "cuckoo_query": "src/repro/kernels/cuckoo_query.py:131",
+    "cuckoo_query_unfused": "src/repro/kernels/cuckoo_query.py:118",
     "cuckoo_insert_direct": "src/repro/kernels/cuckoo_insert.py:187",
+    "cuckoo_insert_unfused": "src/repro/kernels/cuckoo_insert.py:85",
     "cuckoo_insert_bulk": "src/repro/kernels/cuckoo_insert.py:308",
     "cuckoo_mixed": "src/repro/kernels/cuckoo_mixed.py:129",
     "bloom_query": "src/repro/kernels/bloom.py:35",
@@ -136,7 +174,9 @@ TPU_KERNELS = {
 SOURCES = {
     "hash64": "src/repro_torch/kernels/csrc/hash64.cu",
     "cuckoo_query": "src/repro_torch/kernels/csrc/cuckoo_query.cu",
+    "cuckoo_query_unfused": "src/repro_torch/kernels/csrc/cuckoo_query_unfused.cu",
     "cuckoo_insert_direct": "src/repro_torch/kernels/csrc/cuckoo_insert.cu",
+    "cuckoo_insert_unfused": "src/repro_torch/kernels/csrc/cuckoo_insert_unfused.cu",
     "cuckoo_insert_bulk": "src/repro_torch/kernels/csrc/cuckoo_insert_bulk.cu",
     "cuckoo_mixed": "src/repro_torch/kernels/csrc/cuckoo_mixed.cu",
     "bloom_query": "src/repro_torch/kernels/csrc/bloom_query.cu",
@@ -439,8 +479,9 @@ def check_launches(label: str, expect):
 def main_path(capacity: int, gen, label: str):
     """Fill, query, measure the FPR and delete through ``amq.make``.
 
-    Returns the handle, clones of the table at load 0.5 and before the
-    last batch, every batch's keys and the launch counts."""
+    Returns the handle, clones of the table at load 0.5, before the last
+    batch and after the fill (load 0.95), every batch's keys and the
+    launch counts."""
     K.reset_launches()
     h = amq.make("cuckoo", capacity=capacity)
     cfg = h.config
@@ -457,6 +498,7 @@ def main_path(capacity: int, gen, label: str):
             snaps["half"] = h.state.table.clone()
 
     insert_s, per_batch, peak = fill(h, label, batches, bulk, snapshot)
+    snaps["full"] = h.state.table.clone()
     inserted = sum(sizes)
     load = h.load_factor
     query_s, misses, plain_misses = check_no_false_negatives(h, label,
@@ -500,13 +542,13 @@ def main_path(capacity: int, gen, label: str):
           "max_memory_allocated": peak,
           "query_keys_per_s": max(sizes) / query_s,
           "delete_keys_per_s": first.shape[0] / delete_s})
-    return h, snaps["half"], snaps["high"], batches, launches
+    return h, snaps, batches, launches
 
 
 def warm_up(gen) -> float:
-    """The main path once at 2^16 slots, the legacy bulk route, and the
-    k-mer and Bloom kernels, so that library loading and first calls are
-    paid before anything is timed.
+    """The main path once at 2^16 slots, the legacy bulk route, a mixed
+    batch, the unfused kernels, and the k-mer and Bloom kernels, so that
+    library loading and first calls are paid before anything is timed.
     Returns its seconds."""
     t0 = time.perf_counter()
     keys = random_keys(gen, 62_259)             # floor(0.95 * 2**16)
@@ -516,6 +558,11 @@ def warm_up(gen) -> float:
             h.insert(part, bulk=b % 2 == 0)
         h.query(keys)
         h.delete(keys[:1000])
+        h.apply_ops(amq.OpBatch.make(keys[:4096], torch.randint(
+            0, 3, (4096,), generator=gen, device="cuda")))
+        K.cuckoo_query(h.config, h.state, normalize_keys(keys), fused=False)
+        K.cuckoo_insert_direct(h.config, h.state, normalize_keys(keys[:1000]),
+                               fused=False)
     codes = torch.randint(0, 4, (1 << 16,), generator=gen, device="cuda",
                           dtype=torch.uint8)
     hb = amq.make("bloom", capacity=62_259)
@@ -528,23 +575,31 @@ def warm_up(gen) -> float:
 def profile_orientation(gen, batches_like, at: int = 8, top: int = 15):
     """One orientation batch under ``torch.profiler``: a fresh 2^28-slot
     handle takes the main path's batches 0..at-1 with ``bulk=True``
-    unprofiled, then batch ``at`` profiled. Returns the batch's wall
-    seconds, the device's busy seconds (sum of kernel self times) and the
-    ``top`` operators by self device time."""
-    from torch.profiler import ProfilerActivity, profile
-
+    unprofiled, then batch ``at`` profiled (:func:`profiled`)."""
     h = amq.make("cuckoo", capacity=FULL_CAPACITY)
     for k in batches_like[:at]:
         h.insert(random_keys(gen, k.shape[0]), bulk=True)
     keys = random_keys(gen, batches_like[at].shape[0])
+    rep, record = profiled(lambda: h.insert(keys, bulk=True), top)
+    check(bool(rep.ok.all()), "profiled orientation batch: keys not placed")
+    del h
+    torch.cuda.empty_cache()
+    return {"batch": at, "load_after": (at + 1) / BATCHES, **record}
+
+
+def profiled(fn, top: int = 15):
+    """``fn()`` once under ``torch.profiler`` -> (its result, {wall
+    seconds, device-busy seconds (sum of kernel self times), idle share,
+    the ``top`` operators by self device time})."""
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        rep = h.insert(keys, bulk=True)
+        out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    check(bool(rep.ok.all()), "profiled orientation batch: keys not placed")
     # Device-side events are the kernels (their sum is the busy time);
     # host-side operators carry the device time of the kernels they launch.
     cuda = torch.autograd.DeviceType.CUDA
@@ -554,27 +609,36 @@ def profile_orientation(gen, batches_like, at: int = 8, top: int = 15):
     events = sorted((e for e in stats if e.device_type != cuda
                      and e.self_device_time_total > 0),
                     key=lambda e: -e.self_device_time_total)
-    del h
-    torch.cuda.empty_cache()
-    return {"batch": at, "load_after": (at + 1) / BATCHES, "wall_s": wall,
-            "device_busy_s": busy, "device_idle_share": 1 - busy / wall,
-            "top_ops": [{"op": e.key, "calls": e.count,
-                         "device_ms": e.self_device_time_total * 1e-3,
-                         "cpu_ms": e.cpu_time_total * 1e-3}
-                        for e in events[:top]]}
+    return out, {"wall_s": wall, "device_busy_s": busy,
+                 "device_idle_share": 1 - busy / wall,
+                 "top_ops": [{"op": e.key, "calls": e.count,
+                              "device_ms": e.self_device_time_total * 1e-3,
+                              "cpu_ms": e.cpu_time_total * 1e-3}
+                             for e in events[:top]]}
+
+
+def adapter_route(cfg, bulk: bool) -> str:
+    """The route the ``cuckoo`` adapter takes for an entry point."""
+    if CF.resolve_engine(cfg, bulk) == "orientation":
+        return "orientation"
+    kernel = "bulk kernel" if bulk else "direct kernel"
+    residue = ("frontier" if cfg.insert_engine == "frontier" and not bulk
+               else "round loop")
+    return f"{kernel} + {residue}"
 
 
 def fills_2_28(gen, batches_like):
     """Phase 5: fill fresh 2^28-slot handles to 0.95 in the main path's
-    batch sizes, one per route: bulk under ``auto`` (orientation) and
-    ``legacy`` (bulk kernel + loop), incremental under ``auto`` (direct
-    kernel + frontier) and ``legacy`` (direct kernel + loop). The main
-    path's gates on each. Returns {label: launch counts}."""
+    batch sizes, under each engine: bulk under ``auto`` (orientation) and
+    ``legacy`` (bulk kernel + loop), incremental under ``auto`` and
+    ``legacy`` (direct kernel + loop) and ``frontier`` (direct kernel +
+    frontier). The main path's gates on each. Returns {label: launch
+    counts}."""
     batches = [random_keys(gen, k.shape[0]) for k in batches_like]
     inserted = sum(k.shape[0] for k in batches)
     out = {}
     for bulk, engine in ((True, "auto"), (True, "legacy"), (False, "auto"),
-                         (False, "legacy")):
+                         (False, "legacy"), (False, "frontier")):
         label = f"{'bulk_build' if bulk else 'incremental'}_{engine}"
         t0 = time.perf_counter()
         K.reset_launches()
@@ -584,7 +648,7 @@ def fills_2_28(gen, batches_like):
         _, misses, plain_misses = check_no_false_negatives(h, label, batches)
         expect = routed_kernels(h.config, [bulk], False)
         out[label] = check_launches(label, expect)
-        emit({"phase": label, "engine": CF.resolve_engine(h.config, bulk),
+        emit({"phase": label, "route": adapter_route(h.config, bulk),
               "slots": h.config.num_slots, "keys_inserted": inserted,
               "load": h.load_factor, "insert_keys_per_s": inserted / insert_s,
               "insert_s": insert_s, "batches": per_batch,
@@ -821,6 +885,264 @@ def kmer_case_study(gen):
     return timing, wrapper, launches, errs
 
 
+# ---------------------------------------------------------------------------
+# The fused-vs-unfused comparison (kernels #2/#3 and #4/#5).
+# ---------------------------------------------------------------------------
+
+def unfused_comparison(h, snaps, stored, ins_keys, gen):
+    """Phase 3b (see the module docstring). ``stored``: 2^24 keys stored in
+    every snapshot (those the fused query is timed on); ``ins_keys``: the
+    2^24 fresh keys the fused insert is timed with. Returns (launch counts
+    of the comparison, errors against the plain versions, records for the
+    ``kernels`` line)."""
+    cfg = h.config
+    n = stored.shape[0]
+    t0 = time.perf_counter()
+    probe = torch.cat([stored[:n // 2], normalize_keys(
+        random_keys(gen, n - n // 2, top_half=True))])
+    tables = {"load_0.5": snaps["half"], "load_0.95": snaps["full"]}
+
+    # --- the comparison itself, through the wrappers a caller uses.
+    K.reset_launches()
+    hits, placed = {}, {}
+    for where, table in tables.items():
+        st = h.state._replace(table=table)
+        hits[where] = (K.cuckoo_query(cfg, st, probe),
+                       K.cuckoo_query(cfg, st, probe, fused=False))
+        placed[where] = tuple(
+            K.cuckoo_insert_direct(cfg, st._replace(table=table.clone()),
+                                   ins_keys, fused=fused)[1]
+            for fused in (True, False))
+    torch.cuda.synchronize()
+    launches = check_launches("unfused_comparison", [
+        "cuckoo_query", "cuckoo_query_unfused", "cuckoo_insert_direct",
+        "cuckoo_insert_unfused"])
+    for where, (fused, unfused) in hits.items():
+        check(torch.equal(fused, unfused),
+              f"{where}: the unfused query differs from the fused on "
+              f"{int((fused != unfused).sum())} keys")
+        check(bool(fused[:n // 2].all()), f"{where}: a stored key missed")
+
+    # --- each unfused kernel against its plain version (not counted).
+    unfused_insert = functools.partial(K.cuckoo_insert_direct, fused=False)
+    errs, turned_down = {"cuckoo_query_unfused": 0}, {}
+    part = probe[::4].contiguous()
+    for where, table in tables.items():
+        got = K.cuckoo_query(cfg, h.state._replace(table=table), part,
+                             fused=False)
+        want = cuckoo_query_unfused_plain(cfg, table, part)
+        errs["cuckoo_query_unfused"] += int((got != want).sum())
+        turned_down[where] = [int((~ok).sum()) for ok in placed[where]]
+        turned_down[where].append(check_direct_insert(
+            cfg, h.state, table, ins_keys, f"cuckoo_insert_unfused {where}",
+            unfused_insert))
+    check(errs["cuckoo_query_unfused"] == 0,
+          "cuckoo_query_unfused differs from its plain version")
+    sub = ins_keys[:SUB]
+    valid = torch.rand(SUB, device="cuda", generator=gen) < 0.9
+    errs["cuckoo_insert_unfused"] = same_outcome(
+        cfg, snaps["half"], sub,
+        lambda t: unfused_insert(cfg, h.state._replace(table=t), sub, valid)[1],
+        lambda t: cuckoo_insert_direct_plain(cfg, t, sub, valid))
+
+    # --- fused against unfused at both loads (kernel times).
+    ms = {}
+    work = torch.empty_like(snaps["full"])
+    ins_valid = torch.ones(n, dtype=torch.bool, device="cuda")
+    ins_ok = torch.empty(n, dtype=torch.bool, device="cuda")
+    for where, table in tables.items():
+        st = h.state._replace(table=table)
+        ms[where] = {
+            "query_fused": cuda_ms(lambda: K.cuckoo_query(cfg, st, probe)),
+            "query_unfused": cuda_ms(
+                lambda: K.cuckoo_query(cfg, st, probe, fused=False)),
+            "insert_fused": cuda_ms(
+                lambda: cuckoo_insert_launch(cfg, work, ins_keys, ins_valid,
+                                             ins_ok),
+                reps=3, setup=lambda: work.copy_(table)),
+            "insert_unfused": cuda_ms(
+                lambda: cuckoo_insert_unfused_launch(cfg, work, ins_keys,
+                                                     ins_valid, ins_ok),
+                reps=3, setup=lambda: work.copy_(table))}
+        ms[where]["query_unfused_over_fused"] = (
+            ms[where]["query_unfused"] / ms[where]["query_fused"])
+        ms[where]["insert_unfused_over_fused"] = (
+            ms[where]["insert_unfused"] / ms[where]["insert_fused"])
+
+    # --- the records of the kernels line: the main path's shapes (the
+    # query on the table after the main path, the insert into load 0.5),
+    # with the fused kernels' bounds (the same function).
+    query_keys = stored
+    touched = touched_buckets(cfg, h.state.table, query_keys)
+    # Kernel times are launches alone; wrapper times add the wrapper's
+    # checks, allocations and count.
+    hit = torch.empty(n, dtype=torch.bool, device="cuda")
+    records = {"cuckoo_query_unfused": (
+        cuda_ms(lambda: cuckoo_query_unfused_launch(cfg, h.state.table,
+                                                    query_keys, hit)),
+        cuda_ms(lambda: cuckoo_query_unfused_plain(cfg, h.state.table,
+                                                   query_keys), reps=3),
+        n, n, "query", touched)}
+    wrapper = {"cuckoo_query_unfused": cuda_ms(
+        lambda: K.cuckoo_query(cfg, h.state, query_keys, fused=False))}
+    half = snaps["half"]
+    t_ms = cuda_ms(lambda: cuckoo_insert_unfused_launch(
+        cfg, work, ins_keys, ins_valid, ins_ok), reps=3,
+        setup=lambda: work.copy_(half))
+    touched = touched_buckets(cfg, half, ins_keys, work, insert=True)
+    sub_valid = torch.ones(SUB, dtype=torch.bool, device="cuda")
+    records["cuckoo_insert_unfused"] = (
+        t_ms, cuda_ms(lambda: cuckoo_insert_direct_plain(cfg, work, sub,
+                                                         sub_valid),
+                      reps=3, setup=lambda: work.copy_(half)),
+        n, SUB, "insert", touched)
+    wrapper["cuckoo_insert_unfused"] = cuda_ms(
+        lambda: K.cuckoo_insert_direct(cfg, h.state._replace(table=work),
+                                       ins_keys, ins_valid, fused=False),
+        reps=3, setup=lambda: work.copy_(half))
+    emit({"phase": "unfused_comparison", "keys": n, "launches": launches,
+          "max_abs_err": errs,
+          "turned_down_fused_unfused_checked": turned_down, "ms": ms,
+          "tolerance": "exact (0): unfused query hits == fused query hits "
+                       "at 2^24 keys, == its plain version at 2^22; "
+                       "unfused insert: the order-free outcome at 2^24 "
+                       "keys, equal ok and tag multisets at 2^12",
+          "seconds": time.perf_counter() - t0})
+    del work, hit
+    return launches, errs, records, wrapper
+
+
+# ---------------------------------------------------------------------------
+# The mixed path: op batches through FilterHandle.apply_ops.
+# ---------------------------------------------------------------------------
+
+def stored_tags(cfg, table) -> int:
+    """Non-zero lanes of ``table`` (stored fingerprints)."""
+    return sum(int((bucket_lanes(cfg, table, b0, min(b0 + CHUNK,
+                                                     cfg.num_buckets)) != 0)
+                   .sum())
+               for b0 in range(0, cfg.num_buckets, CHUNK))
+
+
+def mixed_path(gen):
+    """Phase 7 (see the module docstring). Returns {mix: launch counts}."""
+    t_start = time.perf_counter()
+    h = amq.make("cuckoo", capacity=FULL_CAPACITY)
+    cfg = h.config
+    pool = random_keys(gen, cfg.num_slots // 2)        # prefill: load 0.5
+    for part in pool.split(1 << 24):
+        check(bool(h.insert(part).ok.all()), "mixed: prefill keys not placed")
+    base = CF.CuckooState(h.state.table.clone(), h.state.count.clone())
+    check(h.count() == pool.shape[0], "mixed: prefill count")
+    out = {}
+    for mix, fractions in MIXES.items():
+        h.state = CF.CuckooState(base.table.clone(), base.count.clone())
+        n_q, n_i = (round(f * MIXED_BATCH) for f in fractions[:2])
+        n_d = MIXED_BATCH - n_q - n_i
+        perm = torch.randperm(pool.shape[0], generator=gen, device="cuda")
+        # One more batch of deletes for the profiled batch after the timed.
+        n_del = (MIXED_BATCHES + 1) * n_d
+        del_pool, qry_pool = perm[:n_del], perm[n_del:]
+        acc = dict.fromkeys(K.LAUNCHES, 0)
+        per_batch, ops_s = [], 0.0
+        def make_batch(dels):
+            """Stored keys to query, fresh keys to insert, ``dels`` (pool
+            indices) to delete, in a shuffled order."""
+            fresh = random_keys(gen, n_i, top_half=True)
+            raw = torch.cat([
+                pool[qry_pool[torch.randint(0, qry_pool.shape[0], (n_q,),
+                                            generator=gen, device="cuda")]],
+                fresh, pool[dels]])
+            ops = torch.cat([torch.full((n,), code, dtype=torch.int32,
+                                        device="cuda")
+                             for n, code in ((n_q, amq.OP_QUERY),
+                                             (n_i, amq.OP_INSERT),
+                                             (n_d, amq.OP_DELETE))])
+            shuffle = torch.randperm(MIXED_BATCH, generator=gen, device="cuda")
+            return amq.OpBatch.make(raw[shuffle], ops[shuffle]), fresh
+
+        for b in range(MIXED_BATCHES):
+            batch, fresh = make_batch(del_pool[b * n_d:(b + 1) * n_d])
+            # Core apply_ops on a copy of the same table (not counted).
+            copy = CF.CuckooState(h.state.table.clone(), h.state.count.clone())
+            _, ok_core, _ = CF.apply_ops(cfg, copy, batch.keys, batch.ops)
+            del copy
+            K.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rep = h.apply_ops(batch)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            for name, count in K.LAUNCHES.items():
+                acc[name] += count
+            ops_s += dt
+            check(torch.equal(rep.ok, ok_core),
+                  f"mixed {mix} batch {b}: ok differs from core apply_ops on "
+                  f"{int((rep.ok != ok_core).sum())} ops")
+            check(bool(rep.ok.all()), f"mixed {mix} batch {b}: "
+                  f"{int((~rep.ok).sum())} ops not ok (stored queries and "
+                  "deletes, fresh inserts, below the design load)")
+            tags = stored_tags(cfg, h.state.table)
+            check(h.count() == tags, f"mixed {mix} batch {b}: count "
+                                     f"{h.count()} != {tags} stored tags")
+            check(bool(h.query(fresh).hits.all()),
+                  f"mixed {mix} batch {b}: an inserted key is not found")
+            per_batch.append({"s": dt, "ops_per_s": MIXED_BATCH / dt,
+                              "load": h.load_factor,
+                              "rounds": int(rep.rounds)})
+        expect = ["hash64"] + (["cuckoo_mixed"] if n_d else []) + (
+            ["cuckoo_insert_direct"] if n_i <= max(8, MIXED_BATCH // 8) else [])
+        for name in expect:
+            check(acc[name] > 0, f"mixed {mix}: kernel {name} was not "
+                                 "launched on its path")
+        out[mix] = acc
+        # One more batch under the profiler (not in ops/s): where it goes.
+        batch, _ = make_batch(del_pool[MIXED_BATCHES * n_d:])
+        rep, prof = profiled(lambda: h.apply_ops(batch))
+        check(bool(rep.ok.all()), f"mixed {mix}: profiled batch not all ok")
+        emit({"phase": f"mixed_{mix}", "slots": cfg.num_slots,
+              "prefill_load": float(base.count) / cfg.num_slots,
+              "fractions": fractions, "ops_per_batch": MIXED_BATCH,
+              "batches": per_batch, "ops_per_s": MIXED_BATCHES * MIXED_BATCH / ops_s,
+              "launches": acc, "kernels_routed": expect,
+              "checks": "ok == core apply_ops on a copy; all ok; count == "
+                        "stored tags; every inserted key found",
+              "profiled_batch": prof})
+
+    # --- handle.delete and core delete of 2^24 stored keys.
+    keys = normalize_keys(pool[perm[:MIXED_BATCH]])
+    tables, dels = {}, {}
+    for route in ("handle", "core"):
+        state = CF.CuckooState(base.table.clone(), base.count.clone())
+        K.reset_launches()
+        if route == "handle":
+            h.state = state
+            rep, dt = timed(lambda: h.delete(keys))
+            ok, state = rep.ok, h.state
+        else:
+            (state, ok), dt = timed(lambda: CF.delete(cfg, state, keys))
+        launches = dict(K.LAUNCHES)
+        check(bool(ok.all()), f"{route} delete: {int((~ok).sum())} failed")
+        check(int(state.count) == int(base.count) - MIXED_BATCH,
+              f"{route} delete: count {int(state.count)}")
+        tables[route] = table_codes(cfg, state.table)
+        dels[route] = {"s": dt, "keys_per_s": MIXED_BATCH / dt,
+                       "launches": launches}
+    check(launches["hash64"] > 0, "core delete: the hash kernel was not "
+                                  "launched")
+    check(dels["handle"]["launches"]["cuckoo_mixed"] > 0,
+          "handle delete: the mixed-op kernel was not launched")
+    check_codes("delete: handle against core", tables["handle"],
+                tables["core"])
+    emit({"phase": "mixed_delete", "keys": MIXED_BATCH, **dels,
+          "checks": "all ok; count exact; handle and core tables hold the "
+                    "same (pair, tag) codes",
+          "seconds": time.perf_counter() - t_start})
+    del h, base, pool, tables
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -845,7 +1167,8 @@ def main() -> int:
 
     # --- the main path at full size -------------------------------------
     t0 = time.perf_counter()
-    h, half, high, batches, launches = main_path(FULL_CAPACITY, gen, "2^28")
+    h, snaps, batches, launches = main_path(FULL_CAPACITY, gen, "2^28")
+    half, high = snaps["half"], snaps["high"]
     cfg = h.config
     first, second = (normalize_keys(k) for k in batches[:2])
     main_s = time.perf_counter() - t0
@@ -916,6 +1239,11 @@ def main() -> int:
                        "codes, lanes, ok); at 2^12 keys: equal ok and "
                        "equal tag multisets per touched bucket"})
 
+    # --- the fused-vs-unfused comparison ----------------------------------
+    (unfused_launches, unfused_errs, unfused_records,
+     unfused_wrapper) = unfused_comparison(h, snaps, second, ins_keys, gen)
+    errs.update(unfused_errs)
+
     # --- timings at the main path's shapes ---------------------------------
     keys = second
     full_table = h.state.table.clone()
@@ -982,6 +1310,7 @@ def main() -> int:
         ms, cuda_ms(lambda: cuckoo_mixed_plain(cfg, work, dup, deletes),
                     reps=3, setup=restore(full_table)),
         n, SUB, "delete", touched)
+    timing.update(unfused_records)
 
     # Kernel #6 against kernel #4 where segments are long: 2^27 keys into
     # the empty table, eight keys a primary bucket on average (load 0.5).
@@ -1032,7 +1361,7 @@ def main() -> int:
     copy_bytes_per_s = 2 * copy_src.numel() * 4 / (copy_ms * 1e-3)
     emit({"phase": "timings", "copy_bytes_per_s": copy_bytes_per_s,
           "table_load": h.load_factor, "main_path_2^28_seconds": main_s})
-    del work, full_table, half, high, copy_src, copy_dst, h
+    del work, full_table, half, high, snaps, copy_src, copy_dst, h
     torch.cuda.empty_cache()
 
     # --- the bulk build at full size ---------------------------------------
@@ -1050,16 +1379,25 @@ def main() -> int:
     emit({"phase": "kmer_case_study_seconds",
           "seconds": time.perf_counter() - t0})
 
+    # --- the mixed path ---------------------------------------------------
+    t0 = time.perf_counter()
+    mixed_path(gen)
+    emit({"phase": "mixed_path_seconds", "seconds": time.perf_counter() - t0})
+
     # Each kernel's launches come from the path that routes to it: the main
-    # path, the legacy bulk fill (the bulk kernel) or the k-mer case study.
+    # path, the legacy bulk fill (the bulk kernel), the fused-vs-unfused
+    # comparison (the unfused kernels) or the k-mer case study.
     path_launches = {name: ("main_path_2^28", launches[name])
                      for name in launches}
+    for name in unfused_records:
+        path_launches[name] = ("unfused_comparison", unfused_launches[name])
     path_launches["cuckoo_insert_bulk"] = (
         "bulk_build_legacy",
         fill_launches["bulk_build_legacy"]["cuckoo_insert_bulk"])
     for name in kmer_timing:
         path_launches[name] = ("kmer_case_study", kmer_launches[name])
     wrapper_ms.update(kmer_wrapper)
+    wrapper_ms.update(unfused_wrapper)
     errs.update(kmer_errs)
     # Every record: (ms, plain ms, n, plain n, bound bytes, bound int32
     # instructions, touched buckets or blocks).

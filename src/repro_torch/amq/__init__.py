@@ -6,6 +6,7 @@
     h.insert(keys, bulk=True)            # -> InsertReport(ok, evictions, ...)
     h.query(keys).hits                   # -> bool[n]
     h.delete(keys)
+    h.apply_ops(amq.OpBatch.make(keys, ops))   # -> MixedReport(ok, ...)
 
 Only :mod:`.protocol` is imported eagerly; the registry and its adapter,
 which import the kernels, load on first use so that ``repro_torch.core``
@@ -19,16 +20,20 @@ from .protocol import (  # noqa: F401
     Capabilities,
     DeleteReport,
     InsertReport,
+    MixedReport,
+    OpBatch,
     QueryResult,
     fpr_tolerance,
     load_factor,
 )
 
-_LAZY = ("make", "get", "names", "FilterHandle", "AMQAdapter")
+_LAZY = ("make", "get", "names", "FilterHandle", "AMQAdapter",
+         "segmented_apply_ops")
 
 __all__ = list(_LAZY) + [
-    "Capabilities", "DeleteReport", "InsertReport", "OP_DELETE", "OP_INSERT",
-    "OP_QUERY", "QueryResult", "fpr_tolerance", "load_factor",
+    "Capabilities", "DeleteReport", "InsertReport", "MixedReport", "OpBatch",
+    "OP_DELETE", "OP_INSERT", "OP_QUERY", "QueryResult", "fpr_tolerance",
+    "load_factor",
 ]
 
 
@@ -42,8 +47,8 @@ def __getattr__(name):
         from .handle import FilterHandle
 
         return FilterHandle
-    if name == "AMQAdapter":
-        from .adapters import AMQAdapter
+    if name in ("AMQAdapter", "segmented_apply_ops"):
+        from . import adapters
 
-        return AMQAdapter
+        return getattr(adapters, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,10 +1,10 @@
 """FilterHandle: the one stateful object every consumer programs against.
 
-Port of ``repro.amq.handle.FilterHandle`` for this slice: insert, query,
-delete, count, load factor, table bytes and expected FPR. The handle owns
-``(adapter, config, state)`` on one device; keys are normalized onto that
-device. Mixed batches and snapshots are later port slices and raise
-``NotImplementedError``.
+Port of ``repro.amq.handle.FilterHandle``: insert, query, delete, mixed
+op batches (``apply_ops``), count, load factor, table bytes and expected
+FPR. The handle owns ``(adapter, config, state)`` on one device; keys and
+op batches are moved onto that device. Snapshots are port slice 5 and
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -13,13 +13,16 @@ from typing import Any, Optional
 
 from ..core.device import resolve_device
 from ..core.hashing import normalize_keys
-from .adapters import AMQAdapter
+from .adapters import AMQAdapter, segmented_apply_ops
 from .protocol import (
     Capabilities,
     DeleteReport,
     InsertReport,
+    MixedReport,
+    OpBatch,
     QueryResult,
     load_factor as _load_factor,
+    stored_count,
 )
 
 
@@ -43,8 +46,15 @@ class FilterHandle:
 
         ``device`` defaults to the state's device, else the GPU (raising
         when there is none — pass ``device="cpu"`` for the plain versions).
+        A host backend (``adapter.device``) always runs on its own device.
         """
-        if state is not None:
+        if adapter.device is not None:
+            if device is not None and resolve_device(device) != resolve_device(
+                    adapter.device):
+                raise ValueError(f"{adapter.name} runs on {adapter.device}, "
+                                 f"not on device={device!r}")
+            device = adapter.device
+        elif state is not None:
             if device is not None and resolve_device(device) != state.table.device:
                 raise ValueError(f"state lives on {state.table.device}, not "
                                  f"on device={device!r}")
@@ -130,21 +140,36 @@ class FilterHandle:
             self.config, self.state, self._keys(keys), valid=valid)
         return report
 
+    def apply_ops(self, batch: OpBatch) -> MixedReport:
+        """Execute an interleaved query/insert/delete stream (one OpBatch).
+
+        Backends with a fused path (``adapter.apply_ops``: ``cuckoo``,
+        ``cpu-cuckoo``) run the batch as one pass; every other backend is
+        served by :func:`repro_torch.amq.adapters.segmented_apply_ops`
+        (one call per maximal same-op run). Same-key operations resolve in
+        batch order either way (DESIGN.md §9). The batch is moved onto the
+        handle's device.
+        """
+        if not isinstance(batch, OpBatch):
+            raise TypeError(f"apply_ops takes an OpBatch (OpBatch.make), "
+                            f"got {type(batch).__name__}")
+        batch = batch.to(self.device)
+        if self.adapter.apply_ops is None:
+            return segmented_apply_ops(self, batch)
+        self.state, report = self.adapter.apply_ops(
+            self.config, self.state, batch.keys, batch.ops, valid=batch.valid)
+        return report
+
     def count(self) -> int:
         """Stored-key count."""
-        return int(self.state.count.sum())
+        return stored_count(self.state)
 
     # -- later port slices ---------------------------------------------------
 
-    def apply_ops(self, batch):
-        """Mixed op batches: port slice 4 (``FilterHandle.apply_ops`` on the
-        mixed kernel)."""
-        raise _not_ported("FilterHandle.apply_ops", "port slice 4")
-
     def snapshot(self):
-        """Snapshots: port slice 4 (``Snapshot``, ``save_snapshot``)."""
-        raise _not_ported("FilterHandle.snapshot", "port slice 4")
+        """Snapshots: port slice 5 (``Snapshot``, ``save_snapshot``)."""
+        raise _not_ported("FilterHandle.snapshot", "port slice 5")
 
     def restore(self, snap):
-        """Snapshots: port slice 4."""
-        raise _not_ported("FilterHandle.restore", "port slice 4")
+        """Snapshots: port slice 5."""
+        raise _not_ported("FilterHandle.restore", "port slice 5")

@@ -6,9 +6,9 @@
     report = handle.insert(keys, bulk=True)
     hits = handle.query(keys).hits
 
-The port registers the ``cuckoo`` backend and the blocked Bloom filter
-``bloom``; the other baselines, the sharded and the host backends are
-later port slices.
+The port registers the ``cuckoo`` backend, the blocked Bloom filter
+``bloom`` and the host oracle ``cpu-cuckoo``; the other baselines and the
+sharded backend are later port slices.
 """
 
 from __future__ import annotations
@@ -50,12 +50,17 @@ def make(name: str, capacity: Optional[int] = None, *,
     unless the caller passes ``device="cpu"`` (the plain versions of the
     kernels). It never falls back silently.
 
-    ``snapshot=``, ``auto_expand=`` and ``tiered=`` are later port slices
-    and raise ``NotImplementedError``.
+    ``auto_expand="auto"`` expands where the backend supports it
+    (``capabilities.supports_expand``, False for every port backend) and
+    returns a plain handle otherwise, as the JAX package does.
+    ``snapshot=``, ``auto_expand=True`` and ``tiered=True`` are later port
+    slices and raise ``NotImplementedError``.
     """
     adapter = get(name)
+    if auto_expand == "auto":
+        auto_expand = adapter.capabilities.supports_expand
     if snapshot is not None:
-        raise _not_ported("make(snapshot=...)", "port slice 4")
+        raise _not_ported("make(snapshot=...)", "port slice 5")
     if auto_expand:
         raise _not_ported("make(auto_expand=...) (the cascade)",
                           "ROADMAP queue A item 12")

@@ -1,10 +1,11 @@
 """Core library of the port: the Cuckoo-GPU filter on torch tensors.
 
 * :class:`CuckooConfig` / :class:`CuckooState` — static config + state.
-* :func:`insert` / :func:`insert_bulk` / :func:`query` — batch
-  functional ops (the batched BFS frontier and the legacy eviction round
-  loop, the bulk build with the graph-orientation engine, and the
-  unpack-based query).
+* :func:`insert` / :func:`insert_bulk` / :func:`query` / :func:`delete`
+  / :func:`apply_ops` — batch functional ops (the batched BFS frontier
+  and the legacy eviction round loop, the bulk build with the
+  graph-orientation engine, the unpack-based query, claim-round deletes
+  and the fused mixed-op pass).
 * :class:`CuckooFilter` — convenience object wrapper.
 """
 
@@ -13,6 +14,8 @@ from .cuckoo_filter import (  # noqa: F401
     CuckooFilter,
     CuckooState,
     InsertStats,
+    apply_ops,
+    delete,
     insert,
     insert_bulk,
     prepare_keys,

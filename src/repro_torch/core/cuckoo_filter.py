@@ -6,7 +6,8 @@ the word-claim elections, the legacy lock-step eviction round loop
 (``_insert_rounds``, DFS and BFS eviction), the batched BFS frontier
 (``_insert_frontier``), the bulk build (``insert_bulk``: two sorted
 whole-bucket phases, or the graph-orientation engine ``_insert_orient``),
-engine routing, ``insert`` and ``query``.
+engine routing, ``insert``, ``query``, ``delete`` (claim rounds) and
+the fused mixed-op pass ``apply_ops`` (DESIGN.md §9).
 
 Every insert engine here is the bit-exact bridge to the JAX package:
 claims are elected per table word by a stable sort (lowest batch index
@@ -28,6 +29,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..amq.protocol import OP_DELETE, OP_INSERT, OP_QUERY
 from . import layout as L
 from .bits64 import MASK32, from_i32, to_i32
 from .device import resolve_device
@@ -970,6 +972,278 @@ def query(config: CuckooConfig, state: CuckooState, keys: torch.Tensor) -> torch
 
 
 # ---------------------------------------------------------------------------
+# Deletion (Alg. 3).
+# ---------------------------------------------------------------------------
+
+def delete(config: CuckooConfig, state: CuckooState, keys: torch.Tensor,
+           valid: Optional[torch.Tensor] = None):
+    """Delete one stored copy per key. Returns (state', ok bool[n]).
+
+    Claim rounds, as in the JAX package: every pending key clears the
+    first matching lane of bucket i1, else of bucket i2, scanning
+    circularly from its tag-derived start; one election per table word
+    (lowest batch index wins) decides which clears commit, and the losers
+    rescan next round. A key with no matching lane left fails out. Same
+    rounds, claims and writes as JAX's ``while_loop``, bit for bit: the
+    loop is a host loop with one device read a round, and only pending
+    keys are computed (the others claim nothing). At most ``2 *
+    bucket_size + 2`` rounds, so duplicate deleters serialise. The table
+    is updated in place.
+    """
+    lay = config.layout
+    pol = config.placement
+    n = keys.shape[0]
+    dev = keys.device
+    invalid = lay.num_words
+    max_rounds = 2 * config.bucket_size + 2
+    table, count = state.table, state.count.clone()
+
+    base_tag, i1, i2 = prepare_keys(config, keys)
+    t1, t2 = pol.query_match_tags(base_tag)
+    start = L.scan_start(base_tag, lay)
+    pending = (torch.ones((n,), dtype=torch.bool, device=dev)
+               if valid is None else valid.to(dev, torch.bool).clone())
+    success = torch.zeros((n,), dtype=torch.bool, device=dev)
+
+    rnd = 0
+    while rnd < max_rounds and bool(pending.any()):
+        p = pending.nonzero().squeeze(1)
+        j1, j2 = i1[p], i2[p]
+        words1 = L.gather_bucket_words(table, j1, lay)
+        words2 = L.gather_bucket_words(table, j2, lay)
+        st = start[p]
+        f1, s1 = L.first_true_circular(
+            L.unpack_words(words1, lay.fp_bits) == t1[p][:, None], st)
+        f2, s2 = L.first_true_circular(
+            L.unpack_words(words2, lay.fp_bits) == t2[p][:, None], st)
+        found = f1 | f2
+        widx, sw = L.slot_to_word(torch.where(f1, s1, s2), lay)
+        word = _take(torch.where(f1[:, None], words1, words2), widx)
+        desired = L.replace_tag(word, sw, torch.zeros_like(word), lay.fp_bits)
+        # Keys with no remaining match fail out (Alg. 3 line 21).
+        addr = torch.where(found, L.word_addr(torch.where(f1, j1, j2), widx,
+                                              lay), invalid)
+        win, _ = _resolve_claims(addr, torch.full_like(addr, invalid), invalid)
+        commit = found & win
+        _masked_write(table, addr, desired, commit)
+        success[p[commit]] = True
+        pending[p[~found | commit]] = False
+        count -= commit.sum().to(torch.int32)
+        rnd += 1
+    return CuckooState(table, count), success
+
+
+# ---------------------------------------------------------------------------
+# Fused mixed-operation execution (DESIGN.md §9).
+# ---------------------------------------------------------------------------
+
+def _count_matches(config: CuckooConfig, state: CuckooState,
+                   keys: torch.Tensor) -> torch.Tensor:
+    """Stored copies matching each key across its two candidate buckets.
+
+    Returns int32[n]. When XOR placement degenerates to ``i1 == i2`` (and
+    the match tags coincide), the single bucket is counted once — exactly
+    the pool of copies a sequential delete chain could consume.
+    """
+    lay = config.layout
+    base_tag, i1, i2 = prepare_keys(config, keys)
+    t1, t2 = config.placement.query_match_tags(base_tag)
+    cnt1 = (L.bucket_tags(state.table, i1, lay) == t1[:, None]).sum(
+        dim=-1, dtype=torch.int32)
+    cnt2 = (L.bucket_tags(state.table, i2, lay) == t2[:, None]).sum(
+        dim=-1, dtype=torch.int32)
+    aliased = (i1 == i2) & (t1 == t2)
+    return torch.where(aliased, cnt1, cnt1 + cnt2)
+
+
+class NetEffects(NamedTuple):
+    """The per-key algebra of a mixed batch (bool[n] each, batch order).
+
+    ``net_ins`` / ``net_del`` mark the insert and delete slots whose
+    effect survives the batch (the only ones that touch the table);
+    ``q_ok`` answers every query, ``d_ok`` every delete before the table
+    writes (a net delete must also commit).
+    """
+
+    is_qry: torch.Tensor
+    is_ins: torch.Tensor
+    is_del: torch.Tensor
+    net_ins: torch.Tensor
+    net_del: torch.Tensor
+    q_ok: torch.Tensor
+    d_ok: torch.Tensor
+
+
+def _segmented_cummin(x: torch.Tensor, seg_id: torch.Tensor,
+                      longest: int) -> torch.Tensor:
+    """Running minimum of ``x`` within each run of equal ``seg_id`` (runs
+    contiguous, at most ``longest`` long), by doubling: after the step of
+    offset k each element holds the minimum of its last 2k elements in
+    its run, so ceil(log2(longest)) steps suffice. (Torch's CUDA
+    ``cummin`` takes about 50 ms for 2^24 int64 on an H100; a batch whose
+    keys are mostly distinct needs two or three steps here.)"""
+    out = x.clone()
+    k = 1
+    while k < longest:
+        same = seg_id[k:] == seg_id[:-k]
+        out[k:] = torch.where(same, torch.minimum(out[k:], out[:-k]), out[k:])
+        k *= 2
+    return out
+
+
+def net_effects(config: CuckooConfig, state: CuckooState, keys: torch.Tensor,
+                ops: torch.Tensor, valid: Optional[torch.Tensor] = None
+                ) -> NetEffects:
+    """Steps 1 and 2 of :func:`apply_ops`, shared with the ``cuckoo``
+    adapter: each key's stored copies ``c0``, then the segmented
+    saturating counter over the batch grouped by key (batch order within
+    a group) and each group's net effect. Needs ``n >= 1``.
+
+    Each op is the map ``c -> max(c + a, 0)`` (+1 insert, -1 delete, 0
+    query). From a group's head to slot t the maps compose to ``c ->
+    max(c + A_t, M_t)`` with ``A_t`` the group's inclusive sum of ``a`` and
+    ``M_t = A_t - min(A_head..A_t)`` — the closed form of JAX's
+    associative scan of ``(A, M)`` with the segment-start reset, computed
+    here by a cumulative sum and a segmented running minimum. The group
+    order differs from JAX's lexsort (signed, not unsigned 64-bit key
+    order), which changes no group and no value.
+    """
+    n = keys.shape[0]
+    dev = keys.device
+    v = (torch.ones((n,), dtype=torch.bool, device=dev)
+         if valid is None else valid.to(dev, torch.bool))
+    ops = ops.to(dev, torch.int32)
+    is_ins = v & (ops == OP_INSERT)
+    is_del = v & (ops == OP_DELETE)
+    is_qry = v & (ops == OP_QUERY)
+
+    c0 = _count_matches(config, state, keys).to(torch.int64)
+
+    # --- group by 64-bit key value; batch order within groups (stable).
+    k64 = (from_i32(keys[:, 1]) << 32) | from_i32(keys[:, 0])
+    k_s, order = torch.sort(k64, stable=True)
+    seg_start = torch.ones((n,), dtype=torch.bool, device=dev)
+    seg_start[1:] = k_s[1:] != k_s[:-1]
+    seg_end = torch.ones_like(seg_start)
+    seg_end[:-1] = seg_start[1:]
+    seg_id = torch.cumsum(seg_start, 0) - 1
+    heads = seg_start.nonzero().squeeze(1)
+    head_pos = heads[seg_id]
+    last_pos = seg_end.nonzero().squeeze(1)[seg_id]
+
+    def seg_cumsum(x_s):
+        c = torch.cumsum(x_s, 0)
+        return c - (c[head_pos] - x_s[head_pos])
+
+    # --- the segmented saturating counter.
+    ins_s, del_s = is_ins[order].long(), is_del[order].long()
+    A = seg_cumsum(ins_s - del_s)
+    longest = int((last_pos - head_pos).max()) + 1
+    M = A - _segmented_cummin(A, seg_id, longest)
+    c0_s = c0[order]
+    c_incl = torch.maximum(c0_s + A, M)
+    c_before = torch.where(seg_start, c0_s, torch.roll(c_incl, 1))
+
+    # --- net effect per key group: surplus inserts / deficit deletes.
+    d = c_incl[last_pos] - c0_s            # net copies to add (+) / drop (-)
+    ins_rank = seg_cumsum(ins_s)            # 1-based
+    del_rank = seg_cumsum(del_s)
+    net_ins_s = (ins_s > 0) & (ins_rank > ins_rank[last_pos] - d.clamp(min=0))
+    net_del_s = (del_s > 0) & (del_rank <= (-d).clamp(min=0))
+
+    def unsort(x_s):
+        out = torch.zeros((n,), dtype=torch.bool, device=dev)
+        out[order] = x_s
+        return out
+
+    return NetEffects(is_qry, is_ins, is_del, unsort(net_ins_s),
+                      unsort(net_del_s), unsort(c_incl > 0),
+                      unsort(c_before > 0))
+
+
+def _compact(keys: torch.Tensor, mask: torch.Tensor, width: int):
+    """The keys under ``mask``, in batch order, in a ``width``-slot batch.
+
+    Returns (pos, sub_keys, sub_valid): ``pos[i]`` is key i's slot (clamped
+    into the batch; meaningful where ``mask``). Same slots as JAX's
+    cumsum scatter."""
+    pos = torch.cumsum(mask, 0) - 1
+    sub_keys = torch.zeros((width, 2), dtype=keys.dtype, device=keys.device)
+    sub_valid = torch.zeros((width,), dtype=torch.bool, device=keys.device)
+    sub_keys[pos[mask]] = keys[mask]
+    sub_valid[pos[mask]] = True
+    return pos.clamp(0, width - 1), sub_keys, sub_valid
+
+
+def mixed_ok(e: NetEffects, ins_ok: torch.Tensor,
+             del_ok: torch.Tensor) -> torch.Tensor:
+    """Each slot's outcome under its op code, from the algebra and the
+    outcomes of the net writes (a cancelled insert reports True)."""
+    return torch.where(
+        e.is_qry, e.q_ok,
+        torch.where(e.is_ins, torch.where(e.net_ins, ins_ok, True),
+                    e.is_del & e.d_ok & torch.where(e.net_del, del_ok, True)))
+
+
+def apply_ops(config: CuckooConfig, state: CuckooState, keys: torch.Tensor,
+              ops: torch.Tensor, valid: Optional[torch.Tensor] = None):
+    """Execute an interleaved QUERY/INSERT/DELETE stream in one fused pass.
+
+    ``ops`` is int32[n] of op codes; returns ``(state', ok[n], stats)``
+    where ``ok[i]`` is that slot's outcome under its op code (query → hit,
+    insert → landed, delete → removed a stored copy). Operations on the
+    same 64-bit key resolve in batch order (DESIGN.md §9):
+    :func:`net_effects` answers every query and delete algebraically, and
+    only each key's net effect touches the table — net deletes first,
+    then net inserts. A net slice of at most ``max(8, n // 8)`` keys is
+    compacted to that width in batch order and runs :func:`delete` or
+    :func:`insert`; a denser one runs :func:`delete` or
+    :func:`insert_bulk` over the full width under its mask. Same widths,
+    slots and engines as JAX's ``lax.cond`` branches (here a host
+    ``if``), so the table, ``ok`` and stats are bit-exact with JAX's.
+
+    The documented deviations from the sequential oracle are JAX's: a
+    cancelled insert reports ``ok=True`` even where a sequential run
+    would have failed it against a full table, and cross-key fingerprint
+    aliasing within one batch is observed as if reordered. Neither can
+    give a key's own inserts a false negative; both vanish below the
+    design load.
+    """
+    n = keys.shape[0]
+    dev = keys.device
+    if n == 0:
+        zero = torch.zeros((), dtype=torch.int32, device=dev)
+        return state, torch.zeros((0,), dtype=torch.bool, device=dev), \
+            InsertStats(torch.zeros((0,), dtype=torch.int32, device=dev),
+                        zero, zero.clone(),
+                        state.count.to(torch.float32) / config.num_slots)
+    e = net_effects(config, state, keys, ops, valid)
+    sub = max(8, n // 8)
+
+    if int(e.net_del.sum()) <= sub:
+        pos, skeys, svalid = _compact(keys, e.net_del, sub)
+        state, ok_sub = delete(config, state, skeys, svalid)
+        del_ok = e.net_del & ok_sub[pos]
+    else:
+        state, del_ok = delete(config, state, keys, e.net_del)
+
+    if int(e.net_ins.sum()) <= sub:
+        pos, skeys, svalid = _compact(keys, e.net_ins, sub)
+        state, ok_sub, st = insert(config, state, skeys, svalid)
+        ins_ok = e.net_ins & ok_sub[pos]
+        evictions = torch.where(e.net_ins, st.evictions[pos], 0)
+    else:
+        state, ins_ok, st = insert_bulk(config, state, keys, valid=e.net_ins)
+        evictions = st.evictions
+
+    ok = mixed_ok(e, ins_ok, del_ok)
+    failed = (e.net_ins & ~ins_ok).sum().to(torch.int32)
+    load = state.count.to(torch.float32) / config.num_slots
+    return state, ok, InsertStats(evictions.to(torch.int32), st.rounds,
+                                  failed, load)
+
+
+# ---------------------------------------------------------------------------
 # Convenience object API.
 # ---------------------------------------------------------------------------
 
@@ -978,8 +1252,7 @@ class CuckooFilter:
 
     New code should prefer :func:`repro_torch.amq.make`\\ ("cuckoo", ...),
     whose hot operations run on the CUDA kernels. This wrapper runs the
-    torch core directly. Deletes and mixed batches are not ported to the
-    core yet (port slice 4) and raise.
+    torch core directly: insert, query, delete and mixed batches.
     """
 
     def __init__(self, config: CuckooConfig, state: Optional[CuckooState] = None,
@@ -1025,15 +1298,24 @@ class CuckooFilter:
         return query(self.config, self.state,
                      normalize_keys(keys, device=self.state.table.device))
 
-    def delete(self, keys):
-        raise NotImplementedError(
-            "CuckooFilter.delete: the core delete is not ported yet (port "
-            "slice 4); repro_torch.amq.make('cuckoo').delete runs the "
-            "mixed-op kernel")
+    def delete(self, keys) -> torch.Tensor:
+        """Delete one stored copy per key (:func:`delete`) -> ok bool[n]."""
+        self.state, ok = delete(
+            self.config, self.state,
+            normalize_keys(keys, device=self.state.table.device))
+        return ok
 
     def apply_ops(self, keys, ops, valid=None):
-        raise NotImplementedError(
-            "CuckooFilter.apply_ops: not ported yet (port slice 4)")
+        """Run an interleaved query/insert/delete stream in one fused pass
+        (:func:`apply_ops`) -> (ok bool[n], InsertStats)."""
+        dev = self.state.table.device
+        keys = normalize_keys(keys, device=dev)
+        ops = torch.as_tensor(ops, device=dev)
+        if valid is not None:
+            valid = torch.as_tensor(valid, device=dev)
+        self.state, ok, stats = apply_ops(self.config, self.state, keys, ops,
+                                          valid)
+        return ok, stats
 
     @property
     def load_factor(self) -> float:

@@ -23,8 +23,9 @@ import tempfile
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("hash64", "cuckoo_query", "cuckoo_insert", "cuckoo_insert_bulk",
-           "cuckoo_mixed", "bloom_query", "bloom_insert", "kmer_pack")
+SOURCES = ("hash64", "cuckoo_query", "cuckoo_query_unfused", "cuckoo_insert",
+           "cuckoo_insert_unfused", "cuckoo_insert_bulk", "cuckoo_mixed",
+           "bloom_query", "bloom_insert", "kmer_pack")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -35,7 +36,9 @@ _GEOMETRY = [_U32, _U32, _U32, _U32, _U32, _U64, _P]
 ARGTYPES = {
     "hash64_launch": [_P, _P, _P, _I64, _U32, _U64, _P],
     "cuckoo_query_launch": [_P, _P, _P, _I64] + _GEOMETRY,
+    "cuckoo_query_unfused_launch": [_P, _P, _P, _I64] + _GEOMETRY,
     "cuckoo_insert_launch": [_P, _P, _P, _P, _I64] + _GEOMETRY,
+    "cuckoo_insert_unfused_launch": [_P, _P, _P, _P, _I64] + _GEOMETRY,
     "cuckoo_insert_bulk_launch": [_P, _P, _P, _P, _P, _I64, _I64, _P] + _GEOMETRY,
     "cuckoo_mixed_launch": [_P, _P, _P, _P, _P, _P, _I64, _I64, _P] + _GEOMETRY,
     "bloom_query_launch": [_P, _P, _P, _I64] + _GEOMETRY,

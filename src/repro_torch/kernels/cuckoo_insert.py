@@ -1,15 +1,22 @@
-"""Direct cuckoo insert: the CUDA kernel's binding and its plain version.
+"""Direct cuckoo insert: the two CUDA kernels' bindings and their plain
+versions.
 
-The kernel (``csrc/cuckoo_insert.cu``) replaces ``repro/kernels/
-cuckoo_insert.py: cuckoo_insert_fused_pallas``: each key takes the first
-free slot of bucket i1, else of bucket i2, scanning circularly from its
-tag-derived start, with one atomicCAS on the word it changes. No eviction:
-keys with both buckets full report ok = False.
+Both kernels compute one function: each key takes the first free slot of
+bucket i1, else of bucket i2, scanning circularly from its tag-derived
+start, with one atomicCAS on the word it changes. No eviction: keys with
+both buckets full report ok = False.
 
-:func:`cuckoo_insert_direct_plain` is the literal sequential loop (a port
-of ``cuckoo_insert_ref``), which is one valid linearisation of the
-kernel's concurrent inserts. ``kernels.ops.cuckoo_insert_direct`` picks
-one by the device the table lives on.
+* Fused (``csrc/cuckoo_insert.cu``) replaces ``repro/kernels/
+  cuckoo_insert.py: cuckoo_insert_fused_pallas`` (SWAR zero masks).
+* Unfused (``csrc/cuckoo_insert_unfused.cu``) replaces
+  ``cuckoo_insert_pallas`` (lanes unpacked one by one).
+
+:func:`cuckoo_insert_direct_plain` is the plain version of both: the
+literal sequential loop in batch order (a port of ``cuckoo_insert_ref``,
+extracting each lane as the unfused TPU kernel does), which is one valid
+linearisation of either kernel's concurrent inserts.
+``kernels.ops.cuckoo_insert_direct(fused=...)`` picks the kernel, and the
+device the table lives on picks kernel or plain version.
 """
 
 from __future__ import annotations
@@ -40,3 +47,15 @@ def cuckoo_insert_launch(config: CuckooConfig, table: torch.Tensor,
         keys.shape[0], *build.geometry(config),
         torch.cuda.current_stream(table.device).cuda_stream)
     build.check(rc, "cuckoo_insert")
+
+
+def cuckoo_insert_unfused_launch(config: CuckooConfig, table: torch.Tensor,
+                                 keys: torch.Tensor, valid: torch.Tensor,
+                                 ok: torch.Tensor) -> None:
+    """Launch the unfused kernel on the current stream (arguments already
+    checked)."""
+    rc = build.load("cuckoo_insert_unfused").cuckoo_insert_unfused_launch(
+        table.data_ptr(), keys.data_ptr(), valid.data_ptr(), ok.data_ptr(),
+        keys.shape[0], *build.geometry(config),
+        torch.cuda.current_stream(table.device).cuda_stream)
+    build.check(rc, "cuckoo_insert_unfused")

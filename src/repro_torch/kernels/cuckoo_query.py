@@ -1,10 +1,18 @@
-"""Batched cuckoo-filter query: the CUDA kernel's binding and its plain version.
+"""Batched cuckoo-filter query: the two CUDA kernels' bindings and their
+plain versions.
 
-The kernel (``csrc/cuckoo_query.cu``) replaces ``repro/kernels/
-cuckoo_query.py: cuckoo_query_fused_pallas``: hash, one gather of both
-candidate buckets, SWAR match, hit. :func:`cuckoo_query_plain` is the same
-computation in vectorized torch; ``kernels.ops.cuckoo_query`` picks one by
-the device the table lives on.
+* Fused (``csrc/cuckoo_query.cu``) replaces ``repro/kernels/
+  cuckoo_query.py: cuckoo_query_fused_pallas``: hash, one gather of both
+  candidate buckets, SWAR match, hit. :func:`cuckoo_query_plain` is the
+  same computation in vectorized torch.
+* Unfused (``csrc/cuckoo_query_unfused.cu``) replaces ``cuckoo_query_pallas``:
+  hash, then a bucket at a time its words unpacked to lanes and compared
+  lane by lane. :func:`cuckoo_query_unfused_plain` follows the same route
+  (``layout.unpack_words``, then a lane compare).
+
+Both compute one function; ``kernels.ops.cuckoo_query(fused=...)`` picks
+the kernel, and the device the table lives on picks kernel or plain
+version.
 """
 
 from __future__ import annotations
@@ -28,6 +36,20 @@ def cuckoo_query_plain(config: CuckooConfig, table: torch.Tensor,
     return ((m1 | m2) != 0).any(dim=-1)
 
 
+def cuckoo_query_unfused_plain(config: CuckooConfig, table: torch.Tensor,
+                               keys: torch.Tensor) -> torch.Tensor:
+    """The unfused route: bucket i1's lanes, then bucket i2's -> bool[n]."""
+    lay = config.layout
+    base_tag, i1, i2 = prepare_keys_plain(config, keys)
+    t1, t2 = config.placement.query_match_tags(base_tag)
+    hit = torch.zeros((keys.shape[0],), dtype=torch.bool, device=keys.device)
+    for bucket, tag in ((i1, t1), (i2, t2)):
+        lanes = L.unpack_words(L.gather_bucket_words(table, bucket, lay),
+                               lay.fp_bits)
+        hit |= (lanes == tag[:, None]).any(dim=-1)
+    return hit
+
+
 def cuckoo_query_launch(config: CuckooConfig, table: torch.Tensor,
                         keys: torch.Tensor, hit: torch.Tensor) -> None:
     """Launch the kernel on the current stream (arguments already checked)."""
@@ -36,3 +58,14 @@ def cuckoo_query_launch(config: CuckooConfig, table: torch.Tensor,
         *build.geometry(config),
         torch.cuda.current_stream(table.device).cuda_stream)
     build.check(rc, "cuckoo_query")
+
+
+def cuckoo_query_unfused_launch(config: CuckooConfig, table: torch.Tensor,
+                                keys: torch.Tensor, hit: torch.Tensor) -> None:
+    """Launch the unfused kernel on the current stream (arguments already
+    checked)."""
+    rc = build.load("cuckoo_query_unfused").cuckoo_query_unfused_launch(
+        table.data_ptr(), keys.data_ptr(), hit.data_ptr(), keys.shape[0],
+        *build.geometry(config),
+        torch.cuda.current_stream(table.device).cuda_stream)
+    build.check(rc, "cuckoo_query_unfused")

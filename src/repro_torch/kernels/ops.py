@@ -21,15 +21,19 @@ from ..core.cuckoo_filter import CuckooConfig, CuckooState, prepare_keys
 from ..filters.blocked_bloom import BloomConfig, BloomState
 from .bloom import (bloom_insert_launch, bloom_insert_plain,
                     bloom_query_launch, bloom_query_plain)
-from .cuckoo_insert import cuckoo_insert_direct_plain, cuckoo_insert_launch
+from .cuckoo_insert import (cuckoo_insert_direct_plain, cuckoo_insert_launch,
+                            cuckoo_insert_unfused_launch)
 from .cuckoo_insert_bulk import cuckoo_insert_bulk_launch, cuckoo_insert_bulk_plain
 from .cuckoo_mixed import (cuckoo_mixed_launch, cuckoo_mixed_plain, segments,
                            sorted_runs)
-from .cuckoo_query import cuckoo_query_launch, cuckoo_query_plain
+from .cuckoo_query import (cuckoo_query_launch, cuckoo_query_plain,
+                           cuckoo_query_unfused_launch,
+                           cuckoo_query_unfused_plain)
 from .hash64 import HASH_KINDS, hash64_launch, hash64_plain
 from .kmer_pack import kmer_pack_launch, kmer_pack_plain
 
-LAUNCHES = {"hash64": 0, "cuckoo_query": 0, "cuckoo_insert_direct": 0,
+LAUNCHES = {"hash64": 0, "cuckoo_query": 0, "cuckoo_query_unfused": 0,
+            "cuckoo_insert_direct": 0, "cuckoo_insert_unfused": 0,
             "cuckoo_insert_bulk": 0, "cuckoo_mixed": 0, "bloom_query": 0,
             "bloom_insert": 0, "kmer_pack": 0}
 
@@ -119,28 +123,40 @@ def hash64(keys: torch.Tensor, seed: int = 0, kind: str = "xxhash64"):
 
 
 def cuckoo_query(config: CuckooConfig, state: CuckooState,
-                 keys: torch.Tensor) -> torch.Tensor:
-    """Kernel-backed batch query. keys int32[n, 2] -> bool[n]."""
+                 keys: torch.Tensor, fused: bool = True) -> torch.Tensor:
+    """Kernel-backed batch query. keys int32[n, 2] -> bool[n].
+
+    ``fused=True`` (default) runs the one-gather SWAR kernel;
+    ``fused=False`` the unpack-based kernel (the roofline suite's
+    pre-fusion comparison). Both give the same answers.
+    """
     n = _check_keys(keys)
     _check_state(config, state)
     if not _on_cuda(state.table, keys):
-        return cuckoo_query_plain(config, state.table, keys)
+        plain = cuckoo_query_plain if fused else cuckoo_query_unfused_plain
+        return plain(config, state.table, keys)
     _check_kernel_layout(config, state.table, keys)
     hit = torch.empty((n,), dtype=torch.bool, device=keys.device)
     if n:
+        launch, name = ((cuckoo_query_launch, "cuckoo_query") if fused else
+                        (cuckoo_query_unfused_launch, "cuckoo_query_unfused"))
         with torch.cuda.device(keys.device):
-            cuckoo_query_launch(config, state.table, keys, hit)
-        LAUNCHES["cuckoo_query"] += 1
+            launch(config, state.table, keys, hit)
+        LAUNCHES[name] += 1
     return hit
 
 
 def cuckoo_insert_direct(config: CuckooConfig, state: CuckooState,
-                         keys: torch.Tensor, valid: torch.Tensor = None):
+                         keys: torch.Tensor, valid: torch.Tensor = None,
+                         fused: bool = True):
     """Kernel-backed direct insert, no eviction -> (state', ok bool[n]).
 
     Keys with ``ok`` False (both buckets full) need the eviction-capable
     core (``core.cuckoo_filter.insert``). ``valid`` (bool[n]) masks keys
-    out; masked keys report False.
+    out; masked keys report False. ``fused=True`` (default) runs the SWAR
+    free-slot kernel; ``fused=False`` the unpack-based kernel (the
+    roofline suite's pre-fusion comparison). Both compute one function,
+    so both have one plain version.
     """
     n = _check_keys(keys)
     _check_state(config, state)
@@ -151,9 +167,12 @@ def cuckoo_insert_direct(config: CuckooConfig, state: CuckooState,
         _check_kernel_layout(config, state.table, keys)
         ok = torch.empty((n,), dtype=torch.bool, device=keys.device)
         if n:
+            launch, name = (
+                (cuckoo_insert_launch, "cuckoo_insert_direct") if fused else
+                (cuckoo_insert_unfused_launch, "cuckoo_insert_unfused"))
             with torch.cuda.device(keys.device):
-                cuckoo_insert_launch(config, state.table, keys, valid, ok)
-            LAUNCHES["cuckoo_insert_direct"] += 1
+                launch(config, state.table, keys, valid, ok)
+            LAUNCHES[name] += 1
     count = state.count + ok.sum().to(torch.int32)
     return CuckooState(state.table, count), ok
 

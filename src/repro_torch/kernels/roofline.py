@@ -22,6 +22,10 @@ Two residency regimes:
 move at the very least, whichever way a kernel is built. All figures are
 lower bounds: eviction re-reads, sorts and padding are excluded.
 
+The bound is the least time for an op's work, not for a kernel's design:
+the fused and unfused kernels of one function (query #2 and #3, direct
+insert #4 and #5) take the same op's bound (``query``, ``insert``).
+
 Differences from the JAX model: results are ``bool[n]`` (one byte per
 key, not a uint32 lane), and ``hash`` (the standalone hash kernel: 8-byte
 key in, 8-byte digest out) is an op.

@@ -249,5 +249,10 @@ def test_core_insert_query_and_wrapper_match_reference():
         TCF.query(tcfg, filt.state, torch.from_numpy(probe.view(np.int32))).numpy(),
         want)
     assert filt.load_factor == pytest.approx(int(ok.sum()) / cfg.num_slots)
-    with pytest.raises(NotImplementedError):
-        filt.delete(probe)
+    # The wrapper's delete is the core delete: JAX's table and ok.
+    sj, okd = jax.jit(functools.partial(CF.delete, cfg),
+                      compiler_options=_XLA_FAST)(sj, jnp.asarray(probe))
+    np.testing.assert_array_equal(filt.delete(probe).numpy(), np.asarray(okd))
+    np.testing.assert_array_equal(filt.state.table.numpy().view(np.uint32),
+                                  np.asarray(sj.table))
+    assert int(filt.state.count) == int(sj.count)

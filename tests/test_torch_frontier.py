@@ -15,9 +15,10 @@ frontier, whose stragglers reach the loop) and under ``legacy``; what
 holds for every engine is that the false negatives among accepted keys
 are at most ``stats.failed``, and none where nothing failed.
 
-The ``cuckoo`` adapter's frontier route (the direct-insert kernel's plain
-version, then the frontier on its residue) places keys in another order,
-so it is held by invariants.
+The ``cuckoo`` adapter's kernel routes (the direct-insert kernel's plain
+version, then the frontier — under ``insert_engine="frontier"`` — or the
+round loop — under ``auto`` — on its residue) place keys in another order,
+so they are held by invariants.
 """
 
 import functools
@@ -166,30 +167,42 @@ def test_r1_case_false_negatives_bounded_by_failed(engine):
     assert _false_negatives(cfg, state, keys, ok) <= failed
 
 
-def test_adapter_frontier_route_holds_invariants():
-    """The default route of ``make("cuckoo")`` at the R1 cell, in four
-    batches: the direct kernel's plain version, then the frontier."""
+def _adapter_keys():
     bs, fb, load, seed = R1
-    cfg = _cfg(bs, fb, engine="auto")
-    tcfg = convert.config_from_reference(cfg)
-    n = int(cfg.num_slots * load) // 4 * 4
-    raw = np.unique(np.random.default_rng(seed).integers(
+    n = int(NUM_BUCKETS * bs * load) // 4 * 4
+    return np.unique(np.random.default_rng(seed).integers(
         0, 2**64, size=4 * n, dtype=np.uint64))[:n]
-    ref = ramq.make("cuckoo", config=cfg)
+
+
+@functools.lru_cache(maxsize=None)
+def _adapter_reference_ok():
+    """JAX ``make("cuckoo")``'s ok over the four batches (its incremental
+    ``auto`` is the frontier, so one reference serves both routes)."""
+    ref = ramq.make("cuckoo", config=_cfg(R1[0], R1[1], engine="frontier"))
+    return np.concatenate([np.asarray(ref.insert(chunk).ok)
+                           for chunk in np.split(_adapter_keys(), 4)])
+
+
+def _adapter_fill(engine):
+    """The R1 cell through ``make("cuckoo")`` in four batches: the direct
+    kernel's plain version, then the engine ``engine`` routes its residue
+    to. Holds the invariants; returns the keys handed to the frontier and
+    to the round loop."""
+    bs, fb, _, _ = R1
+    tcfg = convert.config_from_reference(_cfg(bs, fb, engine=engine))
+    raw = _adapter_keys()
     port = tamq.make("cuckoo", config=tcfg, device="cpu")
-    ok_ref, ok_port = [], []
-    TCF.FRONTIER_KEYS = []
+    ok_port = []
+    TCF.FRONTIER_KEYS, TCF.LOOP_KEYS = [], []
     try:
         for chunk in np.split(raw, 4):
-            ok_ref.append(np.asarray(ref.insert(chunk).ok))
             rep = port.insert(chunk)
             ok_port.append(rep.ok.numpy())
             assert int(rep.rounds) >= 1
-        handed = int(sum(TCF.FRONTIER_KEYS))
+        handed = (int(sum(TCF.FRONTIER_KEYS)), int(sum(TCF.LOOP_KEYS)))
     finally:
-        TCF.FRONTIER_KEYS = None
-    assert handed > 0                        # the frontier took a residue
-    ok_ref, ok_port = np.concatenate(ok_ref), np.concatenate(ok_port)
+        TCF.FRONTIER_KEYS = TCF.LOOP_KEYS = None
+    ok_ref, ok_port = _adapter_reference_ok(), np.concatenate(ok_port)
     assert port.count() == int(ok_port.sum())
     failed = int((~ok_port).sum())
     if ok_ref.all():
@@ -204,3 +217,22 @@ def test_adapter_frontier_route_holds_invariants():
     b, s = tags.nonzero(as_tuple=True)
     stored = list(zip(b.tolist(), tags[b, s].tolist()))
     assert len(stored) == port.count() and set(stored) <= allowed
+    return handed
+
+
+def test_adapter_frontier_route_holds_invariants():
+    """``make("cuckoo", insert_engine="frontier")`` at the R1 cell: the
+    direct kernel's plain version, then the frontier on its residue."""
+    frontier, _ = _adapter_fill("frontier")
+    assert frontier > 0                      # the frontier took a residue
+
+
+def test_adapter_auto_route_takes_the_loop():
+    """Under ``auto`` the adapter hands the direct kernel's residue to the
+    round loop, not the frontier (core ``insert`` still routes ``auto`` to
+    the frontier, as JAX does)."""
+    assert TCF.resolve_engine(
+        convert.config_from_reference(_cfg(4, 16, engine="auto")),
+        False) == "frontier"
+    frontier, loop = _adapter_fill("auto")
+    assert frontier == 0 and loop > 0

@@ -21,7 +21,12 @@ invariants. The frontier engine (torch ops, deterministic) leaves the
 same table on the card as on the CPU, and the adapter's frontier route
 (direct-insert kernel, then the frontier) fills to 0.95 under the
 invariants. The k-mer pack and the Bloom kernels equal their plain
-versions bit for bit.
+versions bit for bit. The unfused query and direct-insert kernels are
+held as their fused counterparts are. Core ``delete`` and ``apply_ops``
+(torch ops, deterministic) leave the same table on the card as on the
+CPU, and ``FilterHandle.apply_ops`` on the card (the mixed-op kernel for
+its net deletes, the insert kernels for its net inserts) gives core
+``apply_ops``'s ``ok`` and the sequential oracle's.
 """
 
 import numpy as np
@@ -40,7 +45,8 @@ from repro_torch.kernels import ops as K
 from repro_torch.kernels.cuckoo_insert import cuckoo_insert_direct_plain
 from repro_torch.kernels.cuckoo_insert_bulk import cuckoo_insert_bulk_plain
 from repro_torch.kernels.cuckoo_mixed import cuckoo_mixed_plain
-from repro_torch.kernels.cuckoo_query import cuckoo_query_plain
+from repro_torch.kernels.cuckoo_query import (cuckoo_query_plain,
+                                              cuckoo_query_unfused_plain)
 from repro_torch.kernels.hash64 import hash64_plain
 from repro_torch.kernels.kmer_pack import kmer_pack_plain
 
@@ -151,6 +157,89 @@ def test_insert_and_mixed_match_plain(cuda, layout):
         torch.cuda.synchronize()
         assert torch.equal(ok_k, ok_p)
         assert torch.equal(_bucket_multisets(cfg, sk), _bucket_multisets(cfg, sp))
+
+
+@pytest.mark.parametrize("layout", LAYOUTS, ids=lambda c: "b{}f{}{}{}".format(*c))
+def test_unfused_kernels_match_plain(cuda, layout):
+    """#3 answers as its plain version and as #2; #5 agrees with its plain
+    loop on ``ok`` and every bucket's tag multiset, as #4 does."""
+    cfg = _cfg(*layout)
+    state, placed = _half_full(cfg, cuda, 15)
+    probe = torch.cat([placed[:4096], _keys(16, 4096, cuda)])
+    K.reset_launches()
+    got = K.cuckoo_query(cfg, state, probe, fused=False)
+    want = cuckoo_query_unfused_plain(cfg, state.table, probe)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and got[:4096].all()
+    assert torch.equal(got, K.cuckoo_query(cfg, state, probe))
+
+    keys = _keys(17, 256, cuda)
+    valid = (torch.rand(256, generator=torch.Generator().manual_seed(4))
+             < 0.9).to(cuda)
+    t_kernel, t_plain = state.table.clone(), state.table.clone()
+    st, ok_kernel = K.cuckoo_insert_direct(
+        cfg, state._replace(table=t_kernel), keys, valid, fused=False)
+    ok_plain = cuckoo_insert_direct_plain(cfg, t_plain, keys, valid)
+    torch.cuda.synchronize()
+    assert torch.equal(ok_kernel, ok_plain) and not ok_kernel[~valid].any()
+    assert int(st.count) == int(state.count) + int(ok_kernel.sum())
+    assert torch.equal(_bucket_multisets(cfg, t_kernel),
+                       _bucket_multisets(cfg, t_plain))
+    assert (K.LAUNCHES["cuckoo_query_unfused"],
+            K.LAUNCHES["cuckoo_insert_unfused"]) == (1, 1)
+
+
+def test_unfused_insert_under_contention_holds_invariants(cuda):
+    """As for #4: 4x more keys than slots in one launch of #5."""
+    cfg = CuckooConfig(num_buckets=64, fp_bits=16, bucket_size=16,
+                       hash_kind="fmix32")
+    keys = _keys(18, 4 * cfg.num_slots, cuda)
+    state, ok = K.cuckoo_insert_direct(cfg, cfg.init(cuda), keys, fused=False)
+    torch.cuda.synchronize()
+    _hold_insert_invariants(cfg, state, keys, ok, cuda)
+
+
+@pytest.mark.parametrize("mix", [(0.5, 0.4, 0.1), (0.95, 0.05, 0.0),
+                                 (0.2, 0.4, 0.4)],
+                         ids=["ycsb", "read_heavy", "churn"])
+def test_apply_ops_on_the_card(cuda, mix):
+    """Core ``apply_ops`` on the card leaves the CPU's table, ok and
+    stats; the handle's ``apply_ops`` on the card gives core
+    ``apply_ops``'s ``ok`` on a copy of the same table, and the
+    sequential oracle's, batch after batch, with its count exact."""
+    capacity = 62_259                                 # floor(0.95 * 2**16)
+    rng = np.random.default_rng(19)
+    pre = rng.integers(0, 2**63, size=capacity // 2, dtype=np.uint64)
+    h = amq.make("cuckoo", capacity=capacity)
+    oracle = amq.make("cpu-cuckoo", capacity=capacity, hash_kind="fmix32")
+    h.insert(pre, bulk=True)
+    oracle.insert(pre)
+    n = 8192
+    for _ in range(3):
+        raw = np.where(rng.random(n) < 0.5, pre[rng.integers(0, pre.size, n)],
+                       rng.integers(0, 2**63, size=n, dtype=np.uint64))
+        p = np.array(mix)
+        batch = amq.OpBatch.make(raw, rng.choice(3, size=n, p=p / p.sum()),
+                                 rng.random(n) < 0.95, device=cuda)
+        core = {}
+        for dev in ("cpu", cuda):
+            state = CF.CuckooState(h.state.table.clone().to(dev),
+                                   h.state.count.clone().to(dev))
+            core[dev] = CF.apply_ops(h.config, state, batch.keys.to(dev),
+                                     batch.ops.to(dev), batch.valid.to(dev))
+        (sc, okc, stc), (sg, okg, stg) = core["cpu"], core[cuda]
+        assert torch.equal(sg.table.cpu(), sc.table) and torch.equal(okg.cpu(), okc)
+        assert torch.equal(stg.evictions.cpu(), stc.evictions)
+        assert int(stg.rounds) == int(stc.rounds)
+        rep = h.apply_ops(batch)
+        torch.cuda.synchronize()
+        assert torch.equal(rep.ok.cpu(), okc)
+        assert torch.equal(rep.ok.cpu(), oracle.apply_ops(batch).ok)
+        assert h.count() == oracle.count() == int(sg.count)
+        tags = L.unpack_words(L.gather_bucket_words(
+            h.state.table, torch.arange(h.config.num_buckets, device=cuda),
+            h.config.layout), h.config.fp_bits)
+        assert int((tags != 0).sum()) == h.count()
 
 
 @pytest.mark.parametrize("layout", LAYOUTS, ids=lambda c: "b{}f{}{}{}".format(*c))
@@ -273,8 +362,9 @@ def test_deletes_under_contention_follow_batch_order(cuda):
 
 def test_frontier_on_the_card(cuda):
     """Core ``_insert_frontier`` leaves the CPU's table, ok and stats on
-    the card; the adapter's frontier route (``auto``) fills to 0.95 in
-    eight batches under the invariants, launching the direct kernel."""
+    the card; the adapter's frontier route (``insert_engine="frontier"``)
+    fills to 0.95 in eight batches under the invariants, launching the
+    direct kernel."""
     cfg = CuckooConfig(num_buckets=64, bucket_size=4, fp_bits=16,
                        hash_kind="fmix32", max_evictions=256)
     raw = np.random.default_rng(13).integers(0, 2**64, size=243,
@@ -291,7 +381,7 @@ def test_frontier_on_the_card(cuda):
     capacity = 62_259                                 # floor(0.95 * 2**16)
     raw = np.random.default_rng(14).integers(0, 2**63, size=capacity,
                                              dtype=np.uint64)
-    h = amq.make("cuckoo", capacity=capacity)
+    h = amq.make("cuckoo", capacity=capacity, insert_engine="frontier")
     assert CF.resolve_engine(h.config, False) == "frontier"
     K.reset_launches()
     CF.FRONTIER_KEYS = []

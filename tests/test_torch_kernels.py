@@ -5,6 +5,9 @@ on CPU tensors) is held against its JAX counterpart run in interpret mode,
 as ``tests/test_kernel_differential.py`` does, and against the JAX
 oracles: the query on tables carried across with ``repro_torch.convert``;
 the direct insert and the mixed op stream with table and ``ok`` bit-exact.
+The unfused kernels' plain versions (query #3, direct insert #5) are held
+against ``cuckoo_query_pallas`` and ``cuckoo_insert_pallas`` the same way,
+on the same cells.
 The wrappers must raise on what their kernels do not take, and count no
 launch on the CPU.
 """
@@ -22,9 +25,11 @@ import torch
 from repro.core import CuckooConfig, keys_from_numpy
 from repro.core import cuckoo_filter as CF
 from repro.kernels import ref as R
-from repro.kernels.cuckoo_insert import cuckoo_insert_fused_pallas
+from repro.kernels.cuckoo_insert import (cuckoo_insert_fused_pallas,
+                                         cuckoo_insert_pallas)
 from repro.kernels.cuckoo_mixed import cuckoo_mixed_pallas
-from repro.kernels.cuckoo_query import cuckoo_query_fused_pallas
+from repro.kernels.cuckoo_query import (cuckoo_query_fused_pallas,
+                                        cuckoo_query_pallas)
 from repro_torch import convert
 from repro_torch.core import CuckooState
 from repro_torch.core import cuckoo_filter as TCF
@@ -33,7 +38,8 @@ from repro_torch.kernels import ref as TR
 from repro_torch.kernels import roofline
 from repro_torch.kernels.cuckoo_insert import cuckoo_insert_direct_plain
 from repro_torch.kernels.cuckoo_mixed import cuckoo_mixed_plain, segments
-from repro_torch.kernels.cuckoo_query import cuckoo_query_plain
+from repro_torch.kernels.cuckoo_query import (cuckoo_query_plain,
+                                              cuckoo_query_unfused_plain)
 
 torch.set_num_threads(1)
 
@@ -156,6 +162,52 @@ def test_insert_plain_matches_pallas(cell):
 
 
 @pytest.mark.parametrize("cell", CELLS, ids=IDS)
+def test_query_unfused_plain_matches_pallas(cell):
+    bs, fb, occ, pol, hk = cell
+    cfg = _cfg(bs, fb, pol, hk)
+    tcfg = convert.config_from_reference(cfg)
+    rng = np.random.default_rng(11)
+    state, tstate = _filled(cfg, occ)
+    probe_np = keys_from_numpy(_raw(rng, 4 * BLOCK))
+    probe = jnp.asarray(probe_np)
+    want = np.asarray(_jit_blk(cuckoo_query_pallas, cfg)(
+        state.table, probe[:, 0], probe[:, 1])).astype(bool)
+    keys = _t(probe_np)
+    got = cuckoo_query_unfused_plain(tcfg, tstate.table, keys)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        K.cuckoo_query(tcfg, tstate, keys, fused=False).numpy(), want)
+    # One function: the fused kernel's plain version answers the same.
+    np.testing.assert_array_equal(
+        cuckoo_query_plain(tcfg, tstate.table, keys).numpy(), want)
+
+
+@pytest.mark.parametrize("cell", CELLS, ids=IDS)
+def test_insert_unfused_plain_matches_pallas(cell):
+    bs, fb, occ, pol, hk = cell
+    cfg = _cfg(bs, fb, pol, hk)
+    tcfg = convert.config_from_reference(cfg)
+    rng = np.random.default_rng(12)
+    state, tstate = _filled(cfg, occ / 2)
+    keys_np = keys_from_numpy(_raw(rng, 2 * BLOCK))
+    kj = jnp.asarray(keys_np)
+    valid = (rng.random(2 * BLOCK) < 0.9)
+    t_want, ok_want = _jit_blk(cuckoo_insert_pallas, cfg)(
+        state.table, kj[:, 0], kj[:, 1], jnp.asarray(valid, jnp.uint32))
+    # The plain version of #5 (and #4): the sequential loop.
+    table = tstate.table.clone()
+    ok = cuckoo_insert_direct_plain(tcfg, table, _t(keys_np),
+                                    torch.from_numpy(valid))
+    np.testing.assert_array_equal(_u32(table), np.asarray(t_want))
+    np.testing.assert_array_equal(ok.numpy(), np.asarray(ok_want).astype(bool))
+    st2, ok2 = K.cuckoo_insert_direct(
+        tcfg, CuckooState(tstate.table.clone(), tstate.count), _t(keys_np),
+        torch.from_numpy(valid), fused=False)
+    assert torch.equal(ok2, ok) and torch.equal(st2.table, table)
+    assert int(st2.count) == int(tstate.count) + int(ok.sum())
+
+
+@pytest.mark.parametrize("cell", CELLS, ids=IDS)
 @pytest.mark.parametrize("stream", ["mixed", "delete"])
 def test_mixed_plain_matches_pallas_and_ref(cell, stream):
     bs, fb, occ, pol, hk = cell
@@ -240,8 +292,10 @@ def test_cpu_route_counts_no_launch():
     keys = _t(keys_from_numpy(_raw(np.random.default_rng(5), 32)))
     K.hash64(keys)
     state, _ = K.cuckoo_insert_direct(cfg, state, keys)
+    state, _ = K.cuckoo_insert_direct(cfg, state, keys, fused=False)
     state, _ = K.cuckoo_insert_bulk(cfg, state, keys)
     K.cuckoo_query(cfg, state, keys)
+    K.cuckoo_query(cfg, state, keys, fused=False)
     K.cuckoo_apply_ops(cfg, state, keys, torch.full((32,), 2, dtype=torch.int32))
     assert K.LAUNCHES == dict.fromkeys(K.LAUNCHES, 0)
 

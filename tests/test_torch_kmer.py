@@ -78,6 +78,20 @@ def test_kmer_edges_bit_exact():
             K.kmer_pack(torch.from_numpy(g), bad)
 
 
+@pytest.mark.parametrize("canonical", [True, False])
+def test_r3_short_sequences_give_no_keys(canonical):
+    """R3 (ROADMAP C): a sequence of 1 <= n <= k - 2 bases has no k-mer,
+    and ``kmer_keys`` returns none. The JAX package's ``kmer_pack`` returns
+    rows of its block padding there, so these cases are not compared with
+    it."""
+    k = 31
+    g = _genome()
+    for n in range(1, k - 1):
+        got = TK.kmer_keys(g[:n], k=k, canonical=canonical, device="cpu")
+        assert got.shape == (0, 2) and got.dtype == torch.int32
+        assert K.kmer_pack(torch.from_numpy(g[:n]), k).shape == (0, 2)
+
+
 @pytest.mark.parametrize("k", [21, 31])
 def test_kmer_pack_plain_matches_reference_oracle(k):
     g = _genome()

@@ -11,7 +11,9 @@ invariants: ``count == ok.sum()``, every accepted key
 queryable, every stored tag in one of its key's buckets, every key placed
 where the reference places every key, and the FPR inside the Eq. 4 band.
 Query answers on a JAX table carried across are bit-exact, and deletes
-agree with the JAX ``delete``'s ``ok``.
+agree with the JAX ``delete``'s ``ok``. ``make(..., auto_expand="auto")``
+gives a plain handle, as in the JAX package, and a mixed batch runs
+through ``FilterHandle.apply_ops``.
 """
 
 import os
@@ -145,19 +147,35 @@ def test_make_needs_cuda_or_an_explicit_cpu(monkeypatch):
         tamq.make("cuckoo", capacity=1000)
     h = tamq.make("cuckoo", capacity=1000, device="cpu")
     caps = h.capabilities
-    assert (caps.supports_delete, caps.supports_bulk, caps.counting) == (True,) * 3
-    assert not (caps.supports_mixed or caps.supports_expand
-                or caps.supports_snapshot or caps.supports_tiering)
-    for call in (lambda: h.apply_ops(None), h.snapshot,
+    assert (caps.supports_delete, caps.supports_bulk, caps.counting,
+            caps.supports_mixed) == (True,) * 4
+    assert not (caps.supports_expand or caps.supports_snapshot
+                or caps.supports_tiering)
+    for call in (h.snapshot,
                  lambda: tamq.make("cuckoo", capacity=10, device="cpu",
                                    auto_expand=True),
                  lambda: tamq.make("cuckoo", capacity=10, device="cpu",
                                    tiered=True)):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(NotImplementedError, match="port slice 5|item 12"):
             call()
+    # auto_expand="auto" resolves to supports_expand (False): a plain
+    # handle, as in the JAX package.
+    plain = tamq.make("cuckoo", capacity=10, device="cpu", auto_expand="auto")
+    assert type(plain) is type(h) and plain.device.type == "cpu"
+    # A real mixed batch through the fused path.
+    raw = _raw(8, 3)
+    rep = h.apply_ops(tamq.OpBatch.make(
+        raw[[0, 0, 1, 0, 2]], [tamq.OP_INSERT, tamq.OP_QUERY, tamq.OP_QUERY,
+                               tamq.OP_DELETE, tamq.OP_DELETE]))
+    assert rep.ok.tolist() == [True, True, False, True, False]
+    assert h.count() == 0 and rep.ok.device.type == "cpu"
+    with pytest.raises(TypeError, match="OpBatch"):
+        h.apply_ops(None)
     with pytest.raises(KeyError):
         tamq.make("tcf", capacity=10, device="cpu")
-    assert tamq.names() == ("cuckoo", "bloom")
+    assert tamq.names() == ("cuckoo", "bloom", "cpu-cuckoo")
+    # The host oracle runs on the CPU without being asked.
+    assert tamq.make("cpu-cuckoo", capacity=1000).device.type == "cpu"
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tamq.make("bloom", capacity=1000)
 
@@ -170,6 +188,12 @@ def test_port_imports_neither_jax_nor_the_reference():
         "    importlib.import_module(m.name)\n"
         "from repro_torch import amq\n"
         "amq.make\n"
+        "for m in ('repro_torch.filters.cpu_reference',\n"
+        "          'repro_torch.kernels.cuckoo_query',\n"
+        "          'repro_torch.kernels.cuckoo_insert', 'repro_torch.convert'):\n"
+        "    assert m in sys.modules, m\n"
+        "amq.make('cpu-cuckoo', capacity=100).apply_ops(amq.OpBatch.make(\n"
+        "    [1, 2], [amq.OP_INSERT, amq.OP_QUERY]))\n"
         "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith('jax')\n"
         "             or n == 'repro' or n.startswith('repro.'))\n"
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n"
