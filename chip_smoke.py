@@ -6,7 +6,7 @@
 From the repository root, on a machine with one NVIDIA H100 and the CUDA
 toolkit. Phases, one JSON line each:
 
-1. build — the ten CUDA kernels from ``src/repro_torch/kernels/csrc``
+1. build — the eleven CUDA kernels from ``src/repro_torch/kernels/csrc``
    (``nvcc``, ``sm_90a``, in parallel), with the build seconds and the
    card's name and power limit.
 2. main path at 2^28 slots — ``repro_torch.amq.make("cuckoo",
@@ -88,7 +88,39 @@ toolkit. Phases, one JSON line each:
    seconds per batch; one more batch under ``torch.profiler``. Then ``handle.delete`` and core ``delete`` of 2^24
    stored keys, each from the prefilled table: all ``ok``, ``count``
    exact, and the two tables holding the same (pair, tag) codes.
-8. the main path again at 2^22 slots (an 8 MiB table, resident in L2).
+8. the serving path — ``qwen1_5_4b`` at full width (40 layers, d 2560,
+   20 heads of 128, vocab 151936: 3.56e9 parameters, 7.1 GB of bf16)
+   built on the card from a seeded CUDA generator, served through
+   ``repro_torch.serve.ServeEngine`` (batch 4, prompts of 1024 tokens,
+   32 greedy decode steps, a 4-entry prefix cache whose guard filter is a
+   ``cuckoo`` handle behind ``FilterService``) on the request sequence of
+   ``examples/serve_with_prefix_filter.py`` (prompt pools
+   0,1,2,3,1,2,4,5,0,1 out of 6). Launch counts zeroed just before and
+   read just after: the flash-attention kernel once a layer a prefill
+   (40 x 8), the hash, direct-insert and mixed kernels (the guard's
+   lookups, admissions and evictions). Gates: hits 2, evictions 4,
+   filtered + misses 8, stale 0; a prompt served again (from the cache or
+   after its eviction) gives the tokens of its first serve; the memory
+   held after the run is the weights and four entries (evicted entries
+   freed); the cached entries' logits and every timed prefill and decode
+   logit finite. Then the model alone:
+   prefill seconds and tokens/s, decode ms a step and tokens/s, one
+   prefill and one decode step under ``torch.profiler``; the guard
+   filter's lookups alone (wall and host syncs each).
+8b. the flash-attention kernel against its plain version on the card:
+   on layer 0's q/k/v captured from a full-width prefill, on the five
+   shapes of ``tests/test_flash_kernel.py`` and on the head and tail rows
+   of a unit-scale long prefill. Float32 output against the plain
+   version: 1e-4 (that file's) for float32 inputs; for bf16 inputs (P
+   rounded to bf16 on the tensor cores) 1e-2 in absolute error and in
+   error over each row's largest |value|, so that a zeroed row or a
+   dropped key fails. The bf16 output equals the float32 output rounded,
+   bit for bit. Timed (kernel with the bf16 output the model path asks
+   for and with float32, wrapper, model path, plain version,
+   ``F.scaled_dot_product_attention`` as the library yardstick) at the
+   serving prefill (B 4, S 1024, 20 heads, causal, bf16) and a long
+   prefill (B 1, S 8192), each beside its bound.
+9. the main path again at 2^22 slots (an 8 MiB table, resident in L2).
 
 Before the last line: the ``nvidia-smi`` name and power limit, then the
 ``kernels`` line. The last line is ``{"ok": true, "device": {...}}``. Any
@@ -106,7 +138,9 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
+import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -137,6 +171,11 @@ from repro_torch.kernels.bloom import (  # noqa: E402
     bloom_query_plain)
 from repro_torch.kernels.kmer_pack import (  # noqa: E402
     kmer_pack_launch, kmer_pack_plain)
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention_launch, flash_attention_plain)
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.models import attention, build_model  # noqa: E402
+from repro_torch.serve import PrefixCache, ServeEngine  # noqa: E402
 
 SEED = 20260316
 FULL_CAPACITY = 255_013_683      # floor(0.95 * 2**28)
@@ -157,6 +196,23 @@ MIXED_BATCHES = 3
 # delete) fractions.
 MIXES = {"ycsb_50_40_10": (0.50, 0.40, 0.10),
          "read_heavy_95_5": (0.95, 0.05, 0.0)}
+# The serving path: qwen1_5_4b at full width through ServeEngine, the
+# request sequence of examples/serve_with_prefix_filter.py (pool indices).
+SERVE_ARCH = "qwen1_5_4b"
+SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 4, 1024, 32
+SERVE_ENTRIES = 4
+SERVE_POOLS = 6
+SERVE_SEQUENCE = [0, 1, 2, 3, 1, 2, 4, 5, 0, 1]
+LONG_PREFILL = 8192
+# tests/test_flash_kernel.py's shapes: (B, KVH, g, Sq, Sk, D, Dv, causal,
+# window, dtype).
+FLASH_SHAPES = [
+    (2, 2, 3, 192, 256, 64, 32, True, None, torch.float32),
+    (2, 2, 3, 192, 256, 64, 32, True, 64, torch.float32),
+    (1, 4, 1, 256, 256, 128, 128, False, None, torch.float32),
+    (1, 1, 8, 100, 130, 32, 32, True, None, torch.float32),
+    (2, 2, 2, 128, 128, 64, 64, True, None, torch.bfloat16),
+]
 # H100 SXM HBM3 rate (NVIDIA data sheet, at the full 700 W).
 HBM_BYTES_PER_S = 3.35e12
 TPU_KERNELS = {
@@ -170,6 +226,7 @@ TPU_KERNELS = {
     "bloom_query": "src/repro/kernels/bloom.py:35",
     "bloom_insert": "src/repro/kernels/bloom.py:81",
     "kmer_pack": "src/repro/kernels/kmer_pack.py:39",
+    "flash_attention": "src/repro/kernels/flash_attention.py:91",
 }
 SOURCES = {
     "hash64": "src/repro_torch/kernels/csrc/hash64.cu",
@@ -182,6 +239,7 @@ SOURCES = {
     "bloom_query": "src/repro_torch/kernels/csrc/bloom_query.cu",
     "bloom_insert": "src/repro_torch/kernels/csrc/bloom_insert.cu",
     "kmer_pack": "src/repro_torch/kernels/csrc/kmer_pack.cu",
+    "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
 }
 # The insert kernel an entry point runs under the legacy engine; the
 # orientation build runs torch ops (and the hash kernel).
@@ -1143,6 +1201,323 @@ def mixed_path(gen):
     return out
 
 
+# Kernel #11 against its plain version (float32 output): 1e-4 for float32
+# inputs (tests/test_flash_kernel.py's). For bf16 inputs the tensor cores
+# take P rounded to bf16, about 2^-9 of each weight; on an H100 this
+# phase reads 1.5e-4 to 4.2e-3 in the two measures below, so 1e-2 leaves
+# room on both sides.
+FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+def flash_errors(got, want) -> tuple:
+    """(max |got - want|, max |got - want| over its row's max |want|):
+    the second sees a row whose values are small, as long rows' are."""
+    d = (got.float() - want).abs()
+    row = want.abs().amax(-1, keepdim=True).clamp_min(1e-30)
+    return float(d.max()), float((d / row).max())
+
+
+def flash_cases(gen):
+    """The five shapes of tests/test_flash_kernel.py in the kernel layout
+    (GQA g = 3 with Dv != D, a window of 64, non-causal, the ragged 100 x
+    130, bf16): (label, q, k, v, causal, window, q_offset)."""
+    cases = []
+    for (B, KVH, g, Sq, Sk, D, Dv, causal, window, dtype) in FLASH_SHAPES:
+        def rnd(*shape):
+            return (torch.randn(shape, generator=gen, device="cuda")
+                    * 0.3).to(dtype)
+        cases.append((f"{B}x{KVH}x{g} {Sq}x{Sk} D{D}/{Dv} causal={causal} "
+                      f"window={window} {str(dtype)[6:]}",
+                      rnd(B * KVH, g, Sq, D), rnd(B * KVH, Sk, D),
+                      rnd(B * KVH, Sk, Dv), causal, window, 0))
+    return cases
+
+
+def flash_check(label, q, k, v, causal, window, q_offset) -> dict:
+    """Kernel #11 against its plain version on one input (see
+    ``FLASH_TOL``), and its bf16 output against its float32 output
+    rounded (equal)."""
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    got = K.flash_attention(q, k, v, **kw)
+    got_bf16 = K.flash_attention(q, k, v, out_dtype=torch.bfloat16, **kw)
+    want = flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()), f"flash {label}: not finite")
+    check(torch.equal(got_bf16, got.to(torch.bfloat16)),
+          f"flash {label}: the bf16 output is not the float32 one rounded")
+    err, row_err = flash_errors(got, want)
+    tol = FLASH_TOL[q.dtype]
+    if q.dtype == torch.float32:
+        ok = torch.allclose(got, want, rtol=tol, atol=tol)
+    else:
+        ok = err <= tol and row_err <= tol
+    check(ok, f"flash {label}: differs from its plain version (max abs err "
+              f"{err}, over the row's max {row_err}, tolerance {tol})")
+    return {"max_abs_err": err, "row_rel_err": row_err,
+            "max_abs_want": float(want.abs().max()), "tolerance": tol}
+
+
+def flash_record(q, k, v, causal, bf16_rate, sdpa_layout):
+    """Kernel #11 at one shape: its time with the output in q's dtype
+    (what the model path asks for, and what the Pallas kernel writes) and
+    with a float32 output, through the wrapper, its plain version's,
+    ``F.scaled_dot_product_attention``'s on the same values
+    (``sdpa_layout``: q, k, v as [B, H, S, D]) and the bound: bytes
+    (inputs read once, the output in q's dtype written once) over the HBM
+    rate, FLOP (4 a query-key pair a head dimension, unmasked pairs only)
+    over the dense bf16 rate."""
+    import torch.nn.functional as F
+
+    out = torch.empty(q.shape[:3] + (v.shape[-1],), dtype=q.dtype,
+                      device="cuda")
+    out32 = torch.empty(out.shape, dtype=torch.float32, device="cuda")
+    variant = K.check_flash_kernel(q, k, v)
+    scale = 1.0 / q.shape[-1] ** 0.5
+    ms, ms_out_float32 = (cuda_ms(lambda: flash_attention_launch(
+        q, k, v, o, causal=causal, window=None, scale=scale, q_offset=0,
+        variant=variant), reps=10) for o in (out, out32))
+    del out32
+    wrapper_ms = cuda_ms(lambda: K.flash_attention(
+        q, k, v, causal=causal, out_dtype=q.dtype), reps=10)
+    plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, causal=causal),
+                       reps=3)
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        *sdpa_layout, is_causal=causal), reps=10)
+    nbytes = roofline.attention_bytes(q, k, v, out)
+    flops = roofline.attention_flops(q.shape[0] * q.shape[1], q.shape[2],
+                                     k.shape[1], q.shape[3], v.shape[-1],
+                                     causal=causal)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / bf16_rate * 1e3
+    return {"shape": [list(q.shape), list(k.shape), list(v.shape)],
+            "dtype": str(q.dtype), "out_dtype": str(out.dtype),
+            "causal": causal, "variant": variant, "ms": ms,
+            "ms_out_float32": ms_out_float32,
+            "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bound_bytes": nbytes, "bound_flops": flops,
+            "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "tflops_per_s": flops / (ms * 1e-3) / 1e12}
+
+
+def flash_attention_vs_plain(gen, layer0, bf16_rate):
+    """Phase 8b (see the module docstring). Returns the kernel's record
+    for the ``kernels`` line (without its launches)."""
+    t0 = time.perf_counter()
+    errs = {}
+    cases = [("serving layer 0 (captured)", *layer0, True, None, 0)]
+    cases += flash_cases(gen)
+    for label, *args in cases:
+        errs[label] = flash_check(label, *args)
+    q, k, v = layer0
+    B, H = SERVE_BATCH, q.shape[0] * q.shape[1] // SERVE_BATCH
+    serving = flash_record(q, k, v, True, bf16_rate,
+                           [t.reshape(B, H, -1, t.shape[-1]) for t in layer0])
+    # The model path's call: [B, S, H, D] in, transposes included.
+    qm, km, vm = (t.reshape(B, H, -1, t.shape[-1]).transpose(1, 2).contiguous()
+                  for t in layer0)
+    serving["model_path_ms"] = cuda_ms(
+        lambda: attention.flash_attention(qm, km, vm, causal=True,
+                                          out_dtype=torch.bfloat16), reps=10)
+    del qm, km, vm
+    # The long prefill at unit scale: its first 512 rows over their keys,
+    # and its last 256 rows over all 8192 keys (a long row's values are
+    # small; the row measure still sees a dropped key).
+    S = LONG_PREFILL
+    lq, lk, lv = (torch.randn((H, 1, S, 128) if i == 0 else (H, S, 128),
+                              generator=gen, device="cuda")
+                  .to(torch.bfloat16) for i in range(3))
+    errs["long prefill, first 512 rows"] = flash_check(
+        "long prefill, first 512 rows", lq[:, :, :512].contiguous(),
+        lk[:, :512].contiguous(), lv[:, :512].contiguous(), True, None, 0)
+    errs["long prefill, last 256 rows"] = flash_check(
+        "long prefill, last 256 rows", lq[:, :, S - 256:].contiguous(), lk,
+        lv, True, None, S - 256)
+    long = flash_record(lq, lk, lv, True, bf16_rate,
+                        [lq.reshape(1, H, S, 128), lk.reshape(1, H, S, 128),
+                         lv.reshape(1, H, S, 128)])
+    del lq, lk, lv
+    torch.cuda.empty_cache()
+    emit({"phase": "flash_attention_vs_plain", "errors": errs,
+          "tolerance": "float32 output vs plain: 1e-4 for float32 inputs "
+                       "(tests/test_flash_kernel.py); 1e-2 absolute and "
+                       "over the row's max for bf16 inputs; bf16 output "
+                       "equal to the float32 output rounded",
+          "serving_prefill": serving, "long_prefill": long,
+          "bf16_flops_per_s": bf16_rate,
+          "seconds": time.perf_counter() - t0})
+    return {**{k: serving[k] for k in ("ms", "plain_ms", "library_ms",
+                                       "bound_ms", "bound_by", "wrapper_ms",
+                                       "model_path_ms", "variant")},
+            "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+            "n": serving["shape"],
+            "bound_bytes": serving["bound_bytes"],
+            "bound_flops": serving["bound_flops"], "long_prefill": long}
+
+
+def timed_sync(fn):
+    """(result, host seconds) of ``fn()`` between two synchronizes."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def serve_qwen(gen, bf16_rate):
+    """Phase 8 (see the module docstring). Returns (launch counts of the
+    engine run, layer 0's kernel-layout q/k/v from a full-width
+    prefill)."""
+    t_start = time.perf_counter()
+    cfg = get_config(SERVE_ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    model, build_s = timed_sync(lambda: build_model(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(SEED)))
+    params = sum(p.numel() for p in model.parameters())
+    params_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    check(len(model.layers) == cfg.num_layers == 40, "qwen: 40 layers")
+    check(params == cfg.param_count() + cfg.num_layers * (
+        (cfg.num_heads + 2 * cfg.num_kv_heads) * cfg.head_dim_()
+        + 2 * cfg.d_model) + cfg.d_model,
+          "qwen: parameter count (param_count + qkv biases + norm scales)")
+    max_len = SERVE_PROMPT + SERVE_STEPS
+    entry_bytes = (cfg.num_layers * 2 * SERVE_BATCH * max_len
+                   * cfg.num_kv_heads * cfg.head_dim_() * 2)
+    pool = torch.randint(0, cfg.vocab_size,
+                         (SERVE_POOLS, SERVE_BATCH, SERVE_PROMPT),
+                         generator=gen, device="cuda").cpu().numpy()
+    pool = pool.astype(np.int32)
+    engine = ServeEngine(model, batch=SERVE_BATCH, max_len=max_len,
+                         prefix_cache_entries=SERVE_ENTRIES)
+
+    # --- the main path: the request sequence through the engine ----------
+    K.reset_launches()
+    first, requests = {}, []
+    for i in SERVE_SEQUENCE:
+        hits = engine.prefix_cache.stats["hits"]
+        (tokens, stats), sec = timed_sync(
+            lambda: engine.generate(pool[i], steps=SERVE_STEPS))
+        check(tokens.shape == (SERVE_BATCH, SERVE_STEPS + 1)
+              and ((tokens >= 0) & (tokens < cfg.vocab_size)).all(),
+              f"serve: request {i} tokens malformed")
+        check(np.array_equal(first.setdefault(i, tokens), tokens),
+              f"serve: prompt {i} served again gave other tokens")
+        requests.append({"pool": i, "seconds": sec,
+                         "hit": stats["hits"] > hits})
+    launches = dict(K.LAUNCHES)
+    for logits, _ in engine.prefix_cache.entries.values():
+        check(bool(torch.isfinite(logits).all()), "serve: cached logits")
+    stats = dict(stats)
+    slo = stats.pop("filter_service")
+    check(stats["hits"] == 2 and stats["evictions"] == 4
+          and stats["filtered"] + stats["misses"] == 8 and stats["stale"] == 0,
+          f"serve: prefix-cache stats {stats}")
+    prefills = len(SERVE_SEQUENCE) - stats["hits"]
+    check(launches["flash_attention"] == cfg.num_layers * prefills,
+          f"serve: flash kernel launched {launches['flash_attention']} "
+          f"times, not {cfg.num_layers} x {prefills}")
+    check_launches("serve", ("hash64", "cuckoo_insert_direct",
+                             "cuckoo_mixed", "flash_attention"))
+    peak = torch.cuda.max_memory_allocated() - base
+    held = torch.cuda.memory_allocated() - base
+    check(held <= params_bytes + SERVE_ENTRIES * entry_bytes + (1 << 29),
+          f"serve: {held} bytes held after the run: evicted entries were "
+          f"not freed (params {params_bytes}, entry {entry_bytes})")
+    check(peak <= params_bytes + (SERVE_ENTRIES + 3) * entry_bytes + (1 << 31),
+          f"serve: peak {peak} bytes")
+
+    # --- timings of the model alone, and every logit finite ---------------
+    tokens = torch.as_tensor(pool[0], device="cuda")
+    prefill_s = []
+    for _ in range(3):
+        (logits, caches), sec = timed_sync(lambda: model.prefill(tokens))
+        prefill_s.append(sec)
+    check(bool(torch.isfinite(logits).all()), "serve: prefill logits")
+    caches = engine._grow_caches(caches, SERVE_PROMPT)
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    decode_s = []
+    for t in range(SERVE_STEPS):
+        (logits, caches), sec = timed_sync(
+            lambda: model.decode_step(tok, caches, SERVE_PROMPT + t))
+        check(bool(torch.isfinite(logits).all()), f"serve: decode {t} logits")
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        decode_s.append(sec)
+    _, prefill_profile = profiled(lambda: model.prefill(tokens))
+    _, decode_profile = profiled(
+        lambda: model.decode_step(tok, caches, SERVE_PROMPT + SERVE_STEPS - 1))
+    del caches, logits
+
+    # --- the guard filter's lookups alone: wall and host syncs ------------
+    pc = PrefixCache(SERVE_ENTRIES, device="cuda")
+    lookup_s, syncs = [], []
+    for i in SERVE_SEQUENCE:
+        flat = pool[i].reshape(-1)
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            t0 = time.perf_counter()
+            try:
+                hit = pc.lookup(flat)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        lookup_s.append(time.perf_counter() - t0)
+        syncs.append(sum("synchroniz" in str(w.message) for w in caught))
+        if hit is None:
+            pc.insert(flat, i)
+    check(pc.stats == stats, f"serve: guard-filter replay {pc.stats}")
+
+    # --- layer 0's q/k/v for the kernel phase: the first call of one
+    # prefill, through a wrapper around the kernel's entry point ----------
+    captured, calls = [], [0]
+    kernel = K.flash_attention
+
+    def capture(q, k, v, **kw):
+        calls[0] += 1
+        if not captured:
+            captured.append((q, k, v))
+        return kernel(q, k, v, **kw)
+
+    K.flash_attention = capture
+    try:
+        model.prefill(tokens)
+    finally:
+        K.flash_attention = kernel
+    check(calls[0] == cfg.num_layers, "serve: capture prefill")
+    layer0 = captured[0]
+    del engine, model, pc
+    torch.cuda.empty_cache()
+    decode_med = statistics.median(decode_s)
+    prefill_med = statistics.median(prefill_s)
+    emit({"phase": "serve_qwen1_5_4b", "arch": SERVE_ARCH,
+          "layers": cfg.num_layers, "d_model": cfg.d_model,
+          "params": params, "param_bytes": params_bytes,
+          "build_seconds": build_s, "batch": SERVE_BATCH,
+          "prompt_len": SERVE_PROMPT, "steps": SERVE_STEPS,
+          "prefix_cache_entries": SERVE_ENTRIES,
+          "sequence": SERVE_SEQUENCE, "stats": stats,
+          "requests": requests, "launches": launches,
+          "prefill_seconds": prefill_med,
+          "prefill_tokens_per_s": SERVE_BATCH * SERVE_PROMPT / prefill_med,
+          "decode_ms_per_step": decode_med * 1e3,
+          "decode_tokens_per_s": SERVE_BATCH / decode_med,
+          "prefill_seconds_all": prefill_s, "decode_ms_all":
+              [x * 1e3 for x in decode_s],
+          "filter_slo": slo, "guard_lookup_seconds": lookup_s,
+          "guard_lookup_host_syncs": syncs,
+          "cache_entry_bytes": entry_bytes,
+          "max_memory_allocated": peak, "memory_held_after": held,
+          "bf16_flops_per_s": bf16_rate,
+          "profile_prefill": prefill_profile,
+          "profile_decode_step": decode_profile,
+          "seconds": time.perf_counter() - t_start})
+    return launches, layer0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1153,11 +1528,13 @@ def main() -> int:
     sm_clock_hz = float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6
     sm_count = torch.cuda.get_device_properties(0).multi_processor_count
     int_ops_per_s = roofline.int32_ops_per_s(sm_count, sm_clock_hz)
+    bf16_rate = roofline.bf16_flops_per_s(sm_count, sm_clock_hz)
     t0 = time.perf_counter()
     logs = build.build_all()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "compiled": sorted(logs), "gpu": smi, "sm_count": sm_count,
           "sm_clock_max_hz": sm_clock_hz, "int32_ops_per_s": int_ops_per_s,
+          "bf16_flops_per_s": bf16_rate,
           "torch": torch.__version__, "cuda": torch.version.cuda})
     for name in build.SOURCES:
         build.load(name)
@@ -1384,6 +1761,12 @@ def main() -> int:
     mixed_path(gen)
     emit({"phase": "mixed_path_seconds", "seconds": time.perf_counter() - t0})
 
+    # --- the serving path, then kernel #11 against its plain version -------
+    serve_launches, layer0 = serve_qwen(gen, bf16_rate)
+    flash = flash_attention_vs_plain(gen, layer0, bf16_rate)
+    del layer0
+    torch.cuda.empty_cache()
+
     # Each kernel's launches come from the path that routes to it: the main
     # path, the legacy bulk fill (the bulk kernel), the fused-vs-unfused
     # comparison (the unfused kernels) or the k-mer case study.
@@ -1426,6 +1809,11 @@ def main() -> int:
             "bytes_ms_at_measured_copy": nbytes / copy_bytes_per_s * 1e3})
         if name in wrapper_ms:
             kernels[-1]["wrapper_ms"] = wrapper_ms[name]
+    kernels.append({"name": "flash_attention", "route": "cuda",
+                    "source": SOURCES["flash_attention"],
+                    "replaces": TPU_KERNELS["flash_attention"],
+                    "launches": serve_launches["flash_attention"],
+                    "launches_path": "serve_qwen1_5_4b", **flash})
 
     # --- the main path at 2^22 slots --------------------------------------
     t0 = time.perf_counter()

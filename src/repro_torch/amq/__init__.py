@@ -7,10 +7,12 @@
     h.query(keys).hits                   # -> bool[n]
     h.delete(keys)
     h.apply_ops(amq.OpBatch.make(keys, ops))   # -> MixedReport(ok, ...)
+    svc = amq.FilterService(h, batch_size=64)  # micro-batched op streams
 
-Only :mod:`.protocol` is imported eagerly; the registry and its adapter,
-which import the kernels, load on first use so that ``repro_torch.core``
-and ``repro_torch.kernels`` can import the protocol without a cycle.
+Only :mod:`.protocol` is imported eagerly; the registry, its adapter and
+the service, which import the kernels, load on first use so that
+``repro_torch.core`` and ``repro_torch.kernels`` can import the protocol
+without a cycle.
 """
 
 from .protocol import (  # noqa: F401
@@ -28,7 +30,7 @@ from .protocol import (  # noqa: F401
 )
 
 _LAZY = ("make", "get", "names", "FilterHandle", "AMQAdapter",
-         "segmented_apply_ops")
+         "segmented_apply_ops", "FilterService", "QueueFullError")
 
 __all__ = list(_LAZY) + [
     "Capabilities", "DeleteReport", "InsertReport", "MixedReport", "OpBatch",
@@ -51,4 +53,12 @@ def __getattr__(name):
         from . import adapters
 
         return getattr(adapters, name)
+    if name == "FilterService":
+        from .service import FilterService
+
+        return FilterService
+    if name == "QueueFullError":
+        from .dispatch import QueueFullError
+
+        return QueueFullError
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -3,8 +3,8 @@
 Port of ``repro.amq.handle.FilterHandle``: insert, query, delete, mixed
 op batches (``apply_ops``), count, load factor, table bytes and expected
 FPR. The handle owns ``(adapter, config, state)`` on one device; keys and
-op batches are moved onto that device. Snapshots are port slice 5 and
-raise ``NotImplementedError``.
+op batches are moved onto that device. Snapshots are ROADMAP queue A
+item 9b and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -167,9 +167,12 @@ class FilterHandle:
     # -- later port slices ---------------------------------------------------
 
     def snapshot(self):
-        """Snapshots: port slice 5 (``Snapshot``, ``save_snapshot``)."""
-        raise _not_ported("FilterHandle.snapshot", "port slice 5")
+        """Snapshots: ROADMAP queue A item 9b (``Snapshot``,
+        ``save_snapshot``)."""
+        raise _not_ported("FilterHandle.snapshot",
+                          "ROADMAP queue A item 9b (snapshots)")
 
     def restore(self, snap):
-        """Snapshots: port slice 5."""
-        raise _not_ported("FilterHandle.restore", "port slice 5")
+        """Snapshots: ROADMAP queue A item 9b."""
+        raise _not_ported("FilterHandle.restore",
+                          "ROADMAP queue A item 9b (snapshots)")

@@ -60,7 +60,8 @@ def make(name: str, capacity: Optional[int] = None, *,
     if auto_expand == "auto":
         auto_expand = adapter.capabilities.supports_expand
     if snapshot is not None:
-        raise _not_ported("make(snapshot=...)", "port slice 5")
+        raise _not_ported("make(snapshot=...)",
+                          "ROADMAP queue A item 9b (snapshots)")
     if auto_expand:
         raise _not_ported("make(auto_expand=...) (the cascade)",
                           "ROADMAP queue A item 12")

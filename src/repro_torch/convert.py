@@ -15,6 +15,8 @@
   (``{"buckets": uint32[num_buckets, bucket_size], "count": int64[]}``);
   ``config_from_reference(cfg, PyCuckooConfig)`` carries its config.
 * :func:`op_batch_from_reference` carries a JAX ``OpBatch``.
+* :func:`model_params_from_reference` turns the JAX ``Model.init``
+  parameter tree (as numpy arrays) into the port's ``Model`` state dict.
 """
 
 from __future__ import annotations
@@ -100,3 +102,49 @@ def op_batch_from_reference(batch, device) -> OpBatch:
     return OpBatch(torch.from_numpy(keys.view(np.int32)).to(device),
                    torch.from_numpy(np.array(batch.ops, np.int32)).to(device),
                    torch.from_numpy(np.array(batch.valid, bool)).to(device))
+
+
+def _tensor(arr) -> torch.Tensor:
+    """A numpy array -> a CPU tensor of the same dtype; bfloat16 arrays
+    (ml_dtypes, recognised by name) are carried bit for bit."""
+    arr = np.ascontiguousarray(arr)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(arr.copy())
+
+
+def _flatten(tree, prefix: str, out: dict) -> None:
+    for name, sub in tree.items():
+        if isinstance(sub, dict):
+            _flatten(sub, f"{prefix}{name}.", out)
+        else:
+            out[f"{prefix}{name}"] = sub
+
+
+def model_params_from_reference(cfg, params) -> dict:
+    """The JAX ``Model.init(key)`` tree (leaves as numpy arrays) -> the
+    port's ``Model`` state dict (CPU tensors, same values and dtypes):
+    load it with ``model.load_state_dict``.
+
+    The JAX package stacks each segment's layers over its ``reps`` on a
+    leading axis (``params["stack"][segment][j]`` is period position
+    ``j``); the port keeps one module per layer, so layer ``i`` of the
+    port is repetition ``r`` of position ``j`` of its segment. Nested
+    parameter names carry over unchanged (``mixer.wq.w``, ``ffn.up.w``,
+    ``ln1.scale``, ...)."""
+    out = {}
+    for top in ("embed", "final_norm", "head"):
+        if top in params:
+            _flatten(params[top], f"{top}.", out)
+    layer = 0
+    for (period, reps), seg in zip(cfg.segments(), params["stack"]):
+        for r in range(reps):
+            for j in range(len(period)):
+                flat = {}
+                _flatten(seg[j], "", flat)
+                for name, arr in flat.items():
+                    out[f"layers.{layer}.{name}"] = np.asarray(arr)[r]
+                layer += 1
+    if layer != cfg.num_layers:
+        raise ValueError(f"params hold {layer} layers, config {cfg.num_layers}")
+    return {name: _tensor(arr) for name, arr in out.items()}

@@ -25,12 +25,13 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("hash64", "cuckoo_query", "cuckoo_query_unfused", "cuckoo_insert",
            "cuckoo_insert_unfused", "cuckoo_insert_bulk", "cuckoo_mixed",
-           "bloom_query", "bloom_insert", "kmer_pack")
+           "bloom_query", "bloom_insert", "kmer_pack", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I64, _U32, _U64 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint32,
                         ctypes.c_uint64)
+_I32, _F32 = ctypes.c_int32, ctypes.c_float
 # Five uint32 sizes, the uint64 seed and the stream (cuckoo and Bloom).
 _GEOMETRY = [_U32, _U32, _U32, _U32, _U32, _U64, _P]
 ARGTYPES = {
@@ -44,6 +45,9 @@ ARGTYPES = {
     "bloom_query_launch": [_P, _P, _P, _I64] + _GEOMETRY,
     "bloom_insert_launch": [_P, _P, _P, _I64] + _GEOMETRY,
     "kmer_pack_launch": [_P, _P, _I64, _U32, _P],
+    # q, k, v, out, BK * g, then g, Sq, Sk, D, Dv, dtype, variant, causal,
+    # window, q_offset, the scale and the stream.
+    "flash_attention_launch": [_P, _P, _P, _P, _I64] + [_I32] * 11 + [_F32, _P],
 }
 
 _LIBS: dict = {}

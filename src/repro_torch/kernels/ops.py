@@ -14,6 +14,7 @@ holds the same table tensor with the new count.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..amq.protocol import OP_DELETE, OP_INSERT
@@ -29,13 +30,15 @@ from .cuckoo_mixed import (cuckoo_mixed_launch, cuckoo_mixed_plain, segments,
 from .cuckoo_query import (cuckoo_query_launch, cuckoo_query_plain,
                            cuckoo_query_unfused_launch,
                            cuckoo_query_unfused_plain)
+from .flash_attention import (DTYPES as FLASH_DTYPES, flash_attention_launch,
+                              flash_attention_plain, flash_variant)
 from .hash64 import HASH_KINDS, hash64_launch, hash64_plain
 from .kmer_pack import kmer_pack_launch, kmer_pack_plain
 
 LAUNCHES = {"hash64": 0, "cuckoo_query": 0, "cuckoo_query_unfused": 0,
             "cuckoo_insert_direct": 0, "cuckoo_insert_unfused": 0,
             "cuckoo_insert_bulk": 0, "cuckoo_mixed": 0, "bloom_query": 0,
-            "bloom_insert": 0, "kmer_pack": 0}
+            "bloom_insert": 0, "kmer_pack": 0, "flash_attention": 0}
 
 _KERNEL_WPB = (1, 2, 4, 8, 16, 32)
 
@@ -316,4 +319,79 @@ def kmer_pack(bases: torch.Tensor, k: int = 31) -> torch.Tensor:
         with torch.cuda.device(bases.device):
             kmer_pack_launch(bases.contiguous(), k, out)
         LAUNCHES["kmer_pack"] += 1
+    return out
+
+
+def _check_flash(q, k, v) -> None:
+    """Shapes and dtypes both routes take: q [BK, g, Sq, D], k [BK, Sk,
+    D], v [BK, Sk, Dv], all float32 or all bfloat16."""
+    for name, t, ndim in (("q", q, 4), ("k", k, 3), ("v", v, 3)):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name}: expected a torch.Tensor, got {type(t).__name__}")
+        if t.ndim != ndim:
+            raise ValueError(f"{name}: expected {ndim} dimensions, got {list(t.shape)}")
+        if t.dtype not in FLASH_DTYPES:
+            raise TypeError(f"{name}: expected float32 or bfloat16, got {t.dtype}")
+    if not q.dtype == k.dtype == v.dtype:
+        raise TypeError(f"q, k, v dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
+    if not (q.shape[0] == k.shape[0] == v.shape[0] and q.shape[3] == k.shape[2]
+            and k.shape[1] == v.shape[1]):
+        raise ValueError(f"expected q [BK, g, Sq, D], k [BK, Sk, D], v [BK, Sk, "
+                         f"Dv]; got {list(q.shape)}, {list(k.shape)}, {list(v.shape)}")
+
+
+def check_flash_kernel(q, k, v, attn_softcap=None) -> str:
+    """What the kernel takes beyond :func:`_check_flash`; returns its
+    variant. Raises on a softcap (the kernel has none, as the Pallas one
+    has none), on non-contiguous or misaligned inputs and on head sizes no
+    variant takes."""
+    _check_flash(q, k, v)
+    if attn_softcap:
+        raise NotImplementedError(
+            "flash_attention: the CUDA kernel has no attention softcap "
+            "(neither has the Pallas kernel); softcap runs only on CPU "
+            "tensors")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: must be 16-byte aligned")
+    variant = flash_variant(q.dtype, q.shape[3], v.shape[2])
+    if variant is None:
+        raise ValueError(f"flash_attention: head sizes D={q.shape[3]}, "
+                         f"Dv={v.shape[2]} exceed the kernel's 128")
+    if q.shape[2] > 65535 * 16 or q.shape[0] * q.shape[1] >= 2**31:
+        raise ValueError(f"flash_attention: grid too large for {list(q.shape)}")
+    return variant
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window=None,
+                    scale=None, q_offset: int = 0, attn_softcap=None,
+                    chunk_q: int = 512, chunk_k: int = 1024,
+                    out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Attention forward in the kernel layout (see
+    :mod:`.flash_attention`): ``[BK, g, Sq, Dv]`` of ``out_dtype``
+    (float32, the accumulator's type, or bfloat16: the float32 result
+    rounded once). CPU tensors take the plain version (``chunk_q`` x
+    ``chunk_k`` tiles, softcap allowed); CUDA tensors launch the kernel
+    or raise."""
+    _check_flash(q, k, v)
+    if out_dtype not in FLASH_DTYPES:
+        raise TypeError(f"out_dtype: expected float32 or bfloat16, got "
+                        f"{out_dtype}")
+    if not _on_cuda(q, k, v):
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     scale=scale, q_offset=q_offset,
+                                     attn_softcap=attn_softcap,
+                                     chunk_q=chunk_q,
+                                     chunk_k=chunk_k).to(out_dtype)
+    variant = check_flash_kernel(q, k, v, attn_softcap)
+    BK, g, Sq, D = q.shape
+    out = torch.empty((BK, g, Sq, v.shape[2]), dtype=out_dtype,
+                      device=q.device)
+    if out.numel():
+        scale = scale if scale is not None else 1.0 / float(np.sqrt(D))
+        flash_attention_launch(q, k, v, out, causal=causal, window=window,
+                               scale=scale, q_offset=q_offset, variant=variant)
+        LAUNCHES["flash_attention"] += 1
     return out

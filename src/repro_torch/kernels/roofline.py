@@ -3,7 +3,9 @@
 The port's own copy of the cuckoo and blocked-Bloom parts of
 ``repro.kernels.roofline``, plus the k-mer pack: from a config's layout
 alone it computes the least bytes each operation must move, which over
-the card's memory rate gives each kernel's bound.
+the card's memory rate gives each kernel's bound. Flash attention's bound
+(at the end) is the larger of its bytes over the memory rate and its
+FLOP over the dense bf16 tensor-core rate.
 
 Two residency regimes:
 
@@ -35,6 +37,8 @@ from __future__ import annotations
 
 import dataclasses
 import math
+
+import numpy as np
 
 # Bytes of one packed key on the stream (the 64-bit (lo, hi) pair).
 KEY_BYTES = 8
@@ -263,3 +267,42 @@ def kmer_pack_int_ops(n_codes: int) -> int:
     """The floor on 32-bit integer instructions of packing ``n_codes``
     codes: one rolling-pack step a code."""
     return n_codes * KMER_CODE_INSTRUCTIONS
+
+
+# ---------------------------------------------------------------------------
+# Flash attention: q, k, v read once, out written once; 4 FLOP a (query,
+# key, head-dim) triple of every unmasked pair (2 for Q K^T, 2 for P V).
+# ---------------------------------------------------------------------------
+
+# Dense bf16 tensor-core FLOP a clock of one Hopper SM (NVIDIA H100
+# data sheet: 989.4 TFLOP/s dense at 132 SMs and 1830 MHz).
+BF16_FLOP_PER_CLOCK_PER_SM = 4096
+
+
+def bf16_flops_per_s(sm_count: int, sm_clock_hz: float) -> float:
+    """The card's peak dense bf16 tensor-core rate (SMs x FLOP a clock x
+    clock), derived as :func:`int32_ops_per_s` is."""
+    return sm_count * BF16_FLOP_PER_CLOCK_PER_SM * sm_clock_hz
+
+
+def attention_pairs(sq: int, sk: int, *, causal: bool, window=None,
+                    q_offset: int = 0) -> int:
+    """Unmasked (query, key) pairs of one head: key j is seen by query
+    position i = q_offset + row when j < sk, j <= i if causal, and
+    i - j < window if a window is set."""
+    i = q_offset + np.arange(sq, dtype=np.int64)
+    hi = np.minimum(sk, i + 1) if causal else np.full_like(i, sk)
+    lo = np.maximum(0, i - window + 1) if window is not None else 0
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def attention_flops(rows: int, sq: int, sk: int, d: int, dv: int, *,
+                    causal: bool, window=None, q_offset: int = 0) -> float:
+    """FLOP of ``rows`` (= B * H) heads: 2 * pairs * (D + Dv)."""
+    return 2.0 * rows * attention_pairs(sq, sk, causal=causal, window=window,
+                                        q_offset=q_offset) * (d + dv)
+
+
+def attention_bytes(q, k, v, out) -> int:
+    """Each input read once and the output written once."""
+    return sum(t.numel() * t.element_size() for t in (q, k, v, out))

@@ -26,7 +26,13 @@ held as their fused counterparts are. Core ``delete`` and ``apply_ops``
 (torch ops, deterministic) leave the same table on the card as on the
 CPU, and ``FilterHandle.apply_ops`` on the card (the mixed-op kernel for
 its net deletes, the insert kernels for its net inserts) gives core
-``apply_ops``'s ``ok`` and the sequential oracle's.
+``apply_ops``'s ``ok`` and the sequential oracle's. The flash-attention
+kernel (both variants: tensor cores for bf16 at head sizes 32/64/128,
+FMA otherwise) matches its plain version at 1e-4 in float32 and, for bf16
+inputs, at 1e-2 in absolute error and in error over each row's largest
+value; its bf16 output is its float32 output rounded; and the reduced
+qwen served on the card through ``ServeEngine`` matches the same model on
+the CPU.
 """
 
 import numpy as np
@@ -48,6 +54,7 @@ from repro_torch.kernels.cuckoo_mixed import cuckoo_mixed_plain
 from repro_torch.kernels.cuckoo_query import (cuckoo_query_plain,
                                               cuckoo_query_unfused_plain)
 from repro_torch.kernels.hash64 import hash64_plain
+from repro_torch.kernels.flash_attention import flash_attention_plain
 from repro_torch.kernels.kmer_pack import kmer_pack_plain
 
 pytestmark = pytest.mark.gpu
@@ -441,3 +448,111 @@ def test_bloom_matches_plain(cuda, wpb, k, hash_kind):
     h = amq.make("bloom", capacity=20_000)
     h.insert(keys)
     assert bool(h.query(keys).hits.all())
+
+
+# (BK, g, Sq, Sk, D, Dv, causal, window, q_offset, dtype): the five shapes
+# of tests/test_flash_kernel.py in the kernel layout, then bf16 at every
+# tensor-core head size, bf16 through the FMA variant (Dv != D), a
+# windowed bf16 case with a query offset, and rows that see no key.
+FLASH_CASES = [
+    (4, 3, 192, 256, 64, 32, True, None, 0, torch.float32),
+    (4, 3, 192, 256, 64, 32, True, 64, 0, torch.float32),
+    (4, 1, 256, 256, 128, 128, False, None, 0, torch.float32),
+    (1, 8, 100, 130, 32, 32, True, None, 0, torch.float32),
+    (4, 2, 128, 128, 64, 64, True, None, 0, torch.bfloat16),
+    (3, 2, 300, 300, 128, 128, True, None, 0, torch.bfloat16),
+    (2, 1, 77, 200, 32, 32, False, None, 0, torch.bfloat16),
+    (2, 3, 130, 130, 64, 32, True, None, 0, torch.bfloat16),
+    (2, 2, 96, 224, 128, 128, True, 50, 128, torch.bfloat16),
+    (2, 1, 64, 64, 64, 64, True, 0, 0, torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: "{}x{}x{}x{}d{}v{}c{}w{}o{}{}".format(*c[:9], str(c[9])[6:]))
+def test_flash_attention_matches_plain(cuda, case):
+    BK, g, Sq, Sk, D, Dv, causal, window, q_offset, dtype = case
+    gen = torch.Generator(device=cuda).manual_seed(Sq * Sk + D)
+    q = (torch.randn((BK, g, Sq, D), generator=gen, device=cuda) * 0.3).to(dtype)
+    k = (torch.randn((BK, Sk, D), generator=gen, device=cuda) * 0.3).to(dtype)
+    v = (torch.randn((BK, Sk, Dv), generator=gen, device=cuda) * 0.3).to(dtype)
+    K.reset_launches()
+    got = K.flash_attention(q, k, v, causal=causal, window=window,
+                            q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["flash_attention"] == 1
+    want = flash_attention_plain(q, k, v, causal=causal, window=window,
+                                 q_offset=q_offset)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    else:
+        # The tensor cores take P rounded to bf16 (about 2^-9 a weight;
+        # chip_smoke.py's flash phase reads at most 4.2e-3 in either
+        # measure on an H100). The row measure sees a zeroed row or a
+        # dropped key in a row of small values.
+        err = (got - want).abs()
+        row = want.abs().amax(-1, keepdim=True).clamp_min(1e-30)
+        assert float(err.max()) <= 1e-2
+        assert float((err / row).max()) <= 1e-2
+    if window == 0:
+        assert not bool(got.any())         # every key masked: zeros
+    got_bf16 = K.flash_attention(q, k, v, causal=causal, window=window,
+                                 q_offset=q_offset, out_dtype=torch.bfloat16)
+    assert torch.equal(got_bf16, got.to(torch.bfloat16))
+
+
+def test_flash_attention_refuses_what_it_cannot_take(cuda):
+    q = torch.zeros((2, 1, 8, 64), dtype=torch.bfloat16, device=cuda)
+    k = torch.zeros((2, 8, 64), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(NotImplementedError, match="softcap"):
+        K.flash_attention(q, k, k, attn_softcap=30.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        K.flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3), k, k)
+    with pytest.raises(TypeError):
+        K.flash_attention(q.half(), k.half(), k.half())
+    with pytest.raises(TypeError, match="out_dtype"):
+        K.flash_attention(q, k, k, out_dtype=torch.float16)
+
+
+def test_serve_engine_on_the_card(cuda):
+    """The reduced qwen through ServeEngine on the card: prefill logits
+    and caches within the model tolerance of the same weights on the CPU,
+    the flash kernel launched once a layer a prefill, the prefix cache's
+    counters equal to the CPU run's."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serve import ServeEngine
+
+    cfg = get_config("qwen1_5_4b").reduced()
+    cpu = build_model(cfg, device="cpu", seed=3)
+    gpu = build_model(cfg, device=cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(0)
+    pool = [rng.integers(0, cfg.vocab_size, (2, 24)).astype(np.int32)
+            for _ in range(6)]
+    ref_logits, ref_caches = cpu.prefill(torch.as_tensor(pool[0]))
+    K.reset_launches()
+    logits, caches = gpu.prefill(torch.as_tensor(pool[0]))
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["flash_attention"] == cfg.num_layers
+    ref = ref_logits.numpy()
+    atol = max(5e-2, 2e-2 * float(np.abs(ref).max()))
+    np.testing.assert_allclose(logits.cpu().numpy(), ref, rtol=5e-2, atol=atol)
+    for c, rc in zip(caches, ref_caches):
+        np.testing.assert_allclose(c.k.float().cpu().numpy(),
+                                   rc.k.float().numpy(), rtol=5e-2, atol=5e-2)
+    stats = {}
+    for dev, model in (("cpu", cpu), ("gpu", gpu)):
+        engine = ServeEngine(model, batch=2, max_len=32,
+                             prefix_cache_entries=4)
+        K.reset_launches()
+        for i in [0, 1, 2, 3, 1, 2, 4, 5, 0, 1]:
+            tokens, st = engine.generate(pool[i], steps=8)
+            assert tokens.shape == (2, 9)
+        st.pop("filter_service")
+        stats[dev] = st
+    assert K.LAUNCHES["flash_attention"] == cfg.num_layers * 8
+    assert K.LAUNCHES["cuckoo_mixed"] > 0 and K.LAUNCHES["hash64"] > 0
+    assert K.LAUNCHES["cuckoo_insert_direct"] > 0
+    assert stats["gpu"] == stats["cpu"]
+    assert stats["gpu"]["hits"] == 2 and stats["gpu"]["evictions"] == 4
