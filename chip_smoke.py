@@ -108,18 +108,28 @@ toolkit. Phases, one JSON line each:
    prefill and one decode step under ``torch.profiler``; the guard
    filter's lookups alone (wall and host syncs each).
 8b. the flash-attention kernel against its plain version on the card:
-   on layer 0's q/k/v captured from a full-width prefill, on the five
-   shapes of ``tests/test_flash_kernel.py`` and on the head and tail rows
-   of a unit-scale long prefill. Float32 output against the plain
-   version: 1e-4 (that file's) for float32 inputs; for bf16 inputs (P
-   rounded to bf16 on the tensor cores) 1e-2 in absolute error and in
-   error over each row's largest |value|, so that a zeroed row or a
-   dropped key fails. The bf16 output equals the float32 output rounded,
-   bit for bit. Timed (kernel with the bf16 output the model path asks
-   for and with float32, wrapper, model path, plain version,
-   ``F.scaled_dot_product_attention`` as the library yardstick) at the
-   serving prefill (B 4, S 1024, 20 heads, causal, bf16) and a long
-   prefill (B 1, S 8192), each beside its bound.
+   on layer 0's q/k/v captured from a full-width prefill (as the model
+   hands them over, [B, S, H, D]), on ``FLASH_SHAPES`` (the five shapes
+   of ``tests/test_flash_kernel.py``, then the bf16 cases of
+   ``tests/test_torch_gpu.py``: every wgmma head size, a window with a
+   query offset, rows that see no key, g = 8, ragged Sq and Sk) and on
+   the head and tail rows of a unit-scale long prefill. Float32 output
+   against the plain version: 1e-4 (that file's) for float32 inputs; for
+   bf16 inputs (P rounded to bf16 on the tensor cores) 1e-2 in absolute
+   error and in error over each row's largest |value|, so that a zeroed
+   row or a dropped key fails. The bf16 output equals the float32 output
+   rounded, bit for bit, and for bf16 inputs the model-layout entry
+   (``kernels.ops.flash_attention_bshd``) on strided [B, S, H, D] views
+   of the same values gives the kernel layout's bits. Timed one call
+   between two events, as every kernel is, and over calls back to back,
+   the timings in rotated order (kernel on the model's layout with the
+   bf16 output the model path asks for and with float32, on the kernel
+   layout, the kernel-layout wrapper, the model's call,
+   ``F.scaled_dot_product_attention`` as the library yardstick; then the
+   plain version) at the serving prefill (B 4, S 1024, 20 heads, causal,
+   bf16) and a long prefill (B 1, S 8192), each beside its bound. The wgmma kernels'
+   registers and spills from ``ptxas -v`` are printed after the build
+   (no spill allowed).
 9. the main path again at 2^22 slots (an 8 MiB table, resident in L2).
 
 Before the last line: the ``nvidia-smi`` name and power limit, then the
@@ -134,6 +144,7 @@ import dataclasses
 import functools
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -172,7 +183,8 @@ from repro_torch.kernels.bloom import (  # noqa: E402
 from repro_torch.kernels.kmer_pack import (  # noqa: E402
     kmer_pack_launch, kmer_pack_plain)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    flash_attention_launch, flash_attention_plain)
+    bshd_views, flash_attention_launch, flash_attention_plain,
+    to_kernel_layout)
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models import attention, build_model  # noqa: E402
 from repro_torch.serve import PrefixCache, ServeEngine  # noqa: E402
@@ -204,14 +216,27 @@ SERVE_ENTRIES = 4
 SERVE_POOLS = 6
 SERVE_SEQUENCE = [0, 1, 2, 3, 1, 2, 4, 5, 0, 1]
 LONG_PREFILL = 8192
-# tests/test_flash_kernel.py's shapes: (B, KVH, g, Sq, Sk, D, Dv, causal,
-# window, dtype).
+FLASH_BATCH = 20                 # calls a back-to-back sample of #11
+FLASH_ROUNDS = 10                # samples of each of #11's timings
+# tests/test_flash_kernel.py's shapes, then the bf16 cases of
+# tests/test_torch_gpu.py's FLASH_CASES (every wgmma head size, a window
+# with a query offset, rows that see no key, g = 8, ragged Sq and Sk):
+# (B, KVH, g, Sq, Sk, D, Dv, causal, window, q_offset, dtype).
 FLASH_SHAPES = [
-    (2, 2, 3, 192, 256, 64, 32, True, None, torch.float32),
-    (2, 2, 3, 192, 256, 64, 32, True, 64, torch.float32),
-    (1, 4, 1, 256, 256, 128, 128, False, None, torch.float32),
-    (1, 1, 8, 100, 130, 32, 32, True, None, torch.float32),
-    (2, 2, 2, 128, 128, 64, 64, True, None, torch.bfloat16),
+    (2, 2, 3, 192, 256, 64, 32, True, None, 0, torch.float32),
+    (2, 2, 3, 192, 256, 64, 32, True, 64, 0, torch.float32),
+    (1, 4, 1, 256, 256, 128, 128, False, None, 0, torch.float32),
+    (1, 1, 8, 100, 130, 32, 32, True, None, 0, torch.float32),
+    (2, 2, 2, 128, 128, 64, 64, True, None, 0, torch.bfloat16),
+    (3, 1, 2, 300, 300, 128, 128, True, None, 0, torch.bfloat16),
+    (2, 1, 1, 77, 200, 32, 32, False, None, 0, torch.bfloat16),
+    (1, 2, 3, 130, 130, 64, 32, True, None, 0, torch.bfloat16),
+    (1, 2, 2, 96, 224, 128, 128, True, 50, 128, torch.bfloat16),
+    (2, 1, 1, 64, 64, 64, 64, True, 0, 0, torch.bfloat16),
+    (1, 1, 8, 100, 130, 32, 32, True, None, 0, torch.bfloat16),
+    (1, 2, 3, 333, 517, 64, 64, True, None, 0, torch.bfloat16),
+    (2, 2, 2, 1000, 1000, 128, 128, True, 300, 0, torch.bfloat16),
+    (1, 2, 2, 200, 389, 128, 128, False, None, 0, torch.bfloat16),
 ]
 # H100 SXM HBM3 rate (NVIDIA data sheet, at the full 700 W).
 HBM_BYTES_PER_S = 3.35e12
@@ -648,7 +673,7 @@ def profile_orientation(gen, batches_like, at: int = 8, top: int = 15):
 def profiled(fn, top: int = 15):
     """``fn()`` once under ``torch.profiler`` -> (its result, {wall
     seconds, device-busy seconds (sum of kernel self times), idle share,
-    the ``top`` operators by self device time})."""
+    the ``top`` operators and the ``top`` kernels by self device time})."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -667,12 +692,17 @@ def profiled(fn, top: int = 15):
     events = sorted((e for e in stats if e.device_type != cuda
                      and e.self_device_time_total > 0),
                     key=lambda e: -e.self_device_time_total)
+    kernels = sorted((e for e in stats if e.device_type == cuda),
+                     key=lambda e: -e.self_device_time_total)
     return out, {"wall_s": wall, "device_busy_s": busy,
                  "device_idle_share": 1 - busy / wall,
                  "top_ops": [{"op": e.key, "calls": e.count,
                               "device_ms": e.self_device_time_total * 1e-3,
                               "cpu_ms": e.cpu_time_total * 1e-3}
-                             for e in events[:top]]}
+                             for e in events[:top]],
+                 "top_kernels": [{"kernel": e.key[:160], "calls": e.count,
+                                  "device_ms": e.self_device_time_total * 1e-3}
+                                 for e in kernels[:top]]}
 
 
 def adapter_route(cfg, bulk: bool) -> str:
@@ -1218,25 +1248,67 @@ def flash_errors(got, want) -> tuple:
 
 
 def flash_cases(gen):
-    """The five shapes of tests/test_flash_kernel.py in the kernel layout
-    (GQA g = 3 with Dv != D, a window of 64, non-causal, the ragged 100 x
-    130, bf16): (label, q, k, v, causal, window, q_offset)."""
+    """``FLASH_SHAPES`` in the kernel layout: (label, q, k, v, causal,
+    window, q_offset, KVH)."""
     cases = []
-    for (B, KVH, g, Sq, Sk, D, Dv, causal, window, dtype) in FLASH_SHAPES:
+    for (B, KVH, g, Sq, Sk, D, Dv, causal, window, q_offset,
+         dtype) in FLASH_SHAPES:
         def rnd(*shape):
             return (torch.randn(shape, generator=gen, device="cuda")
                     * 0.3).to(dtype)
         cases.append((f"{B}x{KVH}x{g} {Sq}x{Sk} D{D}/{Dv} causal={causal} "
-                      f"window={window} {str(dtype)[6:]}",
+                      f"window={window} q_offset={q_offset} "
+                      f"{str(dtype)[6:]}",
                       rnd(B * KVH, g, Sq, D), rnd(B * KVH, Sk, D),
-                      rnd(B * KVH, Sk, Dv), causal, window, 0))
+                      rnd(B * KVH, Sk, Dv), causal, window, q_offset, KVH))
     return cases
 
 
-def flash_check(label, q, k, v, causal, window, q_offset) -> dict:
+def model_view(t, kv_heads: int):
+    """A kernel-layout tensor ([BK, g, S, D] or [BK, S, D]) as the model's
+    [B, S, H, D] (B = BK / kv_heads): a strided view into a buffer with 8
+    more columns a row, as a fused projection's output would be."""
+    if t.ndim == 3:
+        t = t[:, None]
+    BK, g, S, D = t.shape
+    t = t.reshape(BK // kv_heads, kv_heads * g, S, D).transpose(1, 2)
+    buf = torch.zeros(t.shape[:3] + (D + 8,), dtype=t.dtype, device="cuda")
+    buf[..., :D] = t
+    return buf[..., :D]
+
+
+def flash_ptxas(log: str) -> dict:
+    """Registers, stack and spill bytes of each flash kernel instantiation,
+    from ``nvcc -Xptxas -v``'s output (empty where the library was not
+    compiled in this run)."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            name = re.sub(r"^_ZN\w*?_GLOBAL__N__\w+?\d+(flash_\w+?_kernel)",
+                          r"\1", name)
+            continue
+        if name is None:
+            continue
+        rec = out.setdefault(name, {})
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            rec.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            rec["registers"] = int(m.group(1))
+    return out
+
+
+def flash_check(label, q, k, v, causal, window, q_offset, kv_heads) -> dict:
     """Kernel #11 against its plain version on one input (see
-    ``FLASH_TOL``), and its bf16 output against its float32 output
-    rounded (equal)."""
+    ``FLASH_TOL``), its bf16 output against its float32 output rounded
+    (equal), and, for bf16 inputs, the model-layout entry on strided
+    [B, S, H, D] views of the same values (``kv_heads`` KV heads a batch
+    row) against the kernel layout's outputs (equal, both dtypes)."""
     kw = dict(causal=causal, window=window, q_offset=q_offset)
     got = K.flash_attention(q, k, v, **kw)
     got_bf16 = K.flash_attention(q, k, v, out_dtype=torch.bfloat16, **kw)
@@ -1245,6 +1317,15 @@ def flash_check(label, q, k, v, causal, window, q_offset) -> dict:
     check(bool(torch.isfinite(got).all()), f"flash {label}: not finite")
     check(torch.equal(got_bf16, got.to(torch.bfloat16)),
           f"flash {label}: the bf16 output is not the float32 one rounded")
+    if q.dtype == torch.bfloat16:
+        views = [model_view(t, kv_heads) for t in (q, k, v)]
+        B, Sq, H, Dv = views[0].shape[:3] + (v.shape[-1],)
+        for ref in (got, got_bf16):
+            out = K.flash_attention_bshd(*views, out_dtype=ref.dtype, **kw)
+            check(torch.equal(out, ref.reshape(B, H, Sq, Dv).transpose(1, 2)),
+                  f"flash {label}: the model-layout entry on strided views "
+                  f"differs from the kernel layout ({ref.dtype})")
+        del views
     err, row_err = flash_errors(got, want)
     tol = FLASH_TOL[q.dtype]
     if q.dtype == torch.float32:
@@ -1257,48 +1338,120 @@ def flash_check(label, q, k, v, causal, window, q_offset) -> dict:
             "max_abs_want": float(want.abs().max()), "tolerance": tol}
 
 
-def flash_record(q, k, v, causal, bf16_rate, sdpa_layout):
-    """Kernel #11 at one shape: its time with the output in q's dtype
-    (what the model path asks for, and what the Pallas kernel writes) and
-    with a float32 output, through the wrapper, its plain version's,
-    ``F.scaled_dot_product_attention``'s on the same values
-    (``sdpa_layout``: q, k, v as [B, H, S, D]) and the bound: bytes
-    (inputs read once, the output in q's dtype written once) over the HBM
-    rate, FLOP (4 a query-key pair a head dimension, unmasked pairs only)
-    over the dense bf16 rate."""
+def rotated_ms(timers: dict, rounds: int) -> dict:
+    """The median of each timer's samples (a timer: a function returning
+    one sample in ms) over ``rounds`` rounds of one sample each, the order
+    rotated by one a round, so that no timer always runs first."""
+    names = list(timers)
+    samples = {n: [] for n in names}
+    for r in range(rounds):
+        for n in names[r % len(names):] + names[:r % len(names)]:
+            samples[n].append(timers[n]())
+    return {n: statistics.median(x) for n, x in samples.items()}
+
+
+def flash_record(qkv, causal, bf16_rate):
+    """Kernel #11 at one shape, q, k, v in the model's layout ([B, S, H,
+    D], as the serving path hands them over): the kernel's time on them
+    with the bf16 output the model path asks for (``ms``) and with a
+    float32 output, on their kernel-layout copies, through the
+    kernel-layout wrapper, through the model's call
+    (``models.attention.flash_attention``, ``model_layout_ms``),
+    ``F.scaled_dot_product_attention``'s on the same tensors as [B, H, S,
+    D] views (``library_ms``) and on contiguous [B, H, S, D] copies, its
+    plain version's, and the bound: bytes (inputs read once, the bf16
+    output written once) over the HBM rate, FLOP (4 a query-key pair a head
+    dimension, unmasked pairs only) over the dense bf16 rate. Each time is
+    one call between two events after a warm-up, as every row of the
+    ``kernels`` line is timed; ``back_to_back`` holds the same calls'
+    share of ``FLASH_BATCH`` calls back to back (the card's time, as a
+    prefill's 40 layers see it, without the host's launch gap);
+    ``host_issue`` the host's ms to issue one call of the kernel, the
+    model's call and the library's (its clock over ``FLASH_BATCH`` calls,
+    the card behind it), what a host-paced prefill pays for each. The
+    timings run in rotated order (:func:`rotated_ms`), the median of
+    ``FLASH_ROUNDS`` samples each."""
     import torch.nn.functional as F
 
-    out = torch.empty(q.shape[:3] + (v.shape[-1],), dtype=q.dtype,
-                      device="cuda")
-    out32 = torch.empty(out.shape, dtype=torch.float32, device="cuda")
+    q, k, v = qkv
+    B, S, H, D = q.shape
+    views = bshd_views(q, k, v)
+    qk, kk, vk = to_kernel_layout(q, k, v)
+    out = torch.empty(q.shape, dtype=q.dtype, device="cuda")
+    out32 = torch.empty(q.shape, dtype=torch.float32, device="cuda")
+    kl_out = torch.empty(qk.shape, dtype=q.dtype, device="cuda")
+    contiguous = [t.transpose(1, 2).contiguous() for t in qkv]
     variant = K.check_flash_kernel(q, k, v)
-    scale = 1.0 / q.shape[-1] ** 0.5
-    ms, ms_out_float32 = (cuda_ms(lambda: flash_attention_launch(
-        q, k, v, o, causal=causal, window=None, scale=scale, q_offset=0,
-        variant=variant), reps=10) for o in (out, out32))
-    del out32
-    wrapper_ms = cuda_ms(lambda: K.flash_attention(
-        q, k, v, causal=causal, out_dtype=q.dtype), reps=10)
-    plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, causal=causal),
+    scale = 1.0 / D ** 0.5
+
+    def launch(args, o):
+        return lambda: flash_attention_launch(
+            *args, o, causal=causal, window=None, scale=scale, q_offset=0,
+            variant=variant)
+
+    def out_view(o):
+        return o.unflatten(2, views[0].shape[1:3]).permute(0, 2, 3, 1, 4)
+
+    calls = {
+        "ms": launch(views, out_view(out)),
+        "ms_out_float32": launch(views, out_view(out32)),
+        "ms_kernel_layout": launch((qk[:, None], kk[:, None], vk[:, None]),
+                                   kl_out[:, None]),
+        "wrapper_ms": lambda: K.flash_attention(qk, kk, vk, causal=causal,
+                                                out_dtype=q.dtype),
+        "model_layout_ms": lambda: attention.flash_attention(
+            q, k, v, causal=causal, out_dtype=q.dtype),
+        "library_ms": lambda: F.scaled_dot_product_attention(
+            *(t.transpose(1, 2) for t in qkv), is_causal=causal),
+        "library_contiguous_ms": lambda: F.scaled_dot_product_attention(
+            *contiguous, is_causal=causal),
+    }
+
+    def single(fn):
+        return lambda: cuda_ms(fn, reps=1)
+
+    def back_to_back(fn):
+        return lambda: cuda_ms(lambda: [fn() for _ in range(FLASH_BATCH)],
+                               reps=1) / FLASH_BATCH
+
+    def host(fn):
+        def sample():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(FLASH_BATCH):
+                fn()
+            ms = (time.perf_counter() - t0) * 1e3 / FLASH_BATCH
+            torch.cuda.synchronize()
+            return ms
+        return sample
+
+    issued = ("ms", "model_layout_ms", "library_ms")
+    timers = {n: single(fn) for n, fn in calls.items()}
+    timers.update({"back_to_back " + n: back_to_back(fn)
+                   for n, fn in calls.items()})
+    timers.update({"host " + n: host(calls[n]) for n in issued})
+    times = rotated_ms(timers, FLASH_ROUNDS)
+    plain_ms = cuda_ms(lambda: flash_attention_plain(qk, kk, vk, causal=causal),
                        reps=3)
-    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        *sdpa_layout, is_causal=causal), reps=10)
+    del out32, kl_out, contiguous, qk, kk, vk
     nbytes = roofline.attention_bytes(q, k, v, out)
-    flops = roofline.attention_flops(q.shape[0] * q.shape[1], q.shape[2],
-                                     k.shape[1], q.shape[3], v.shape[-1],
+    flops = roofline.attention_flops(B * H, S, k.shape[1], D, v.shape[-1],
                                      causal=causal)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / bf16_rate * 1e3
+    b2b = {n: times["back_to_back " + n] for n in calls}
     return {"shape": [list(q.shape), list(k.shape), list(v.shape)],
             "dtype": str(q.dtype), "out_dtype": str(out.dtype),
-            "causal": causal, "variant": variant, "ms": ms,
-            "ms_out_float32": ms_out_float32,
-            "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "causal": causal, "variant": variant,
+            **{n: times[n] for n in calls}, "back_to_back": b2b,
+            "host_issue": {n: times["host " + n] for n in issued},
+            "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "bound_bytes": nbytes, "bound_flops": flops,
             "bytes_ms": bytes_ms, "ops_ms": ops_ms,
-            "tflops_per_s": flops / (ms * 1e-3) / 1e12}
+            "tflops_per_s": flops / (times["ms"] * 1e-3) / 1e12,
+            "tflops_per_s_back_to_back": flops / (b2b["ms"] * 1e-3) / 1e12}
 
 
 def flash_attention_vs_plain(gen, layer0, bf16_rate):
@@ -1306,21 +1459,14 @@ def flash_attention_vs_plain(gen, layer0, bf16_rate):
     for the ``kernels`` line (without its launches)."""
     t0 = time.perf_counter()
     errs = {}
-    cases = [("serving layer 0 (captured)", *layer0, True, None, 0)]
+    H = layer0[0].shape[2]
+    cases = [("serving layer 0 (captured)", *to_kernel_layout(*layer0), True,
+              None, 0, layer0[1].shape[2])]
     cases += flash_cases(gen)
     for label, *args in cases:
         errs[label] = flash_check(label, *args)
-    q, k, v = layer0
-    B, H = SERVE_BATCH, q.shape[0] * q.shape[1] // SERVE_BATCH
-    serving = flash_record(q, k, v, True, bf16_rate,
-                           [t.reshape(B, H, -1, t.shape[-1]) for t in layer0])
-    # The model path's call: [B, S, H, D] in, transposes included.
-    qm, km, vm = (t.reshape(B, H, -1, t.shape[-1]).transpose(1, 2).contiguous()
-                  for t in layer0)
-    serving["model_path_ms"] = cuda_ms(
-        lambda: attention.flash_attention(qm, km, vm, causal=True,
-                                          out_dtype=torch.bfloat16), reps=10)
-    del qm, km, vm
+    del cases
+    serving = flash_record(layer0, True, bf16_rate)
     # The long prefill at unit scale: its first 512 rows over their keys,
     # and its last 256 rows over all 8192 keys (a long row's values are
     # small; the row measure still sees a dropped key).
@@ -1330,13 +1476,12 @@ def flash_attention_vs_plain(gen, layer0, bf16_rate):
                   .to(torch.bfloat16) for i in range(3))
     errs["long prefill, first 512 rows"] = flash_check(
         "long prefill, first 512 rows", lq[:, :, :512].contiguous(),
-        lk[:, :512].contiguous(), lv[:, :512].contiguous(), True, None, 0)
+        lk[:, :512].contiguous(), lv[:, :512].contiguous(), True, None, 0, H)
     errs["long prefill, last 256 rows"] = flash_check(
         "long prefill, last 256 rows", lq[:, :, S - 256:].contiguous(), lk,
-        lv, True, None, S - 256)
-    long = flash_record(lq, lk, lv, True, bf16_rate,
-                        [lq.reshape(1, H, S, 128), lk.reshape(1, H, S, 128),
-                         lv.reshape(1, H, S, 128)])
+        lv, True, None, S - 256, H)
+    long = flash_record([t.reshape(1, H, S, 128).transpose(1, 2).contiguous()
+                         for t in (lq, lk, lv)], True, bf16_rate)
     del lq, lk, lv
     torch.cuda.empty_cache()
     emit({"phase": "flash_attention_vs_plain", "errors": errs,
@@ -1349,7 +1494,10 @@ def flash_attention_vs_plain(gen, layer0, bf16_rate):
           "seconds": time.perf_counter() - t0})
     return {**{k: serving[k] for k in ("ms", "plain_ms", "library_ms",
                                        "bound_ms", "bound_by", "wrapper_ms",
-                                       "model_path_ms", "variant")},
+                                       "model_layout_ms", "ms_kernel_layout",
+                                       "library_contiguous_ms",
+                                       "back_to_back", "host_issue",
+                                       "variant")},
             "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
             "n": serving["shape"],
             "bound_bytes": serving["bound_bytes"],
@@ -1367,8 +1515,8 @@ def timed_sync(fn):
 
 def serve_qwen(gen, bf16_rate):
     """Phase 8 (see the module docstring). Returns (launch counts of the
-    engine run, layer 0's kernel-layout q/k/v from a full-width
-    prefill)."""
+    engine run, layer 0's q/k/v from a full-width prefill, [B, S, H, D]
+    as the model hands them to the kernel)."""
     t_start = time.perf_counter()
     cfg = get_config(SERVE_ARCH)
     torch.cuda.empty_cache()
@@ -1445,7 +1593,13 @@ def serve_qwen(gen, bf16_rate):
         check(bool(torch.isfinite(logits).all()), f"serve: decode {t} logits")
         tok = torch.argmax(logits, dim=-1).to(torch.int32)
         decode_s.append(sec)
-    _, prefill_profile = profiled(lambda: model.prefill(tokens))
+    _, prefill_profile = profiled(lambda: model.prefill(tokens), top=25)
+    # Kernel #11's share of the profiled prefill, from the kernel table.
+    flash_rows = [r for r in prefill_profile["top_kernels"]
+                  if "flash_" in r["kernel"]]
+    prefill_profile["flash_attention"] = {
+        "calls": sum(r["calls"] for r in flash_rows),
+        "device_ms": sum(r["device_ms"] for r in flash_rows)}
     _, decode_profile = profiled(
         lambda: model.decode_step(tok, caches, SERVE_PROMPT + SERVE_STEPS - 1))
     del caches, logits
@@ -1472,9 +1626,9 @@ def serve_qwen(gen, bf16_rate):
     check(pc.stats == stats, f"serve: guard-filter replay {pc.stats}")
 
     # --- layer 0's q/k/v for the kernel phase: the first call of one
-    # prefill, through a wrapper around the kernel's entry point ----------
+    # prefill, through a wrapper around the model's entry point ------------
     captured, calls = [], [0]
-    kernel = K.flash_attention
+    kernel = K.flash_attention_bshd
 
     def capture(q, k, v, **kw):
         calls[0] += 1
@@ -1482,11 +1636,11 @@ def serve_qwen(gen, bf16_rate):
             captured.append((q, k, v))
         return kernel(q, k, v, **kw)
 
-    K.flash_attention = capture
+    K.flash_attention_bshd = capture
     try:
         model.prefill(tokens)
     finally:
-        K.flash_attention = kernel
+        K.flash_attention_bshd = kernel
     check(calls[0] == cfg.num_layers, "serve: capture prefill")
     layer0 = captured[0]
     del engine, model, pc
@@ -1536,6 +1690,13 @@ def main() -> int:
           "sm_clock_max_hz": sm_clock_hz, "int32_ops_per_s": int_ops_per_s,
           "bf16_flops_per_s": bf16_rate,
           "torch": torch.__version__, "cuda": torch.version.cuda})
+    ptxas = flash_ptxas(logs.get("flash_attention", ""))
+    emit({"phase": "flash_ptxas", "compiled": "flash_attention" in logs,
+          "kernels": ptxas})
+    wgmma = [r for n, r in ptxas.items() if "wgmma" in n]
+    check("flash_attention" not in logs or (
+        len(wgmma) == 3 and all(r.get("spill_stores") == 0 for r in wgmma)),
+          f"flash: the wgmma kernels' ptxas report {ptxas}")
     for name in build.SOURCES:
         build.load(name)
 

@@ -45,9 +45,11 @@ ARGTYPES = {
     "bloom_query_launch": [_P, _P, _P, _I64] + _GEOMETRY,
     "bloom_insert_launch": [_P, _P, _P, _I64] + _GEOMETRY,
     "kmer_pack_launch": [_P, _P, _I64, _U32, _P],
-    # q, k, v, out, BK * g, then g, Sq, Sk, D, Dv, dtype, variant, causal,
-    # window, q_offset, the scale and the stream.
-    "flash_attention_launch": [_P, _P, _P, _P, _I64] + [_I32] * 11 + [_F32, _P],
+    # q, k, v, out, B, then KVH, g, Sq, Sk, D, Dv, the strides of q, k, v
+    # and out (int64 arrays), dtype, out dtype, variant, causal, window,
+    # q_offset, the scale and the stream.
+    "flash_attention_launch": [_P, _P, _P, _P, _I64] + [_I32] * 6 + [_P] * 4
+                              + [_I32] * 6 + [_F32, _P],
 }
 
 _LIBS: dict = {}

@@ -3,19 +3,26 @@
 The kernel (``csrc/flash_attention.cu``) replaces ``repro/kernels/
 flash_attention.py: flash_attention_pallas``. :func:`flash_attention_plain`
 computes the same function with torch ops: the online-softmax loop of
-``repro/models/attention.py: flash_attention`` in the kernel's layout.
-``kernels.ops.flash_attention`` picks one by the device the tensors live
-on; ``models.attention.flash_attention`` reaches both through it.
+``repro/models/attention.py: flash_attention`` in the kernel layout.
+``kernels.ops.flash_attention`` (kernel layout) and
+``kernels.ops.flash_attention_bshd`` (the model's layout) pick one by the
+device the tensors live on; ``models.attention.flash_attention`` reaches
+both through the second.
 
-Layout: q ``[BK, g, Sq, D]``, k ``[BK, Sk, D]``, v ``[BK, Sk, Dv]`` with
-``BK = B * KVH`` (query head ``h`` of KV head ``h // g``); the result is
-``[BK, g, Sq, Dv]`` in float32, the accumulator's type, or rounded once
-to bfloat16. (The Pallas kernel casts its result to q's dtype; the JAX
-model path returns float32, and its attention layer casts that to the
-activations' dtype at once, so the port's layer asks for that dtype.)
+Kernel layout: q ``[BK, g, Sq, D]``, k ``[BK, Sk, D]``, v ``[BK, Sk,
+Dv]`` with ``BK = B * KVH`` (query head ``h`` of KV head ``h // g``); the
+result is ``[BK, g, Sq, Dv]`` in float32, the accumulator's type, or
+rounded once to bfloat16. (The Pallas kernel casts its result to q's
+dtype; the JAX model path returns float32, and its attention layer casts
+that to the activations' dtype at once, so the port's layer asks for that
+dtype.) The ``wgmma`` variant reads both layouts in place, as strided
+views ``(B, KVH, g, S, D)`` of q and out and ``(B, KVH, S, D)`` of k and v
+(:func:`bshd_views`).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -26,7 +33,7 @@ NEG_INF = -1e30
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # Head sizes of the tensor-core variant (bf16, D == Dv); the FMA variant
 # takes D and Dv up to FMA_DMAX.
-MMA_HEAD_DIMS = (32, 64, 128)
+WGMMA_HEAD_DIMS = (32, 64, 128)
 FMA_DMAX = 128
 
 
@@ -91,11 +98,44 @@ def flash_attention_plain(q, k, v, *, causal=True, window=None, scale=None,
     return out
 
 
+def bshd_views(q, k, v) -> tuple:
+    """The model layout's q ``[B, Sq, H, D]``, k ``[B, Sk, KVH, D]`` and v
+    ``[B, Sk, KVH, Dv]`` as the kernel's views, without a copy: q ``(B,
+    KVH, g, Sq, D)``, k and v ``(B, KVH, Sk, D)``."""
+    kvh = k.shape[2]
+    return (q.unflatten(2, (kvh, q.shape[2] // kvh)).permute(0, 2, 3, 1, 4),
+            k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3))
+
+
+def to_kernel_layout(q, k, v) -> tuple:
+    """The model layout's q, k, v as contiguous kernel-layout copies."""
+    return tuple(t.flatten(0, 1).contiguous() for t in bshd_views(q, k, v))
+
+
+def from_kernel_layout(out, batch: int) -> torch.Tensor:
+    """A kernel-layout result ``[BK, g, Sq, Dv]`` as ``[B, Sq, H, Dv]``."""
+    BK, g, Sq, Dv = out.shape
+    return out.reshape(batch, BK // batch, g, Sq, Dv).permute(0, 3, 1, 2, 4) \
+        .reshape(batch, Sq, BK // batch * g, Dv)
+
+
+def kernel_strides(t: torch.Tensor) -> list:
+    """Element strides of every dimension but the innermost, outermost
+    first, as the kernel's tensor maps take them: a dimension of size 1
+    gets the stride it would have in a contiguous tensor (its own is never
+    used, and a view may carry any)."""
+    st = list(t.stride())
+    for i in range(t.ndim - 2, -1, -1):
+        if t.shape[i] == 1:
+            st[i] = st[i + 1] * t.shape[i + 1]
+    return st[:-1]
+
+
 def flash_variant(dtype: torch.dtype, d: int, dv: int):
-    """The kernel variant for these inputs: ``"mma"`` (tensor cores),
+    """The kernel variant for these inputs: ``"wgmma"`` (tensor cores),
     ``"fma"``, or None where no variant takes them."""
-    if dtype == torch.bfloat16 and d == dv and d in MMA_HEAD_DIMS:
-        return "mma"
+    if dtype == torch.bfloat16 and d == dv and d in WGMMA_HEAD_DIMS:
+        return "wgmma"
     if d <= FMA_DMAX and dv <= FMA_DMAX:
         return "fma"
     return None
@@ -103,15 +143,21 @@ def flash_variant(dtype: torch.dtype, d: int, dv: int):
 
 def flash_attention_launch(q, k, v, out, *, causal: bool, window,
                            scale: float, q_offset: int, variant: str) -> None:
-    """Launch the kernel on the current stream (arguments already checked:
-    contiguous, one dtype, 16-byte aligned; ``out`` float32 or bfloat16
-    ``[BK, g, Sq, Dv]``)."""
-    BK, g, Sq, D = q.shape
+    """Launch the kernel on the current stream. q and out are ``(B, KVH,
+    g, Sq, D)`` views, k and v ``(B, KVH, Sk, D)`` views (arguments already
+    checked: one dtype; for ``"wgmma"`` D contiguous, strides of 16-byte
+    multiples, 16-byte aligned; for ``"fma"`` the contiguous kernel layout
+    with KVH folded into B); out float32 or bfloat16."""
+    B, KVH, g, Sq, D = q.shape
+
+    def strides(t):
+        return (ctypes.c_int64 * (t.ndim - 1))(*kernel_strides(t))
+
     rc = build.load("flash_attention").flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), BK * g, g,
-        Sq, k.shape[1], D, v.shape[-1], DTYPES[q.dtype], DTYPES[out.dtype],
-        int(variant == "mma"), int(bool(causal)),
-        -1 if window is None else int(window), int(q_offset),
-        float(scale),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, KVH, g,
+        Sq, k.shape[2], D, v.shape[-1], strides(q), strides(k), strides(v),
+        strides(out), DTYPES[q.dtype], DTYPES[out.dtype],
+        int(variant == "wgmma"), int(bool(causal)),
+        -1 if window is None else int(window), int(q_offset), float(scale),
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(rc, "flash_attention")

@@ -30,8 +30,10 @@ from .cuckoo_mixed import (cuckoo_mixed_launch, cuckoo_mixed_plain, segments,
 from .cuckoo_query import (cuckoo_query_launch, cuckoo_query_plain,
                            cuckoo_query_unfused_launch,
                            cuckoo_query_unfused_plain)
-from .flash_attention import (DTYPES as FLASH_DTYPES, flash_attention_launch,
-                              flash_attention_plain, flash_variant)
+from .flash_attention import (DTYPES as FLASH_DTYPES, bshd_views,
+                              flash_attention_launch, flash_attention_plain,
+                              flash_variant, from_kernel_layout,
+                              kernel_strides, to_kernel_layout)
 from .hash64 import HASH_KINDS, hash64_launch, hash64_plain
 from .kmer_pack import kmer_pack_launch, kmer_pack_plain
 
@@ -322,10 +324,9 @@ def kmer_pack(bases: torch.Tensor, k: int = 31) -> torch.Tensor:
     return out
 
 
-def _check_flash(q, k, v) -> None:
-    """Shapes and dtypes both routes take: q [BK, g, Sq, D], k [BK, Sk,
-    D], v [BK, Sk, Dv], all float32 or all bfloat16."""
-    for name, t, ndim in (("q", q, 4), ("k", k, 3), ("v", v, 3)):
+def _check_flash_types(q, k, v, ndims) -> None:
+    for name, t, ndim in (("q", q, ndims[0]), ("k", k, ndims[1]),
+                          ("v", v, ndims[1])):
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name}: expected a torch.Tensor, got {type(t).__name__}")
         if t.ndim != ndim:
@@ -334,64 +335,122 @@ def _check_flash(q, k, v) -> None:
             raise TypeError(f"{name}: expected float32 or bfloat16, got {t.dtype}")
     if not q.dtype == k.dtype == v.dtype:
         raise TypeError(f"q, k, v dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
-    if not (q.shape[0] == k.shape[0] == v.shape[0] and q.shape[3] == k.shape[2]
-            and k.shape[1] == v.shape[1]):
-        raise ValueError(f"expected q [BK, g, Sq, D], k [BK, Sk, D], v [BK, Sk, "
-                         f"Dv]; got {list(q.shape)}, {list(k.shape)}, {list(v.shape)}")
+
+
+def _check_flash(q, k, v) -> None:
+    """Shapes and dtypes both routes take, all float32 or all bfloat16, in
+    the model's layout: q [B, Sq, H, D], k [B, Sk, KVH, D], v [B, Sk, KVH,
+    Dv] with H a multiple of KVH."""
+    _check_flash_types(q, k, v, (4, 4))
+    if not (q.shape[0] == k.shape[0] == v.shape[0] and q.shape[3] == k.shape[3]
+            and k.shape[1:3] == v.shape[1:3] and k.shape[2] > 0
+            and q.shape[2] % k.shape[2] == 0):
+        raise ValueError(f"expected q [B, Sq, H, D], k [B, Sk, KVH, D], v [B, "
+                         f"Sk, KVH, Dv] with H % KVH == 0; got {list(q.shape)}, "
+                         f"{list(k.shape)}, {list(v.shape)}")
+
+
+def _as_bshd(q, k, v) -> tuple:
+    """The kernel layout's q [BK, g, Sq, D], k [BK, Sk, D], v [BK, Sk, Dv]
+    as model-layout views (B = BK, KVH = 1), without a copy."""
+    _check_flash_types(q, k, v, (4, 3))
+    return q.transpose(1, 2), k[:, :, None], v[:, :, None]
 
 
 def check_flash_kernel(q, k, v, attn_softcap=None) -> str:
-    """What the kernel takes beyond :func:`_check_flash`; returns its
+    """What the kernel takes beyond the shape and dtype checks, for either
+    layout (a k of three dimensions is the kernel layout's); returns its
     variant. Raises on a softcap (the kernel has none, as the Pallas one
-    has none), on non-contiguous or misaligned inputs and on head sizes no
-    variant takes."""
+    has none), on head sizes no variant takes, and on data the variant
+    cannot read: ``"wgmma"`` reads strided views (D contiguous, every other
+    stride a multiple of 16 bytes, 16-byte-aligned data); ``"fma"`` reads
+    contiguous copies in the kernel layout (16-byte-aligned data)."""
+    if isinstance(k, torch.Tensor) and k.ndim == 3:
+        q, k, v = _as_bshd(q, k, v)
     _check_flash(q, k, v)
+    return _kernel_variant(q, k, v, attn_softcap)
+
+
+def _kernel_variant(q, k, v, attn_softcap) -> str:
+    """:func:`check_flash_kernel` past the shape and dtype checks."""
     if attn_softcap:
         raise NotImplementedError(
             "flash_attention: the CUDA kernel has no attention softcap "
             "(neither has the Pallas kernel); softcap runs only on CPU "
             "tensors")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: must be contiguous")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name}: must be 16-byte aligned")
-    variant = flash_variant(q.dtype, q.shape[3], v.shape[2])
+    variant = flash_variant(q.dtype, q.shape[3], v.shape[3])
     if variant is None:
         raise ValueError(f"flash_attention: head sizes D={q.shape[3]}, "
-                         f"Dv={v.shape[2]} exceed the kernel's 128")
-    if q.shape[2] > 65535 * 16 or q.shape[0] * q.shape[1] >= 2**31:
+                         f"Dv={v.shape[3]} exceed the kernel's 128")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if variant == "wgmma":
+            if t.stride(-1) != 1:
+                raise ValueError(f"{name}: the head dimension must be "
+                                 f"contiguous (stride 1), got {t.stride()}")
+            if any(st * t.element_size() % 16 for st in kernel_strides(t)):
+                raise ValueError(f"{name}: every stride must be a multiple of "
+                                 f"16 bytes, got {t.stride()}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: must be 16-byte aligned")
+    if q.shape[1] > 65535 * (128 if variant == "wgmma" else 16) or \
+            q.shape[0] * q.shape[2] >= 2**31:
         raise ValueError(f"flash_attention: grid too large for {list(q.shape)}")
     return variant
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window=None,
-                    scale=None, q_offset: int = 0, attn_softcap=None,
-                    chunk_q: int = 512, chunk_k: int = 1024,
-                    out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+def flash_attention(q, k, v, **kw) -> torch.Tensor:
     """Attention forward in the kernel layout (see
-    :mod:`.flash_attention`): ``[BK, g, Sq, Dv]`` of ``out_dtype``
+    :mod:`.flash_attention`): q ``[BK, g, Sq, D]``, k ``[BK, Sk, D]``, v
+    ``[BK, Sk, Dv]`` -> ``[BK, g, Sq, Dv]``. The same call as
+    :func:`flash_attention_bshd` (its keywords) on these tensors' model-layout
+    views with B = BK, KVH = 1: no copy on either side."""
+    return flash_attention_bshd(*_as_bshd(q, k, v), **kw).transpose(1, 2)
+
+
+def flash_attention_bshd(q, k, v, *, causal: bool = True, window=None,
+                         scale=None, q_offset: int = 0, attn_softcap=None,
+                         chunk_q: int = 512, chunk_k: int = 1024,
+                         out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Attention forward in the model's layout: q ``[B, Sq, H, D]``, k
+    ``[B, Sk, KVH, D]``, v ``[B, Sk, KVH, Dv]`` (query head ``h`` reads KV
+    head ``h // (H // KVH)``) -> ``[B, Sq, H, Dv]`` of ``out_dtype``
     (float32, the accumulator's type, or bfloat16: the float32 result
-    rounded once). CPU tensors take the plain version (``chunk_q`` x
-    ``chunk_k`` tiles, softcap allowed); CUDA tensors launch the kernel
-    or raise."""
+    rounded once).
+
+    CPU tensors take the plain version on kernel-layout copies (``chunk_q``
+    x ``chunk_k`` tiles, softcap allowed). CUDA tensors launch the kernel or
+    raise: the ``wgmma`` variant (bf16, D == Dv in {32, 64, 128}) reads q,
+    k and v where they lie, strided views included, and writes a result
+    with q's dimension order: no copy on either side. A float32 call (or
+    bf16 at other head sizes), the ``fma`` variant, copies q, k and v into
+    the contiguous kernel layout (a no-op for :func:`flash_attention`'s
+    views) and views its result back."""
     _check_flash(q, k, v)
+    _check_out_dtype(out_dtype)
+    B = q.shape[0]
+    if not _on_cuda(q, k, v):
+        return from_kernel_layout(flash_attention_plain(
+            *to_kernel_layout(q, k, v), causal=causal, window=window,
+            scale=scale, q_offset=q_offset, attn_softcap=attn_softcap,
+            chunk_q=chunk_q, chunk_k=chunk_k).to(out_dtype), B)
+    variant = _kernel_variant(q, k, v, attn_softcap)
+    if variant == "wgmma":
+        out = torch.empty_like(q, dtype=out_dtype)
+        views = (*bshd_views(q, k, v), bshd_views(out, k, v)[0])
+    else:
+        qk, kk, vk = to_kernel_layout(q, k, v)
+        out = torch.empty(qk.shape[:3] + (vk.shape[2],), dtype=out_dtype,
+                          device=q.device)
+        views = (qk[:, None], kk[:, None], vk[:, None], out[:, None])
+    if out.numel():
+        scale = scale if scale is not None else 1.0 / float(np.sqrt(q.shape[3]))
+        flash_attention_launch(*views, causal=causal, window=window,
+                               scale=scale, q_offset=q_offset, variant=variant)
+        LAUNCHES["flash_attention"] += 1
+    return out if variant == "wgmma" else from_kernel_layout(out, B)
+
+
+def _check_out_dtype(out_dtype) -> None:
     if out_dtype not in FLASH_DTYPES:
         raise TypeError(f"out_dtype: expected float32 or bfloat16, got "
                         f"{out_dtype}")
-    if not _on_cuda(q, k, v):
-        return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     scale=scale, q_offset=q_offset,
-                                     attn_softcap=attn_softcap,
-                                     chunk_q=chunk_q,
-                                     chunk_k=chunk_k).to(out_dtype)
-    variant = check_flash_kernel(q, k, v, attn_softcap)
-    BK, g, Sq, D = q.shape
-    out = torch.empty((BK, g, Sq, v.shape[2]), dtype=out_dtype,
-                      device=q.device)
-    if out.numel():
-        scale = scale if scale is not None else 1.0 / float(np.sqrt(D))
-        flash_attention_launch(q, k, v, out, causal=causal, window=window,
-                               scale=scale, q_offset=q_offset, variant=variant)
-        LAUNCHES["flash_attention"] += 1
-    return out

@@ -41,24 +41,15 @@ def flash_attention(q, k, v, *, causal=True, window=None, attn_softcap=None,
     the JAX function does, unless ``out_dtype`` asks for the float32
     result rounded to bfloat16 (the kernel then writes half the bytes).
     ``chunk_q`` / ``chunk_k`` tile the plain version's loop; the kernel
-    has its own tiles.
+    has its own tiles. On the card, bf16 at head sizes 32/64/128 reads q,
+    k and v where they lie and writes [B, Sq, H, Dv] directly
+    (``kernels.ops.flash_attention_bshd``).
     """
-    B, Sq, H, D = q.shape
-    Sk, KVH = k.shape[1], k.shape[2]
-    Dv = v.shape[-1]
-    g = H // KVH
-    qk = q.reshape(B, Sq, KVH, g, D).permute(0, 2, 3, 1, 4) \
-        .reshape(B * KVH, g, Sq, D)
-    kk = k.permute(0, 2, 1, 3).reshape(B * KVH, Sk, D)
-    vk = v.permute(0, 2, 1, 3).reshape(B * KVH, Sk, Dv)
-    if q.is_cuda:
-        qk, kk, vk = qk.contiguous(), kk.contiguous(), vk.contiguous()
-    out = ops.flash_attention(qk, kk, vk, causal=causal, window=window,
-                              scale=scale, q_offset=q_offset,
-                              attn_softcap=attn_softcap, chunk_q=chunk_q,
-                              chunk_k=chunk_k, out_dtype=out_dtype)
-    return out.reshape(B, KVH, g, Sq, Dv).permute(0, 3, 1, 2, 4) \
-        .reshape(B, Sq, H, Dv)
+    return ops.flash_attention_bshd(q, k, v, causal=causal, window=window,
+                                    scale=scale, q_offset=q_offset,
+                                    attn_softcap=attn_softcap,
+                                    chunk_q=chunk_q, chunk_k=chunk_k,
+                                    out_dtype=out_dtype)
 
 
 def decode_attention(q, k_cache, v_cache, cur_len: int, *, window=None,

@@ -8,14 +8,17 @@ inputs made from a seed with numpy:
 * the port's plain ``kernels.ops.flash_attention`` (CPU route) against
   ``flash_attention_pallas`` in interpret mode, in the kernel layout;
 * the port's ``models.attention.flash_attention`` against
-  ``repro.models.attention.flash_attention``, in the model layout.
+  ``repro.models.attention.flash_attention``, in the model layout;
+* ``kernels.ops.flash_attention_bshd`` (the model-layout entry, on
+  contiguous and strided views) against ``kernels.ops.flash_attention`` on
+  the permuted contiguous tensors, bit for bit.
 
 Tolerances are that file's: 1e-4 in float32 (the sums run in another
 order) and 2e-2 in bf16 (the Pallas kernel rounds its output to bf16).
 ``decode_attention`` is held against the JAX package's at 1e-5 (float32
 products of the same bf16 values). The kernel route's checks (softcap,
-dtype, contiguity) raise before any launch, so they run here on CPU
-tensors; the kernel itself is held against the plain version on the card
+dtype, strides, alignment) raise before any launch, so they run here on
+CPU tensors; the kernel itself is held against the plain version on the card
 in ``tests/test_torch_gpu.py``.
 """
 
@@ -157,7 +160,7 @@ def test_decode_attention_matches_reference(window):
 
 def test_kernel_route_checks_raise_before_launch():
     qk, kk, vk = (_torch(a) for a in _kernel_layout(*_inputs(4)))
-    assert K.check_flash_kernel(qk, kk, vk) == "mma"
+    assert K.check_flash_kernel(qk, kk, vk) == "wgmma"
     assert K.check_flash_kernel(qk.float(), kk.float(), vk.float()) == "fma"
     with pytest.raises(NotImplementedError, match="softcap"):
         K.check_flash_kernel(qk, kk, vk, attn_softcap=50.0)
@@ -177,3 +180,70 @@ def test_kernel_route_checks_raise_before_launch():
         K.flash_attention(qk.half(), kk.half(), vk.half())
     with pytest.raises(ValueError, match="expected q"):
         K.flash_attention(qk, kk[:, :5], vk)
+
+
+def _padded(t, pad=8):
+    """``t`` as a view into a buffer with ``pad`` more columns: the head
+    dimension contiguous, every outer stride padded."""
+    buf = torch.zeros(t.shape[:-1] + (t.shape[-1] + pad,), dtype=t.dtype)
+    buf[..., :t.shape[-1]] = t
+    return buf[..., :t.shape[-1]]
+
+
+@pytest.mark.parametrize("view", ["contiguous", "padded"])
+@pytest.mark.parametrize("i", range(len(SWEEP)), ids=IDS)
+def test_bshd_entry_equals_kernel_layout(i, view):
+    """The model-layout entry on [B, S, H, D] views gives, bit for bit,
+    the kernel-layout entry's result on the permuted contiguous tensors
+    (padded views with a query offset)."""
+    B, *_, causal, window, bq, bk, _dtype = SWEEP[i]
+    q, k, v = (_torch(a) for a in _inputs(i))
+    q_offset = 64 if view == "padded" else 0
+    if view == "padded":
+        q, k, v = _padded(q), _padded(k), _padded(v)
+        assert not q.is_contiguous() and q.stride(-1) == 1
+    qk, kk, vk = (_torch(a) for a in _kernel_layout(*_inputs(i)))
+    kw = dict(causal=causal, window=window, q_offset=q_offset, chunk_q=bq,
+              chunk_k=bk)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        got = K.flash_attention_bshd(q, k, v, out_dtype=out_dtype, **kw)
+        want = K.flash_attention(qk, kk, vk, out_dtype=out_dtype, **kw)
+        H, Sq, Dv = q.shape[2], q.shape[1], v.shape[-1]
+        want = want.reshape(B, H, Sq, Dv).transpose(1, 2)
+        assert got.shape == (B, Sq, H, Dv) and got.dtype == out_dtype
+        assert torch.equal(got, want)
+
+
+def _fault(t, fault):
+    """``t`` with one layout fault the wgmma variant cannot read."""
+    if fault == "innermost":
+        return t.transpose(-2, -1).contiguous().transpose(-2, -1)
+    if fault == "stride":
+        return _padded(t, pad=1)
+    flat = torch.zeros(t.numel() + 1, dtype=t.dtype)
+    return flat[1:].view(t.shape)
+
+
+@pytest.mark.parametrize("fault,match", [
+    ("innermost", "contiguous"), ("stride", "multiple of 16 bytes"),
+    ("pointer", "16-byte aligned")])
+def test_strided_kernel_checks_raise_before_launch(fault, match):
+    """The wgmma variant reads strided views: D contiguous, every other
+    stride a multiple of 16 bytes, 16-byte-aligned data; anything else
+    raises before a launch (the checks run on CPU tensors too), in both
+    layouts and for each of q, k and v."""
+    q, k, v = (_torch(a) for a in _inputs(4))          # bf16, D 64
+    qk, kk, vk = (_torch(a) for a in _kernel_layout(*_inputs(4)))
+    assert K.check_flash_kernel(q, k, v) == "wgmma"
+    assert K.check_flash_kernel(_padded(q), _padded(k), _padded(v)) == "wgmma"
+    # A size-1 dimension's stride is never used: a view may carry any.
+    odd = q[:1, :1].as_strided((1, 1) + q.shape[2:], (3, 5) + q.stride()[2:])
+    assert K.check_flash_kernel(odd, k[:1], v[:1]) == "wgmma"
+    for args in ((q, k, v), (qk, kk, vk)):
+        for j in range(3):
+            bad = list(args)
+            bad[j] = _fault(bad[j], fault)
+            with pytest.raises(ValueError, match=match):
+                K.check_flash_kernel(*bad)
+    with pytest.raises(ValueError, match="H % KVH"):
+        K.flash_attention_bshd(q[:, :, :3], k, v)

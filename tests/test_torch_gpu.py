@@ -27,10 +27,11 @@ held as their fused counterparts are. Core ``delete`` and ``apply_ops``
 CPU, and ``FilterHandle.apply_ops`` on the card (the mixed-op kernel for
 its net deletes, the insert kernels for its net inserts) gives core
 ``apply_ops``'s ``ok`` and the sequential oracle's. The flash-attention
-kernel (both variants: tensor cores for bf16 at head sizes 32/64/128,
-FMA otherwise) matches its plain version at 1e-4 in float32 and, for bf16
+kernel (both variants: wgmma for bf16 at head sizes 32/64/128, FMA
+otherwise) matches its plain version at 1e-4 in float32 and, for bf16
 inputs, at 1e-2 in absolute error and in error over each row's largest
-value; its bf16 output is its float32 output rounded; and the reduced
+value; its bf16 output is its float32 output rounded; the model-layout
+entry on strided [B, S, H, D] views gives the same bits; and the reduced
 qwen served on the card through ``ServeEngine`` matches the same model on
 the CPU.
 """
@@ -453,7 +454,9 @@ def test_bloom_matches_plain(cuda, wpb, k, hash_kind):
 # (BK, g, Sq, Sk, D, Dv, causal, window, q_offset, dtype): the five shapes
 # of tests/test_flash_kernel.py in the kernel layout, then bf16 at every
 # tensor-core head size, bf16 through the FMA variant (Dv != D), a
-# windowed bf16 case with a query offset, and rows that see no key.
+# windowed bf16 case with a query offset, rows that see no key, GQA g = 8,
+# and ragged edges: Sq past 128 and not a multiple of it, Sk not a
+# multiple of the wgmma variant's key tile (96 at D = 128, 128 below).
 FLASH_CASES = [
     (4, 3, 192, 256, 64, 32, True, None, 0, torch.float32),
     (4, 3, 192, 256, 64, 32, True, 64, 0, torch.float32),
@@ -465,7 +468,24 @@ FLASH_CASES = [
     (2, 3, 130, 130, 64, 32, True, None, 0, torch.bfloat16),
     (2, 2, 96, 224, 128, 128, True, 50, 128, torch.bfloat16),
     (2, 1, 64, 64, 64, 64, True, 0, 0, torch.bfloat16),
+    (1, 8, 100, 130, 32, 32, True, None, 0, torch.bfloat16),
+    (2, 3, 333, 517, 64, 64, True, None, 0, torch.bfloat16),
+    (4, 2, 1000, 1000, 128, 128, True, 300, 0, torch.bfloat16),
+    (2, 2, 200, 389, 128, 128, False, None, 0, torch.bfloat16),
 ]
+
+
+def _model_views(t, kv_heads: int):
+    """A kernel-layout tensor ([BK, g, S, D] or [BK, S, D]) as the model's
+    [B, S, H, D] (B = BK / kv_heads), a strided view into a buffer with 8
+    more columns a row."""
+    if t.ndim == 3:
+        t = t[:, None]
+    BK, g, S, D = t.shape
+    t = t.reshape(BK // kv_heads, kv_heads * g, S, D).transpose(1, 2)
+    buf = torch.zeros(t.shape[:3] + (D + 8,), dtype=t.dtype, device=t.device)
+    buf[..., :D] = t
+    return buf[..., :D]
 
 
 @pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: "{}x{}x{}x{}d{}v{}c{}w{}o{}{}".format(*c[:9], str(c[9])[6:]))
@@ -475,13 +495,12 @@ def test_flash_attention_matches_plain(cuda, case):
     q = (torch.randn((BK, g, Sq, D), generator=gen, device=cuda) * 0.3).to(dtype)
     k = (torch.randn((BK, Sk, D), generator=gen, device=cuda) * 0.3).to(dtype)
     v = (torch.randn((BK, Sk, Dv), generator=gen, device=cuda) * 0.3).to(dtype)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
     K.reset_launches()
-    got = K.flash_attention(q, k, v, causal=causal, window=window,
-                            q_offset=q_offset)
+    got = K.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     assert K.LAUNCHES["flash_attention"] == 1
-    want = flash_attention_plain(q, k, v, causal=causal, window=window,
-                                 q_offset=q_offset)
+    want = flash_attention_plain(q, k, v, **kw)
     assert got.dtype == torch.float32 and got.shape == want.shape
     if dtype == torch.float32:
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
@@ -496,9 +515,23 @@ def test_flash_attention_matches_plain(cuda, case):
         assert float((err / row).max()) <= 1e-2
     if window == 0:
         assert not bool(got.any())         # every key masked: zeros
-    got_bf16 = K.flash_attention(q, k, v, causal=causal, window=window,
-                                 q_offset=q_offset, out_dtype=torch.bfloat16)
+    got_bf16 = K.flash_attention(q, k, v, out_dtype=torch.bfloat16, **kw)
     assert torch.equal(got_bf16, got.to(torch.bfloat16))
+    if dtype == torch.bfloat16:
+        # The model-layout entry on strided [B, S, H, D] views: the same
+        # kernel on the same values, so the same bits, written as
+        # [B, S, H, Dv].
+        kv_heads = 2 if BK % 2 == 0 else 1
+        views = [_model_views(t, kv_heads) for t in (q, k, v)]
+        assert not views[0].is_contiguous()
+        K.reset_launches()
+        for out_dtype, ref in ((torch.float32, got), (torch.bfloat16, got_bf16)):
+            out = K.flash_attention_bshd(*views, out_dtype=out_dtype, **kw)
+            B = BK // kv_heads
+            assert out.shape == (B, Sq, kv_heads * g, Dv)
+            assert torch.equal(out, ref.reshape(B, kv_heads * g, Sq, Dv)
+                               .transpose(1, 2))
+        assert K.LAUNCHES["flash_attention"] == 2
 
 
 def test_flash_attention_refuses_what_it_cannot_take(cuda):
