@@ -8,7 +8,10 @@ toolkit. Phases, one JSON line each:
 
 1. build — the eleven CUDA kernels from ``src/repro_torch/kernels/csrc``
    (``nvcc``, ``sm_90a``, in parallel), with the build seconds and the
-   card's name and power limit.
+   card's name and power limit; then the registers and spills that
+   ``ptxas -v`` gives the flash-attention kernels (``flash_ptxas``) and
+   the Bloom insert kernels (``bloom_insert_ptxas``, with each one's
+   instructions, shuffles and reductions in its SASS): no spill allowed.
 2. main path at 2^28 slots — ``repro_torch.amq.make("cuckoo",
    capacity=floor(0.95 * 2^28))`` (fp 16, bucket 16, XOR, fmix32: a
    512 MiB table, ten times the L2), filled to load 0.95 in 16 batches of
@@ -72,8 +75,12 @@ toolkit. Phases, one JSON line each:
    most the FPR band's edge); the same keys into ``make("bloom",
    capacity=n_distinct)`` (every position found, FPR inside its band).
    The k-mer pack, Bloom insert and Bloom query kernels are then held
-   exactly against their plain versions on the same inputs and timed.
-   Keys/s of each step and the cuckoo/Bloom query ratio.
+   exactly against their plain versions on the same inputs and timed;
+   the Bloom insert at two shapes: the first batch into the empty table
+   and the last batch into the table that holds all the others (the
+   kernel's result there equal to the case study's table), each beside a
+   bound from its own batch's blocks. Keys/s of each step and the
+   cuckoo/Bloom query ratio.
 7. the mixed path at 2^28 slots — ``make("cuckoo")`` prefilled to load
    0.5, then three batches of 2^24 ops through ``FilterHandle.apply_ops``
    under each of the JAX package's ``benchmarks/mixed_workload.py`` mixes
@@ -145,6 +152,7 @@ import functools
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -912,9 +920,9 @@ def kmer_case_study(gen):
     wrapper["kmer_pack"] = cuda_ms(lambda: K.kmer_pack(codes, KMER_K))
     del out
 
-    def blocks_of(k):
-        return torch.unique(hash_key_plain(k, bcfg.hash_kind, bcfg.seed)[1]
-                            % bcfg.num_blocks).numel()
+    def blocks_of(k, c=bcfg):
+        return torch.unique(hash_key_plain(k, c.hash_kind, c.seed)[1]
+                            % c.num_blocks).numel()
 
     sub = keys[:KMER_BATCH]
     hit = torch.empty(n_pos, dtype=torch.bool, device="cuda")
@@ -941,6 +949,50 @@ def kmer_case_study(gen):
     wrapper["bloom_insert"] = cuda_ms(
         lambda: K.bloom_insert(bcfg, hb.state._replace(table=table), first,
                                valid), setup=table.zero_)
+    # Two more shapes of #9, each against a bound from its own batch's
+    # blocks: the last batch into the table that holds all the others (the
+    # fullest table the case study inserts into), and the first batch into
+    # a table of 2^18 blocks (16 MiB), which stays in L2: the kernel's cost
+    # without the table's device-memory traffic. At each, the table the
+    # kernel's last timed run left equals the one the plain version's left.
+    def shape(c, work, batch, setup, **rec):
+        m = batch.shape[0]
+        valid = torch.ones(m, dtype=torch.bool, device="cuda")
+        touched = blocks_of(batch, c)
+        rec.update(n=m, table_bytes=c.table_bytes, ms=cuda_ms(
+            lambda: bloom_insert_launch(c, work, batch, valid), setup=setup))
+        got = work.clone()
+        rec["plain_ms"] = cuda_ms(
+            lambda: bloom_insert_plain(c, work, batch, valid), reps=3,
+            setup=setup)
+        errs["bloom_insert"] += int((got != work).sum())
+        return {**rec, "bound_bytes": roofline.bloom_batch_bytes(
+                    c, "insert", m, touched),
+                "bound_int32_ops": roofline.bloom_int_ops_per_key(c) * m,
+                "touched": touched}
+
+    before = bcfg.init("cuda").table
+    for b in batches[:-1]:
+        b = normalize_keys(b)
+        bloom_insert_launch(bcfg, before, b,
+                            torch.ones(b.shape[0], dtype=torch.bool,
+                                       device="cuda"))
+    last = normalize_keys(batches[-1])
+    bloom_shapes = {"last_batch_into_the_others": shape(
+        bcfg, table, last, lambda: table.copy_(before), batch_no=len(batches),
+        keys_before=n_distinct - last.shape[0])}
+    check(torch.equal(table, hb.state.table),
+          "bloom_insert: the last batch into the others' table does not "
+          "give the case study's table")
+    del before
+    small = dataclasses.replace(bcfg, num_blocks=1 << 18)
+    small_table = small.init("cuda").table
+    bloom_shapes["table_in_l2"] = shape(small, small_table, first,
+                                        small_table.zero_, batch_no=1,
+                                        num_blocks=small.num_blocks)
+    check(errs["bloom_insert"] == 0, f"bloom_insert: {errs['bloom_insert']} "
+          "table words differ from the plain version's at the extra shapes")
+    del small_table
     secs["timings"] = time.perf_counter() - t0
 
     emit({"phase": "kmer_case_study", "bases": GENOME_BASES, "k": KMER_K,
@@ -967,10 +1019,11 @@ def kmer_case_study(gen):
               "bloom_insert": n_distinct / bloom_insert_s,
               "bloom_query": n_pos / bloom_query_s},
           "cuckoo_query_over_bloom_query": bloom_query_s / query_s,
+          "bloom_insert_shapes": bloom_shapes,
           "launches": launches, "max_abs_err": errs, "seconds": secs})
     del h, hb, keys, distinct, order, batches, codes, table, hit
     torch.cuda.empty_cache()
-    return timing, wrapper, launches, errs
+    return timing, wrapper, launches, errs, bloom_shapes
 
 
 # ---------------------------------------------------------------------------
@@ -1277,16 +1330,16 @@ def model_view(t, kv_heads: int):
     return buf[..., :D]
 
 
-def flash_ptxas(log: str) -> dict:
-    """Registers, stack and spill bytes of each flash kernel instantiation,
-    from ``nvcc -Xptxas -v``'s output (empty where the library was not
-    compiled in this run)."""
+def ptxas_report(log: str, stem: str) -> dict:
+    """Registers, stack and spill bytes of each kernel instantiation whose
+    name starts with ``stem``, from ``nvcc -Xptxas -v``'s output (empty
+    where the library was not compiled in this run)."""
     out, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             name = m.group(1)
-            name = re.sub(r"^_ZN\w*?_GLOBAL__N__\w+?\d+(flash_\w+?_kernel)",
+            name = re.sub(rf"^_ZN\w*?_GLOBAL__N__\w+?\d+({stem}\w*?_kernel)",
                           r"\1", name)
             continue
         if name is None:
@@ -1300,6 +1353,43 @@ def flash_ptxas(log: str) -> dict:
         m = re.search(r"Used (\d+) registers", line)
         if m:
             rec["registers"] = int(m.group(1))
+    return out
+
+
+def sass_census(name: str, stem: str):
+    """Instructions of each kernel instantiation of library ``name`` whose
+    name starts with ``stem``, of them the shuffles (SHFL) and global
+    reductions (RED), and the median count from one reduction to the next
+    (a round of #9's group, one reduction each, where blocks are narrow),
+    from ``cuobjdump -sass`` (None without the tool)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", build.load(name)._name],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    out, rec = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = re.sub(rf"^_ZN\w*?_GLOBAL__N__\w+?\d+({stem}\w*?_kernel)",
+                        r"\1", m.group(1))
+            rec = out.setdefault(fn, {"instructions": 0, "SHFL": 0, "RED": 0,
+                                      "at": []})
+            continue
+        m = re.search(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)",
+                      line)
+        if rec is not None and m and m.group(1) != "NOP":
+            rec["instructions"] += 1
+            if m.group(1) == "SHFL":
+                rec["SHFL"] += 1
+            elif m.group(1) in ("RED", "REDG"):
+                rec["RED"] += 1
+                rec["at"].append(rec["instructions"])
+    for rec in out.values():
+        at = rec.pop("at")
+        rec["between_reds"] = (statistics.median(np.diff(at).tolist())
+                               if len(at) > 1 else None)
     return out
 
 
@@ -1690,13 +1780,21 @@ def main() -> int:
           "sm_clock_max_hz": sm_clock_hz, "int32_ops_per_s": int_ops_per_s,
           "bf16_flops_per_s": bf16_rate,
           "torch": torch.__version__, "cuda": torch.version.cuda})
-    ptxas = flash_ptxas(logs.get("flash_attention", ""))
+    ptxas = ptxas_report(logs.get("flash_attention", ""), "flash_")
     emit({"phase": "flash_ptxas", "compiled": "flash_attention" in logs,
           "kernels": ptxas})
     wgmma = [r for n, r in ptxas.items() if "wgmma" in n]
     check("flash_attention" not in logs or (
         len(wgmma) == 3 and all(r.get("spill_stores") == 0 for r in wgmma)),
           f"flash: the wgmma kernels' ptxas report {ptxas}")
+    ptxas = ptxas_report(logs.get("bloom_insert", ""), "bloom_insert")
+    emit({"phase": "bloom_insert_ptxas", "compiled": "bloom_insert" in logs,
+          "kernels": ptxas, "sass": sass_census("bloom_insert",
+                                                "bloom_insert")})
+    check("bloom_insert" not in logs or (
+        len(ptxas) == 2 and all(r.get("spill_stores") == 0
+                                for r in ptxas.values())),
+          f"bloom_insert: the kernels' ptxas report {ptxas}")
     for name in build.SOURCES:
         build.load(name)
 
@@ -1913,7 +2011,8 @@ def main() -> int:
 
     # --- the k-mer case study -------------------------------------------
     t0 = time.perf_counter()
-    kmer_timing, kmer_wrapper, kmer_launches, kmer_errs = kmer_case_study(gen)
+    (kmer_timing, kmer_wrapper, kmer_launches, kmer_errs,
+     bloom_shapes) = kmer_case_study(gen)
     emit({"phase": "kmer_case_study_seconds",
           "seconds": time.perf_counter() - t0})
 
@@ -1970,6 +2069,15 @@ def main() -> int:
             "bytes_ms_at_measured_copy": nbytes / copy_bytes_per_s * 1e3})
         if name in wrapper_ms:
             kernels[-1]["wrapper_ms"] = wrapper_ms[name]
+    # Kernel #9's other shapes (see kmer_case_study), each beside its bound.
+    shapes = {}
+    next(r for r in kernels if r["name"] == "bloom_insert")["shapes"] = shapes
+    for label, b in bloom_shapes.items():
+        bytes_ms = b["bound_bytes"] / HBM_BYTES_PER_S * 1e3
+        ops_ms = b["bound_int32_ops"] / int_ops_per_s * 1e3
+        shapes[label] = {
+            **b, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
     kernels.append({"name": "flash_attention", "route": "cuda",
                     "source": SOURCES["flash_attention"],
                     "replaces": TPU_KERNELS["flash_attention"],

@@ -21,21 +21,51 @@ struct Geometry {
   uint64_t seed;
 };
 
+// A key's block and its k positions in the block, one position a call of
+// next(). The chunk counter and shift are carried from call to call, so no
+// position costs a division (a power-of-two block, the rule, takes its
+// positions modulo by a mask).
+struct BitWalk {
+  uint32_t block;  // the key's block index
+  uint32_t h, j = 0, r = 0, shift = 0;
+  uint32_t per_word, bits, block_bits;
+  bool pow2;
+
+  __device__ __forceinline__ BitWalk(uint32_t lo, uint32_t hi,
+                                     const Geometry& g)
+      : bits(g.bits_needed), block_bits(g.words_per_block * 32u) {
+    const cuckoo::Geometry hg{0, 0, 0, 0, g.hash_kind, g.seed};
+    uint32_t hlo;
+    cuckoo::hash_key(lo, hi, hg, h, hlo);
+    block = hlo % g.num_blocks;
+    per_word = 32u / g.bits_needed;
+    if (per_word == 0) per_word = 1;
+    pow2 = (block_bits & (block_bits - 1u)) == 0;
+  }
+
+  // The next bit's position in the block, [0, block_bits).
+  __device__ __forceinline__ uint32_t next() {
+    if (r == per_word) {
+      r = 0;
+      shift = 0;
+      h = cuckoo::fmix32(h + j);
+    }
+    const uint32_t x = h >> shift;
+    ++r;
+    ++j;
+    shift += bits;
+    return pow2 ? x & (block_bits - 1u) : x % block_bits;
+  }
+};
+
 // Calls visit(word address, bit mask) for each of the key's k bits.
 template <typename Visit>
 __device__ __forceinline__ void for_each_bit(uint32_t lo, uint32_t hi,
                                              const Geometry& g, Visit visit) {
-  const cuckoo::Geometry hg{0, 0, 0, 0, g.hash_kind, g.seed};
-  uint32_t h, hlo;
-  cuckoo::hash_key(lo, hi, hg, h, hlo);
-  const size_t base = size_t(hlo % g.num_blocks) * g.words_per_block;
-  const uint32_t block_bits = g.words_per_block * 32u;
-  uint32_t per_word = 32u / g.bits_needed;
-  if (per_word == 0) per_word = 1;
+  BitWalk w(lo, hi, g);
+  const size_t base = size_t(w.block) * g.words_per_block;
   for (uint32_t j = 0; j < g.k; ++j) {
-    const uint32_t r = j % per_word;
-    if (r == 0 && j > 0) h = cuckoo::fmix32(h + j);
-    const uint32_t pos = (h >> (r * g.bits_needed)) % block_bits;
+    const uint32_t pos = w.next();
     visit(base + (pos >> 5), 1u << (pos & 31u));
   }
 }

@@ -6,7 +6,11 @@ plain ``scatter_or`` merges duplicate addresses as JAX's segmented OR-scan
 does; ``kernels.ops.bloom_insert`` / ``bloom_query`` (the plain versions
 of kernels #9 and #8 on CPU tensors) equal the JAX wrappers, which run
 ``bloom_insert_pallas`` / ``bloom_query_pallas`` in interpret mode, and
-the oracles of ``kernels/ref.py``. ``make("bloom", device="cpu")`` keeps
+the oracles of ``kernels/ref.py``. The plain insert, which the card holds
+kernel #9 against, equals the JAX insert and ``bloom_insert_pallas`` on
+adversarial inputs too: few blocks and duplicate keys, 12, 64 and 128
+words a block, k of 11, 16 and 20, a partial ``valid`` and a table that
+already holds keys. ``make("bloom", device="cpu")`` keeps
 the JAX backend's config fingerprint and conformance (no false
 negatives, FPR band, no delete), and a JAX table carried across through
 ``convert`` gives the same answers.
@@ -24,12 +28,14 @@ from repro.filters import blocked_bloom as RB
 from repro.filters import common as RC
 from repro.kernels import ops as ROPS
 from repro.kernels import ref as RREF
+from repro.kernels.bloom import bloom_insert_pallas
 from repro.kernels import roofline as RR
 from repro_torch import amq as tamq
 from repro_torch import convert
 from repro_torch.filters import blocked_bloom as TB
 from repro_torch.filters import common as TC
 from repro_torch.kernels import ops as K
+from repro_torch.kernels.bloom import bloom_insert_plain
 from repro_torch.kernels import ref as TREF
 from repro_torch.kernels import roofline
 
@@ -132,6 +138,64 @@ def test_ops_match_the_pallas_kernels_and_oracles():
         _u32(TREF.bloom_insert_ref(tcfg, empty, _t(keys)[:, 0],
                                    _t(keys)[:, 1])), np.asarray(sj.table))
     assert not empty.any()                          # the oracle copies
+
+
+# (config fields, keys, distinct keys among them, valid: None for all,
+# a fraction for a seeded random mask, a negative count for the last keys
+# False, prefilled table). Sizes are multiples of the Pallas kernel's
+# 256-key grid step.
+ADVERSARIAL = {
+    "few_blocks_dups": (dict(num_blocks=3), 512, 40, 0.8, False),
+    "wpb12_tail_false": (dict(num_blocks=190, words_per_block=12), 512,
+                         512, -37, False),
+    "wpb64_few_blocks": (dict(num_blocks=5, words_per_block=64,
+                              hash_kind="xxhash64"), 512, 100, 0.7, False),
+    "k16_prefilled": (dict(num_blocks=64, k=16, hash_kind="xxhash64"), 256,
+                      256, 0.9, True),
+    "wpb12_k11_prefilled": (dict(num_blocks=7, words_per_block=12, k=11),
+                            256, 64, -5, True),
+    "wpb128_k20": (dict(num_blocks=4, words_per_block=128, k=20), 256, 256,
+                   None, False),
+}
+_J_PALLAS_INSERT = jax.jit(bloom_insert_pallas, static_argnums=0,
+                           static_argnames=("block_keys", "interpret"),
+                           compiler_options=_XLA_FAST)
+
+
+@pytest.mark.parametrize("case", list(ADVERSARIAL))
+def test_plain_insert_on_adversarial_inputs(case):
+    fields, n, distinct, valid_kind, prefilled = ADVERSARIAL[case]
+    cfg = RB.BloomConfig(seed=2**33 + 17, **fields)
+    tcfg = convert.bloom_config_from_reference(cfg)
+    rng = np.random.default_rng(11)
+    keys = _keys(12, distinct)[rng.integers(0, distinct, size=n)]
+    if valid_kind is None:
+        valid = np.ones(n, bool)
+    elif valid_kind < 0:
+        valid = np.arange(n) < n + valid_kind
+    else:
+        valid = rng.random(n) < valid_kind
+    start = cfg.init()
+    if prefilled:
+        start, _ = _J_INSERT(cfg, start, jnp.asarray(_keys(13, 300)), None)
+    table0 = np.asarray(start.table)
+    sj, _ = _J_INSERT(cfg, start, jnp.asarray(keys), jnp.asarray(valid))
+    want = np.asarray(sj.table)
+    assert (want != table0).any()
+    pallas = _J_PALLAS_INSERT(cfg, jnp.asarray(table0), jnp.asarray(keys[:, 0]),
+                              jnp.asarray(keys[:, 1]),
+                              jnp.asarray(valid.astype(np.uint32)),
+                              block_keys=256, interpret=True)
+    np.testing.assert_array_equal(np.asarray(pallas), want)
+    table = torch.from_numpy(table0.view(np.int32).copy())
+    bloom_insert_plain(tcfg, table, _t(keys), torch.from_numpy(valid))
+    np.testing.assert_array_equal(_u32(table), want)
+    state = TB.BloomState(torch.from_numpy(table0.view(np.int32).copy()),
+                          torch.zeros((), dtype=torch.int32))
+    st, ok = K.bloom_insert(tcfg, state, _t(keys), torch.from_numpy(valid))
+    np.testing.assert_array_equal(_u32(st.table), want)
+    np.testing.assert_array_equal(ok.numpy(), valid)
+    assert int(st.count) == int(valid.sum())
 
 
 def test_make_bloom_conformance():

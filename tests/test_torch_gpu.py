@@ -424,27 +424,82 @@ def test_kmer_pack_matches_plain(cuda, k):
                        kmer_keys(codes.cpu(), k, device="cpu"))
 
 
-@pytest.mark.parametrize("wpb,k,hash_kind", [(16, 8, "fmix32"),
-                                             (16, 8, "xxhash64"),
-                                             (4, 11, "fmix32"),
-                                             (1, 3, "xxhash64")])
-def test_bloom_matches_plain(cuda, wpb, k, hash_kind):
-    cfg = BloomConfig.for_capacity(20_000, words_per_block=wpb, k=k,
-                                   hash_kind=hash_kind, seed=99)
-    keys = _keys(15, 20_000, cuda)
-    valid = (torch.rand(20_000, generator=torch.Generator().manual_seed(4))
+# (words_per_block, k, hash kind, case): the default shape is 20000 keys,
+# nine in ten valid, into an empty table sized for them. The cases change
+# it: ``n`` keys (1, 31 and 33: a lone lane, a partial warp, a warp and
+# one), ``tail`` last keys not valid, ``blocks`` blocks only (groups of
+# lanes hitting one block at once), ``distinct`` keys repeated over the
+# batch (1: the same key every time), ``prefill`` keys already in the
+# table; 2^20 and 2^21 blocks make tables larger than the L2, which the
+# kernel prefetches blocks into. Block widths: 1, 2, 4, 16 and 32 words (a group of that many
+# lanes), 12 (a group of 16, four lanes idle), 64 and 128 (lanes stride
+# over the words); k = 11, 16 and 20 (positions 8 at a time).
+BLOOM_CASES = [
+    pytest.param(16, 8, "fmix32", {}, id="16-8-fmix32"),
+    pytest.param(16, 8, "xxhash64", {}, id="16-8-xxhash64"),
+    pytest.param(4, 11, "fmix32", {}, id="4-11-fmix32"),
+    pytest.param(1, 3, "xxhash64", {}, id="1-3-xxhash64"),
+    pytest.param(12, 8, "fmix32", {}, id="12-8-fmix32"),
+    pytest.param(32, 8, "xxhash64", {}, id="32-8-xxhash64"),
+    pytest.param(64, 8, "fmix32", {}, id="64-8-fmix32"),
+    pytest.param(128, 20, "xxhash64", {}, id="128-20-xxhash64"),
+    pytest.param(2, 5, "fmix32", {}, id="2-5-fmix32"),
+    pytest.param(16, 16, "fmix32", {}, id="16-16-fmix32"),
+    pytest.param(64, 16, "xxhash64", {}, id="64-16-xxhash64"),
+    pytest.param(16, 8, "fmix32", {"n": 1, "tail": 0}, id="16-8-fmix32-n1"),
+    pytest.param(16, 8, "fmix32", {"n": 31, "tail": 3}, id="16-8-fmix32-n31"),
+    pytest.param(16, 8, "xxhash64", {"n": 33, "tail": 2},
+                 id="16-8-xxhash64-n33"),
+    pytest.param(12, 11, "fmix32", {"n": 33, "tail": 5}, id="12-11-fmix32-n33"),
+    pytest.param(16, 8, "fmix32", {"blocks": 4}, id="16-8-fmix32-4blocks"),
+    pytest.param(12, 8, "xxhash64", {"blocks": 3}, id="12-8-xxhash64-3blocks"),
+    pytest.param(64, 8, "fmix32", {"blocks": 2}, id="64-8-fmix32-2blocks"),
+    pytest.param(16, 8, "fmix32", {"distinct": 1}, id="16-8-fmix32-one-key"),
+    pytest.param(16, 8, "xxhash64", {"distinct": 5, "blocks": 4},
+                 id="16-8-xxhash64-5keys-4blocks"),
+    pytest.param(16, 8, "fmix32", {"prefill": True}, id="16-8-fmix32-prefilled"),
+    pytest.param(12, 11, "xxhash64", {"prefill": True, "blocks": 2000},
+                 id="12-11-xxhash64-prefilled"),
+    pytest.param(16, 8, "fmix32", {"blocks": 1 << 20}, id="16-8-fmix32-64MiB"),
+    pytest.param(12, 8, "xxhash64", {"blocks": 1 << 21}, id="12-8-xxhash64-96MiB"),
+]
+
+
+@pytest.mark.parametrize("wpb,k,hash_kind,case", BLOOM_CASES)
+def test_bloom_matches_plain(cuda, wpb, k, hash_kind, case):
+    n = case.get("n", 20_000)
+    if "blocks" in case:
+        cfg = BloomConfig(num_blocks=case["blocks"], words_per_block=wpb, k=k,
+                          hash_kind=hash_kind, seed=99)
+    else:
+        cfg = BloomConfig.for_capacity(20_000, words_per_block=wpb, k=k,
+                                       hash_kind=hash_kind, seed=99)
+    keys = _keys(15, case.get("distinct", n), cuda)
+    if "distinct" in case:
+        pick = torch.randint(0, keys.shape[0], (n,),
+                             generator=torch.Generator().manual_seed(5))
+        keys = keys[pick.to(cuda)]
+    valid = (torch.rand(n, generator=torch.Generator().manual_seed(4))
              < 0.9).to(cuda)
+    if "tail" in case:
+        valid = torch.arange(n, device=cuda) < n - case["tail"]
+    start = cfg.init(cuda)
+    if case.get("prefill"):
+        bloom_insert_plain(cfg, start.table, _keys(17, 20_000, cuda),
+                           torch.ones(20_000, dtype=torch.bool, device=cuda))
     K.reset_launches()
-    state, ok = K.bloom_insert(cfg, cfg.init(cuda), keys, valid)
-    table = cfg.init(cuda).table
+    state, ok = K.bloom_insert(cfg, start._replace(table=start.table.clone()),
+                               keys, valid)
+    table = start.table.clone()
     bloom_insert_plain(cfg, table, keys, valid)
     torch.cuda.synchronize()
     assert torch.equal(state.table, table)
+    assert not torch.equal(table, start.table) or not bool(valid.any())
     assert torch.equal(ok, valid) and int(state.count) == int(valid.sum())
     probe = torch.cat([keys, _keys(16, 20_000, cuda)])
     hit = K.bloom_query(cfg, state, probe)
     assert torch.equal(hit, bloom_query_plain(cfg, table, probe))
-    assert bool(hit[:20_000][valid].all())
+    assert bool(hit[:n][valid].all())
     assert K.LAUNCHES["bloom_insert"] == 1 and K.LAUNCHES["bloom_query"] == 1
     h = amq.make("bloom", capacity=20_000)
     h.insert(keys)
