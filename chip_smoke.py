@@ -11,7 +11,9 @@ toolkit. Phases, one JSON line each:
    card's name and power limit; then the registers and spills that
    ``ptxas -v`` gives the flash-attention kernels (``flash_ptxas``) and
    the Bloom insert kernels (``bloom_insert_ptxas``, with each one's
-   instructions, shuffles and reductions in its SASS): no spill allowed.
+   instructions, shuffles and reductions in its SASS), and the
+   direct-insert kernels (``cuckoo_insert_ptxas``, with the threads an SM
+   holds at each one's registers): no spill allowed.
 2. main path at 2^28 slots — ``repro_torch.amq.make("cuckoo",
    capacity=floor(0.95 * 2^28))`` (fp 16, bucket 16, XOR, fmix32: a
    512 MiB table, ten times the L2), filled to load 0.95 in 16 batches of
@@ -52,7 +54,12 @@ toolkit. Phases, one JSON line each:
    own data touches (see :func:`touched_buckets`). Then the bulk kernel
    against the direct-insert kernel where segments are long: 2^27 keys
    into the empty 2^28-slot table (eight keys a primary bucket), both
-   held to the order-free outcome first. A warm-up pass at 2^16 slots
+   held to the order-free outcome first. The direct-insert kernel also at
+   the main path's first batch (2^24 keys into the empty table) and past
+   full buckets (2^24 keys into the table at load 0.95), each held to the
+   order-free outcome at 2^24 keys and exactly to the plain loop at 2^12,
+   then timed beside a bound from its own touched buckets (its row's
+   ``shapes``). A warm-up pass at 2^16 slots
    (both engines, and the k-mer and Bloom kernels) runs before anything
    is timed.
 5. fills at 2^28 slots — five fresh handles at the main path's capacity,
@@ -1393,6 +1400,62 @@ def sass_census(name: str, stem: str):
     return out
 
 
+def resident_threads(registers: int, threads: int = 256) -> int:
+    """Threads an SM holds of a kernel at ``registers`` a thread in blocks
+    of ``threads``: 65536 registers, given a warp 256 at a time; at most
+    2048 threads and 32 blocks."""
+    per_warp = -(-registers * 32 // 256) * 256
+    blocks = min(32, 2048 // threads, 65536 // (per_warp * (threads // 32)))
+    return blocks * threads
+
+
+def insert_ptxas(log: str) -> dict:
+    """Kernel #4's ``ptxas -v`` report with each instantiation's resident
+    threads an SM."""
+    report = ptxas_report(log, "cuckoo_insert")
+    for rec in report.values():
+        if "registers" in rec:
+            rec["resident_threads_per_sm"] = resident_threads(rec["registers"])
+    return report
+
+
+def insert_shapes(h, bases, keys, sub, work) -> dict:
+    """Kernel #4 at its other shapes (``bases``: {label: table}), each
+    held first to the order-free outcome of the plain loop at 2^24 keys
+    and exactly to it at 2^12, then timed beside the plain version with
+    the buckets the kernel's last timed run touched. Returns {label:
+    shape record}."""
+    cfg = h.config
+    n = keys.shape[0]
+    valid = torch.ones(n, dtype=torch.bool, device="cuda")
+    ok = torch.empty(n, dtype=torch.bool, device="cuda")
+    sub_valid = torch.ones(sub.shape[0], dtype=torch.bool, device="cuda")
+    shapes = {}
+    for label, base in bases.items():
+        def setup(base=base):
+            work.copy_(base)
+        turned_down = check_direct_insert(cfg, h.state, base, keys,
+                                          f"cuckoo_insert_direct {label}")
+        err = same_outcome(
+            cfg, base, sub,
+            lambda t: K.cuckoo_insert_direct(
+                cfg, h.state._replace(table=t), sub, sub_valid)[1],
+            lambda t: cuckoo_insert_direct_plain(cfg, t, sub, sub_valid))
+        check(err == 0, f"cuckoo_insert_direct {label}: ok differs")
+        ms = cuda_ms(lambda: cuckoo_insert_launch(cfg, work, keys, valid, ok),
+                     reps=3, setup=setup)
+        touched = touched_buckets(cfg, base, keys, work, insert=True)
+        shapes[label] = {
+            "n": n, "turned_down": turned_down, "ms": ms,
+            "plain_ms": cuda_ms(lambda: cuckoo_insert_direct_plain(
+                cfg, work, sub, sub_valid), reps=3, setup=setup),
+            "plain_n": sub.shape[0], "touched": touched,
+            "bound_bytes": roofline.least_batch_bytes(cfg, "insert", n,
+                                                      touched),
+            "bound_int32_ops": roofline.int_ops_per_key(cfg, "insert") * n}
+    return shapes
+
+
 def flash_check(label, q, k, v, causal, window, q_offset, kv_heads) -> dict:
     """Kernel #11 against its plain version on one input (see
     ``FLASH_TOL``), its bf16 output against its float32 output rounded
@@ -1795,6 +1858,11 @@ def main() -> int:
         len(ptxas) == 2 and all(r.get("spill_stores") == 0
                                 for r in ptxas.values())),
           f"bloom_insert: the kernels' ptxas report {ptxas}")
+    ptxas = insert_ptxas(logs.get("cuckoo_insert", ""))
+    emit({"phase": "cuckoo_insert_ptxas", "compiled": "cuckoo_insert" in logs,
+          "kernels": ptxas})
+    check(all(r.get("spill_stores") == 0 for r in ptxas.values()),
+          f"cuckoo_insert: the kernels' ptxas report {ptxas}")
     for name in build.SOURCES:
         build.load(name)
 
@@ -1913,6 +1981,11 @@ def main() -> int:
                                                        sub_valid),
                     reps=3, setup=restore(half)),
         n, SUB, "insert", touched)
+    # Kernel #4 at the main path's first batch (the empty table) and past
+    # full buckets (the table at load 0.95).
+    insert_shape_recs = insert_shapes(
+        h, {"empty": torch.zeros_like(half), "load_0.95": snaps["full"]},
+        ins_keys, sub, work)
     _, i1, _ = CF.prepare_keys(cfg, ins_keys)
     bulk_order, bulk_seg = sorted_runs(i1)
     # Wrapper times include the sort that precedes the launch.
@@ -2069,15 +2142,21 @@ def main() -> int:
             "bytes_ms_at_measured_copy": nbytes / copy_bytes_per_s * 1e3})
         if name in wrapper_ms:
             kernels[-1]["wrapper_ms"] = wrapper_ms[name]
-    # Kernel #9's other shapes (see kmer_case_study), each beside its bound.
-    shapes = {}
-    next(r for r in kernels if r["name"] == "bloom_insert")["shapes"] = shapes
-    for label, b in bloom_shapes.items():
-        bytes_ms = b["bound_bytes"] / HBM_BYTES_PER_S * 1e3
-        ops_ms = b["bound_int32_ops"] / int_ops_per_s * 1e3
-        shapes[label] = {
-            **b, "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    # The other shapes of #9 (see kmer_case_study) and #4 (insert_shapes),
+    # each beside its bound.
+    def bounded(recs):
+        out = {}
+        for label, b in recs.items():
+            bytes_ms = b["bound_bytes"] / HBM_BYTES_PER_S * 1e3
+            ops_ms = b["bound_int32_ops"] / int_ops_per_s * 1e3
+            out[label] = {
+                **b, "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+        return out
+
+    by_name = {r["name"]: r for r in kernels}
+    by_name["bloom_insert"]["shapes"] = bounded(bloom_shapes)
+    by_name["cuckoo_insert_direct"]["shapes"] = bounded(insert_shape_recs)
     kernels.append({"name": "flash_attention", "route": "cuda",
                     "source": SOURCES["flash_attention"],
                     "replaces": TPU_KERNELS["flash_attention"],

@@ -196,6 +196,14 @@ __device__ __forceinline__ uint32_t pick(const uint32_t (&w)[W], int idx) {
   return out;
 }
 
+// Word ``idx`` of a bucket held in registers set to ``value`` (an unrolled
+// select, so the array stays in registers).
+template <int W>
+__device__ __forceinline__ void put(uint32_t (&w)[W], int idx, uint32_t value) {
+#pragma unroll
+  for (int i = 0; i < W; ++i) w[i] = i == idx ? value : w[i];
+}
+
 // Write tag into lane ``lane`` of word (layout.py: replace_tag).
 template <int F>
 __device__ __forceinline__ uint32_t replace_lane(uint32_t word, int lane, uint32_t tag) {

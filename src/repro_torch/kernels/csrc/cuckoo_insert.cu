@@ -3,30 +3,86 @@
 // Replaces the TPU kernel repro/kernels/cuckoo_insert.py:
 // cuckoo_insert_fused_pallas (_insert_fused_kernel). The TPU applied keys
 // one after another inside the kernel, race-free because grid steps run in
-// order on one core. Hopper runs thousands of keys at once, so each key
-// claims its slot with atomicCAS on the one 32-bit word it changes, as in
-// the paper.
+// order on one core with the table in VMEM, so it read both candidate
+// buckets of every key. Hopper runs thousands of keys at once against a
+// table in device memory, so each key claims its slot with atomicCAS on
+// the one 32-bit word it changes, as in the paper, and reads no bucket it
+// does not need.
 //
-// Per key (one thread): hash -> tag, i1, i2; read both buckets; take the
-// first free slot scanning bucket i1 circularly from scan_start, then
-// bucket i2 from the same start (layout.py: first_true_circular); CAS the
-// word. A failed CAS means another thread changed that word, so the thread
-// re-reads both buckets and rescans: the loop is lock-free, and every
-// retry follows someone else's success. Keys with both buckets full report
-// ok = 0 and go to the caller's eviction path. i1 == i2 (XOR policy with
-// fmix32(tag) & mask == 0) needs no special case: the second scan finds
-// the same full bucket.
+// Per key: hash -> tag, i1, i2. Read bucket i1 into registers and take its
+// first free slot scanning circularly from scan_start (layout.py:
+// first_true_circular), with one atomicCAS on that word. Only when i1 has
+// no free slot is bucket i2 read, and scanned from the same start. Slots
+// only fill during an insert, so a bucket a thread has seen full stays
+// full for the rest of the launch: a key never goes back to i1. Keys with
+// both buckets full report ok = 0 and go to the caller's eviction path.
+// i1 == i2 (XOR policy with fmix32(tag) & mask == 0) needs no special case:
+// the second scan finds the same full bucket.
+//
+// One loop with one CAS site serves both buckets, so a warp's CASes go out
+// together whichever bucket each of its threads settles in; a thread whose
+// i1 is full reads i2 before the warp's first CAS, not after it.
+//
+// A lost CAS returns the word as it now is. The thread puts it into its
+// register copy of the bucket and rescans the copy; the bucket is never
+// read again. A word the copy shows full is full, and a stale free slot
+// elsewhere in the copy only makes a later CAS fail, which refreshes that
+// word. Each lost CAS shows the thread at least one more filled lane, so a
+// key fails at most bucket_size times a bucket, and every failure follows
+// another thread's success: the loop is lock-free.
 //
 // Loads use __ldcg (at L2, the coherence point of the atomics), never
 // __ldg or const __restrict__: another thread's CAS must be visible.
 //
-// Bound: device-memory bytes — two random 32-byte bucket reads and one
-// 4-byte read-modify-write per key, plus key, valid and ok streams. Both
-// bucket loads are issued before either is used, and a retry costs only
-// the contended key.
+// Bound: device-memory bytes — per key one random 32-byte bucket read
+// (a second only where the first is full) and one 4-byte read-modify-write,
+// plus the key, valid and ok streams (kernels/roofline.py charges each
+// touched bucket once). What holds it on the card: the random sector reads
+// and the write-back of the sectors the CASes dirty, each a 32-byte access
+// at a random place in a table ten times the L2. More loads in flight do
+// not help: a thread that owned two or four keys and issued all their
+// loads together ran slower on the H100 (PERF.md, section 6), so a thread
+// owns one key.
 #include "cuckoo_common.cuh"
 
 namespace {
+
+// Settle one key: the first free slot of bucket i1 (words in ``w1``), else
+// of bucket i2 (words in ``w2`` once ``have2``; read here if i1 fills up
+// while the key tries it), each scanned circularly from the key's start.
+// One loop and one CAS site serve both buckets, so a warp's CASes go out
+// together whichever bucket each thread settles in. False once both
+// copies show no free slot.
+template <int W, int F>
+__device__ __forceinline__ bool settle(uint32_t* table, const cuckoo::Probe& p,
+                                       uint32_t (&w1)[W], uint32_t (&w2)[W],
+                                       bool have2) {
+  constexpr int TPW = 32 / F;
+  for (;;) {
+    int slot = cuckoo::first_circular<W, F>(cuckoo::free_slots<W, F>(w1), p.start);
+    const bool in1 = slot >= 0;
+    if (!in1) {
+      if (!have2) {
+        cuckoo::load_bucket<W, false>(table, p.i2, w2);
+        have2 = true;
+      }
+      slot = cuckoo::first_circular<W, F>(cuckoo::free_slots<W, F>(w2), p.start);
+    }
+    if (slot < 0) return false;
+    const int widx = slot / TPW;
+    const uint32_t old = in1 ? cuckoo::pick(w1, widx) : cuckoo::pick(w2, widx);
+    const uint32_t desired =
+        cuckoo::replace_lane<F>(old, slot % TPW, in1 ? p.tag1 : p.tag2);
+    const uint32_t seen =
+        atomicCAS(table + size_t(in1 ? p.i1 : p.i2) * W + widx, old, desired);
+    if (seen == old) return true;
+    if (in1) {
+      cuckoo::put(w1, widx, seen);
+    } else {
+      cuckoo::put(w2, widx, seen);
+    }
+  }
+}
 
 template <int W, int F>
 __global__ void cuckoo_insert_kernel(uint32_t* table, const uint2* keys,
@@ -40,28 +96,11 @@ __global__ void cuckoo_insert_kernel(uint32_t* table, const uint2* keys,
   }
   const uint2 k = keys[i];
   const cuckoo::Probe p = cuckoo::prepare(k.x, k.y, g);
-  constexpr int TPW = 32 / F;
-  for (;;) {
-    uint32_t w1[W], w2[W];
-    cuckoo::load_bucket<W, false>(table, p.i1, w1);
-    cuckoo::load_bucket<W, false>(table, p.i2, w2);
-    int slot = cuckoo::first_circular<W, F>(cuckoo::free_slots<W, F>(w1), p.start);
-    const bool in1 = slot >= 0;
-    if (!in1) slot = cuckoo::first_circular<W, F>(cuckoo::free_slots<W, F>(w2), p.start);
-    if (slot < 0) {
-      ok[i] = 0;
-      return;
-    }
-    const int widx = slot / TPW;
-    const uint32_t old = in1 ? cuckoo::pick(w1, widx) : cuckoo::pick(w2, widx);
-    const uint32_t desired =
-        cuckoo::replace_lane<F>(old, slot % TPW, in1 ? p.tag1 : p.tag2);
-    uint32_t* addr = table + size_t(in1 ? p.i1 : p.i2) * W + widx;
-    if (atomicCAS(addr, old, desired) == old) {
-      ok[i] = 1;
-      return;
-    }
-  }
+  uint32_t w1[W], w2[W];
+  cuckoo::load_bucket<W, false>(table, p.i1, w1);
+  const bool have2 = cuckoo::free_slots<W, F>(w1) == 0;
+  if (have2) cuckoo::load_bucket<W, false>(table, p.i2, w2);
+  ok[i] = settle<W, F>(table, p, w1, w2, have2);
 }
 
 }  // namespace

@@ -35,14 +35,6 @@
 
 namespace {
 
-// Word ``idx`` of a bucket held in registers set to ``value`` (an unrolled
-// select, so the array stays in registers).
-template <int W>
-__device__ __forceinline__ void put(uint32_t (&w)[W], int idx, uint32_t value) {
-#pragma unroll
-  for (int i = 0; i < W; ++i) w[i] = i == idx ? value : w[i];
-}
-
 template <int W, int F>
 __global__ void cuckoo_insert_bulk_kernel(uint32_t* table, const uint2* keys,
                                           const uint8_t* valid,
@@ -76,7 +68,7 @@ __global__ void cuckoo_insert_bulk_kernel(uint32_t* table, const uint2* keys,
         const uint32_t old = cuckoo::pick(w1, widx);
         const uint32_t desired = cuckoo::replace_lane<F>(old, slot % TPW, p.tag1);
         if (atomicCAS(table + size_t(p.i1) * W + widx, old, desired) == old) {
-          put(w1, widx, desired);
+          cuckoo::put(w1, widx, desired);
           res = 1;
           break;
         }

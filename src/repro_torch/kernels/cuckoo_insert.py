@@ -7,7 +7,8 @@ start, with one atomicCAS on the word it changes. No eviction: keys with
 both buckets full report ok = False.
 
 * Fused (``csrc/cuckoo_insert.cu``) replaces ``repro/kernels/
-  cuckoo_insert.py: cuckoo_insert_fused_pallas`` (SWAR zero masks).
+  cuckoo_insert.py: cuckoo_insert_fused_pallas`` (SWAR zero masks; bucket
+  i2 read only when i1 is full, a lost CAS refreshes the one word).
 * Unfused (``csrc/cuckoo_insert_unfused.cu``) replaces
   ``cuckoo_insert_pallas`` (lanes unpacked one by one).
 

@@ -22,7 +22,13 @@ same table on the card as on the CPU, and the adapter's frontier route
 (direct-insert kernel, then the frontier) fills to 0.95 under the
 invariants. The k-mer pack and the Bloom kernels equal their plain
 versions bit for bit. The unfused query and direct-insert kernels are
-held as their fused counterparts are. Core ``delete`` and ``apply_ops``
+held as their fused counterparts are. The direct-insert kernel is also
+held exactly to the plain loop on tables near load 0.9, where keys go on
+to bucket i2 or are turned down, with keys chosen so that no two share a
+bucket: over every layout, on a 64-bucket XOR table where some keys have
+one candidate bucket, at batch edges, with a ``valid`` mask ending False,
+and with every key twice (a key with one free slot places exactly one
+copy). Core ``delete`` and ``apply_ops``
 (torch ops, deterministic) leave the same table on the card as on the
 CPU, and ``FilterHandle.apply_ops`` on the card (the mixed-op kernel for
 its net deletes, the insert kernels for its net inserts) gives core
@@ -42,6 +48,7 @@ import torch
 
 from repro_torch import amq
 from repro_torch.core import CuckooConfig, keys_from_numpy
+from repro_torch.core.bits64 import to_i32
 from repro_torch.core import cuckoo_filter as CF
 from repro_torch.core import layout as L
 from repro_torch.data.kmer import kmer_keys
@@ -336,6 +343,156 @@ def test_insert_under_contention_holds_invariants(cuda):
     state, ok = K.cuckoo_insert_direct(cfg, cfg.init(cuda), keys)
     torch.cuda.synchronize()
     _hold_insert_invariants(cfg, state, keys, ok, cuda)
+
+
+def _dense_table(cfg, seed, device):
+    """A table near load 0.9 from random tags: half the buckets full, in the
+    rest each slot filled with probability 0.8. Most keys find bucket i1
+    full and go on to bucket i2; about a quarter find both full."""
+    rng = np.random.default_rng(seed)
+    nb, bs = cfg.num_buckets, cfg.bucket_size
+    filled = (rng.random(nb) < 0.5)[:, None] | (rng.random((nb, bs)) < 0.8)
+    tags = torch.from_numpy(rng.integers(1, 1 << cfg.fp_bits, size=(nb, bs))
+                            * filled)
+    return to_i32(L.pack_tags(tags, cfg.fp_bits).reshape(-1)).to(device)
+
+
+def _disjoint(cfg, keys):
+    """Positions, in batch order, of the keys whose candidate buckets no
+    earlier kept key has. With no bucket shared between two keys, every
+    order of the launch's threads gives the sequential loop's outcome."""
+    _, i1, i2 = prepare_keys_plain(cfg, keys)
+    used, keep = set(), []
+    for k, (a, b) in enumerate(zip(i1.tolist(), i2.tolist())):
+        if a not in used and b not in used:
+            used.update((a, b))
+            keep.append(k)
+    return torch.tensor(keep, device=keys.device)
+
+
+def _direct_insert_exact(cfg, table, keys, valid):
+    """#4 (one launch) and the plain loop on copies of ``table``: equal
+    ``ok``, masked keys False, ``count`` following ``ok``, and equal tag
+    multisets in every bucket. Returns ``ok``."""
+    K.reset_launches()
+    t_kernel, t_plain = table.clone(), table.clone()
+    st, ok = K.cuckoo_insert_direct(
+        cfg, cfg.init(table.device)._replace(table=t_kernel), keys, valid)
+    ok_plain = cuckoo_insert_direct_plain(cfg, t_plain, keys, valid)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["cuckoo_insert_direct"] == 1
+    assert torch.equal(ok, ok_plain) and not ok[~valid].any()
+    assert int(st.count) == int(ok.sum())
+    assert torch.equal(_bucket_multisets(cfg, t_kernel),
+                       _bucket_multisets(cfg, t_plain))
+    return ok
+
+
+def _i1_full(cfg, table, keys):
+    _, i1, _ = prepare_keys_plain(cfg, keys)
+    return (L.bucket_tags(table, i1, cfg.layout) != 0).all(-1)
+
+
+@pytest.mark.parametrize("layout", LAYOUTS, ids=lambda c: "b{}f{}{}{}".format(*c))
+def test_insert_past_full_buckets_matches_plain(cuda, layout):
+    """#4 on a table near load 0.9: many keys are placed in bucket i2 past
+    a full i1, and some are turned down with both buckets full."""
+    cfg = _cfg(*layout)
+    table = _dense_table(cfg, 20, cuda)
+    pool = _keys(21, 8192, cuda)
+    keys = pool[_disjoint(cfg, pool)]
+    valid = torch.from_numpy(
+        np.random.default_rng(22).random(keys.shape[0]) < 0.9).to(cuda)
+    ok = _direct_insert_exact(cfg, table, keys, valid)
+    assert int((ok & _i1_full(cfg, table, keys)).sum()) > 100
+    assert int((~ok & valid).sum()) > 100
+
+
+XOR_LAYOUTS = [c for c in LAYOUTS if c[2] == "xor"]
+
+
+@pytest.mark.parametrize("layout", XOR_LAYOUTS,
+                         ids=lambda c: "b{}f{}{}{}".format(*c))
+def test_insert_small_xor_table_with_one_candidate_bucket(cuda, layout):
+    """64 buckets under XOR, where a key has i1 == i2 when fmix32(tag) & 63
+    is 0: such a key takes its one bucket's free slot, or is turned down
+    when that bucket is full."""
+    cfg = _cfg(*layout, num_buckets=64)
+    table = _dense_table(cfg, 23, cuda)
+    pool = _keys(24, 8192, cuda)
+    _, i1, i2 = prepare_keys_plain(cfg, pool)
+    pool = torch.cat([pool[i1 == i2], pool[i1 != i2]])
+    keys = pool[_disjoint(cfg, pool)]
+    ok = _direct_insert_exact(cfg, table, keys,
+                              torch.ones(keys.shape[0], dtype=torch.bool,
+                                         device=cuda))
+    _, j1, j2 = prepare_keys_plain(cfg, keys)
+    one = j1 == j2
+    assert bool(ok[one].any()) and bool((~ok[one]).any())
+
+
+@pytest.mark.parametrize("n", [1, 255, 257])
+def test_insert_batch_edges_match_plain(cuda, n):
+    """Batches one key short of and one past a block's keys, and one key."""
+    cfg = _cfg(16, 16, "xor", "fmix32")
+    table = _dense_table(cfg, 25, cuda)
+    pool = _keys(26, 4096, cuda)
+    keys = pool[_disjoint(cfg, pool)[:n]]
+    assert keys.shape[0] == n
+    _direct_insert_exact(cfg, table, keys,
+                         torch.ones(n, dtype=torch.bool, device=cuda))
+
+
+def test_insert_valid_mask_ending_false(cuda):
+    """The last keys of the batch masked out: they report False and write
+    nothing."""
+    cfg = _cfg(8, 16, "offset", "xxhash64")
+    table = _dense_table(cfg, 27, cuda)
+    pool = _keys(28, 4096, cuda)
+    keys = pool[_disjoint(cfg, pool)[:1000]]
+    valid = torch.ones(1000, dtype=torch.bool, device=cuda)
+    valid[-100:] = False
+    ok = _direct_insert_exact(cfg, table, keys, valid)
+    assert not ok[-100:].any() and bool(ok[:900].any())
+
+
+@pytest.mark.parametrize("layout", [LAYOUTS[0], LAYOUTS[5], LAYOUTS[9]],
+                         ids=lambda c: "b{}f{}{}{}".format(*c))
+def test_insert_every_key_duplicated(cuda, layout):
+    """Every key twice in one launch, half the copies in neighbouring
+    threads and half a batch apart. A key with two or more free slots
+    across its buckets places both copies, one with none places neither:
+    there ``ok`` equals the plain loop's. A key with one free slot places
+    exactly one copy, whichever CAS lands first; the tag multisets equal
+    the plain loop's everywhere."""
+    cfg = _cfg(*layout)
+    table = _dense_table(cfg, 29, cuda)
+    pool = _keys(30, 4096, cuda)
+    uniq = pool[_disjoint(cfg, pool)[:1000]]
+    a, b = uniq[:500], uniq[500:]
+    keys = torch.cat([a.repeat_interleave(2, dim=0), b, b])
+    copies = torch.cat([torch.arange(500).repeat_interleave(2),
+                        torch.arange(500, 1000), torch.arange(500, 1000)]).to(cuda)
+    _, i1, i2 = prepare_keys_plain(cfg, uniq)
+    free1 = (L.bucket_tags(table, i1, cfg.layout) == 0).sum(-1)
+    free2 = (L.bucket_tags(table, i2, cfg.layout) == 0).sum(-1)
+    free = free1 + torch.where(i1 == i2, 0, free2)
+    K.reset_launches()
+    t_kernel, t_plain = table.clone(), table.clone()
+    st, ok = K.cuckoo_insert_direct(
+        cfg, cfg.init(cuda)._replace(table=t_kernel), keys)
+    ok_plain = cuckoo_insert_direct_plain(cfg, t_plain, keys)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["cuckoo_insert_direct"] == 1
+    decided = (free != 1)[copies]
+    assert torch.equal(ok[decided], ok_plain[decided])
+    placed = torch.zeros(1000, dtype=torch.int64, device=cuda)
+    placed.index_add_(0, copies, ok.long())
+    assert torch.equal(placed, torch.clamp(free, max=2))
+    assert int(st.count) == int(ok.sum()) == int(ok_plain.sum())
+    assert torch.equal(_bucket_multisets(cfg, t_kernel),
+                       _bucket_multisets(cfg, t_plain))
+    assert bool((free == 0).any()) and bool((free == 1).any())
 
 
 def test_deletes_under_contention_follow_batch_order(cuda):

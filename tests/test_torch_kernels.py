@@ -7,7 +7,8 @@ oracles: the query on tables carried across with ``repro_torch.convert``;
 the direct insert and the mixed op stream with table and ``ok`` bit-exact.
 The unfused kernels' plain versions (query #3, direct insert #5) are held
 against ``cuckoo_query_pallas`` and ``cuckoo_insert_pallas`` the same way,
-on the same cells.
+on the same cells; the direct insert's plain version also on tables near
+load 0.95, where bucket i2 and the turned-down keys decide the outcome.
 The wrappers must raise on what their kernels do not take, and count no
 launch on the CPU.
 """
@@ -33,6 +34,7 @@ from repro.kernels.cuckoo_query import (cuckoo_query_fused_pallas,
 from repro_torch import convert
 from repro_torch.core import CuckooState
 from repro_torch.core import cuckoo_filter as TCF
+from repro_torch.core import layout as TL
 from repro_torch.kernels import ops as K
 from repro_torch.kernels import ref as TR
 from repro_torch.kernels import roofline
@@ -159,6 +161,42 @@ def test_insert_plain_matches_pallas(cell):
     assert torch.equal(ok_ref, cuckoo_insert_direct_plain(tcfg, table_all,
                                                           _t(keys_np)))
     assert torch.equal(t_ref, table_all)
+
+
+# A table near load 0.95: most keys find bucket i1 full, so they go on to
+# bucket i2, and many find both full and are turned down.
+FULL_CELLS = [(16, 16, 0.95, "xor", "fmix32"),
+              (8, 32, 0.95, "offset", "xxhash64")]
+
+
+@pytest.mark.parametrize("cell", FULL_CELLS,
+                         ids=[f"b{c[0]}f{c[1]}{c[3]}" for c in FULL_CELLS])
+def test_insert_plain_matches_pallas_past_full_buckets(cell):
+    """#4's plain version against the fused Pallas kernel where the second
+    bucket and the turned-down keys decide the outcome: table and ``ok``
+    bit-exact."""
+    bs, fb, occ, pol, hk = cell
+    cfg = _cfg(bs, fb, pol, hk)
+    tcfg = convert.config_from_reference(cfg)
+    rng = np.random.default_rng(14)
+    state, tstate = _filled(cfg, occ)
+    keys_np = keys_from_numpy(_raw(rng, 2 * BLOCK))
+    kj = jnp.asarray(keys_np)
+    valid = rng.random(2 * BLOCK) < 0.9
+    t_want, ok_want = _jit_blk(cuckoo_insert_fused_pallas, cfg)(
+        state.table, kj[:, 0], kj[:, 1], jnp.asarray(valid, jnp.uint32))
+    table = tstate.table.clone()
+    ok = cuckoo_insert_direct_plain(tcfg, table, _t(keys_np),
+                                    torch.from_numpy(valid))
+    np.testing.assert_array_equal(_u32(table), np.asarray(t_want))
+    np.testing.assert_array_equal(ok.numpy(), np.asarray(ok_want).astype(bool))
+    # The batch reaches both outcomes the first bucket cannot give: keys
+    # placed in bucket i2, and valid keys turned down.
+    _, i1, _ = TCF.prepare_keys_plain(tcfg, _t(keys_np))
+    i1_full = (TL.bucket_tags(tstate.table, i1, tcfg.layout) != 0).all(-1)
+    in_i2 = ok & i1_full
+    assert int(in_i2.sum()) > 0
+    assert int((~ok & torch.from_numpy(valid)).sum()) > 0
 
 
 @pytest.mark.parametrize("cell", CELLS, ids=IDS)
