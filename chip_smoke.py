@@ -12,8 +12,11 @@ toolkit. Phases, one JSON line each:
    ``ptxas -v`` gives the flash-attention kernels (``flash_ptxas``) and
    the Bloom insert kernels (``bloom_insert_ptxas``, with each one's
    instructions, shuffles and reductions in its SASS), and the
-   direct-insert kernels (``cuckoo_insert_ptxas``, with the threads an SM
-   holds at each one's registers): no spill allowed.
+   direct-insert and fused query kernels (``cuckoo_insert_ptxas``,
+   ``cuckoo_query_ptxas``, with the threads an SM holds at each one's
+   registers): no spill allowed. Where ``cuobjdump`` is there, the query
+   kernels' SASS must hold bucket i2's loads behind the branch on bucket
+   i1's match.
 2. main path at 2^28 slots — ``repro_torch.amq.make("cuckoo",
    capacity=floor(0.95 * 2^28))`` (fp 16, bucket 16, XOR, fmix32: a
    512 MiB table, ten times the L2), filled to load 0.95 in 16 batches of
@@ -59,7 +62,12 @@ toolkit. Phases, one JSON line each:
    full buckets (2^24 keys into the table at load 0.95), each held to the
    order-free outcome at 2^24 keys and exactly to the plain loop at 2^12,
    then timed beside a bound from its own touched buckets (its row's
-   ``shapes``). A warm-up pass at 2^16 slots
+   ``shapes``). The fused query kernel also at load 0.5 and right after
+   the fill (the row's stored keys) and on 2^24 fresh keys (all negative),
+   each equal to its plain version under both hashes and timed beside a
+   bound from the buckets it needs and the share of keys that bucket i1
+   settles (its row's ``shapes``, with the case study's query). A warm-up
+   pass at 2^16 slots
    (both engines, and the k-mer and Bloom kernels) runs before anything
    is timed.
 5. fills at 2^28 slots — five fresh handles at the main path's capacity,
@@ -86,8 +94,9 @@ toolkit. Phases, one JSON line each:
    the Bloom insert at two shapes: the first batch into the empty table
    and the last batch into the table that holds all the others (the
    kernel's result there equal to the case study's table), each beside a
-   bound from its own batch's blocks. Keys/s of each step and the
-   cuckoo/Bloom query ratio.
+   bound from its own batch's blocks. The fused query kernel on every
+   position against the table after the fill, as at the main path's
+   shapes. Keys/s of each step and the cuckoo/Bloom query ratio.
 7. the mixed path at 2^28 slots — ``make("cuckoo")`` prefilled to load
    0.5, then three batches of 2^24 ops through ``FilterHandle.apply_ops``
    under each of the JAX package's ``benchmarks/mixed_workload.py`` mixes
@@ -426,6 +435,17 @@ def check_delete(cfg, state, base, keys, label: str) -> None:
                 table_codes(cfg, base))
 
 
+def settled_at_i1(cfg, base, tag, i1, insert=False):
+    """Whether ``base`` settles each key (its tag and primary bucket) at
+    the primary: a free slot for an insert, a matching tag for a query or
+    delete."""
+    want = (torch.zeros_like(tag) if insert
+            else cfg.placement.place_tag(tag, False))
+    return torch.cat([
+        (L.bucket_tags(base, b, cfg.layout) == w[:, None]).any(-1)
+        for b, w in zip(i1.split(CHUNK), want.split(CHUNK))])
+
+
 def touched_buckets(cfg, base, keys, after=None, insert=False):
     """The distinct buckets a batch of ``keys`` needs at least, from this
     run's data -> (read, written). Read: every key's primary bucket; its
@@ -435,11 +455,7 @@ def touched_buckets(cfg, base, keys, after=None, insert=False):
     those changed buckets. The bound charges each once (roofline)."""
     lay = cfg.layout
     tag, i1, i2 = CF.prepare_keys_plain(cfg, keys)
-    want = (torch.zeros_like(tag) if insert
-            else cfg.placement.place_tag(tag, False))
-    settled = torch.cat([
-        (L.bucket_tags(base, b, lay) == w[:, None]).any(-1)
-        for b, w in zip(i1.split(CHUNK), want.split(CHUNK))])
+    settled = settled_at_i1(cfg, base, tag, i1, insert)
     need, written = [i1, i2[~settled]], 0
     if after is not None:
         changed = (after != base).view(-1, lay.words_per_bucket).any(1)
@@ -812,7 +828,8 @@ def fpr_of(label, hits, expected):
 def kmer_case_study(gen):
     """The k-mer set of a synthetic chromosome 1 through ``kmer_keys``,
     the cuckoo filter and the blocked Bloom filter (see the module
-    docstring). Returns (timing records, launch counts)."""
+    docstring). Returns (timing records, wrapper times, launch counts,
+    errors, #9's shapes, #2's shape)."""
     secs = {}
     t0 = time.perf_counter()
     genome = synthetic_genome(GENOME_BASES, SEED)
@@ -849,6 +866,7 @@ def kmer_case_study(gen):
     cfg = h.config
     insert_s, per_batch, peak = fill(h, "kmer_cuckoo", batches,
                                      [False] * len(batches))
+    filled = h.state.table.clone()
     hits, query_s = timed(lambda: h.query(keys).hits)
     misses = int((~hits).sum())
     check(misses == 0, f"kmer_cuckoo: {misses} of {n_pos} positions missed")
@@ -1000,6 +1018,9 @@ def kmer_case_study(gen):
     check(errs["bloom_insert"] == 0, f"bloom_insert: {errs['bloom_insert']} "
           "table words differ from the plain version's at the extra shapes")
     del small_table
+    # Kernel #2 on every position against the table after the fill.
+    query_rec = query_shape(cfg, h.state._replace(table=filled), keys)
+    del filled
     secs["timings"] = time.perf_counter() - t0
 
     emit({"phase": "kmer_case_study", "bases": GENOME_BASES, "k": KMER_K,
@@ -1030,7 +1051,7 @@ def kmer_case_study(gen):
           "launches": launches, "max_abs_err": errs, "seconds": secs})
     del h, hb, keys, distinct, order, batches, codes, table, hit
     torch.cuda.empty_cache()
-    return timing, wrapper, launches, errs, bloom_shapes
+    return timing, wrapper, launches, errs, bloom_shapes, query_rec
 
 
 # ---------------------------------------------------------------------------
@@ -1363,40 +1384,73 @@ def ptxas_report(log: str, stem: str) -> dict:
     return out
 
 
-def sass_census(name: str, stem: str):
-    """Instructions of each kernel instantiation of library ``name`` whose
-    name starts with ``stem``, of them the shuffles (SHFL) and global
-    reductions (RED), and the median count from one reduction to the next
-    (a round of #9's group, one reduction each, where blocks are narrow),
-    from ``cuobjdump -sass`` (None without the tool)."""
+def sass_listing(name: str, stem: str):
+    """Each kernel instantiation of library ``name`` whose name starts with
+    ``stem`` -> its instructions in order as (opcode, guarded) pairs, where
+    ``guarded`` says a predicate other than PT guards it, from ``cuobjdump
+    -sass`` (None without the tool)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         return None
     sass = subprocess.run([tool, "-sass", build.load(name)._name],
                           capture_output=True, text=True, check=True,
                           timeout=120).stdout
-    out, rec = {}, None
+    out, listing = {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             fn = re.sub(rf"^_ZN\w*?_GLOBAL__N__\w+?\d+({stem}\w*?_kernel)",
                         r"\1", m.group(1))
-            rec = out.setdefault(fn, {"instructions": 0, "SHFL": 0, "RED": 0,
-                                      "at": []})
+            listing = out.setdefault(fn, [])
             continue
-        m = re.search(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)",
+        m = re.search(r"/\*[0-9a-f]{4}\*/\s+(@!?U?P(\w+)\s+)?([A-Z][A-Z0-9]*)",
                       line)
-        if rec is not None and m and m.group(1) != "NOP":
-            rec["instructions"] += 1
-            if m.group(1) == "SHFL":
-                rec["SHFL"] += 1
-            elif m.group(1) in ("RED", "REDG"):
-                rec["RED"] += 1
-                rec["at"].append(rec["instructions"])
-    for rec in out.values():
-        at = rec.pop("at")
-        rec["between_reds"] = (statistics.median(np.diff(at).tolist())
-                               if len(at) > 1 else None)
+        if listing is not None and m and m.group(3) != "NOP":
+            listing.append((m.group(3), bool(m.group(1)) and m.group(2) != "T"))
+    return out
+
+
+def sass_census(name: str, stem: str):
+    """Instructions of each kernel instantiation of library ``name`` whose
+    name starts with ``stem``, of them the shuffles (SHFL) and global
+    reductions (RED), and the median count from one reduction to the next
+    (a round of #9's group, one reduction each, where blocks are narrow),
+    from ``cuobjdump -sass`` (None without the tool)."""
+    listings = sass_listing(name, stem)
+    if listings is None:
+        return None
+    out = {}
+    for fn, listing in listings.items():
+        ops = [op for op, _ in listing]
+        at = [k + 1 for k, op in enumerate(ops) if op in ("RED", "REDG")]
+        out[fn] = {"instructions": len(ops), "SHFL": ops.count("SHFL"),
+                   "RED": len(at),
+                   "between_reds": (statistics.median(np.diff(at).tolist())
+                                    if len(at) > 1 else None)}
+    return out
+
+
+def query_loads(name: str = "cuckoo_query"):
+    """Where each instantiation of the query kernel issues its global loads
+    (``cuobjdump -sass``; None without the tool): the LDGs, and whether
+    bucket i2's (the last ``W / 4`` 16-byte loads of a bucket of W words,
+    one load below four words) sit behind a branch: guarded themselves, or
+    after a guarded BRA or EXIT that follows every earlier LDG."""
+    listings = sass_listing(name, name)
+    if listings is None:
+        return None
+    out = {}
+    for fn, listing in listings.items():
+        words = int(re.search(r"ILi(\d+)ELi\d+E", fn).group(1))
+        per_bucket = max(1, words // 4)
+        loads = [k for k, (op, _) in enumerate(listing) if op == "LDG"]
+        i2, before = loads[-per_bucket:], loads[:-per_bucket]
+        behind = bool(before) and (
+            all(listing[k][1] for k in i2)
+            or any(op in ("BRA", "EXIT") and guarded
+                   for op, guarded in listing[before[-1] + 1:i2[0]]))
+        out[fn] = {"LDG": len(loads), "LDG_expected": 1 + 2 * per_bucket,
+                   "i2_behind_branch": behind}
     return out
 
 
@@ -1409,10 +1463,9 @@ def resident_threads(registers: int, threads: int = 256) -> int:
     return blocks * threads
 
 
-def insert_ptxas(log: str) -> dict:
-    """Kernel #4's ``ptxas -v`` report with each instantiation's resident
-    threads an SM."""
-    report = ptxas_report(log, "cuckoo_insert")
+def ptxas_threads(log: str, stem: str) -> dict:
+    """``ptxas_report`` with each instantiation's resident threads an SM."""
+    report = ptxas_report(log, stem)
     for rec in report.values():
         if "registers" in rec:
             rec["resident_threads_per_sm"] = resident_threads(rec["registers"])
@@ -1454,6 +1507,43 @@ def insert_shapes(h, bases, keys, sub, work) -> dict:
                                                       touched),
             "bound_int32_ops": roofline.int_ops_per_key(cfg, "insert") * n}
     return shapes
+
+
+def query_shape(cfg, state, keys, **rec) -> dict:
+    """Kernel #2 on ``keys`` against ``state``'s table: equal to its plain
+    version bit for bit under both hashes (in parts of 2^24 keys), then
+    timed beside it (the plain version on the first part), with the share
+    of keys whose bucket i1 holds a matching tag (the keys that skip bucket
+    i2) and the work the query needs: as buckets, every key's i1 and its
+    i2 where i1 holds no matching tag; as operations, the op's floor less
+    bucket i2's SWAR test for each key that i1 settles."""
+    n = keys.shape[0]
+    parts = keys.split(PROBES)
+    for kind in ("fmix32", "xxhash64"):
+        c = dataclasses.replace(cfg, hash_kind=kind)
+        got = K.cuckoo_query(c, state, keys).split(PROBES)
+        bad = sum(int((g != cuckoo_query_plain(c, state.table, p)).sum())
+                  for g, p in zip(got, parts))
+        check(bad == 0, f"cuckoo_query {rec}: {bad} keys differ from the "
+                        f"plain version's ({kind})")
+    settled = 0
+    need = torch.zeros(cfg.num_buckets, dtype=torch.bool, device=keys.device)
+    for part in parts:
+        tag, i1, i2 = CF.prepare_keys_plain(cfg, part)
+        at_i1 = settled_at_i1(cfg, state.table, tag, i1)
+        settled += int(at_i1.sum())
+        need[i1] = True
+        need[i2[~at_i1]] = True
+    touched = (int(need.sum()), 0)
+    return {**rec, "n": n, "ms": cuda_ms(lambda: K.cuckoo_query(cfg, state, keys)),
+            "plain_ms": cuda_ms(lambda: cuckoo_query_plain(
+                cfg, state.table, parts[0]), reps=3),
+            "plain_n": parts[0].shape[0], "i1_hit_share": settled / n,
+            "touched": touched,
+            "bound_bytes": roofline.least_batch_bytes(cfg, "query", n, touched),
+            "bound_int32_ops": roofline.int_ops_per_key(cfg, "query") * n
+            - cfg.layout.words_per_bucket * roofline.SWAR_WORD_INSTRUCTIONS
+            * settled}
 
 
 def flash_check(label, q, k, v, causal, window, q_offset, kv_heads) -> dict:
@@ -1858,11 +1948,19 @@ def main() -> int:
         len(ptxas) == 2 and all(r.get("spill_stores") == 0
                                 for r in ptxas.values())),
           f"bloom_insert: the kernels' ptxas report {ptxas}")
-    ptxas = insert_ptxas(logs.get("cuckoo_insert", ""))
+    ptxas = ptxas_threads(logs.get("cuckoo_insert", ""), "cuckoo_insert")
     emit({"phase": "cuckoo_insert_ptxas", "compiled": "cuckoo_insert" in logs,
           "kernels": ptxas})
     check(all(r.get("spill_stores") == 0 for r in ptxas.values()),
           f"cuckoo_insert: the kernels' ptxas report {ptxas}")
+    ptxas = ptxas_threads(logs.get("cuckoo_query", ""), "cuckoo_query")
+    loads = query_loads()
+    emit({"phase": "cuckoo_query_ptxas", "compiled": "cuckoo_query" in logs,
+          "kernels": ptxas, "sass": loads})
+    check(all(r.get("spill_stores") == 0 for r in ptxas.values()),
+          f"cuckoo_query: the kernels' ptxas report {ptxas}")
+    check(loads is None or all(r["i2_behind_branch"] for r in loads.values()),
+          f"cuckoo_query: bucket i2's loads not behind the branch: {loads}")
     for name in build.SOURCES:
         build.load(name)
 
@@ -1967,6 +2065,16 @@ def main() -> int:
         cuda_ms(lambda: K.cuckoo_query(cfg, h.state, keys)),
         cuda_ms(lambda: cuckoo_query_plain(cfg, h.state.table, keys), reps=3),
         n, n, "query", touched_buckets(cfg, h.state.table, keys))
+    # Kernel #2 at more shapes: the row's stored keys on the table at load
+    # 0.5 and on the table right after the fill, and 2^24 fresh keys from
+    # the disjoint half of the key space (all negative) on the latter.
+    query_shape_recs = {
+        "load_0.5": query_shape(cfg, h.state._replace(table=half), keys),
+        "load_0.95": query_shape(cfg, h.state._replace(table=snaps["full"]),
+                                 keys),
+        "load_0.95_negative": query_shape(
+            cfg, h.state._replace(table=snaps["full"]),
+            normalize_keys(random_keys(gen, PROBES, top_half=True)))}
     ins_valid = torch.ones(n, dtype=torch.bool, device="cuda")
     ins_ok = torch.empty(n, dtype=torch.bool, device="cuda")
     sub_valid = torch.ones(SUB, dtype=torch.bool, device="cuda")
@@ -2084,8 +2192,8 @@ def main() -> int:
 
     # --- the k-mer case study -------------------------------------------
     t0 = time.perf_counter()
-    (kmer_timing, kmer_wrapper, kmer_launches, kmer_errs,
-     bloom_shapes) = kmer_case_study(gen)
+    (kmer_timing, kmer_wrapper, kmer_launches, kmer_errs, bloom_shapes,
+     query_shape_recs["kmer_case_study"]) = kmer_case_study(gen)
     emit({"phase": "kmer_case_study_seconds",
           "seconds": time.perf_counter() - t0})
 
@@ -2142,8 +2250,8 @@ def main() -> int:
             "bytes_ms_at_measured_copy": nbytes / copy_bytes_per_s * 1e3})
         if name in wrapper_ms:
             kernels[-1]["wrapper_ms"] = wrapper_ms[name]
-    # The other shapes of #9 (see kmer_case_study) and #4 (insert_shapes),
-    # each beside its bound.
+    # The other shapes of #9 (see kmer_case_study), #4 (insert_shapes) and
+    # #2 (query_shape), each beside its bound.
     def bounded(recs):
         out = {}
         for label, b in recs.items():
@@ -2157,6 +2265,7 @@ def main() -> int:
     by_name = {r["name"]: r for r in kernels}
     by_name["bloom_insert"]["shapes"] = bounded(bloom_shapes)
     by_name["cuckoo_insert_direct"]["shapes"] = bounded(insert_shape_recs)
+    by_name["cuckoo_query"]["shapes"] = bounded(query_shape_recs)
     kernels.append({"name": "flash_attention", "route": "cuda",
                     "source": SOURCES["flash_attention"],
                     "replaces": TPU_KERNELS["flash_attention"],

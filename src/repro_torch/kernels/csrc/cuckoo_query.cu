@@ -2,19 +2,39 @@
 //
 // Replaces the TPU kernel repro/kernels/cuckoo_query.py:
 // cuckoo_query_fused_pallas (_query_fused_kernel): hash -> tag, i1, i2 ->
-// both candidate buckets -> SWAR match -> hit. The TPU pinned the whole
-// table in VMEM; on Hopper the table stays in device memory (a 512 MiB
-// table is ten times the 50 MB L2).
+// candidate buckets -> SWAR match -> hit. The TPU pinned the whole table
+// in VMEM and gathered both buckets of every key in one go; on Hopper the
+// table stays in device memory (a 512 MiB table is ten times the 50 MB
+// L2), so each bucket read is a random 32-byte sector (16 x 16-bit).
 //
-// Bound: device-memory bytes, dominated by two random bucket reads per key
-// (2 x 32 bytes at 16 x 16-bit), plus 8 key bytes in and 1 hit byte out.
-// The design: one thread per key; both buckets are requested with 16-byte
-// read-only vector loads (__ldg) before either is used, so each thread has
-// two independent misses in flight; the SWAR match runs on the packed
-// words in registers, with no unpacking.
+// Bound: device-memory bytes, set by those random bucket reads: about
+// 1.06 a key for the stored keys the main path queries (bucket i1 holds
+// the tag of nearly every stored key), two a key for keys not stored; plus
+// 8 key bytes in and 1 hit byte out.
+//
+// The design reads no bucket the answer does not need. One thread per key
+// (more keys a thread lost on the direct insert's same random traffic):
+// hash, read bucket i1 with 16-byte read-only vector loads (__ldg: the
+// table does not change during a query), SWAR-match it against t1 on the
+// packed words in registers, and only if no lane matches read bucket i2
+// and match it against t2. A key that is not stored thus issues its two
+// reads one after the other. No case needs its own code: under XOR a key
+// with i1 == i2 reads its one bucket twice if it misses, and under OFFSET
+// t2 carries the choice bit, so a tag stored in i1 never matches at i2.
 #include "cuckoo_common.cuh"
 
 namespace {
+
+// True if any lane of the bucket's packed words equals ``tag``.
+template <int W, int F>
+__device__ __forceinline__ bool bucket_has(const uint32_t (&w)[W],
+                                           uint32_t tag) {
+  const uint32_t b = cuckoo::broadcast_tag<F>(tag);
+  uint32_t any = 0;
+#pragma unroll
+  for (int k = 0; k < W; ++k) any |= cuckoo::swar_zero_mask<F>(w[k] ^ b);
+  return any != 0;
+}
 
 template <int W, int F>
 __global__ void cuckoo_query_kernel(const uint32_t* __restrict__ table,
@@ -25,17 +45,14 @@ __global__ void cuckoo_query_kernel(const uint32_t* __restrict__ table,
   if (i >= n) return;
   const uint2 k = keys[i];
   const cuckoo::Probe p = cuckoo::prepare(k.x, k.y, g);
-  uint32_t w1[W], w2[W];
-  cuckoo::load_bucket<W, true>(table, p.i1, w1);
-  cuckoo::load_bucket<W, true>(table, p.i2, w2);
-  const uint32_t b1 = cuckoo::broadcast_tag<F>(p.t1);
-  const uint32_t b2 = cuckoo::broadcast_tag<F>(p.t2);
-  uint32_t any = 0;
-#pragma unroll
-  for (int w = 0; w < W; ++w)
-    any |= cuckoo::swar_zero_mask<F>(w1[w] ^ b1) |
-           cuckoo::swar_zero_mask<F>(w2[w] ^ b2);
-  hit[i] = any != 0;
+  uint32_t w[W];
+  cuckoo::load_bucket<W, true>(table, p.i1, w);
+  bool found = bucket_has<W, F>(w, p.t1);
+  if (!found) {
+    cuckoo::load_bucket<W, true>(table, p.i2, w);
+    found = bucket_has<W, F>(w, p.t2);
+  }
+  hit[i] = found;
 }
 
 }  // namespace

@@ -2,9 +2,10 @@
 plain versions.
 
 * Fused (``csrc/cuckoo_query.cu``) replaces ``repro/kernels/
-  cuckoo_query.py: cuckoo_query_fused_pallas``: hash, one gather of both
-  candidate buckets, SWAR match, hit. :func:`cuckoo_query_plain` is the
-  same computation in vectorized torch.
+  cuckoo_query.py: cuckoo_query_fused_pallas``: hash, bucket i1, SWAR
+  match, and bucket i2 only where i1 holds no matching tag, hit.
+  :func:`cuckoo_query_plain` is the same function in vectorized torch
+  (it gathers both buckets of every key).
 * Unfused (``csrc/cuckoo_query_unfused.cu``) replaces ``cuckoo_query_pallas``:
   hash, then a bucket at a time its words unpacked to lanes and compared
   lane by lane. :func:`cuckoo_query_unfused_plain` follows the same route

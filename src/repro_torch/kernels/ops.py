@@ -131,7 +131,8 @@ def cuckoo_query(config: CuckooConfig, state: CuckooState,
                  keys: torch.Tensor, fused: bool = True) -> torch.Tensor:
     """Kernel-backed batch query. keys int32[n, 2] -> bool[n].
 
-    ``fused=True`` (default) runs the one-gather SWAR kernel;
+    ``fused=True`` (default) runs the SWAR kernel, which reads bucket i2
+    only where bucket i1 holds no matching tag;
     ``fused=False`` the unpack-based kernel (the roofline suite's
     pre-fusion comparison). Both give the same answers.
     """

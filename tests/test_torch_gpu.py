@@ -8,7 +8,9 @@ machine with the GPU:
 
 The file imports only torch and the port, so it also runs where JAX is
 not installed. Each layout the kernels are built for is checked: hash64
-and query bit-exact; direct insert and the mixed op stream on batches
+and query bit-exact, the query also on tables whose hits are known in
+every case of buckets i1 and i2 (``_query_tables``), where its early exit
+(bucket i2 read only when i1 holds no matching tag) decides; direct insert and the mixed op stream on batches
 small enough next to the table that concurrent inserts cannot contend,
 where the kernel must agree with the sequential plain loop on ``ok`` and
 on every bucket's tag multiset; the bucket-major bulk insert the same way
@@ -46,7 +48,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch import amq
+from repro_torch import amq, convert
 from repro_torch.core import CuckooConfig, keys_from_numpy
 from repro_torch.core.bits64 import to_i32
 from repro_torch.core import cuckoo_filter as CF
@@ -64,6 +66,8 @@ from repro_torch.kernels.cuckoo_query import (cuckoo_query_plain,
 from repro_torch.kernels.hash64 import hash64_plain
 from repro_torch.kernels.flash_attention import flash_attention_plain
 from repro_torch.kernels.kmer_pack import kmer_pack_plain
+
+from _query_tables import crafted_query_table, expected_cases
 
 pytestmark = pytest.mark.gpu
 
@@ -139,6 +143,37 @@ def test_query_matches_plain(cuda, layout):
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     assert got[:4096].all()
+
+
+@pytest.mark.parametrize("layout", LAYOUTS, ids=lambda c: "b{}f{}{}{}".format(*c))
+def test_query_early_exit_matches_plain(cuda, layout):
+    """#2 reads bucket i2 only where bucket i1 holds no matching tag. On
+    tables whose hits are known (the tag only in i2 past a full i1, only in
+    i1, in both, in neither; XOR keys with i1 == i2, which 8-bit tags give
+    only in the 64-bucket table; OFFSET keys with the base tag in i2), in
+    one launch of the crafted keys drawn 2^16 times in random order, so
+    that warps mix the cases: equal to the plain version and to the
+    expected hits, bit for bit."""
+    seen = set()
+    for num_buckets in (64, 1 << 10):
+        cfg = _cfg(*layout, num_buckets=num_buckets)
+        keys, words, want, cases = crafted_query_table(
+            cfg, _keys(30, 1 << 14, "cpu"), 31)
+        seen.update(cases)
+        state = convert.state_from_numpy(
+            {"table": words, "count": np.int32(keys.shape[0])}, cuda)
+        pick = torch.from_numpy(np.random.default_rng(32).integers(
+            0, keys.shape[0], size=1 << 16))
+        probe = torch.cat([keys, keys[pick]]).to(cuda)
+        K.reset_launches()
+        got = K.cuckoo_query(cfg, state, probe)
+        plain = cuckoo_query_plain(cfg, state.table, probe)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES["cuckoo_query"] == 1
+        assert torch.equal(got, plain)
+        np.testing.assert_array_equal(
+            got.cpu().numpy(), np.concatenate([want, want[pick.numpy()]]))
+    assert seen == expected_cases(layout[2])
 
 
 @pytest.mark.parametrize("layout", LAYOUTS, ids=lambda c: "b{}f{}{}{}".format(*c))

@@ -3,7 +3,9 @@
 Each plain version (what the wrappers in ``repro_torch.kernels.ops`` run
 on CPU tensors) is held against its JAX counterpart run in interpret mode,
 as ``tests/test_kernel_differential.py`` does, and against the JAX
-oracles: the query on tables carried across with ``repro_torch.convert``;
+oracles: the query on tables carried across with ``repro_torch.convert``
+(also on crafted tables whose hits are known, in every case of bucket
+i1 and i2 that the fused kernel's early exit tells apart);
 the direct insert and the mixed op stream with table and ``ok`` bit-exact.
 The unfused kernels' plain versions (query #3, direct insert #5) are held
 against ``cuckoo_query_pallas`` and ``cuckoo_insert_pallas`` the same way,
@@ -42,6 +44,7 @@ from repro_torch.kernels.cuckoo_insert import cuckoo_insert_direct_plain
 from repro_torch.kernels.cuckoo_mixed import cuckoo_mixed_plain, segments
 from repro_torch.kernels.cuckoo_query import (cuckoo_query_plain,
                                               cuckoo_query_unfused_plain)
+from _query_tables import crafted_query_table, expected_cases
 
 torch.set_num_threads(1)
 
@@ -129,6 +132,40 @@ def test_query_plain_matches_pallas_and_core(cell):
     np.testing.assert_array_equal(
         TR.cuckoo_query_ref(tcfg, tstate.table, keys[:, 0], keys[:, 1]).numpy(),
         want)
+
+
+# Both policies, two layouts each: 4 and 16 slots, 8 to 32 bits.
+CRAFTED_CELLS = [CELLS[0], CELLS[1], CELLS[3], CELLS[4]]
+
+
+@pytest.mark.parametrize("cell", CRAFTED_CELLS,
+                         ids=[f"b{c[0]}f{c[1]}{c[3]}" for c in CRAFTED_CELLS])
+def test_query_crafted_tables_match_pallas_and_core(cell):
+    """The answer #2's early exit must keep (bucket i2 read only where i1
+    holds no matching tag), on tables whose hits are known: the tag only
+    in i2 past a full i1, only in i1, in both, in neither, an XOR key with
+    i1 == i2, an OFFSET key with its base tag in i2. The plain version
+    and the CPU wrapper against ``cuckoo_query_fused_pallas`` (interpret)
+    and ``CF.query``, bit for bit."""
+    bs, fb, _, pol, hk = cell
+    cfg = _cfg(bs, fb, pol, hk)
+    tcfg = convert.config_from_reference(cfg)
+    pool = _t(keys_from_numpy(_raw(np.random.default_rng(15), 4096)))
+    keys, words, want, cases = crafted_query_table(tcfg, pool, 16)
+    assert set(cases) == expected_cases(pol)
+    # Pool keys pad the batch to the Pallas kernel's blocks.
+    probe = torch.cat([keys, pool[:4 * BLOCK - keys.shape[0]]])
+    arrays = {"table": words, "count": np.int32(keys.shape[0])}
+    tstate = convert.state_from_numpy(arrays, "cpu")
+    state = CF.CuckooState(jnp.asarray(words), jnp.asarray(arrays["count"]))
+    pj = jnp.asarray(_u32(probe))
+    ref = np.asarray(_jit_blk(cuckoo_query_fused_pallas, cfg)(
+        state.table, pj[:, 0], pj[:, 1])).astype(bool)
+    np.testing.assert_array_equal(ref[:keys.shape[0]], want)
+    np.testing.assert_array_equal(np.asarray(_jit(CF.query, cfg)(state, pj)), ref)
+    np.testing.assert_array_equal(
+        cuckoo_query_plain(tcfg, tstate.table, probe).numpy(), ref)
+    np.testing.assert_array_equal(K.cuckoo_query(tcfg, tstate, probe).numpy(), ref)
 
 
 @pytest.mark.parametrize("cell", CELLS, ids=IDS)
