@@ -12,9 +12,10 @@ toolkit. Phases, one JSON line each:
    ``ptxas -v`` gives the flash-attention kernels (``flash_ptxas``) and
    the Bloom insert kernels (``bloom_insert_ptxas``, with each one's
    instructions, shuffles and reductions in its SASS), and the
-   direct-insert and fused query kernels (``cuckoo_insert_ptxas``,
-   ``cuckoo_query_ptxas``, with the threads an SM holds at each one's
-   registers): no spill allowed. Where ``cuobjdump`` is there, the query
+   direct-insert, fused query and Bloom query kernels
+   (``cuckoo_insert_ptxas``, ``cuckoo_query_ptxas``, ``bloom_query_ptxas``,
+   with the threads an SM holds at each one's registers): no spill
+   allowed. Where ``cuobjdump`` is there, the query
    kernels' SASS must hold bucket i2's loads behind the branch on bucket
    i1's match.
 2. main path at 2^28 slots — ``repro_torch.amq.make("cuckoo",
@@ -94,7 +95,14 @@ toolkit. Phases, one JSON line each:
    the Bloom insert at two shapes: the first batch into the empty table
    and the last batch into the table that holds all the others (the
    kernel's result there equal to the case study's table), each beside a
-   bound from its own batch's blocks. The fused query kernel on every
+   bound from its own batch's blocks. The Bloom query at four shapes, by
+   the route its rule gives each and by the other one where the table
+   spans two windows or more, both bit for bit against the plain version:
+   every position (the windowed route), the FPR probe's foreign k-mers
+   and the first batch on the case study's table, the first batch on a
+   2^18-block table in L2; at the first, each kernel's device time under
+   ``torch.profiler``, the route's own floor and the call's peak of
+   allocated device memory. The fused query kernel on every
    position against the table after the fill, as at the main path's
    shapes. Keys/s of each step and the cuckoo/Bloom query ratio.
 7. the mixed path at 2^28 slots — ``make("cuckoo")`` prefilled to load
@@ -188,6 +196,7 @@ from repro_torch.core.bits64 import from_i32  # noqa: E402
 from repro_torch.core.hashing import hash_key_plain, normalize_keys  # noqa: E402
 from repro_torch.data.kmer import (  # noqa: E402
     canonicalize, kmer_keys, synthetic_genome)
+from repro_torch.kernels import bloom as bloom_kernels  # noqa: E402
 from repro_torch.kernels import build, roofline  # noqa: E402
 from repro_torch.kernels import ops as K  # noqa: E402
 from repro_torch.kernels.cuckoo_insert import (  # noqa: E402
@@ -825,6 +834,95 @@ def fpr_of(label, hits, expected):
             "probes": n}
 
 
+def bloom_route(c, n: int):
+    """The query plan kernel #8's wrapper takes for ``n`` keys on ``c``
+    (``kernels.bloom.query_plan`` on this card's L2), or None where the
+    package has one route only (an older commit's, timed beside this
+    tree's)."""
+    plan = getattr(bloom_kernels, "query_plan", None)
+    if plan is None:
+        return None
+    return plan(c, n, bloom_kernels.l2_bytes(torch.device("cuda")))
+
+
+def route_name(plan) -> str:
+    return "windowed" if plan is not None and plan.windowed else "direct"
+
+
+def bloom_query_via(c, table, keys, hit, plan) -> None:
+    """Kernel #8 by ``plan``'s route (None: the package's only one)."""
+    if plan is None:
+        bloom_query_launch(c, table, keys, hit)
+    else:
+        bloom_query_launch(c, table, keys, hit, plan)
+
+
+def short_kernel_name(key: str) -> str:
+    """A profiler's kernel name without its namespace and arguments."""
+    m = re.search(r"\w+_kernel(<[^>]*>)?", key)
+    return m.group(0) if m else key
+
+
+def bloom_query_shape(c, table, keys, blocks_of, **rec) -> tuple:
+    """Kernel #8 on ``keys`` against ``table`` by the route the rule gives
+    it, and by the other route where the table spans two to 256 windows:
+    both equal bit for bit to the plain version (in parts of 2^24 keys),
+    each timed, the plain version on the first part, beside a bound from
+    the batch's own blocks. Returns (shape record, keys that differ)."""
+    n = keys.shape[0]
+    plan = bloom_route(c, n)
+    hit = torch.empty(n, dtype=torch.bool, device="cuda")
+    bloom_query_via(c, table, keys, hit, plan)
+    parts = keys.split(KMER_BATCH)
+    bad = sum(int((h != bloom_query_plain(c, table, p)).sum())
+              for h, p in zip(hit.split(KMER_BATCH), parts))
+    touched = blocks_of(keys, c)
+    rec.update(n=n, table_bytes=c.table_bytes, query_route=route_name(plan),
+               ms=cuda_ms(lambda: bloom_query_via(c, table, keys, hit, plan)),
+               plain_ms=cuda_ms(lambda: bloom_query_plain(c, table, parts[0]),
+                                reps=3),
+               plain_n=parts[0].shape[0], touched=touched,
+               bound_bytes=roofline.bloom_batch_bytes(c, "query", n, touched),
+               bound_int32_ops=roofline.bloom_int_ops_per_key(c) * n)
+    if plan is not None:
+        rec.update(log2_window=plan.log2_window, windows=plan.windows)
+        other = plan._replace(windowed=not plan.windowed)
+        if 2 <= plan.windows <= bloom_kernels.MAX_WINDOWS:
+            got = torch.empty_like(hit)
+            bloom_query_via(c, table, keys, got, other)
+            bad += int((got != hit).sum())
+            rec.update(other_route=route_name(other), other_route_ms=cuda_ms(
+                lambda: bloom_query_via(c, table, keys, got, other)))
+    return rec, bad
+
+
+def query_rule_sweep(c, table, keys, want, plan) -> dict:
+    """The evidence for kernel #8's route rule on this card: the windowed
+    route on ``keys`` with windows of 2^16 to 2^19 blocks, and both routes
+    on the first r x num_blocks keys for r about the crossover; each
+    result equal to ``want`` (the plain version's)."""
+    out = {}
+    hit = torch.empty_like(want)
+
+    def timed_route(p, k, h, w):
+        bloom_query_via(c, table, k, h, p)
+        check(torch.equal(h, w), f"bloom_query: {p} differs from the plain "
+                                 "version")
+        return cuda_ms(lambda: bloom_query_via(c, table, k, h, p))
+
+    for s in (16, 17, 18, 19):
+        p = plan._replace(windowed=True, log2_window=s,
+                          windows=-(-c.num_blocks >> s))
+        out[f"windowed_2^{s}_blocks_ms"] = timed_route(p, keys, hit, want)
+    for r in (4, 8, 12, 16):
+        m = r * c.num_blocks
+        out[f"{r}_keys_a_block"] = {
+            route_name(p): timed_route(p, keys[:m], hit[:m], want[:m])
+            for p in (plan._replace(windowed=False),
+                      plan._replace(windowed=True))}
+    return out
+
+
 def kmer_case_study(gen):
     """The k-mer set of a synthetic chromosome 1 through ``kmer_keys``,
     the cuckoo filter and the blocked Bloom filter (see the module
@@ -946,8 +1044,10 @@ def kmer_case_study(gen):
     del out
 
     def blocks_of(k, c=bcfg):
-        return torch.unique(hash_key_plain(k, c.hash_kind, c.seed)[1]
-                            % c.num_blocks).numel()
+        """The distinct blocks of keys ``k`` (hashed 2^24 at a time)."""
+        return torch.unique(torch.cat([
+            torch.unique(hash_key_plain(p, c.hash_kind, c.seed)[1]
+                         % c.num_blocks) for p in k.split(KMER_BATCH)])).numel()
 
     sub = keys[:KMER_BATCH]
     hit = torch.empty(n_pos, dtype=torch.bool, device="cuda")
@@ -1017,6 +1117,42 @@ def kmer_case_study(gen):
                                         num_blocks=small.num_blocks)
     check(errs["bloom_insert"] == 0, f"bloom_insert: {errs['bloom_insert']} "
           "table words differ from the plain version's at the extra shapes")
+    # Kernel #8 at four shapes, each by the route the rule gives it (and by
+    # the other where it can run), equal to the plain version: every
+    # position; the FPR probe's foreign k-mers and the first batch (2^24
+    # stored keys) on the case study's table; the first batch on the 2^18-
+    # block table that holds it, in L2. At the case study's shape also the
+    # device time of each kernel of the route, the route's own floor, and
+    # the peak of device memory the call allocates.
+    query_shapes, bad = {}, 0
+    for label, c, t, k in (
+            ("case_study", bcfg, table, keys),
+            ("fpr_probe", bcfg, table, normalize_keys(probes)),
+            ("first_batch", bcfg, table, first),
+            ("table_in_l2", small, small_table, first)):
+        query_shapes[label], b = bloom_query_shape(c, t, k, blocks_of)
+        bad += b
+    errs["bloom_query"] += bad
+    check(bad == 0, f"bloom_query: {bad} keys differ from the plain "
+                    "version's at the four shapes")
+    plan = bloom_route(bcfg, n_pos)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    bloom_query_via(bcfg, table, keys, hit, plan)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - held
+    _, prof = profiled(lambda: [bloom_query_via(bcfg, table, keys, hit, plan)
+                                for _ in range(3)])
+    query_shapes["case_study"].update(
+        passes_ms={short_kernel_name(k["kernel"]): k["device_ms"] / k["calls"]
+                   for k in prof["top_kernels"]},
+        max_memory_allocated_by_the_call=peak)
+    if plan is not None:
+        query_shapes["case_study"]["route_floor_ms"] = (
+            roofline.bloom_windowed_bytes(bcfg, n_pos) / HBM_BYTES_PER_S * 1e3)
+        query_shapes["case_study"]["rule_sweep"] = query_rule_sweep(
+            bcfg, table, keys, bhits, plan)
     del small_table
     # Kernel #2 on every position against the table after the fill.
     query_rec = query_shape(cfg, h.state._replace(table=filled), keys)
@@ -1048,10 +1184,12 @@ def kmer_case_study(gen):
               "bloom_query": n_pos / bloom_query_s},
           "cuckoo_query_over_bloom_query": bloom_query_s / query_s,
           "bloom_insert_shapes": bloom_shapes,
+          "bloom_query_shapes": query_shapes,
           "launches": launches, "max_abs_err": errs, "seconds": secs})
     del h, hb, keys, distinct, order, batches, codes, table, hit
     torch.cuda.empty_cache()
-    return timing, wrapper, launches, errs, bloom_shapes, query_rec
+    return (timing, wrapper, launches, errs, bloom_shapes, query_shapes,
+            query_rec)
 
 
 # ---------------------------------------------------------------------------
@@ -1953,6 +2091,12 @@ def main() -> int:
           "kernels": ptxas})
     check(all(r.get("spill_stores") == 0 for r in ptxas.values()),
           f"cuckoo_insert: the kernels' ptxas report {ptxas}")
+    ptxas = ptxas_threads(logs.get("bloom_query", ""), "(?:bloom|window)")
+    emit({"phase": "bloom_query_ptxas", "compiled": "bloom_query" in logs,
+          "kernels": ptxas})
+    check("bloom_query" not in logs or (ptxas and all(
+        r.get("spill_stores") == 0 for r in ptxas.values())),
+          f"bloom_query: the kernels' ptxas report {ptxas}")
     ptxas = ptxas_threads(logs.get("cuckoo_query", ""), "cuckoo_query")
     loads = query_loads()
     emit({"phase": "cuckoo_query_ptxas", "compiled": "cuckoo_query" in logs,
@@ -2193,7 +2337,8 @@ def main() -> int:
     # --- the k-mer case study -------------------------------------------
     t0 = time.perf_counter()
     (kmer_timing, kmer_wrapper, kmer_launches, kmer_errs, bloom_shapes,
-     query_shape_recs["kmer_case_study"]) = kmer_case_study(gen)
+     bloom_query_shapes, query_shape_recs["kmer_case_study"]) = (
+        kmer_case_study(gen))
     emit({"phase": "kmer_case_study_seconds",
           "seconds": time.perf_counter() - t0})
 
@@ -2264,6 +2409,13 @@ def main() -> int:
 
     by_name = {r["name"]: r for r in kernels}
     by_name["bloom_insert"]["shapes"] = bounded(bloom_shapes)
+    # #8's row: its time at the case study's shape is the whole route's,
+    # from its first launch to its last.
+    by_name["bloom_query"]["shapes"] = bounded(bloom_query_shapes)
+    for key in ("query_route", "passes_ms", "route_floor_ms",
+                "max_memory_allocated_by_the_call"):
+        if key in bloom_query_shapes["case_study"]:
+            by_name["bloom_query"][key] = bloom_query_shapes["case_study"][key]
     by_name["cuckoo_insert_direct"]["shapes"] = bounded(insert_shape_recs)
     by_name["cuckoo_query"]["shapes"] = bounded(query_shape_recs)
     kernels.append({"name": "flash_attention", "route": "cuda",

@@ -6,9 +6,17 @@ The kernels (``csrc/bloom_query.cu``, ``csrc/bloom_insert.cu``) replace
 The plain versions are ``filters.blocked_bloom``'s query and insert with
 the torch hash; ``kernels.ops.bloom_query`` / ``bloom_insert`` pick one
 by the device the table lives on.
+
+A query takes one of two routes on the card, by the shape alone
+(:func:`query_plan`): one thread a key, or, for a batch of many keys a
+block against a table larger than the L2, the windowed route, which
+partitions the batch by table window so that each window's blocks come
+from device memory about once.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -47,12 +55,73 @@ def geometry(config: BB.BloomConfig) -> tuple:
             HASH_KINDS[config.hash_kind], config.seed & MASK64)
 
 
+# bloom_query.cu's most windows (one a thread of a tile's block).
+MAX_WINDOWS = 256
+# The windowed route's rule, from the card's own times (PERF.md §6):
+# a window is the largest power of two of blocks within a fifth of the L2
+# (8 MiB of 64-byte blocks on an H100); the route pays from 16 windows
+# (a table over about 2.5 L2s) and 12 keys a block on.
+WINDOW_L2_SHARE = 1 / 5
+MIN_WINDOWS = 16
+WINDOWED_KEYS_PER_BLOCK = 12
+
+
+class QueryPlan(NamedTuple):
+    """The route of one query: ``windowed``, and the windows it would use:
+    ``windows`` of ``2 ** log2_window`` blocks each."""
+
+    windowed: bool
+    log2_window: int
+    windows: int
+
+
+def query_plan(config: BB.BloomConfig, n: int, l2_bytes: int) -> QueryPlan:
+    """The route a query of ``n`` keys takes on a card with ``l2_bytes`` of
+    L2, from the shape alone. A window is the largest power of two of
+    blocks within ``WINDOW_L2_SHARE`` of the L2, so that its blocks stay in
+    L2 while its keys are tested. The windowed route is taken where the
+    table spans ``MIN_WINDOWS`` to ``MAX_WINDOWS`` windows and the batch
+    asks at least ``WINDOWED_KEYS_PER_BLOCK`` keys a block; elsewhere one
+    thread a key was faster on the card."""
+    budget = int(l2_bytes * WINDOW_L2_SHARE) // (4 * config.words_per_block)
+    log2_window = max(0, budget.bit_length() - 1)
+    windows = -(-config.num_blocks >> log2_window)
+    windowed = (MIN_WINDOWS <= windows <= MAX_WINDOWS and 0 < n < 2 ** 31
+                and n >= WINDOWED_KEYS_PER_BLOCK * config.num_blocks)
+    return QueryPlan(windowed, log2_window, windows)
+
+
+def l2_bytes(device: torch.device) -> int:
+    """The L2 size of a CUDA device, as the kernels read it."""
+    with torch.cuda.device(device):
+        got = build.load("bloom_query").bloom_query_l2_bytes()
+    build.check(max(0, -got), "bloom_query")
+    return got
+
+
 def bloom_query_launch(config: BB.BloomConfig, table: torch.Tensor,
-                       keys: torch.Tensor, hit: torch.Tensor) -> None:
-    """Launch the query kernel on the current stream (arguments checked)."""
-    rc = build.load("bloom_query").bloom_query_launch(
-        table.data_ptr(), keys.data_ptr(), hit.data_ptr(), keys.shape[0],
-        *geometry(config), torch.cuda.current_stream(table.device).cuda_stream)
+                       keys: torch.Tensor, hit: torch.Tensor,
+                       plan: QueryPlan = None) -> None:
+    """Launch the query on the current stream (arguments checked) by the
+    route of ``plan``, by default :func:`query_plan`'s for this card. The
+    windowed route's scratch comes from torch's allocator."""
+    n = keys.shape[0]
+    if plan is None:
+        plan = query_plan(config, n, l2_bytes(table.device))
+    lib = build.load("bloom_query")
+    stream = torch.cuda.current_stream(table.device).cuda_stream
+    if plan.windowed:
+        scratch = torch.empty(
+            (lib.bloom_query_scratch_bytes(n, plan.windows),),
+            dtype=torch.uint8, device=table.device)
+        rc = lib.bloom_query_windowed_launch(
+            table.data_ptr(), keys.data_ptr(), hit.data_ptr(), n,
+            scratch.data_ptr(), plan.log2_window, plan.windows,
+            *geometry(config), stream)
+    else:
+        rc = lib.bloom_query_launch(table.data_ptr(), keys.data_ptr(),
+                                    hit.data_ptr(), n, *geometry(config),
+                                    stream)
     build.check(rc, "bloom_query")
 
 

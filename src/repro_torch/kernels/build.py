@@ -8,8 +8,9 @@ are cached in :func:`build_dir` (``build/repro_torch/`` of the checkout by
 default) under a hash of their sources and flags, so an unchanged kernel
 is not rebuilt.
 
-Every C entry point returns the ``cudaError_t`` of its launch;
-:func:`check` raises on anything but 0.
+Every launching C entry point returns the ``cudaError_t`` of its launch;
+:func:`check` raises on anything but 0. A few entries return sizes
+instead (``RESTYPES``).
 """
 
 from __future__ import annotations
@@ -43,6 +44,11 @@ ARGTYPES = {
     "cuckoo_insert_bulk_launch": [_P, _P, _P, _P, _P, _I64, _I64, _P] + _GEOMETRY,
     "cuckoo_mixed_launch": [_P, _P, _P, _P, _P, _P, _I64, _I64, _P] + _GEOMETRY,
     "bloom_query_launch": [_P, _P, _P, _I64] + _GEOMETRY,
+    # table, keys, hit, n, scratch, log2 of a window's blocks, windows.
+    "bloom_query_windowed_launch": [_P, _P, _P, _I64, _P, _U32, _U32]
+                                   + _GEOMETRY,
+    "bloom_query_scratch_bytes": [_I64, _U32],
+    "bloom_query_l2_bytes": [],
     "bloom_insert_launch": [_P, _P, _P, _I64] + _GEOMETRY,
     "kmer_pack_launch": [_P, _P, _I64, _U32, _P],
     # q, k, v, out, B, then KVH, g, Sq, Sk, D, Dv, the strides of q, k, v
@@ -51,6 +57,12 @@ ARGTYPES = {
     "flash_attention_launch": [_P, _P, _P, _P, _I64] + [_I32] * 6 + [_P] * 4
                               + [_I32] * 6 + [_F32, _P],
 }
+
+# Entry points beyond ``<name>_launch``, and those that do not return a
+# ``cudaError_t``.
+EXPORTS = {"bloom_query": ("bloom_query_launch", "bloom_query_windowed_launch",
+                           "bloom_query_scratch_bytes", "bloom_query_l2_bytes")}
+RESTYPES = {"bloom_query_scratch_bytes": _I64, "bloom_query_l2_bytes": _I64}
 
 _LIBS: dict = {}
 
@@ -126,9 +138,10 @@ def load(name: str) -> ctypes.CDLL:
         if not path.exists():
             build_all()
         lib = ctypes.CDLL(str(path))
-        fn = getattr(lib, f"{name}_launch")
-        fn.argtypes = ARGTYPES[f"{name}_launch"]
-        fn.restype = ctypes.c_int
+        for export in EXPORTS.get(name, (f"{name}_launch",)):
+            fn = getattr(lib, export)
+            fn.argtypes = ARGTYPES[export]
+            fn.restype = RESTYPES.get(export, ctypes.c_int)
         _LIBS[name] = lib
     return lib
 

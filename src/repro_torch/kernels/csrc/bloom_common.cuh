@@ -8,6 +8,8 @@
 // word is used up.
 #pragma once
 
+#include <atomic>
+
 #include "cuckoo_common.cuh"
 
 namespace bloom {
@@ -21,6 +23,21 @@ struct Geometry {
   uint64_t seed;
 };
 
+// A key's hash as the positions need it: its block and the upper hash
+// word the in-block bits are peeled from.
+struct Hashed {
+  uint32_t block;
+  uint32_t h;
+};
+
+__device__ __forceinline__ Hashed hash_block(uint32_t lo, uint32_t hi,
+                                             const Geometry& g) {
+  const cuckoo::Geometry hg{0, 0, 0, 0, g.hash_kind, g.seed};
+  uint32_t h, hlo;
+  cuckoo::hash_key(lo, hi, hg, h, hlo);
+  return {hlo % g.num_blocks, h};
+}
+
 // A key's block and its k positions in the block, one position a call of
 // next(). The chunk counter and shift are carried from call to call, so no
 // position costs a division (a power-of-two block, the rule, takes its
@@ -31,17 +48,17 @@ struct BitWalk {
   uint32_t per_word, bits, block_bits;
   bool pow2;
 
-  __device__ __forceinline__ BitWalk(uint32_t lo, uint32_t hi,
-                                     const Geometry& g)
-      : bits(g.bits_needed), block_bits(g.words_per_block * 32u) {
-    const cuckoo::Geometry hg{0, 0, 0, 0, g.hash_kind, g.seed};
-    uint32_t hlo;
-    cuckoo::hash_key(lo, hi, hg, h, hlo);
-    block = hlo % g.num_blocks;
+  __device__ __forceinline__ BitWalk(Hashed k, const Geometry& g)
+      : block(k.block), h(k.h), bits(g.bits_needed),
+        block_bits(g.words_per_block * 32u) {
     per_word = 32u / g.bits_needed;
     if (per_word == 0) per_word = 1;
     pow2 = (block_bits & (block_bits - 1u)) == 0;
   }
+
+  __device__ __forceinline__ BitWalk(uint32_t lo, uint32_t hi,
+                                     const Geometry& g)
+      : BitWalk(hash_block(lo, hi, g), g) {}
 
   // The next bit's position in the block, [0, block_bits).
   __device__ __forceinline__ uint32_t next() {
@@ -58,16 +75,33 @@ struct BitWalk {
   }
 };
 
-// Calls visit(word address, bit mask) for each of the key's k bits.
+// Calls visit(word address, bit mask) for each of the k bits of a walk.
 template <typename Visit>
-__device__ __forceinline__ void for_each_bit(uint32_t lo, uint32_t hi,
-                                             const Geometry& g, Visit visit) {
-  BitWalk w(lo, hi, g);
+__device__ __forceinline__ void for_each_bit(BitWalk w, const Geometry& g,
+                                             Visit visit) {
   const size_t base = size_t(w.block) * g.words_per_block;
   for (uint32_t j = 0; j < g.k; ++j) {
     const uint32_t pos = w.next();
     visit(base + (pos >> 5), 1u << (pos & 31u));
   }
+}
+
+// The L2's size in bytes of the current device, asked once a device (0 in
+// `cached`: not yet). Returns the cudaError_t of the lookup.
+inline int l2_bytes(int* out) {
+  static std::atomic<int> cached[64];
+  int dev = 0;
+  const cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return int(e);
+  int bytes = dev < 64 ? cached[dev].load(std::memory_order_relaxed) : 0;
+  if (bytes == 0) {
+    const cudaError_t a =
+        cudaDeviceGetAttribute(&bytes, cudaDevAttrL2CacheSize, dev);
+    if (a != cudaSuccess) return int(a);
+    if (dev < 64) cached[dev].store(bytes, std::memory_order_relaxed);
+  }
+  *out = bytes;
+  return 0;
 }
 
 }  // namespace bloom

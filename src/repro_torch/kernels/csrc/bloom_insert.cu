@@ -36,8 +36,6 @@
 // and k = 8 about 40 instructions a lane a round in the SASS, 640 a key in
 // the rounds alone, eight times the operations floor. That is what bounds
 // the kernel where the table stays in L2.
-#include <atomic>
-
 #include "bloom_common.cuh"
 
 namespace {
@@ -156,18 +154,9 @@ CUCKOO_EXPORT int bloom_insert_launch(void* table, const void* keys,
     // Prefetch only a table that L2 cannot hold: where it can, the blocks
     // are there already and the prefetches only cost issue slots. The bulk
     // prefetch takes 16-byte-aligned multiples of 16 bytes.
-    // The L2's size is asked once a device (0 in `l2_of`: not yet).
-    static std::atomic<int> l2_of[64];
-    int dev = 0;
-    const cudaError_t e = cudaGetDevice(&dev);
-    if (e != cudaSuccess) return int(e);
-    int l2_bytes = dev < 64 ? l2_of[dev].load(std::memory_order_relaxed) : 0;
-    if (l2_bytes == 0) {
-      const cudaError_t a =
-          cudaDeviceGetAttribute(&l2_bytes, cudaDevAttrL2CacheSize, dev);
-      if (a != cudaSuccess) return int(a);
-      if (dev < 64) l2_of[dev].store(l2_bytes, std::memory_order_relaxed);
-    }
+    int l2_bytes = 0;
+    const int e = bloom::l2_bytes(&l2_bytes);
+    if (e != 0) return e;
     const bool prefetch =
         uint64_t(num_blocks) * words_per_block * 4u > uint64_t(l2_bytes) &&
         reinterpret_cast<uintptr_t>(table) % 16 == 0 && words_per_block % 4 == 0;

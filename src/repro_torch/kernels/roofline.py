@@ -231,6 +231,22 @@ def bloom_batch_bytes(config, op: str, n: int, touched=None) -> float:
     return min(traffic.batch_bytes(n), resident)
 
 
+# Bytes a key the windowed Bloom query route (csrc/bloom_query.cu) streams:
+# the count reads the key (8); the scatter reads it again and writes its
+# (block, hash word) entry and its two-byte slot (8 + 8 + 2); the probe
+# reads the entry and writes its answer (8 + 1); the un-permute reads the
+# slot and the answer and writes the hit (2 + 1 + 1).
+BLOOM_WINDOWED_BYTES_PER_KEY = 8 + 18 + 9 + 4
+
+
+def bloom_windowed_bytes(config, n: int) -> float:
+    """The least bytes of the windowed query route on ``n`` keys: its
+    streamed bytes and the table read once (the counts, a few bytes a tile
+    and window, left out). Over the memory rate, the route's own floor,
+    beside the function's (:func:`bloom_batch_bytes`)."""
+    return BLOOM_WINDOWED_BYTES_PER_KEY * n + config.table_bytes
+
+
 def kmer_pack_bytes(n_codes: int, k: int) -> float:
     """The least bytes of packing ``n_codes`` one-byte codes into their
     ``n_codes - k + 1`` k-mers: every code read once, 8 bytes written a

@@ -13,7 +13,8 @@ words a block, k of 11, 16 and 20, a partial ``valid`` and a table that
 already holds keys. ``make("bloom", device="cpu")`` keeps
 the JAX backend's config fingerprint and conformance (no false
 negatives, FPR band, no delete), and a JAX table carried across through
-``convert`` gives the same answers.
+``convert`` gives the same answers. Kernel #8's route rule (which
+batches the card answers window by window) is held to its cases.
 """
 
 import jax
@@ -34,6 +35,7 @@ from repro_torch import amq as tamq
 from repro_torch import convert
 from repro_torch.filters import blocked_bloom as TB
 from repro_torch.filters import common as TC
+from repro_torch.kernels import bloom as TKB
 from repro_torch.kernels import ops as K
 from repro_torch.kernels.bloom import bloom_insert_plain
 from repro_torch.kernels import ref as TREF
@@ -248,6 +250,56 @@ def test_jax_table_carried_across_gives_the_same_answers():
     np.testing.assert_array_equal(back["table"], arrays["table"])
 
 
+# (config, n, L2 bytes, (windowed, log2 of a window's blocks, windows)):
+# kernel #8's route rule (kernels/bloom.py: query_plan) on an H100's 50
+# MiB L2 unless said. A window is the largest power of two of blocks in a
+# fifth of the L2 (2^17 blocks of 64 bytes); the windowed route needs 16
+# to 256 windows (a window a thread of the tile's counters) and 12 keys a
+# block.
+_L2 = 50 << 20
+_CASE_STUDY = TB.BloomConfig.for_capacity(234_375_958)
+ROUTES = [
+    pytest.param(_CASE_STUDY, 248_956_392, _L2, (True, 17, 56),
+                 id="case-study-windowed"),
+    pytest.param(_CASE_STUDY, 1 << 24, _L2, (False, 17, 56),
+                 id="case-study-few-keys-direct"),
+    pytest.param(TB.BloomConfig(num_blocks=1 << 18), 1 << 24, _L2,
+                 (False, 17, 2), id="table-in-l2-direct"),
+    pytest.param(TB.BloomConfig(num_blocks=1 << 21), 12 << 21, _L2,
+                 (True, 17, 16), id="crossover-windowed"),
+    pytest.param(TB.BloomConfig(num_blocks=1 << 21), (12 << 21) - 1, _L2,
+                 (False, 17, 16), id="crossover-less-one-direct"),
+    pytest.param(TB.BloomConfig(num_blocks=1 << 20), 1 << 30, _L2,
+                 (False, 17, 8), id="eight-windows-direct"),
+    pytest.param(TB.BloomConfig(num_blocks=1 << 25), (1 << 31) - 1, _L2,
+                 (True, 17, 256), id="most-windows-windowed"),
+    pytest.param(TB.BloomConfig(num_blocks=1 << 25), 1 << 31, _L2,
+                 (False, 17, 256), id="n-past-int32-direct"),
+    pytest.param(TB.BloomConfig(num_blocks=(1 << 25) + 1), (1 << 31) - 1,
+                 _L2, (False, 17, 257), id="too-many-windows-direct"),
+    pytest.param(_CASE_STUDY, 248_956_392, 6 << 20, (False, 14, 448),
+                 id="small-l2-too-many-windows-direct"),
+    pytest.param(TB.BloomConfig(num_blocks=3_000_000, words_per_block=12),
+                 48_000_000, _L2, (True, 17, 23), id="48-byte-blocks-windowed"),
+    pytest.param(TB.BloomConfig(num_blocks=1 << 20, words_per_block=1),
+                 1 << 28, _L2, (False, 21, 1), id="4-byte-blocks-one-window"),
+]
+
+
+@pytest.mark.parametrize("config,n,l2,want", ROUTES)
+def test_query_route_rule(config, n, l2, want):
+    plan = TKB.query_plan(config, n, l2)
+    assert tuple(plan) == want
+    windowed, s, windows = want
+    # What bloom_query_windowed_launch accepts: the windows cover the table
+    # and the last is not empty; a window stays within the L2's share.
+    assert (windows - 1) << s < config.num_blocks <= windows << s
+    assert (4 * config.words_per_block << s) <= l2 * TKB.WINDOW_L2_SHARE
+    if windowed:
+        assert TKB.MIN_WINDOWS <= windows <= TKB.MAX_WINDOWS
+        assert n >= TKB.WINDOWED_KEYS_PER_BLOCK * config.num_blocks
+
+
 def test_roofline_bloom_and_kmer():
     cfg = RB.BloomConfig.for_capacity(1 << 20)
     tcfg = convert.bloom_config_from_reference(cfg)
@@ -269,6 +321,10 @@ def test_roofline_bloom_and_kmer():
         roofline.bloom_op_traffic(tcfg, "delete")
     # fmix32 pair (32) + 8 bits x 4 + two re-mixes x 9.
     assert roofline.bloom_int_ops_per_key(tcfg) == 32 + 32 + 18
+    # The windowed query route streams 39 bytes a key and reads the table
+    # once.
+    assert roofline.bloom_windowed_bytes(tcfg, 1000) == (
+        39 * 1000 + tcfg.table_bytes)
     # A rolling pack: three instructions a code, whatever k is.
     assert roofline.kmer_pack_int_ops(100) == 300
     assert roofline.kmer_pack_bytes(100, 31) == 100 + 8 * 70

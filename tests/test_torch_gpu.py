@@ -23,7 +23,9 @@ invariants. The frontier engine (torch ops, deterministic) leaves the
 same table on the card as on the CPU, and the adapter's frontier route
 (direct-insert kernel, then the frontier) fills to 0.95 under the
 invariants. The k-mer pack and the Bloom kernels equal their plain
-versions bit for bit. The unfused query and direct-insert kernels are
+versions bit for bit, the Bloom query by both of its routes (the
+windowed one on small tables where the route rule is shown a small
+L2). The unfused query and direct-insert kernels are
 held as their fused counterparts are. The direct-insert kernel is also
 held exactly to the plain loop on tables near load 0.9, where keys go on
 to bucket i2 or are turned down, with keys chosen so that no two share a
@@ -55,6 +57,7 @@ from repro_torch.core import cuckoo_filter as CF
 from repro_torch.core import layout as L
 from repro_torch.data.kmer import kmer_keys
 from repro_torch.filters.blocked_bloom import BloomConfig
+from repro_torch.kernels import bloom as bloom_kernels
 from repro_torch.kernels.bloom import bloom_insert_plain, bloom_query_plain
 from repro_torch.core.cuckoo_filter import prepare_keys_plain
 from repro_torch.kernels import ops as K
@@ -626,6 +629,15 @@ def test_kmer_pack_matches_plain(cuda, k):
 # kernel prefetches blocks into. Block widths: 1, 2, 4, 16 and 32 words (a group of that many
 # lanes), 12 (a group of 16, four lanes idle), 64 and 128 (lanes stride
 # over the words); k = 11, 16 and 20 (positions 8 at a time).
+# The query probes the batch and ``probe`` fresh keys (20000 by default).
+# ``s`` makes the query's route rule see an L2 that gives windows of 2^s
+# blocks, so that small tables take the windowed route (``windowed``, by
+# default True, is the route the rule must give): 2^20 blocks in 64
+# windows asked 17 times a block by 2^20 distinct keys; ragged last tiles; a
+# batch below one tile; 256 windows of which three get keys; the batch
+# one key either side of the crossover; every block width whose blocks
+# the probe stages (4, 8, 16, 32 words) and two it tests word by word (12
+# and 64), under both hashes.
 BLOOM_CASES = [
     pytest.param(16, 8, "fmix32", {}, id="16-8-fmix32"),
     pytest.param(16, 8, "xxhash64", {}, id="16-8-xxhash64"),
@@ -654,11 +666,40 @@ BLOOM_CASES = [
                  id="12-11-xxhash64-prefilled"),
     pytest.param(16, 8, "fmix32", {"blocks": 1 << 20}, id="16-8-fmix32-64MiB"),
     pytest.param(12, 8, "xxhash64", {"blocks": 1 << 21}, id="12-8-xxhash64-96MiB"),
+    pytest.param(16, 8, "fmix32", {"blocks": 1 << 20, "distinct": 1 << 20,
+                                   "n": 17 << 20, "s": 14},
+                 id="16-8-fmix32-windowed-64-windows"),
+    pytest.param(16, 8, "xxhash64", {"blocks": 2048, "s": 5},
+                 id="16-8-xxhash64-windowed-ragged-tiles"),
+    pytest.param(16, 8, "fmix32", {"blocks": 128, "n": 1000, "probe": 2000,
+                                   "s": 3},
+                 id="16-8-fmix32-windowed-below-a-tile"),
+    pytest.param(16, 8, "fmix32", {"blocks": 4096, "n": 70_000, "distinct": 3,
+                                   "probe": 0, "s": 4},
+                 id="16-8-fmix32-windowed-empty-windows"),
+    pytest.param(16, 8, "xxhash64", {"blocks": 1024, "n": 12 * 1024 - 1,
+                                     "probe": 0, "s": 6, "windowed": False},
+                 id="16-8-xxhash64-crossover-less-one"),
+    pytest.param(16, 8, "xxhash64", {"blocks": 1024, "n": 12 * 1024,
+                                     "probe": 0, "s": 6},
+                 id="16-8-xxhash64-crossover"),
+    pytest.param(4, 11, "fmix32", {"blocks": 2048, "s": 6},
+                 id="4-11-fmix32-windowed"),
+    pytest.param(8, 8, "xxhash64", {"blocks": 2048, "s": 6},
+                 id="8-8-xxhash64-windowed"),
+    pytest.param(32, 8, "fmix32", {"blocks": 2048, "s": 6},
+                 id="32-8-fmix32-windowed"),
+    pytest.param(12, 8, "xxhash64", {"blocks": 2000, "s": 6},
+                 id="12-8-xxhash64-windowed"),
+    pytest.param(64, 8, "fmix32", {"blocks": 2000, "s": 4},
+                 id="64-8-fmix32-windowed"),
+    pytest.param(64, 8, "xxhash64", {"blocks": 2000, "s": 4},
+                 id="64-8-xxhash64-windowed"),
 ]
 
 
 @pytest.mark.parametrize("wpb,k,hash_kind,case", BLOOM_CASES)
-def test_bloom_matches_plain(cuda, wpb, k, hash_kind, case):
+def test_bloom_matches_plain(cuda, monkeypatch, wpb, k, hash_kind, case):
     n = case.get("n", 20_000)
     if "blocks" in case:
         cfg = BloomConfig(num_blocks=case["blocks"], words_per_block=wpb, k=k,
@@ -688,7 +729,13 @@ def test_bloom_matches_plain(cuda, wpb, k, hash_kind, case):
     assert torch.equal(state.table, table)
     assert not torch.equal(table, start.table) or not bool(valid.any())
     assert torch.equal(ok, valid) and int(state.count) == int(valid.sum())
-    probe = torch.cat([keys, _keys(16, 20_000, cuda)])
+    probe = torch.cat([keys, _keys(16, case.get("probe", 20_000), cuda)])
+    if "s" in case:
+        l2 = 5 * (4 * wpb << case["s"]) + 4
+        monkeypatch.setattr(bloom_kernels, "l2_bytes", lambda device: l2)
+        plan = bloom_kernels.query_plan(cfg, probe.shape[0], l2)
+        assert plan.log2_window == case["s"]
+        assert plan.windowed == case.get("windowed", True)
     hit = K.bloom_query(cfg, state, probe)
     assert torch.equal(hit, bloom_query_plain(cfg, table, probe))
     assert bool(hit[:n][valid].all())

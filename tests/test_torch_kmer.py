@@ -73,7 +73,7 @@ def test_kmer_edges_bit_exact():
     assert not TK.kmer_keys(g[100:100 + k], k=k, device="cpu").any()
     assert not TK.kmer_keys(g[1000:1000 + k], k=k, device="cpu").any()
     assert K.kmer_pack(torch.from_numpy(g[:k - 1]), k).shape == (0, 2)
-    for bad in (0, 32):
+    for bad in (0, 32, 33):
         with pytest.raises(ValueError, match="k must be"):
             K.kmer_pack(torch.from_numpy(g), bad)
 
