@@ -12,10 +12,10 @@ toolkit. Phases, one JSON line each:
    ``ptxas -v`` gives the flash-attention kernels (``flash_ptxas``) and
    the Bloom insert kernels (``bloom_insert_ptxas``, with each one's
    instructions, shuffles and reductions in its SASS), and the
-   direct-insert, fused query and Bloom query kernels
+   direct-insert, fused query, Bloom query and mixed-op kernels
    (``cuckoo_insert_ptxas``, ``cuckoo_query_ptxas``, ``bloom_query_ptxas``,
-   with the threads an SM holds at each one's registers): no spill
-   allowed. Where ``cuobjdump`` is there, the query
+   ``cuckoo_mixed_ptxas``, with the threads an SM holds at each one's
+   registers): no spill allowed. Where ``cuobjdump`` is there, the query
    kernels' SASS must hold bucket i2's loads behind the branch on bucket
    i1's match.
 2. main path at 2^28 slots — ``repro_torch.amq.make("cuckoo",
@@ -40,8 +40,8 @@ toolkit. Phases, one JSON line each:
    are held to what every sequential order gives — the plain loop's is
    one — on the whole batch, and exactly to the plain loop on a 2^12-key
    sub-batch (equal ``ok`` and equal tag multiset in every touched bucket;
-   slots may differ by CAS order), as is a 2^12 mixed stream and a delete
-   stream with duplicates.
+   slots may differ by CAS order), as are a 2^12 mixed stream, a delete
+   stream with duplicates and one with every key twice.
 3b. the fused-vs-unfused comparison (the JAX package's
    ``benchmarks/roofline_filters.py`` ``fused=False`` rows) through
    ``kernels.ops.cuckoo_query(fused=...)`` and
@@ -67,7 +67,21 @@ toolkit. Phases, one JSON line each:
    the fill (the row's stored keys) and on 2^24 fresh keys (all negative),
    each equal to its plain version under both hashes and timed beside a
    bound from the buckets it needs and the share of keys that bucket i1
-   settles (its row's ``shapes``, with the case study's query). A warm-up
+   settles (its row's ``shapes``, with the case study's query). The
+   mixed-op route (#7) at four shapes (``cuckoo_mixed_route``, its row's
+   ``shapes``): the main path's delete, 2^23 stored keys each deleted
+   twice, a 2^24-op YCSB 50/40/10 stream on the table at load 0.5 whose
+   universe leaves 1/8 of its ops repeated, and the 2^12 stream; each
+   through one gated call (tags added equal inserts less deletes ``ok``;
+   for the delete-only shape with repeats, each (pair, tag) code deleted
+   min(copies, deletes) times and the cleared lanes exactly the removed
+   keys' codes; every repeated key
+   marked, the false repeats counted; at most one host sync; the walk
+   launched only where some key repeats; the call's peak of allocated
+   memory), then the route's time from its first launch to its last and
+   the wrapper's, beside the function's bound and the route's own floor;
+   at the main path's delete each kernel under ``torch.profiler``, with
+   no sort among them. A warm-up
    pass at 2^16 slots
    (both engines, and the k-mer and Bloom kernels) runs before anything
    is timed.
@@ -204,8 +218,9 @@ from repro_torch.kernels.cuckoo_insert import (  # noqa: E402
     cuckoo_insert_unfused_launch)
 from repro_torch.kernels.cuckoo_insert_bulk import (  # noqa: E402
     cuckoo_insert_bulk_launch, cuckoo_insert_bulk_plain)
+from repro_torch.kernels import cuckoo_mixed as CM  # noqa: E402
 from repro_torch.kernels.cuckoo_mixed import (  # noqa: E402
-    cuckoo_mixed_launch, cuckoo_mixed_plain, segments, sorted_runs)
+    cuckoo_mixed_plain, sorted_runs)
 from repro_torch.kernels.cuckoo_query import (  # noqa: E402
     cuckoo_query_plain, cuckoo_query_unfused_launch,
     cuckoo_query_unfused_plain)
@@ -447,9 +462,12 @@ def check_delete(cfg, state, base, keys, label: str) -> None:
 def settled_at_i1(cfg, base, tag, i1, insert=False):
     """Whether ``base`` settles each key (its tag and primary bucket) at
     the primary: a free slot for an insert, a matching tag for a query or
-    delete."""
-    want = (torch.zeros_like(tag) if insert
-            else cfg.placement.place_tag(tag, False))
+    delete. ``insert``: a bool, or a bool tensor, one a key."""
+    want = cfg.placement.place_tag(tag, False)
+    if isinstance(insert, torch.Tensor):
+        want = torch.where(insert, torch.zeros_like(tag), want)
+    elif insert:
+        want = torch.zeros_like(tag)
     return torch.cat([
         (L.bucket_tags(base, b, cfg.layout) == w[:, None]).any(-1)
         for b, w in zip(i1.split(CHUNK), want.split(CHUNK))])
@@ -1610,6 +1628,214 @@ def ptxas_threads(log: str, stem: str) -> dict:
     return report
 
 
+# ---------------------------------------------------------------------------
+# Kernel #7's route (kernels/cuckoo_mixed.py). The phase also runs beside an
+# older package whose #7 is one kernel over the key-sorted batch, so that
+# one call can time both; there the route's time is that kernel's alone,
+# its sort outside, as its row was timed.
+# ---------------------------------------------------------------------------
+
+MIXED_ROUTE = hasattr(CM, "cuckoo_mixed_route")
+
+
+def mixed_route_ms(cfg, work, keys, ops, valid, setup) -> float:
+    """#7's route on ``work`` from its first launch to its last."""
+    ok = torch.empty(keys.shape[0], dtype=torch.bool, device="cuda")
+    if MIXED_ROUTE:
+        return cuda_ms(lambda: CM.cuckoo_mixed_route(cfg, work, keys, ops,
+                                                     valid, ok),
+                       reps=3, setup=setup)
+    order, seg_start = CM.segments(keys)
+    return cuda_ms(lambda: CM.cuckoo_mixed_launch(
+        cfg, work, keys, ops, valid, order, seg_start, ok), reps=3,
+        setup=setup)
+
+
+def repeat_marks(cfg, base, keys, ops, valid) -> dict:
+    """#7's marks (steps 1-3 on a copy of ``base``) against the repeats
+    that ``torch.unique`` counts among the valid ops: no repeated key
+    unmarked (a gate); the false repeats (different keys with one scratch
+    value) counted; and the ops that 31-bit values (a scratch of 32-bit
+    slots) would mark falsely, from the hash kernel's digests."""
+    n = keys.shape[0]
+    scratch = torch.empty(CM.scratch_slots(n), dtype=torch.int64,
+                          device="cuda")
+    state = torch.empty(n, dtype=torch.uint8, device="cuda")
+    ok = torch.empty(n, dtype=torch.bool, device="cuda")
+    CM.cuckoo_mixed_launch(cfg, base.clone(), keys, ops, valid, scratch, ok,
+                           state)
+    values = u64_bits(keys)
+    distinct, inverse, counts = torch.unique(
+        values[valid], return_inverse=True, return_counts=True)
+    real = torch.zeros(n, dtype=torch.bool, device="cuda")
+    real[valid] = counts[inverse] > 1
+    marked = state != 0
+    missed = int((real & ~marked).sum())
+    check(missed == 0, f"cuckoo_mixed: {missed} ops of repeated keys not "
+                       "marked")
+    _, lo = K.hash64(torch.stack([distinct.to(torch.int32),
+                                  (distinct >> 32).to(torch.int32)], 1),
+                     cfg.seed, cfg.hash_kind)
+    _, v31, c31 = torch.unique(lo & 0x7FFFFFFF, return_inverse=True,
+                               return_counts=True)
+    shared = torch.zeros(n, dtype=torch.bool, device="cuda")
+    shared[valid] = (c31[v31] > 1)[inverse]
+    return {"repeated_ops": int(real.sum()), "marked_ops": int(marked.sum()),
+            "missed_repeats": missed,
+            "false_repeats": int((marked & ~real).sum()),
+            "false_repeats_at_31_bit_values": int((shared & ~real).sum())}
+
+
+def cleared_codes_check(cfg, base, after, keys, label: str) -> None:
+    """A delete-only batch on ``base`` that removed ``keys`` (its ``ok``
+    ones): no lane but a cleared one changed, and the cleared lanes held
+    exactly those keys' (pair, tag) codes."""
+    codes = []
+    for b0 in range(0, cfg.num_buckets, CHUNK):
+        b1 = min(b0 + CHUNK, cfg.num_buckets)
+        tb, ta = bucket_lanes(cfg, base, b0, b1), bucket_lanes(cfg, after, b0, b1)
+        cleared = (tb != 0) & (ta == 0)
+        check(not bool(((ta != tb) & ~cleared).any()),
+              f"{label}: a lane other than a cleared one changed")
+        bucket = torch.arange(b0, b1, device=base.device)[:, None].expand_as(
+            tb)[cleared]
+        tag = tb[cleared]
+        alt = cfg.placement.alt_bucket(bucket, tag)
+        codes.append((torch.minimum(bucket, alt) << cfg.fp_bits) | tag)
+    check_codes(label, torch.sort(torch.cat(codes)).values,
+                key_codes(cfg, [keys]))
+
+
+def host_syncs(fn):
+    """(``fn()``, the warnings of torch's sync debug mode it raised, those
+    warnings' distinct first lines)."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    said = [str(w.message).splitlines()[0] for w in caught
+            if "synchroniz" in str(w.message)]
+    return out, len(said), sorted(set(said))
+
+
+def code_counts_check(cfg, stored, keys, ok, label: str) -> None:
+    """A delete-only batch on a table whose sorted codes are ``stored``: for
+    every (pair, tag) code the ops carry, the deletes ``ok`` number
+    min(copies of the code the table holds, deletes of it), whatever the
+    order (aliasing keys share copies)."""
+    tag, i1, i2 = CF.prepare_keys_plain(cfg, keys)
+    codes, inverse, asked = torch.unique(
+        (torch.minimum(i1, i2) << cfg.fp_bits) | tag, return_inverse=True,
+        return_counts=True)
+    copies = (torch.searchsorted(stored, codes, right=True)
+              - torch.searchsorted(stored, codes))
+    done = torch.zeros_like(asked).index_add_(0, inverse, ok.long())
+    bad = int((done != torch.minimum(copies, asked)).sum())
+    check(bad == 0, f"{label}: {bad} codes deleted other than min(copies, "
+                    "deletes) times")
+
+
+def mixed_route_shapes(cfg, state, work, bases, shapes, profile) -> dict:
+    """Kernel #7 through ``ops.cuckoo_apply_ops`` at each of ``shapes``
+    ({label: (base label, keys, ops)}), all ops valid: one gated call
+    (launch counts zeroed just before and read just after, host syncs
+    counted, the call's peak of allocated device memory), then the route's
+    time from its first launch to its last (``ms``) and the whole wrapper's
+    (``wrapper_ms``), each from a copy of its base table, beside the
+    function's bound and the route's own floor from the buckets the gated
+    call touched; at the shapes in ``profile`` one more call under
+    ``torch.profiler`` (each kernel's device ms and calls). Returns
+    {label: shape record}."""
+    # What one host sync (a nonzero) raises in torch's sync debug mode.
+    _, one_sync, _ = host_syncs(
+        lambda: torch.ones(8, device="cuda").nonzero())
+    tags_of = {b: stored_tags(cfg, t) for b, t in bases.items()}
+    codes_of = {}
+    recs = {}
+    for label, (base_label, keys, ops) in shapes.items():
+        t0 = time.perf_counter()
+        base = bases[base_label]
+        n = keys.shape[0]
+        valid = torch.ones(n, dtype=torch.bool, device="cuda")
+
+        def setup(base=base):
+            work.copy_(base)
+
+        setup()
+        K.reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        (_, ok), syncs, said = host_syncs(lambda: K.cuckoo_apply_ops(
+            cfg, state._replace(table=work), keys, ops, valid))
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - held
+        launches = {k: v for k, v in K.LAUNCHES.items()
+                    if k.startswith("cuckoo_mixed")}
+        touched = touched_buckets(cfg, base, keys, work,
+                                  insert=ops == amq.OP_INSERT)
+        inserted = int((ok & (ops == amq.OP_INSERT)).sum())
+        deleted = int((ok & (ops == amq.OP_DELETE)).sum())
+        tags = stored_tags(cfg, work) - tags_of[base_label]
+        check(tags == inserted - deleted,
+              f"cuckoo_mixed {label}: {tags} tags added, {inserted} inserts "
+              f"and {deleted} deletes ok")
+        # Delete-only shapes with repeated keys (the main path's delete is
+        # held by check_delete above).
+        if bool((ops == amq.OP_DELETE).all()) and (
+                torch.unique(u64_bits(keys)).numel() < n):
+            cleared_codes_check(cfg, base, work, keys[ok],
+                                f"cuckoo_mixed {label}")
+            if base_label not in codes_of:
+                codes_of[base_label] = table_codes(cfg, base)
+            code_counts_check(cfg, codes_of[base_label], keys, ok,
+                              f"cuckoo_mixed {label}")
+        rec = {"n": n, "base": base_label, "ok": int(ok.sum()),
+               "launches": launches,
+               "host_syncs": syncs, "host_sync_warnings": said,
+               "max_memory_allocated_by_the_call": peak, "touched": touched,
+               "bound_bytes": roofline.least_batch_bytes(cfg, "delete", n,
+                                                         touched),
+               "bound_int32_ops": roofline.int_ops_per_key(cfg, "delete") * n}
+        if MIXED_ROUTE:
+            rec["marks"] = repeat_marks(cfg, base, keys, ops, valid)
+            check(syncs <= one_sync, f"cuckoo_mixed {label}: {syncs} sync "
+                  f"warnings in one call, one nonzero's {one_sync}")
+            check(launches["cuckoo_mixed_walk"]
+                  == int(rec["marks"]["marked_ops"] > 0),
+                  f"cuckoo_mixed {label}: walk launches {launches}")
+            rec["route_floor_bytes"] = roofline.mixed_route_bytes(
+                cfg, n, touched, rec["marks"]["marked_ops"])
+            rec["route_floor_ms"] = (rec["route_floor_bytes"]
+                                     / HBM_BYTES_PER_S * 1e3)
+        t1 = time.perf_counter()
+        rec["ms"] = mixed_route_ms(cfg, work, keys, ops, valid, setup)
+        rec["wrapper_ms"] = cuda_ms(
+            lambda: K.cuckoo_apply_ops(cfg, state._replace(table=work), keys,
+                                       ops, valid), reps=3, setup=setup)
+        t2 = time.perf_counter()
+        if label in profile:
+            setup()
+            _, prof = profiled(lambda: K.cuckoo_apply_ops(
+                cfg, state._replace(table=work), keys, ops, valid))
+            rec["passes"] = {}
+            for k in prof["top_kernels"]:
+                p = rec["passes"].setdefault(short_kernel_name(k["kernel"]),
+                                             {"device_ms": 0.0, "calls": 0})
+                p["device_ms"] += k["device_ms"]
+                p["calls"] += k["calls"]
+            rec["profiled_call"] = {k: prof[k] for k in (
+                "wall_s", "device_busy_s", "device_idle_share")}
+        t3 = time.perf_counter()
+        rec["seconds"] = {"checks": t1 - t0, "timing": t2 - t1,
+                          "profile": t3 - t2}
+        recs[label] = rec
+    return recs
+
+
 def insert_shapes(h, bases, keys, sub, work) -> dict:
     """Kernel #4 at its other shapes (``bases``: {label: table}), each
     held first to the order-free outcome of the plain loop at 2^24 keys
@@ -1991,17 +2217,11 @@ def serve_qwen(gen, bf16_rate):
     for i in SERVE_SEQUENCE:
         flat = pool[i].reshape(-1)
         torch.cuda.synchronize()
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            t0 = time.perf_counter()
-            try:
-                hit = pc.lookup(flat)
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
+        t0 = time.perf_counter()
+        hit, n_syncs, _ = host_syncs(lambda: pc.lookup(flat))
         torch.cuda.synchronize()
         lookup_s.append(time.perf_counter() - t0)
-        syncs.append(sum("synchroniz" in str(w.message) for w in caught))
+        syncs.append(n_syncs)
         if hit is None:
             pc.insert(flat, i)
     check(pc.stats == stats, f"serve: guard-filter replay {pc.stats}")
@@ -2105,6 +2325,12 @@ def main() -> int:
           f"cuckoo_query: the kernels' ptxas report {ptxas}")
     check(loads is None or all(r["i2_behind_branch"] for r in loads.values()),
           f"cuckoo_query: bucket i2's loads not behind the branch: {loads}")
+    ptxas = ptxas_threads(logs.get("cuckoo_mixed", ""), "cuckoo_mixed")
+    emit({"phase": "cuckoo_mixed_ptxas", "compiled": "cuckoo_mixed" in logs,
+          "kernels": ptxas})
+    check("cuckoo_mixed" not in logs or (ptxas and all(
+        r.get("spill_stores") == 0 for r in ptxas.values())),
+          f"cuckoo_mixed: the kernels' ptxas report {ptxas}")
     for name in build.SOURCES:
         build.load(name)
 
@@ -2169,8 +2395,11 @@ def main() -> int:
                               dtype=torch.int32)
     deletes = torch.full((SUB,), amq.OP_DELETE, dtype=torch.int32, device="cuda")
     dup = first[torch.randint(0, SUB // 4, (SUB,), device="cuda", generator=gen)]
+    twice = first[:SUB // 2].repeat(2, 1)[torch.randperm(
+        SUB, device="cuda", generator=gen)]
     errs["cuckoo_mixed"] = 0
-    for keys, ops in ((universe[picks], mixed_ops), (dup, deletes)):
+    for keys, ops in ((universe[picks], mixed_ops), (dup, deletes),
+                      (twice, deletes)):
         errs["cuckoo_mixed"] = max(errs["cuckoo_mixed"], same_outcome(
             cfg, half, keys,
             lambda t, k=keys, o=ops: K.cuckoo_apply_ops(
@@ -2255,22 +2484,47 @@ def main() -> int:
                                                      sub_valid),
                     reps=3, setup=restore(half)),
         n, SUB, "bulk_insert", touched)
+    # Kernel #7 at four shapes: the main path's delete (2^24 stored keys,
+    # each once); the same table, 2^23 stored keys each deleted twice; a
+    # 2^24-op stream of the YCSB 50/40/10 mix on the table at load 0.5 over
+    # a universe of about 7.49 x 2^24 keys (half stored, half fresh), so
+    # that 1 - exp(-1/7.49) = 1/8 of the ops meet their key again; the 2^12
+    # mixed stream above. The row's time is the main path's delete.
     del_ops = torch.full((n,), amq.OP_DELETE, dtype=torch.int32, device="cuda")
-    order, seg_start = segments(keys)
-    del_ok = torch.empty(n, dtype=torch.bool, device="cuda")
-    wrapper_ms["cuckoo_mixed"] = cuda_ms(
-        lambda: K.cuckoo_apply_ops(cfg, h.state._replace(table=work), keys,
-                                   del_ops, ins_valid),
-        reps=3, setup=restore(full_table))
-    ms = cuda_ms(lambda: cuckoo_mixed_launch(cfg, work, keys, del_ops,
-                                             ins_valid, order, seg_start,
-                                             del_ok),
-                 reps=3, setup=restore(full_table))
-    touched = touched_buckets(cfg, full_table, keys, work)
+    t1 = time.perf_counter()
+    u = round(n / -np.log(7 / 8))
+    stored_half = torch.cat([normalize_keys(b) for b in batches[:4]])
+    check(stored_half.shape[0] >= u // 2, "mixed universe: stored keys")
+    mix_universe = torch.cat([stored_half[:u // 2], normalize_keys(
+        random_keys(gen, u - u // 2, top_half=True))])
+    del stored_half
+    draw = torch.rand(n, device="cuda", generator=gen)
+    mixed_shapes = mixed_route_shapes(
+        cfg, h.state, work, {"load_0.95": full_table, "load_0.5": half},
+        {"main_path_delete": ("load_0.95", keys, del_ops),
+         "every_key_twice": ("load_0.95", keys[:n // 2].repeat(2, 1)[
+             torch.randperm(n, device="cuda", generator=gen)], del_ops),
+         "mixed_one_eighth_repeated": (
+             "load_0.5", mix_universe[torch.randint(
+                 0, u, (n,), device="cuda", generator=gen)],
+             ((draw >= 0.5).int() + (draw >= 0.9).int()).to(torch.int32)),
+         "stream_2^12": ("load_0.5", universe[picks], mixed_ops)},
+        profile=("main_path_delete", "every_key_twice"))
+    del mix_universe, draw
+    main_delete = mixed_shapes["main_path_delete"]
+    if MIXED_ROUTE:    # the main path's delete: no walk and no sort
+        check(main_delete["launches"]["cuckoo_mixed_walk"] == 0
+              and not any("sort" in k.lower() for k in main_delete["passes"]),
+              f"cuckoo_mixed: the main path's delete walked or sorted: "
+              f"{main_delete['launches']}, {sorted(main_delete['passes'])}")
+    emit({"phase": "cuckoo_mixed_route", "shapes": mixed_shapes,
+          "universe_keys": u, "seconds": time.perf_counter() - t1})
+    wrapper_ms["cuckoo_mixed"] = main_delete["wrapper_ms"]
     timing["cuckoo_mixed"] = (
-        ms, cuda_ms(lambda: cuckoo_mixed_plain(cfg, work, dup, deletes),
-                    reps=3, setup=restore(full_table)),
-        n, SUB, "delete", touched)
+        main_delete["ms"],
+        cuda_ms(lambda: cuckoo_mixed_plain(cfg, work, dup, deletes),
+                reps=3, setup=restore(full_table)),
+        n, SUB, "delete", main_delete["touched"])
     timing.update(unfused_records)
 
     # Kernel #6 against kernel #4 where segments are long: 2^27 keys into
@@ -2417,6 +2671,12 @@ def main() -> int:
         if key in bloom_query_shapes["case_study"]:
             by_name["bloom_query"][key] = bloom_query_shapes["case_study"][key]
     by_name["cuckoo_insert_direct"]["shapes"] = bounded(insert_shape_recs)
+    # #7's row: its time is the route's, from its first launch to its last.
+    by_name["cuckoo_mixed"]["shapes"] = bounded(mixed_shapes)
+    for key in ("passes", "route_floor_ms",
+                "max_memory_allocated_by_the_call"):
+        if key in mixed_shapes["main_path_delete"]:
+            by_name["cuckoo_mixed"][key] = mixed_shapes["main_path_delete"][key]
     by_name["cuckoo_query"]["shapes"] = bounded(query_shape_recs)
     kernels.append({"name": "flash_attention", "route": "cuda",
                     "source": SOURCES["flash_attention"],

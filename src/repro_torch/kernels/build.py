@@ -42,7 +42,10 @@ ARGTYPES = {
     "cuckoo_insert_launch": [_P, _P, _P, _P, _I64] + _GEOMETRY,
     "cuckoo_insert_unfused_launch": [_P, _P, _P, _P, _I64] + _GEOMETRY,
     "cuckoo_insert_bulk_launch": [_P, _P, _P, _P, _P, _I64, _I64, _P] + _GEOMETRY,
-    "cuckoo_mixed_launch": [_P, _P, _P, _P, _P, _P, _I64, _I64, _P] + _GEOMETRY,
+    # table, keys, ops, valid, scratch, log2 of its slots, n, ok, state.
+    "cuckoo_mixed_launch": [_P, _P, _P, _P, _P, _U32, _I64, _P, _P] + _GEOMETRY,
+    # table, sorted key values, order, its length, scratch, counts, ok.
+    "cuckoo_mixed_walk_launch": [_P, _P, _P, _I64, _P, _P, _P] + _GEOMETRY,
     "bloom_query_launch": [_P, _P, _P, _I64] + _GEOMETRY,
     # table, keys, hit, n, scratch, log2 of a window's blocks, windows.
     "bloom_query_windowed_launch": [_P, _P, _P, _I64, _P, _U32, _U32]
@@ -61,7 +64,8 @@ ARGTYPES = {
 # Entry points beyond ``<name>_launch``, and those that do not return a
 # ``cudaError_t``.
 EXPORTS = {"bloom_query": ("bloom_query_launch", "bloom_query_windowed_launch",
-                           "bloom_query_scratch_bytes", "bloom_query_l2_bytes")}
+                           "bloom_query_scratch_bytes", "bloom_query_l2_bytes"),
+           "cuckoo_mixed": ("cuckoo_mixed_launch", "cuckoo_mixed_walk_launch")}
 RESTYPES = {"bloom_query_scratch_bytes": _I64, "bloom_query_l2_bytes": _I64}
 
 _LIBS: dict = {}

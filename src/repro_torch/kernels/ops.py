@@ -25,8 +25,7 @@ from .bloom import (bloom_insert_launch, bloom_insert_plain,
 from .cuckoo_insert import (cuckoo_insert_direct_plain, cuckoo_insert_launch,
                             cuckoo_insert_unfused_launch)
 from .cuckoo_insert_bulk import cuckoo_insert_bulk_launch, cuckoo_insert_bulk_plain
-from .cuckoo_mixed import (cuckoo_mixed_launch, cuckoo_mixed_plain, segments,
-                           sorted_runs)
+from .cuckoo_mixed import cuckoo_mixed_plain, cuckoo_mixed_route, sorted_runs
 from .cuckoo_query import (cuckoo_query_launch, cuckoo_query_plain,
                            cuckoo_query_unfused_launch,
                            cuckoo_query_unfused_plain)
@@ -39,8 +38,9 @@ from .kmer_pack import kmer_pack_launch, kmer_pack_plain
 
 LAUNCHES = {"hash64": 0, "cuckoo_query": 0, "cuckoo_query_unfused": 0,
             "cuckoo_insert_direct": 0, "cuckoo_insert_unfused": 0,
-            "cuckoo_insert_bulk": 0, "cuckoo_mixed": 0, "bloom_query": 0,
-            "bloom_insert": 0, "kmer_pack": 0, "flash_attention": 0}
+            "cuckoo_insert_bulk": 0, "cuckoo_mixed": 0, "cuckoo_mixed_walk": 0,
+            "bloom_query": 0, "bloom_insert": 0, "kmer_pack": 0,
+            "flash_attention": 0}
 
 _KERNEL_WPB = (1, 2, 4, 8, 16, 32)
 
@@ -220,8 +220,10 @@ def cuckoo_apply_ops(config: CuckooConfig, state: CuckooState,
 
     ``ops``: int32[n] op codes (0 query / 1 insert / 2 delete); ``ok`` is
     each op's outcome (hit / landed / removed). Operations on the same key
-    resolve in batch order (DESIGN.md §9). Inserts are direct only: an
-    insert with ``ok`` False needs the eviction-capable core.
+    resolve in batch order (DESIGN.md §9); on the GPU ops of different keys
+    may take another order (``kernels/cuckoo_mixed.py``). Inserts are
+    direct only: an insert with ``ok`` False needs the eviction-capable
+    core. On the GPU at most ``2**31 - 1`` ops a call.
     """
     n = _check_keys(keys)
     _check_state(config, state)
@@ -231,13 +233,16 @@ def cuckoo_apply_ops(config: CuckooConfig, state: CuckooState,
         ok = cuckoo_mixed_plain(config, state.table, keys, ops, valid)
     else:
         _check_kernel_layout(config, state.table, keys)
+        if n >= 1 << 31:
+            raise ValueError(f"{n} ops: the mixed-op kernel takes fewer than "
+                             "2**31 a call")
         ok = torch.empty((n,), dtype=torch.bool, device=keys.device)
         if n:
-            order, seg_start = segments(keys)
             with torch.cuda.device(keys.device):
-                cuckoo_mixed_launch(config, state.table, keys, ops, valid,
-                                    order, seg_start, ok)
+                walked = cuckoo_mixed_route(config, state.table, keys, ops,
+                                            valid, ok)
             LAUNCHES["cuckoo_mixed"] += 1
+            LAUNCHES["cuckoo_mixed_walk"] += bool(walked)
     delta = (ok & (ops == OP_INSERT)).sum() - (ok & (ops == OP_DELETE)).sum()
     return CuckooState(state.table, state.count + delta.to(torch.int32)), ok
 

@@ -40,6 +40,8 @@ import math
 
 import numpy as np
 
+from .cuckoo_mixed import scratch_slots
+
 # Bytes of one packed key on the stream (the 64-bit (lo, hi) pair).
 KEY_BYTES = 8
 # Bytes of one per-op result (bool[n]).
@@ -245,6 +247,35 @@ def bloom_windowed_bytes(config, n: int) -> float:
     and window, left out). Over the memory rate, the route's own floor,
     beside the function's (:func:`bloom_batch_bytes`)."""
     return BLOOM_WINDOWED_BYTES_PER_KEY * n + config.table_bytes
+
+
+# Kernel #7's route (csrc/cuckoo_mixed.cu), by its own passes. A valid op:
+# the mark reads its key, valid byte and op (8 + 1 + 4), writes its state
+# byte (1) and claims its 8-byte scratch slot (read and written, 16); the
+# three apply launches each read the state byte (3); the op's own launch
+# reads its key and slot again (8 + 8) and writes ok and the state byte
+# (2); the compaction reads the state byte (1).
+MIXED_BYTES_PER_OP = 8 + 1 + 4 + 1 + 16 + 3 + 8 + 8 + 2 + 1
+# An op of a repeated key, through the walk: its position written and read
+# (8 + 8), its key value gathered (8), sorted with its index (32 read and
+# written), its place in the order written and read (8 + 8), its op and
+# key read (4 + 8), its run's length and kind written and read (4 + 4),
+# and ok (1).
+MIXED_WALK_BYTES_PER_OP = 8 + 8 + 8 + 32 + 8 + 8 + 4 + 8 + 4 + 4 + 1
+
+
+def mixed_route_bytes(config, n: int, touched: tuple,
+                      repeated: int = 0) -> float:
+    """The least bytes of kernel #7's route on ``n`` valid ops, ``repeated``
+    of them on keys that occur more than once: its streamed bytes, the
+    scratch table (:func:`cuckoo_mixed.scratch_slots` of 8 bytes) cleared
+    once, and each touched bucket (``touched``: buckets read, written) once
+    each way. Over the memory rate, the route's own floor, beside the
+    function's (:func:`least_batch_bytes` of ``"delete"``)."""
+    read, written = touched
+    return (MIXED_BYTES_PER_OP * n + MIXED_WALK_BYTES_PER_OP * repeated
+            + 8 * scratch_slots(n)
+            + config.layout.words_per_bucket * 4 * (read + written))
 
 
 def kmer_pack_bytes(n_codes: int, k: int) -> float:

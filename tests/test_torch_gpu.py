@@ -10,10 +10,13 @@ The file imports only torch and the port, so it also runs where JAX is
 not installed. Each layout the kernels are built for is checked: hash64
 and query bit-exact, the query also on tables whose hits are known in
 every case of buckets i1 and i2 (``_query_tables``), where its early exit
-(bucket i2 read only when i1 holds no matching tag) decides; direct insert and the mixed op stream on batches
+(bucket i2 read only when i1 holds no matching tag) decides; direct insert on batches
 small enough next to the table that concurrent inserts cannot contend,
-where the kernel must agree with the sequential plain loop on ``ok`` and
-on every bucket's tag multiset; the bucket-major bulk insert the same way
+and the mixed op stream (keys that occur once, every key repeated, a mix,
+one op, repeats of a masked op) over keys that share no bucket, where the
+kernels must agree with the sequential plain loop on ``ok`` and on every
+bucket's tag multiset, and the mixed route walks only repeated keys (also
+with runs enough for each of the walk's three modes); the bucket-major bulk insert the same way
 against its plain loop on the primary-bucket-sorted stream. Tiny tables
 then force thousands of threads onto the same words, where the CAS
 kernels are held by invariants. The orientation bulk build (torch ops,
@@ -179,10 +182,48 @@ def test_query_early_exit_matches_plain(cuda, layout):
     assert seen == expected_cases(layout[2])
 
 
+# The mixed op streams: keys that occur once, every key repeated, a mix of
+# both, one op, and repeats of a masked op (beside keys that occur once).
+MIXED_STREAMS = ["distinct", "repeated", "mix", "one_op", "invalid_repeats"]
+
+
+def _mixed_stream(cfg, stream, stored, device):
+    """(keys, ops, valid) of one stream over stored and fresh keys that
+    share no bucket, so that the order of different keys' ops cannot
+    matter, and whether the route must walk repeated keys."""
+    pool = torch.cat([stored[:2048], _keys(5, 2048, device)])
+    keep = _disjoint(cfg, pool)
+    uni = pool[keep[torch.randperm(keep.numel(), generator=torch.Generator()
+                                   .manual_seed(6))[:512].to(device)]]
+    rng = np.random.default_rng(7)
+    if stream == "distinct":
+        picks = np.arange(512)
+    elif stream == "repeated":
+        picks = rng.integers(0, 16, size=512)
+    elif stream == "mix":
+        picks = rng.permutation(np.concatenate(
+            [np.arange(16, 272), rng.integers(0, 16, size=256)]))
+    elif stream == "one_op":
+        picks = np.zeros(1, np.int64)
+    else:
+        picks = rng.permutation(np.concatenate(
+            [np.arange(2, 258), np.zeros(16, np.int64), np.ones(8, np.int64)]))
+    n = picks.size
+    ops = torch.from_numpy(rng.integers(0, 3, size=n).astype(np.int32))
+    valid = torch.from_numpy(rng.random(n) < 0.9)
+    if stream == "invalid_repeats":   # key 0 always masked, key 1 valid once
+        valid = torch.from_numpy(picks != 0)
+        valid[np.flatnonzero(picks == 1)[1:]] = False
+    walks = stream in ("repeated", "mix")
+    return uni[torch.from_numpy(picks).to(device)], ops.to(device), \
+        valid.to(device), walks
+
+
+@pytest.mark.parametrize("stream", MIXED_STREAMS)
 @pytest.mark.parametrize("layout", LAYOUTS, ids=lambda c: "b{}f{}{}{}".format(*c))
-def test_insert_and_mixed_match_plain(cuda, layout):
+def test_insert_and_mixed_match_plain(cuda, layout, stream):
     cfg = _cfg(*layout)
-    state, _ = _half_full(cfg, cuda, 3)
+    state, placed = _half_full(cfg, cuda, 3)
     keys = _keys(4, 256, cuda)
     valid = torch.rand(256, generator=torch.Generator().manual_seed(0)) < 0.9
 
@@ -196,20 +237,49 @@ def test_insert_and_mixed_match_plain(cuda, layout):
     assert torch.equal(_bucket_multisets(cfg, t_kernel),
                        _bucket_multisets(cfg, t_plain))
 
-    # Mixed stream over a small key universe (same-key ops in one batch),
-    # and a delete-only stream with duplicate keys.
-    uni = torch.cat([keys[:8], _keys(5, 8, cuda)])
-    picks = torch.randint(0, 16, (512,), generator=torch.Generator().manual_seed(1))
-    mixed = torch.randint(0, 3, (512,), dtype=torch.int32,
-                          generator=torch.Generator().manual_seed(2))
-    for ops in (mixed, torch.full((512,), 2, dtype=torch.int32)):
+    # The stream with its ops, and as a delete-only stream: ok and every
+    # bucket's tag multiset equal the plain loop's in batch order; the walk
+    # runs exactly where a valid key repeats.
+    mixed, ops, valid, walks = _mixed_stream(
+        cfg, stream, torch.cat([keys[ok_kernel], placed]), cuda)
+    for stream_ops in (ops, torch.full_like(ops, 2)):
         sk, sp = t_kernel.clone(), t_plain.clone()
-        _, ok_k = K.cuckoo_apply_ops(cfg, state._replace(table=sk),
-                                     uni[picks.to(cuda)], ops.to(cuda))
-        ok_p = cuckoo_mixed_plain(cfg, sp, uni[picks.to(cuda)], ops.to(cuda))
+        K.reset_launches()
+        _, ok_k = K.cuckoo_apply_ops(cfg, state._replace(table=sk), mixed,
+                                     stream_ops, valid)
+        ok_p = cuckoo_mixed_plain(cfg, sp, mixed, stream_ops, valid)
         torch.cuda.synchronize()
-        assert torch.equal(ok_k, ok_p)
+        assert torch.equal(ok_k, ok_p) and not ok_k[~valid].any()
         assert torch.equal(_bucket_multisets(cfg, sk), _bucket_multisets(cfg, sp))
+        assert K.LAUNCHES["cuckoo_mixed"] == 1
+        assert K.LAUNCHES["cuckoo_mixed_walk"] == int(walks)
+
+
+def test_mixed_walk_across_the_grid(cuda):
+    """8192 keys with two ops each, 2500 with 14 and 64 with 40: the walk's
+    first rounds scan every position across the grid, the next read a list
+    of the open runs across the grid, the last run in block 0 alone. ``ok``
+    and every bucket's tag multiset equal the plain loop's."""
+    cfg = _cfg(16, 16, "xor", "fmix32", num_buckets=1 << 18)
+    state, placed = _half_full(cfg, cuda, 9)
+    pool = torch.cat([placed[:16384], _keys(10, 16384, cuda)])
+    uni = pool[_disjoint(cfg, pool)[:10756]]
+    rng = np.random.default_rng(11)
+    ops_a_key = np.repeat([2, 14, 40], [8192, 2500, 64])
+    picks = torch.from_numpy(rng.permutation(np.repeat(
+        np.arange(10756), ops_a_key))).to(cuda)
+    keys = uni[picks]
+    ops = torch.from_numpy(rng.integers(0, 3, size=picks.numel())
+                           .astype(np.int32)).to(cuda)
+    t_kernel, t_plain = state.table.clone(), state.table.clone()
+    K.reset_launches()
+    _, ok = K.cuckoo_apply_ops(cfg, state._replace(table=t_kernel), keys, ops)
+    ok_plain = cuckoo_mixed_plain(cfg, t_plain, keys, ops)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["cuckoo_mixed_walk"] == 1
+    assert torch.equal(ok, ok_plain)
+    assert torch.equal(_bucket_multisets(cfg, t_kernel),
+                       _bucket_multisets(cfg, t_plain))
 
 
 @pytest.mark.parametrize("layout", LAYOUTS, ids=lambda c: "b{}f{}{}{}".format(*c))

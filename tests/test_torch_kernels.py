@@ -41,7 +41,9 @@ from repro_torch.kernels import ops as K
 from repro_torch.kernels import ref as TR
 from repro_torch.kernels import roofline
 from repro_torch.kernels.cuckoo_insert import cuckoo_insert_direct_plain
-from repro_torch.kernels.cuckoo_mixed import cuckoo_mixed_plain, segments
+from repro_torch.kernels.cuckoo_mixed import (cuckoo_mixed_plain, key_order,
+                                              key_values, scratch_slots,
+                                              sorted_runs)
 from repro_torch.kernels.cuckoo_query import (cuckoo_query_plain,
                                               cuckoo_query_unfused_plain)
 from _query_tables import crafted_query_table, expected_cases
@@ -321,17 +323,112 @@ def test_mixed_plain_matches_pallas_and_ref(cell, stream):
 
 
 def test_segments_group_keys_in_batch_order():
+    """The walk's order (a subset of positions by key) and #6's runs
+    (every position): each key one run, in batch order."""
     rng = np.random.default_rng(3)
     uni = keys_from_numpy(_raw(rng, 10))
     keys = _t(uni[rng.integers(0, 10, size=200)])
-    order, seg_start = segments(keys)
-    k64 = [tuple(k) for k in keys[order].tolist()]
-    heads = set(seg_start.tolist())
-    for j in range(1, len(k64)):
-        assert (j in heads) == (k64[j] != k64[j - 1])
-        if j not in heads:
-            assert order[j] > order[j - 1]       # batch order within a key
-    assert len(heads) == len(set(k64))
+    positions = torch.from_numpy(np.flatnonzero(rng.random(200) < 0.7))
+    values, perm = key_order(keys, positions)
+    order = positions[perm]
+    assert sorted(order.tolist()) == positions.tolist()
+    assert torch.equal(values, key_values(keys[order]))
+    all_order, seg_start = sorted_runs(key_values(keys))
+    for order, heads in ((order, None), (all_order, set(seg_start.tolist()))):
+        k64 = [tuple(k) for k in keys[order].tolist()]
+        runs = 1
+        for j in range(1, len(k64)):
+            runs += k64[j] != k64[j - 1]
+            if heads is not None:
+                assert (j in heads) == (k64[j] != k64[j - 1])
+            if k64[j] == k64[j - 1]:
+                assert order[j] > order[j - 1]   # batch order within a key
+        assert runs == len(set(k64))
+    assert [scratch_slots(n) for n in (1, 2, 3, 4, 5, 1 << 24)] == [
+        2, 4, 8, 8, 16, 1 << 25]
+
+
+def _route_order(keys, ops, valid):
+    """The order in which csrc/cuckoo_mixed.cu applies a batch: the valid
+    ops of keys that occur once (queries, then deletes, then inserts, each
+    in batch order), then the repeated keys' ops round by round (round r:
+    the r-th valid op of each repeated key, queries, deletes, inserts);
+    the masked ops, which change nothing, last."""
+    vals = key_values(keys).tolist()
+    live = [i for i in range(len(vals)) if valid[i]]
+    count, rank = {}, {}
+    for i in live:
+        rank[i] = count.get(vals[i], 0)
+        count[vals[i]] = rank[i] + 1
+    kind = [{1: 2, 2: 1}.get(int(op), 0) for op in ops]   # query, delete, insert
+    once = sorted((kind[i], i) for i in live if count[vals[i]] == 1)
+    again = sorted((rank[i], kind[i], i) for i in live if count[vals[i]] > 1)
+    masked = [i for i in range(len(vals)) if not valid[i]]
+    return torch.tensor([e[-1] for e in once + again] + masked)
+
+
+def _mixed_case(rng, kind, stored, fresh):
+    """128 positions into a universe of stored and fresh keys: all
+    distinct, every key repeated, or a mix of both."""
+    uni = np.concatenate([stored, fresh])[rng.permutation(len(stored) + len(fresh))]
+    if kind == "distinct":
+        return uni[:128]
+    if kind == "repeated":
+        return uni[rng.integers(0, 24, size=128)]
+    return uni[rng.permutation(np.concatenate(
+        [np.arange(8, 72), rng.integers(0, 8, size=64)]))]
+
+
+@pytest.mark.parametrize("kind", ["distinct", "repeated", "mixed"])
+def test_route_order_is_a_valid_linearisation(kind):
+    """The plain loop on the batch in the route's order gives the plain loop
+    in batch order and the TPU kernel (interpret mode): equal ``ok``, equal
+    tag multisets in every bucket. The batch has no cross-key aliasing and
+    fills no bucket, so keys do not interact and only each key's own order
+    matters, which the route keeps."""
+    cfg = _cfg(16, 16, "xor", "fmix32")       # a cell of the test above
+    tcfg = convert.config_from_reference(cfg)
+    rng = np.random.default_rng(31)
+    # 160 keys without cross-key aliasing: one key of each (pair, tag) code.
+    pool = keys_from_numpy(_raw(rng, 200))
+    tag, i1, i2 = TCF.prepare_keys_plain(tcfg, _t(pool))
+    first = {}
+    for j, code in enumerate(((torch.minimum(i1, i2) << 16) | tag).tolist()):
+        first.setdefault(code, j)
+    pool = pool[sorted(first.values())[:160]]
+    stored, fresh = pool[:32], pool[32:]
+    table = tcfg.init("cpu").table
+    assert cuckoo_insert_direct_plain(tcfg, table, _t(stored)).all()
+    keys_np = _mixed_case(rng, kind, stored, fresh)
+    n = keys_np.shape[0]
+    ops_np = rng.integers(0, 3, size=n).astype(np.int32)
+    valid_np = rng.random(n) < 0.9
+    keys, ops, valid = _t(keys_np), torch.from_numpy(ops_np), torch.from_numpy(valid_np)
+
+    t_batch, t_route = table.clone(), table.clone()
+    ok_batch = cuckoo_mixed_plain(tcfg, t_batch, keys, ops, valid)
+    perm = _route_order(keys, ops_np, valid_np)
+    ok_route = torch.empty_like(ok_batch)
+    ok_route[perm] = cuckoo_mixed_plain(tcfg, t_route, keys[perm], ops[perm],
+                                        valid[perm])
+    kj = jnp.asarray(keys_np)
+    t_want, ok_want = _jit_blk(cuckoo_mixed_pallas, cfg)(
+        jnp.asarray(_u32(table).copy()), kj[:, 0], kj[:, 1],
+        jnp.asarray(ops_np), jnp.asarray(valid_np, jnp.uint32))
+    ok_want = torch.from_numpy(np.asarray(ok_want).astype(bool))
+    t_want = torch.from_numpy(np.asarray(t_want).view(np.int32).copy())
+
+    def multisets(t):
+        tags = TL.unpack_words(TL.gather_bucket_words(
+            t, torch.arange(tcfg.num_buckets), tcfg.layout), tcfg.fp_bits)
+        assert int((tags != 0).sum(-1).max()) < tcfg.bucket_size  # none full
+        return torch.sort(tags, dim=-1).values
+
+    assert torch.equal(ok_route, ok_batch) and torch.equal(ok_batch, ok_want)
+    assert torch.equal(multisets(t_route), multisets(t_batch))
+    assert torch.equal(multisets(t_batch), multisets(t_want))
+    repeated = len(set(key_values(keys[valid]).tolist())) < int(valid.sum())
+    assert repeated == (kind != "distinct")
 
 
 def test_wrappers_raise_on_what_kernels_do_not_take():
@@ -401,6 +498,18 @@ def test_roofline_bytes_model():
         == n * 9 + 2 * cfg.table_bytes
     with pytest.raises(ValueError):
         roofline.cuckoo_op_traffic(cfg, "scan")
+
+
+def test_mixed_route_bytes_by_hand():
+    """Kernel #7's route floor at 1000 valid ops, 100 of them repeated, on
+    fp 16 x bucket 16 (32-byte buckets), 700 buckets read and 600 written:
+    the scratch table is 2048 slots."""
+    cfg = convert.config_from_reference(CuckooConfig(num_buckets=1 << 10))
+    mark, apply, compact = 13 + 1 + 16, 3 + 16 + 2, 1
+    walk = 16 + 8 + 32 + 16 + 12 + 8 + 1
+    assert roofline.mixed_route_bytes(cfg, 1000, (700, 600), repeated=100) \
+        == 1000 * (mark + apply + compact) + 100 * walk + 2048 * 8 \
+        + 32 * (700 + 600)
 
 
 @pytest.mark.parametrize("hash_kind,want", [
