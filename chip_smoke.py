@@ -15,9 +15,10 @@ toolkit. Phases, one JSON line each:
    direct-insert, fused query, Bloom query and mixed-op kernels
    (``cuckoo_insert_ptxas``, ``cuckoo_query_ptxas``, ``bloom_query_ptxas``,
    ``cuckoo_mixed_ptxas``, with the threads an SM holds at each one's
-   registers): no spill allowed. Where ``cuobjdump`` is there, the query
-   kernels' SASS must hold bucket i2's loads behind the branch on bucket
-   i1's match.
+   registers) and both instantiations of the k-mer pack
+   (``kmer_pack_ptxas``): no spill allowed. Where ``cuobjdump`` is there,
+   the query kernels' SASS must hold bucket i2's loads behind the branch
+   on bucket i1's match.
 2. main path at 2^28 slots — ``repro_torch.amq.make("cuckoo",
    capacity=floor(0.95 * 2^28))`` (fp 16, bucket 16, XOR, fmix32: a
    512 MiB table, ten times the L2), filled to load 0.95 in 16 batches of
@@ -96,8 +97,11 @@ toolkit. Phases, one JSON line each:
    device-busy seconds and the operators that take the most device time.
 6. the k-mer case study (paper §5.5, fig8) — ``synthetic_genome`` of
    248956422 bases (GRCh38 chromosome 1's length), made on the host, on
-   the card: its canonical 31-mers by ``kmer_keys`` (the plain keys of a
-   2^20-base prefix checked against Python integers); the distinct
+   the card: its canonical 31-mers by ``kmer_keys`` (one launch of the
+   k-mer pack kernel's canonical instantiation; its seconds, keys/s and
+   peak of allocated device memory, later three more calls' seconds and
+   three under ``torch.profiler``; the plain keys of a 2^20-base prefix
+   checked against Python integers); the distinct
    k-mers into ``make("cuckoo", capacity=n_distinct)`` in a seeded
    permutation, batches of 2^24 (the main path's gates, a query of every
    position, the FPR of a foreign genome's k-mers, the delete of a
@@ -105,7 +109,11 @@ toolkit. Phases, one JSON line each:
    most the FPR band's edge); the same keys into ``make("bloom",
    capacity=n_distinct)`` (every position found, FPR inside its band).
    The k-mer pack, Bloom insert and Bloom query kernels are then held
-   exactly against their plain versions on the same inputs and timed;
+   exactly against their plain versions on the same inputs and timed: the
+   k-mer pack forward and canonical, on the genome, the foreign genome and
+   the deleted region's slice (its first code not 16-byte aligned), each
+   instantiation timed at the genome's shape beside its bound (its row's
+   ``shapes``);
    the Bloom insert at two shapes: the first batch into the empty table
    and the last batch into the table that holds all the others (the
    kernel's result there equal to the case study's table), each beside a
@@ -187,6 +195,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import inspect
 import json
 import os
 import re
@@ -314,6 +323,12 @@ SOURCES = {
     "kmer_pack": "src/repro_torch/kernels/csrc/kmer_pack.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
 }
+# Kernel #10's instantiations in the package under test: forward and, where
+# ``ops.kmer_pack`` takes ``canonical`` (the kernel canonicalizes in the same
+# pass), canonical. An older package's ``kmer_keys`` packed forward, then ran
+# torch's ``canonicalize``; its only instantiation is timed beside this one.
+KMER_CANONICAL = "canonical" in inspect.signature(K.kmer_pack).parameters
+KMER_INSTANTIATIONS = (False, True) if KMER_CANONICAL else (False,)
 # The insert kernel an entry point runs under the legacy engine; the
 # orientation build runs torch ops (and the hash kernel).
 INSERT_KERNEL = {False: "cuckoo_insert_direct", True: "cuckoo_insert_bulk"}
@@ -941,11 +956,28 @@ def query_rule_sweep(c, table, keys, want, plan) -> dict:
     return out
 
 
+def kmer_pack_of(codes, canonical: bool, plain: bool = False):
+    """Kernel #10's wrapper (or its plain version) on ``codes``, forward
+    or canonical (the latter only where the package has it)."""
+    fn = kmer_pack_plain if plain else K.kmer_pack
+    if canonical:
+        return fn(codes, KMER_K, canonical=True)
+    return fn(codes, KMER_K)
+
+
+def kmer_pack_launch_of(codes, out, canonical: bool) -> None:
+    """One launch of kernel #10's instantiation into ``out``."""
+    if KMER_CANONICAL:
+        kmer_pack_launch(codes, KMER_K, out, canonical)
+    else:
+        kmer_pack_launch(codes, KMER_K, out)
+
+
 def kmer_case_study(gen):
     """The k-mer set of a synthetic chromosome 1 through ``kmer_keys``,
     the cuckoo filter and the blocked Bloom filter (see the module
     docstring). Returns (timing records, wrapper times, launch counts,
-    errors, #9's shapes, #2's shape)."""
+    errors, #9's shapes, #8's shapes, #2's shape, #10's instantiations)."""
     secs = {}
     t0 = time.perf_counter()
     genome = synthetic_genome(GENOME_BASES, SEED)
@@ -968,7 +1000,11 @@ def kmer_case_study(gen):
 
     # --- the path: kmer_keys, then both filters ---------------------------
     K.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
     keys, secs["kmer_keys"] = timed(lambda: kmer_keys(codes, KMER_K))
+    kmer_keys_peak = torch.cuda.max_memory_allocated() - held
     n_pos = keys.shape[0]
     check(keys.shape == (GENOME_BASES - KMER_K + 1, 2),
           f"kmer: keys of shape {list(keys.shape)}")
@@ -987,16 +1023,18 @@ def kmer_case_study(gen):
     misses = int((~hits).sum())
     check(misses == 0, f"kmer_cuckoo: {misses} of {n_pos} positions missed")
 
-    foreign = torch.unique(u64_bits(kmer_keys(
-        torch.from_numpy(foreign_codes).cuda(), KMER_K)))
+    foreign_codes = torch.from_numpy(foreign_codes).cuda()
+    foreign = torch.unique(u64_bits(kmer_keys(foreign_codes, KMER_K)))
     at = torch.searchsorted(distinct, foreign).clamp(max=n_distinct - 1)
     probes = foreign[distinct[at] != foreign]
     cuckoo_fpr = fpr_of("kmer_cuckoo", h.query(probes).hits,
                         h.expected_fpr())
 
     r0 = GENOME_BASES // 2
-    region = torch.unique(u64_bits(kmer_keys(codes[r0:r0 + REGION_BASES],
-                                             KMER_K)))
+    region_codes = codes[r0:r0 + REGION_BASES]
+    check(region_codes.data_ptr() % 16, "kmer: the region's slice is "
+          "16-byte aligned, so it does not test an unaligned start")
+    region = torch.unique(u64_bits(kmer_keys(region_codes, KMER_K)))
     before = h.count()
     rep, delete_s = timed(lambda: h.delete(region))
     check(bool(rep.ok.all()),
@@ -1032,11 +1070,22 @@ def kmer_case_study(gen):
         "cuckoo_mixed", "bloom_insert", "bloom_query"])
 
     # --- the three kernels against their plain versions ------------------
-    # Each count is of differing elements (keys, table words, hits).
+    # Each count is of differing elements (keys, table words, hits). #10's
+    # instantiations on the genome, the foreign genome and the deleted
+    # region's slice, whose first code is not 16-byte aligned.
     t0 = time.perf_counter()
-    packed, want = K.kmer_pack(codes, KMER_K), kmer_pack_plain(codes, KMER_K)
-    errs = {"kmer_pack": int((packed != want).sum())}
-    del packed, want
+    errs = {"kmer_pack": 0}
+    kmer_checked = {}
+    for label, c in (("genome", codes), ("foreign", foreign_codes),
+                     ("region", region_codes)):
+        for canonical in KMER_INSTANTIATIONS:
+            err = int((kmer_pack_of(c, canonical)
+                       != kmer_pack_of(c, canonical, plain=True)).sum())
+            errs["kmer_pack"] += err
+            kind = "canonical" if canonical else "forward"
+            kmer_checked[f"{label}_{kind}"] = {
+                "codes": c.shape[0], "ptr_mod_16": c.data_ptr() % 16,
+                "differ": err}
     table = bcfg.init("cuda").table
     bloom_insert_plain(bcfg, table, normalize_keys(order),
                        torch.ones(n_distinct, dtype=torch.bool, device="cuda"))
@@ -1052,14 +1101,34 @@ def kmer_case_study(gen):
     # --- timings at the case study's shapes --------------------------------
     t0 = time.perf_counter()
     timing, wrapper = {}, {}
+    # #10 at the genome's shape, each instantiation beside its bound; the
+    # row's own numbers are those of the instantiation ``kmer_keys`` runs.
     out = torch.empty_like(keys)
-    timing["kmer_pack"] = (
-        cuda_ms(lambda: kmer_pack_launch(codes, KMER_K, out)),
-        cuda_ms(lambda: kmer_pack_plain(codes, KMER_K), reps=3),
-        n_pos, n_pos, roofline.kmer_pack_bytes(GENOME_BASES, KMER_K),
-        roofline.kmer_pack_int_ops(GENOME_BASES), None)
-    wrapper["kmer_pack"] = cuda_ms(lambda: K.kmer_pack(codes, KMER_K))
+    kmer_shapes = {}
+    for canonical in KMER_INSTANTIATIONS:
+        kmer_shapes["canonical" if canonical else "forward"] = {
+            "n": n_pos,
+            "ms": cuda_ms(lambda: kmer_pack_launch_of(codes, out, canonical)),
+            "plain_ms": cuda_ms(
+                lambda: kmer_pack_of(codes, canonical, plain=True), reps=3),
+            "wrapper_ms": cuda_ms(lambda: kmer_pack_of(codes, canonical)),
+            "bound_bytes": roofline.kmer_pack_bytes(GENOME_BASES, KMER_K),
+            "bound_int32_ops": (roofline.kmer_pack_int_ops(
+                GENOME_BASES, KMER_K, canonical=True) if canonical
+                else roofline.kmer_pack_int_ops(GENOME_BASES))}
+    ran = kmer_shapes["canonical" if KMER_CANONICAL else "forward"]
+    timing["kmer_pack"] = (ran["ms"], ran["plain_ms"], n_pos, n_pos,
+                           ran["bound_bytes"], ran["bound_int32_ops"], None)
+    wrapper["kmer_pack"] = ran["wrapper_ms"]
     del out
+    # ``kmer_keys`` again, its output freed each time (the first call above
+    # found no free block of its size after the main path's caches were
+    # emptied); then three calls under the profiler: their kernels and the
+    # device's idle share.
+    kmer_keys_calls = {"repeat_s": [
+        timed(lambda: kmer_keys(codes, KMER_K))[1] for _ in range(3)]}
+    _, kmer_keys_calls["profiled_3_calls"] = profiled(
+        lambda: [kmer_keys(codes, KMER_K).shape for _ in range(3)], top=8)
 
     def blocks_of(k, c=bcfg):
         """The distinct blocks of keys ``k`` (hashed 2^24 at a time)."""
@@ -1180,6 +1249,9 @@ def kmer_case_study(gen):
     emit({"phase": "kmer_case_study", "bases": GENOME_BASES, "k": KMER_K,
           "positions": n_pos, "n_distinct": n_distinct,
           "python_int_checks": len(picks),
+          "kmer_keys_max_memory_allocated": kmer_keys_peak,
+          "kmer_keys_calls": kmer_keys_calls,
+          "kmer_pack_checked": kmer_checked,
           "cuckoo": {"config": repr(cfg), "table_bytes": cfg.table_bytes,
                      "load": h.load_factor, "batches": per_batch,
                      "frontier_keys": sum(r["frontier_keys"] for r in per_batch),
@@ -1205,9 +1277,10 @@ def kmer_case_study(gen):
           "bloom_query_shapes": query_shapes,
           "launches": launches, "max_abs_err": errs, "seconds": secs})
     del h, hb, keys, distinct, order, batches, codes, table, hit
+    del foreign_codes, region_codes
     torch.cuda.empty_cache()
     return (timing, wrapper, launches, errs, bloom_shapes, query_shapes,
-            query_rec)
+            query_rec, kmer_shapes)
 
 
 # ---------------------------------------------------------------------------
@@ -2331,6 +2404,12 @@ def main() -> int:
     check("cuckoo_mixed" not in logs or (ptxas and all(
         r.get("spill_stores") == 0 for r in ptxas.values())),
           f"cuckoo_mixed: the kernels' ptxas report {ptxas}")
+    ptxas = ptxas_threads(logs.get("kmer_pack", ""), "kmer_pack")
+    emit({"phase": "kmer_pack_ptxas", "compiled": "kmer_pack" in logs,
+          "kernels": ptxas})
+    check("kmer_pack" not in logs or (ptxas and all(
+        r.get("spill_stores") == 0 for r in ptxas.values())),
+          f"kmer_pack: the kernels' ptxas report {ptxas}")
     for name in build.SOURCES:
         build.load(name)
 
@@ -2591,8 +2670,8 @@ def main() -> int:
     # --- the k-mer case study -------------------------------------------
     t0 = time.perf_counter()
     (kmer_timing, kmer_wrapper, kmer_launches, kmer_errs, bloom_shapes,
-     bloom_query_shapes, query_shape_recs["kmer_case_study"]) = (
-        kmer_case_study(gen))
+     bloom_query_shapes, query_shape_recs["kmer_case_study"],
+     kmer_shapes) = kmer_case_study(gen)
     emit({"phase": "kmer_case_study_seconds",
           "seconds": time.perf_counter() - t0})
 
@@ -2678,6 +2757,9 @@ def main() -> int:
         if key in mixed_shapes["main_path_delete"]:
             by_name["cuckoo_mixed"][key] = mixed_shapes["main_path_delete"][key]
     by_name["cuckoo_query"]["shapes"] = bounded(query_shape_recs)
+    # #10's row: the canonical instantiation's numbers (what ``kmer_keys``
+    # runs), both instantiations in ``shapes``.
+    by_name["kmer_pack"]["shapes"] = bounded(kmer_shapes)
     kernels.append({"name": "flash_attention", "route": "cuda",
                     "source": SOURCES["flash_attention"],
                     "replaces": TPU_KERNELS["flash_attention"],

@@ -1,9 +1,9 @@
 """Genomic k-mer tooling (paper §5.5 case study), on torch tensors.
 
 Port of ``repro.data.kmer``. Pipeline: ACGT string -> 2-bit codes
-(A 0, C 1, G 2, T 3) -> rolling k-mers (the k-mer pack kernel,
-``kernels/csrc/kmer_pack.cu``) -> optional canonicalization (the smaller
-of a k-mer and its reverse complement, the KMC3 convention) -> filter
+(A 0, C 1, G 2, T 3) -> k-mers, optionally canonical (the smaller of a
+k-mer and its reverse complement, the KMC3 convention), in one pass of the
+k-mer pack kernel (``kernels/csrc/kmer_pack.cu``) on the GPU -> filter
 keys in the port's ``int32[n, 2]`` (lo, hi) layout.
 
 A k-mer of k <= 31 bases is packed big-endian by base into the low 2k
@@ -12,13 +12,11 @@ bits of a 64-bit value: the first base is the most significant.
 
 from __future__ import annotations
 
-from typing import Tuple
-
 import numpy as np
 import torch
 
-from ..core.bits64 import from_i32, join64, s64, shr64, split64, to_i32
 from ..core.device import resolve_device
+from ..kernels.kmer_pack import canonicalize  # noqa: F401 (public name)
 
 _CODE = np.full(256, 255, np.uint8)
 for _i, _c in enumerate("ACGT"):
@@ -58,7 +56,10 @@ def kmer_keys(bases, k: int = 31, canonical: bool = True, *,
     genome's own form, or any integer type; only the low two bits count).
     A tensor stays on its device; a numpy array goes to ``device`` (default:
     the GPU, raising without one; ``device="cpu"`` for the plain version).
-    The keys are computed by ``kernels.ops.kmer_pack`` on that device.
+    The keys are computed by ``kernels.ops.kmer_pack`` on that device: on
+    the GPU one launch of the k-mer pack kernel, which canonicalizes in the
+    same pass; on the CPU its plain version (``canonicalize`` of the packed
+    k-mers).
     """
     from ..kernels.ops import kmer_pack
 
@@ -69,35 +70,4 @@ def kmer_keys(bases, k: int = 31, canonical: bool = True, *,
     else:
         bases = torch.from_numpy(np.ascontiguousarray(bases)).to(
             resolve_device(device))
-    keys = kmer_pack(bases, k=k)
-    return canonicalize(keys, k) if canonical else keys
-
-
-def canonicalize(keys: torch.Tensor, k: int) -> torch.Tensor:
-    """min(kmer, revcomp(kmer)) per key — strand-independent identity."""
-    hi, lo = from_i32(keys[:, 1]), from_i32(keys[:, 0])
-    rh, rl = _revcomp((hi, lo), k)
-    less = (rh < hi) | ((rh == hi) & (rl < lo))
-    return to_i32(torch.stack([torch.where(less, rl, lo),
-                               torch.where(less, rh, hi)], dim=-1))
-
-
-# Masks of the 2-, 4-, 8- and 16-bit group swaps of a 64-bit reversal.
-_SWAPS = ((2, 0x3333333333333333), (4, 0x0F0F0F0F0F0F0F0F),
-          (8, 0x00FF00FF00FF00FF), (16, 0x0000FFFF0000FFFF))
-
-
-def _revcomp(x: Tuple[torch.Tensor, torch.Tensor], k: int):
-    """Reverse complement of a 2-bit-packed k-mer, (hi, lo) uint32 held
-    in int64 -> the same. Runs on the 64-bit value as one int64; every
-    right shift is masked (``bits64.shr64``)."""
-    if not 1 <= k <= 31:
-        raise ValueError(f"k must be in [1, 31], got {k}")
-    # Complement: A<->T (00<->11), C<->G (01<->10) is NOT of each 2 bits.
-    v = ~join64(*x)
-    # Reverse the 32 two-bit groups: swap ever larger groups, then halves.
-    for shift, mask in _SWAPS:
-        v = ((v & s64(mask)) << shift) | (shr64(v, shift) & s64(mask))
-    v = (v << 32) | shr64(v, 32)
-    # The k-mer occupies the low 2k bits; shift the reversed value down.
-    return split64(shr64(v, 64 - 2 * k))
+    return kmer_pack(bases, k=k, canonical=canonical)

@@ -53,7 +53,8 @@ ARGTYPES = {
     "bloom_query_scratch_bytes": [_I64, _U32],
     "bloom_query_l2_bytes": [],
     "bloom_insert_launch": [_P, _P, _P, _I64] + _GEOMETRY,
-    "kmer_pack_launch": [_P, _P, _I64, _U32, _P],
+    # bases, out, m, k, canonical, the stream.
+    "kmer_pack_launch": [_P, _P, _I64, _U32, _U32, _P],
     # q, k, v, out, B, then KVH, g, Sq, Sk, D, Dv, the strides of q, k, v
     # and out (int64 arrays), dtype, out dtype, variant, causal, window,
     # q_offset, the scale and the stream.

@@ -301,13 +301,16 @@ def bloom_insert(config: BloomConfig, state: BloomState, keys: torch.Tensor,
     return BloomState(state.table, count), valid.clone()
 
 
-def kmer_pack(bases: torch.Tensor, k: int = 31) -> torch.Tensor:
+def kmer_pack(bases: torch.Tensor, k: int = 31, *,
+              canonical: bool = False) -> torch.Tensor:
     """2-bit base codes [n] -> packed k-mer keys int32[n - k + 1, 2] (lo,
-    hi): key i holds bases[i:i+k], the first base most significant.
+    hi): key i holds bases[i:i+k], the first base most significant; with
+    ``canonical``, the smaller (as unsigned 64-bit values) of that and its
+    reverse complement, computed in the same launch.
 
     ``bases`` is 1-D of any integer type; only the low two bits of each
-    code count. The kernel reads uint8 codes (other types are narrowed
-    first); a batch shorter than ``k`` gives no keys.
+    code count. The kernel reads uint8 codes at any address (other types
+    are narrowed first); a batch shorter than ``k`` gives no keys.
     """
     if not isinstance(bases, torch.Tensor) or bases.ndim != 1:
         raise ValueError("bases: expected a 1-D tensor of base codes")
@@ -319,13 +322,13 @@ def kmer_pack(bases: torch.Tensor, k: int = 31) -> torch.Tensor:
     if not _on_cuda(bases):
         if not m:
             return torch.empty((0, 2), dtype=torch.int32)
-        return kmer_pack_plain(bases, k)
+        return kmer_pack_plain(bases, k, canonical)
     if bases.dtype != torch.uint8:
         bases = (bases & 3).to(torch.uint8)
     out = torch.empty((m, 2), dtype=torch.int32, device=bases.device)
     if m:
         with torch.cuda.device(bases.device):
-            kmer_pack_launch(bases.contiguous(), k, out)
+            kmer_pack_launch(bases.contiguous(), k, out, canonical)
         LAUNCHES["kmer_pack"] += 1
     return out
 

@@ -293,11 +293,17 @@ def kmer_pack_bytes(n_codes: int, k: int) -> float:
 #   the k-mer pack is a rolling pack at the least: each code enters a
 #   64-bit accumulator once, ``(acc << 2 | code) & mask``, a funnel shift
 #   of the upper word, a shift-add of the code into the lower word (LEA)
-#   and the mask of the upper word (LOP3). (The kernel repacks each
-#   position's whole window, k times this; that is its design, not the
-#   function's cost.)
+#   and the mask of the upper word (LOP3). Canonical keys add a rolling
+#   reverse complement, ``rc >> 2 | (3 - code) << (2k - 2)``, three more a
+#   code (a funnel shift of the lower word, a shift of the upper, a LOP3
+#   that complements the code and ORs it in), and a 64-bit unsigned
+#   compare and select a key (two ISETP, two SEL). (The kernel extracts
+#   each position's window from a packed stream in shared memory; that is
+#   its design, not the function's cost.)
 BLOOM_BIT_INSTRUCTIONS = 4
 KMER_CODE_INSTRUCTIONS = 3
+KMER_REVCOMP_CODE_INSTRUCTIONS = 3
+KMER_MIN_INSTRUCTIONS = 4
 
 
 def bloom_int_ops_per_key(config) -> int:
@@ -310,10 +316,15 @@ def bloom_int_ops_per_key(config) -> int:
             + remixes * (FMIX32_INSTRUCTIONS + 1))
 
 
-def kmer_pack_int_ops(n_codes: int) -> int:
+def kmer_pack_int_ops(n_codes: int, k: int = 31, *,
+                      canonical: bool = False) -> int:
     """The floor on 32-bit integer instructions of packing ``n_codes``
-    codes: one rolling-pack step a code."""
-    return n_codes * KMER_CODE_INSTRUCTIONS
+    codes into k-mers: one rolling-pack step a code; ``canonical`` adds a
+    rolling reverse-complement step a code and a 64-bit minimum a k-mer."""
+    if not canonical:
+        return n_codes * KMER_CODE_INSTRUCTIONS
+    return (n_codes * (KMER_CODE_INSTRUCTIONS + KMER_REVCOMP_CODE_INSTRUCTIONS)
+            + max(0, n_codes - k + 1) * KMER_MIN_INSTRUCTIONS)
 
 
 # ---------------------------------------------------------------------------

@@ -71,6 +71,7 @@ from repro_torch.kernels.cuckoo_query import (cuckoo_query_plain,
                                               cuckoo_query_unfused_plain)
 from repro_torch.kernels.hash64 import hash64_plain
 from repro_torch.kernels.flash_attention import flash_attention_plain
+from repro_torch.kernels import kmer_pack as kmer_pack_module
 from repro_torch.kernels.kmer_pack import kmer_pack_plain
 
 from _query_tables import crafted_query_table, expected_cases
@@ -670,23 +671,56 @@ def test_frontier_on_the_card(cuda):
                                        device=cuda), cuda)
 
 
-@pytest.mark.parametrize("k", [1, 21, 31])
-def test_kmer_pack_matches_plain(cuda, k):
-    codes = torch.from_numpy(np.random.default_rng(k).integers(
+KMER_TILE = 4096                   # positions a block of csrc/kmer_pack.cu
+
+
+@pytest.mark.parametrize("k", [1, 2, 15, 16, 17, 21, 31])
+def test_kmer_pack_matches_plain(cuda, k, monkeypatch):
+    """Both instantiations of kernel #10 equal the plain version: on codes
+    with an all-A and an all-T run, on uint8 codes with high bits set and on
+    int64 codes; on slices starting at offsets 0-16 (unaligned pointers) of
+    one k-mer and of a tile's positions less one, exactly and plus one; and
+    ``kmer_keys`` makes one launch a call, with no torch ``canonicalize``."""
+    gen = np.random.default_rng(k)
+    codes = torch.from_numpy(gen.integers(
         0, 4, size=(1 << 16) + 7, dtype=np.uint8)).to(cuda)
     codes[:64] = 0                                     # an all-A run
     codes[64:128] = 3                                  # an all-T run
-    K.reset_launches()
-    got = K.kmer_pack(codes, k)
-    want = kmer_pack_plain(codes, k)
-    wide = K.kmer_pack(codes.to(torch.int64) | 4, k)   # high bits ignored
-    torch.cuda.synchronize()
-    assert K.LAUNCHES["kmer_pack"] == 2
-    assert got.shape == (codes.shape[0] - k + 1, 2)
-    assert torch.equal(got, want) and torch.equal(wide, want)
-    assert torch.equal(K.kmer_pack(codes[:k], k), want[:1])
-    assert torch.equal(kmer_keys(codes, k).cpu(),
-                       kmer_keys(codes.cpu(), k, device="cpu"))
+    high = codes | torch.from_numpy(gen.integers(
+        0, 64, size=codes.shape[0], dtype=np.uint8) << 2).to(cuda)
+    for canonical in (False, True):
+        K.reset_launches()
+        got = K.kmer_pack(codes, k, canonical=canonical)
+        want = kmer_pack_plain(codes, k, canonical)
+        masked = K.kmer_pack(high, k, canonical=canonical)  # high bits ignored
+        wide = K.kmer_pack(codes.to(torch.int64) | 4, k, canonical=canonical)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES["kmer_pack"] == 3
+        assert got.shape == (codes.shape[0] - k + 1, 2)
+        assert torch.equal(got, want) and torch.equal(masked, want)
+        assert torch.equal(wide, want)
+        for off in range(17):
+            for m in (1, KMER_TILE - 1, KMER_TILE, KMER_TILE + 1):
+                part = codes[off:off + m + k - 1]
+                assert torch.equal(K.kmer_pack(part, k, canonical=canonical),
+                                   want[off:off + m]), (canonical, off, m)
+        tail = codes[-(KMER_TILE + k):]                # the input's last byte
+        assert torch.equal(K.kmer_pack(tail, k, canonical=canonical),
+                           want[-(KMER_TILE + 1):])
+    want = {c: kmer_keys(codes.cpu(), k, canonical=c, device="cpu")
+            for c in (False, True)}
+
+    def no_torch_canonicalize(*args):
+        raise AssertionError("torch canonicalize ran on the card's path")
+
+    monkeypatch.setattr(kmer_pack_module, "canonicalize",
+                        no_torch_canonicalize)
+    for canonical in (False, True):
+        K.reset_launches()
+        keys = kmer_keys(codes, k, canonical=canonical)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES["kmer_pack"] == 1
+        assert torch.equal(keys.cpu(), want[canonical])
 
 
 # (words_per_block, k, hash kind, case): the default shape is 20000 keys,

@@ -6,7 +6,11 @@ the k-mer pack kernel are deterministic in both packages: the same codes
 give the same keys, tolerance 0. The JAX ``kmer_keys`` runs
 ``kmer_pack_pallas`` in interpret mode, as the JAX package's own tests
 do on the CPU. The edges: k = 31, n = k (one k-mer), and all-A / all-T
-runs (whose reverse complements are each other).
+runs (whose reverse complements are each other). The canonical k-mer pack
+(the kernel's canonical instantiation on the GPU) is held on the CPU by its
+plain version and ``kernels.ops.kmer_pack(canonical=True)`` for k about
+the 16-code word edge of the kernel's packed stream and n in {k, k + 1, an
+odd few thousand}.
 """
 
 import numpy as np
@@ -18,6 +22,8 @@ from repro.kernels import ref as RREF
 from repro_torch.data import kmer as TK
 from repro_torch.kernels import ops as K
 from repro_torch.kernels import ref as TREF
+from repro_torch.kernels import roofline
+from repro_torch.kernels import kmer_pack as KP
 from repro_torch.kernels.kmer_pack import kmer_pack_plain
 
 torch.set_num_threads(1)
@@ -112,3 +118,55 @@ def test_kmer_keys_default_to_the_gpu(monkeypatch):
         TK.kmer_keys(_genome())
     with pytest.raises(ValueError, match="not on device"):
         TK.kmer_keys(torch.from_numpy(_genome()), device="meta")
+
+
+@pytest.mark.parametrize("length", ["k", "k+1", "odd"])
+@pytest.mark.parametrize("k", [1, 2, 15, 16, 17, 21, 31])
+def test_canonical_pack_bit_exact(k, length):
+    """``kmer_pack_plain(canonical=True)`` and ``ops.kmer_pack(canonical=
+    True)`` on the CPU equal the JAX package's canonical ``kmer_keys``, as
+    does the forward pack its forward keys. Short sequences are taken at
+    the start, in the all-A run and in the all-T run; the odd length spans
+    both runs."""
+    g = _genome()
+    n = {"k": k, "k+1": k + 1, "odd": 3001}[length]
+    starts = (0,) if length == "odd" else (0, 100, 1000)
+    for at in starts:
+        window = g[at:at + n]
+        t = torch.from_numpy(window)
+        for canonical in (True, False):
+            want = np.asarray(RK.kmer_keys(window, k=k, canonical=canonical))
+            plain = kmer_pack_plain(t, k, canonical=canonical)
+            assert plain.shape == (n - k + 1, 2)
+            np.testing.assert_array_equal(_u32(plain), want)
+            assert torch.equal(K.kmer_pack(t, k, canonical=canonical), plain)
+            # Any integer type; only the low two bits of a code count.
+            wide = t.to(torch.int64) | 12
+            assert torch.equal(K.kmer_pack(wide, k, canonical=canonical),
+                               plain)
+            assert torch.equal(TK.kmer_keys(window, k=k, canonical=canonical,
+                                            device="cpu"), plain)
+
+
+def test_canonicalize_keeps_its_public_name_and_value():
+    """``repro_torch.data.kmer.canonicalize`` is the kernels module's, and
+    gives the JAX package's ``canonicalize`` on packed keys, including
+    keys that are their own reverse complement's partner."""
+    assert TK.canonicalize is KP.canonicalize
+    g = _genome()
+    for k in (15, 31):
+        packed = kmer_pack_plain(torch.from_numpy(g), k)
+        want = np.asarray(RK.canonicalize(_u32(packed), k))
+        np.testing.assert_array_equal(_u32(TK.canonicalize(packed, k)), want)
+
+
+def test_kmer_pack_bound_counts():
+    """The canonical floor counts the forward one and more; the bytes are
+    the same for both."""
+    for n, k in ((100, 31), (31, 31), (248_956_422, 31), (5, 1)):
+        fwd = roofline.kmer_pack_int_ops(n, k)
+        assert fwd == 3 * n == roofline.kmer_pack_int_ops(n)
+        can = roofline.kmer_pack_int_ops(n, k, canonical=True)
+        assert can == 6 * n + 4 * (n - k + 1) >= fwd
+        assert roofline.kmer_pack_bytes(n, k) == n + 8 * (n - k + 1)
+    assert roofline.kmer_pack_int_ops(100, canonical=True) == 600 + 4 * 70
