@@ -15,10 +15,11 @@ toolkit. Phases, one JSON line each:
    direct-insert, fused query, Bloom query and mixed-op kernels
    (``cuckoo_insert_ptxas``, ``cuckoo_query_ptxas``, ``bloom_query_ptxas``,
    ``cuckoo_mixed_ptxas``, with the threads an SM holds at each one's
-   registers) and both instantiations of the k-mer pack
-   (``kmer_pack_ptxas``): no spill allowed. Where ``cuobjdump`` is there,
-   the query kernels' SASS must hold bucket i2's loads behind the branch
-   on bucket i1's match.
+   registers), both instantiations of the k-mer pack
+   (``kmer_pack_ptxas``) and the bulk insert's route
+   (``cuckoo_insert_bulk_ptxas``): no spill allowed. Where ``cuobjdump``
+   is there, the query kernels' SASS must hold bucket i2's loads behind
+   the branch on bucket i1's match.
 2. main path at 2^28 slots — ``repro_torch.amq.make("cuckoo",
    capacity=floor(0.95 * 2^28))`` (fp 16, bucket 16, XOR, fmix32: a
    512 MiB table, ten times the L2), filled to load 0.95 in 16 batches of
@@ -56,11 +57,15 @@ toolkit. Phases, one JSON line each:
    Both timed beside the fused kernels at both loads.
 4. timings at the main path's shapes (median of CUDA-event runs) beside
    each kernel's bound, whose bytes count the buckets the timed batch's
-   own data touches (see :func:`touched_buckets`). Then the bulk kernel
-   against the direct-insert kernel where segments are long: 2^27 keys
-   into the empty 2^28-slot table (eight keys a primary bucket), both
-   held to the order-free outcome first. The direct-insert kernel also at
-   the main path's first batch (2^24 keys into the empty table) and past
+   own data touches (see :func:`touched_buckets`); the bulk insert (#6)
+   as its route from its first launch to its last (partitioned by table
+   window: five launches) and as its wrapper, beside the function's bound
+   and the route's own floor, with one wrapper call's host syncs counted
+   and one profiled (gates: no host sync, no sort kernel). Then the bulk
+   insert against the direct-insert kernel where segments are long: 2^27
+   keys into the empty 2^28-slot table (eight keys a primary bucket),
+   both held to the order-free outcome first. The direct-insert kernel
+   also at the main path's first batch (2^24 keys into the empty table) and past
    full buckets (2^24 keys into the table at load 0.95), each held to the
    order-free outcome at 2^24 keys and exactly to the plain loop at 2^12,
    then timed beside a bound from its own touched buckets (its row's
@@ -225,11 +230,11 @@ from repro_torch.kernels import ops as K  # noqa: E402
 from repro_torch.kernels.cuckoo_insert import (  # noqa: E402
     cuckoo_insert_direct_plain, cuckoo_insert_launch,
     cuckoo_insert_unfused_launch)
+from repro_torch.kernels import cuckoo_insert_bulk as BULK  # noqa: E402
 from repro_torch.kernels.cuckoo_insert_bulk import (  # noqa: E402
-    cuckoo_insert_bulk_launch, cuckoo_insert_bulk_plain)
+    cuckoo_insert_bulk_plain)
 from repro_torch.kernels import cuckoo_mixed as CM  # noqa: E402
-from repro_torch.kernels.cuckoo_mixed import (  # noqa: E402
-    cuckoo_mixed_plain, sorted_runs)
+from repro_torch.kernels.cuckoo_mixed import cuckoo_mixed_plain  # noqa: E402
 from repro_torch.kernels.cuckoo_query import (  # noqa: E402
     cuckoo_query_plain, cuckoo_query_unfused_launch,
     cuckoo_query_unfused_plain)
@@ -1789,8 +1794,11 @@ def host_syncs(fn):
             out = fn()
         finally:
             torch.cuda.set_sync_debug_mode(0)
+    # The mode's own notice (once a process, "a prototype feature") is
+    # not a sync.
     said = [str(w.message).splitlines()[0] for w in caught
-            if "synchroniz" in str(w.message)]
+            if "synchroniz" in str(w.message)
+            and "prototype feature" not in str(w.message)]
     return out, len(said), sorted(set(said))
 
 
@@ -1907,6 +1915,117 @@ def mixed_route_shapes(cfg, state, work, bases, shapes, profile) -> dict:
                           "profile": t3 - t2}
         recs[label] = rec
     return recs
+
+
+# ---------------------------------------------------------------------------
+# Kernel #6's route (kernels/cuckoo_insert_bulk.py). The phase also runs
+# beside an older package whose #6 is one kernel over the i1-sorted batch,
+# so that one call can time both; there the route's time is that kernel's
+# alone, its hash and sort outside, as its row was timed.
+# ---------------------------------------------------------------------------
+
+BULK_ROUTE = hasattr(BULK, "bulk_plan")
+
+
+def bulk_route_ms(cfg, work, keys, setup) -> float:
+    """#6's route on ``work`` from its first launch to its last."""
+    n = keys.shape[0]
+    valid = torch.ones(n, dtype=torch.bool, device="cuda")
+    ok = torch.empty(n, dtype=torch.bool, device="cuda")
+    if BULK_ROUTE:
+        return cuda_ms(lambda: BULK.cuckoo_insert_bulk_launch(
+            cfg, work, keys, valid, ok), setup=setup)
+    _, i1, _ = CF.prepare_keys(cfg, keys)
+    order, seg_start = CM.sorted_runs(i1)
+    return cuda_ms(lambda: BULK.cuckoo_insert_bulk_launch(
+        cfg, work, keys, valid, order, seg_start, ok), setup=setup)
+
+
+def bulk_rule_sweep(cfg, work, base, keys) -> dict:
+    """The evidence for kernel #6's route rule on this card, each run from
+    a copy of ``base``: the windowed route on ``keys`` with windows of
+    2^17 to 2^19 buckets, and both routes on the first r x num_buckets
+    keys for r about the crossover."""
+    plan = BULK.bulk_plan(cfg, keys.shape[0],
+                          bloom_kernels.l2_bytes(work.device))
+    valid = torch.ones(keys.shape[0], dtype=torch.bool, device="cuda")
+    ok = torch.empty_like(valid)
+
+    def timed(p, m):
+        return cuda_ms(lambda: BULK.cuckoo_insert_bulk_launch(
+            cfg, work, keys[:m], valid[:m], ok[:m], p),
+            setup=lambda: work.copy_(base))
+
+    out = {}
+    for s in (17, 18, 19):
+        p = plan._replace(windowed=True, log2_window=s,
+                          windows=-(-cfg.num_buckets >> s))
+        out[f"windowed_2^{s}_buckets_ms"] = timed(p, keys.shape[0])
+    for r in (0.25, 0.375, 0.5, 1.0):
+        m = int(r * cfg.num_buckets)
+        out[f"{r}_keys_a_bucket"] = {
+            "one_window": timed(plan._replace(windowed=False), m),
+            "windowed": timed(plan._replace(windowed=True), m)}
+    return out
+
+
+def bulk_shape(cfg, state, work, base, keys, profile=False) -> dict:
+    """Kernel #6 through ``ops.cuckoo_insert_bulk`` on ``keys`` into a copy
+    of ``base``: one call with its host syncs counted, then the route's
+    time from its first launch to its last (``ms``) and the whole
+    wrapper's (``wrapper_ms``), each from a copy of ``base``, beside the
+    function's bound and the route's own floor from the buckets the
+    route's last timed run touched; with ``profile``, one more call under
+    ``torch.profiler`` (each kernel's device ms and calls) and the rule's
+    sweep (:func:`bulk_rule_sweep`). The route's gates: no host sync in
+    the call and no sort among its kernels."""
+    n = keys.shape[0]
+
+    def setup():
+        work.copy_(base)
+
+    setup()
+    _, syncs, said = host_syncs(lambda: K.cuckoo_insert_bulk(
+        cfg, state._replace(table=work), keys))
+    torch.cuda.synchronize()
+    rec = {"n": n, "host_syncs": syncs, "host_sync_warnings": said,
+           "ms": bulk_route_ms(cfg, work, keys, setup)}
+    touched = touched_buckets(cfg, base, keys, work, insert=True)
+    rec.update(
+        wrapper_ms=cuda_ms(lambda: K.cuckoo_insert_bulk(
+            cfg, state._replace(table=work), keys), setup=setup),
+        touched=touched,
+        bound_bytes=roofline.least_batch_bytes(cfg, "bulk_insert", n, touched),
+        bound_int32_ops=roofline.int_ops_per_key(cfg, "bulk_insert") * n)
+    if BULK_ROUTE:
+        plan = BULK.bulk_plan(cfg, n, bloom_kernels.l2_bytes(work.device))
+        rec["plan"] = plan._asdict()
+        check(syncs == 0, f"cuckoo_insert_bulk n={n}: {syncs} host syncs "
+                          f"in the wrapper: {said}")
+        if plan.windowed:
+            rec["route_floor_bytes"] = roofline.bulk_route_bytes(cfg, n,
+                                                                 touched[1])
+            rec["route_floor_ms"] = (rec["route_floor_bytes"]
+                                     / HBM_BYTES_PER_S * 1e3)
+    if profile:
+        setup()
+        _, prof = profiled(lambda: K.cuckoo_insert_bulk(
+            cfg, state._replace(table=work), keys))
+        rec["passes"] = {}
+        for k in prof["top_kernels"]:
+            p = rec["passes"].setdefault(short_kernel_name(k["kernel"]),
+                                         {"device_ms": 0.0, "calls": 0})
+            p["device_ms"] += k["device_ms"]
+            p["calls"] += k["calls"]
+        rec["profiled_call"] = {k: prof[k] for k in (
+            "wall_s", "device_busy_s", "device_idle_share")}
+        check(not BULK_ROUTE or not any("sort" in k.lower()
+                                        for k in rec["passes"]),
+              f"cuckoo_insert_bulk n={n}: a sort among the wrapper's "
+              f"kernels: {sorted(rec['passes'])}")
+        if BULK_ROUTE:
+            rec["rule_sweep"] = bulk_rule_sweep(cfg, work, base, keys)
+    return rec
 
 
 def insert_shapes(h, bases, keys, sub, work) -> dict:
@@ -2410,6 +2529,13 @@ def main() -> int:
     check("kmer_pack" not in logs or (ptxas and all(
         r.get("spill_stores") == 0 for r in ptxas.values())),
           f"kmer_pack: the kernels' ptxas report {ptxas}")
+    ptxas = ptxas_threads(logs.get("cuckoo_insert_bulk", ""),
+                          "(?:bulk|window)")
+    emit({"phase": "cuckoo_insert_bulk_ptxas",
+          "compiled": "cuckoo_insert_bulk" in logs, "kernels": ptxas})
+    check("cuckoo_insert_bulk" not in logs or (ptxas and all(
+        r.get("spill_stores") == 0 for r in ptxas.values())),
+          f"cuckoo_insert_bulk: the kernels' ptxas report {ptxas}")
     for name in build.SOURCES:
         build.load(name)
 
@@ -2546,23 +2672,16 @@ def main() -> int:
     insert_shape_recs = insert_shapes(
         h, {"empty": torch.zeros_like(half), "load_0.95": snaps["full"]},
         ins_keys, sub, work)
-    _, i1, _ = CF.prepare_keys(cfg, ins_keys)
-    bulk_order, bulk_seg = sorted_runs(i1)
-    # Wrapper times include the sort that precedes the launch.
-    wrapper_ms = {"cuckoo_insert_bulk": cuda_ms(
-        lambda: K.cuckoo_insert_bulk(cfg, h.state._replace(table=work),
-                                     ins_keys, ins_valid),
-        reps=3, setup=restore(half))}
-    ms = cuda_ms(lambda: cuckoo_insert_bulk_launch(cfg, work, ins_keys,
-                                                   ins_valid, bulk_order,
-                                                   bulk_seg, ins_ok),
-                 reps=3, setup=restore(half))
-    touched = touched_buckets(cfg, half, ins_keys, work, insert=True)
+    # Kernel #6 at its row's shape (2^24 keys into the table at load 0.5):
+    # the route, the wrapper and, profiled, each of the wrapper's kernels.
+    bulk_shapes = {"load_0.5": bulk_shape(cfg, h.state, work, half, ins_keys,
+                                          profile=True)}
+    bulk_row = bulk_shapes["load_0.5"]
+    wrapper_ms = {"cuckoo_insert_bulk": bulk_row["wrapper_ms"]}
     timing["cuckoo_insert_bulk"] = (
-        ms, cuda_ms(lambda: cuckoo_insert_bulk_plain(cfg, work, sub,
-                                                     sub_valid),
-                    reps=3, setup=restore(half)),
-        n, SUB, "bulk_insert", touched)
+        bulk_row["ms"], cuda_ms(lambda: cuckoo_insert_bulk_plain(
+            cfg, work, sub, sub_valid), reps=3, setup=restore(half)),
+        n, SUB, "bulk_insert", bulk_row["touched"])
     # Kernel #7 at four shapes: the main path's delete (2^24 stored keys,
     # each once); the same table, 2^23 stored keys each deleted twice; a
     # 2^24-op stream of the YCSB 50/40/10 mix on the table at load 0.5 over
@@ -2608,8 +2727,8 @@ def main() -> int:
 
     # Kernel #6 against kernel #4 where segments are long: 2^27 keys into
     # the empty table, eight keys a primary bucket on average (load 0.5).
-    # Both held to the order-free outcome first; times are kernel only,
-    # plus #6's wrapper (hash and sort).
+    # Both held to the order-free outcome first; #4 timed as one kernel,
+    # #6 as its route and its wrapper (bulk_shape).
     t1 = time.perf_counter()
     long_n = 1 << 27
     long_keys = normalize_keys(random_keys(gen, long_n))
@@ -2620,33 +2739,28 @@ def main() -> int:
         for name in ("cuckoo_insert_direct", "cuckoo_insert_bulk")}
     long_valid = torch.ones(long_n, dtype=torch.bool, device="cuda")
     long_ok = torch.empty(long_n, dtype=torch.bool, device="cuda")
-    _, long_i1, _ = CF.prepare_keys(cfg, long_keys)
-    long_order, long_seg = sorted_runs(long_i1)
+    bulk_shapes["long_segments"] = bulk_shape(cfg, h.state, work, empty,
+                                              long_keys)
     long_ms = {
         "cuckoo_insert_direct": cuda_ms(
             lambda: cuckoo_insert_launch(cfg, work, long_keys, long_valid,
                                          long_ok),
             reps=3, setup=restore(empty)),
-        "cuckoo_insert_bulk": cuda_ms(
-            lambda: cuckoo_insert_bulk_launch(cfg, work, long_keys,
-                                              long_valid, long_order,
-                                              long_seg, long_ok),
-            reps=3, setup=restore(empty)),
-        "cuckoo_insert_bulk_wrapper": cuda_ms(
-            lambda: K.cuckoo_insert_bulk(cfg, h.state._replace(table=work),
-                                         long_keys, long_valid),
-            reps=3, setup=restore(empty))}
-    long_touched = touched_buckets(cfg, empty, long_keys, work, insert=True)
-    long_bytes = roofline.least_batch_bytes(cfg, "bulk_insert", long_n,
-                                            long_touched)
+        "cuckoo_insert_bulk": bulk_shapes["long_segments"]["ms"],
+        "cuckoo_insert_bulk_wrapper":
+            bulk_shapes["long_segments"]["wrapper_ms"]}
+    long_touched = bulk_shapes["long_segments"]["touched"]
+    long_bytes = bulk_shapes["long_segments"]["bound_bytes"]
     emit({"phase": "long_segments", "keys": long_n,
-          "buckets": cfg.num_buckets, "segments": long_seg.numel(),
-          "keys_per_segment": long_n / long_seg.numel(),
+          "buckets": cfg.num_buckets,
+          "keys_per_bucket": long_n / cfg.num_buckets,
           "turned_down": long_turned_down, "ms": long_ms,
           "touched_buckets": long_touched, "bound_bytes": long_bytes,
           "bytes_bound_ms": long_bytes / HBM_BYTES_PER_S * 1e3,
+          "route_floor_ms": bulk_shapes["long_segments"].get(
+              "route_floor_ms"),
           "seconds": time.perf_counter() - t1})
-    del long_keys, empty, long_valid, long_ok, long_i1, long_order, long_seg
+    del long_keys, empty, long_valid, long_ok
     torch.cuda.empty_cache()
 
     copy_src = torch.empty(1 << 28, dtype=torch.int32, device="cuda")
@@ -2750,6 +2864,11 @@ def main() -> int:
         if key in bloom_query_shapes["case_study"]:
             by_name["bloom_query"][key] = bloom_query_shapes["case_study"][key]
     by_name["cuckoo_insert_direct"]["shapes"] = bounded(insert_shape_recs)
+    # #6's row: its time is the route's, from its first launch to its last.
+    by_name["cuckoo_insert_bulk"]["shapes"] = bounded(bulk_shapes)
+    for key in ("plan", "passes", "route_floor_ms", "rule_sweep"):
+        if key in bulk_row:
+            by_name["cuckoo_insert_bulk"][key] = bulk_row[key]
     # #7's row: its time is the route's, from its first launch to its last.
     by_name["cuckoo_mixed"]["shapes"] = bounded(mixed_shapes)
     for key in ("passes", "route_floor_ms",

@@ -66,16 +66,27 @@ MIN_WINDOWS = 16
 WINDOWED_KEYS_PER_BLOCK = 12
 
 
-class QueryPlan(NamedTuple):
-    """The route of one query: ``windowed``, and the windows it would use:
-    ``windows`` of ``2 ** log2_window`` blocks each."""
+class WindowPlan(NamedTuple):
+    """The route of one call of a kernel with a windowed route (this
+    query, the cuckoo bulk insert): ``windowed``, and the windows it would
+    use: ``windows`` of ``2 ** log2_window`` table units (blocks, buckets)
+    each."""
 
     windowed: bool
     log2_window: int
     windows: int
 
 
-def query_plan(config: BB.BloomConfig, n: int, l2_bytes: int) -> QueryPlan:
+def window_split(units: int, unit_bytes: int, l2_bytes: int) -> tuple:
+    """(log2_window, windows): a window is the largest power of two of
+    ``units`` within ``WINDOW_L2_SHARE`` of the L2, and the windows cover
+    the table's ``units``."""
+    budget = int(l2_bytes * WINDOW_L2_SHARE) // unit_bytes
+    log2_window = max(0, budget.bit_length() - 1)
+    return log2_window, -(-units >> log2_window)
+
+
+def query_plan(config: BB.BloomConfig, n: int, l2_bytes: int) -> WindowPlan:
     """The route a query of ``n`` keys takes on a card with ``l2_bytes`` of
     L2, from the shape alone. A window is the largest power of two of
     blocks within ``WINDOW_L2_SHARE`` of the L2, so that its blocks stay in
@@ -83,12 +94,11 @@ def query_plan(config: BB.BloomConfig, n: int, l2_bytes: int) -> QueryPlan:
     table spans ``MIN_WINDOWS`` to ``MAX_WINDOWS`` windows and the batch
     asks at least ``WINDOWED_KEYS_PER_BLOCK`` keys a block; elsewhere one
     thread a key was faster on the card."""
-    budget = int(l2_bytes * WINDOW_L2_SHARE) // (4 * config.words_per_block)
-    log2_window = max(0, budget.bit_length() - 1)
-    windows = -(-config.num_blocks >> log2_window)
+    log2_window, windows = window_split(
+        config.num_blocks, 4 * config.words_per_block, l2_bytes)
     windowed = (MIN_WINDOWS <= windows <= MAX_WINDOWS and 0 < n < 2 ** 31
                 and n >= WINDOWED_KEYS_PER_BLOCK * config.num_blocks)
-    return QueryPlan(windowed, log2_window, windows)
+    return WindowPlan(windowed, log2_window, windows)
 
 
 def l2_bytes(device: torch.device) -> int:
@@ -101,7 +111,7 @@ def l2_bytes(device: torch.device) -> int:
 
 def bloom_query_launch(config: BB.BloomConfig, table: torch.Tensor,
                        keys: torch.Tensor, hit: torch.Tensor,
-                       plan: QueryPlan = None) -> None:
+                       plan: WindowPlan = None) -> None:
     """Launch the query on the current stream (arguments checked) by the
     route of ``plan``, by default :func:`query_plan`'s for this card. The
     windowed route's scratch comes from torch's allocator."""

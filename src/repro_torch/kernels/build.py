@@ -41,7 +41,11 @@ ARGTYPES = {
     "cuckoo_query_unfused_launch": [_P, _P, _P, _I64] + _GEOMETRY,
     "cuckoo_insert_launch": [_P, _P, _P, _P, _I64] + _GEOMETRY,
     "cuckoo_insert_unfused_launch": [_P, _P, _P, _P, _I64] + _GEOMETRY,
-    "cuckoo_insert_bulk_launch": [_P, _P, _P, _P, _P, _I64, _I64, _P] + _GEOMETRY,
+    # table, keys, valid, ok, n, scratch, log2 of a window's buckets,
+    # windows (1: the insert pass alone).
+    "cuckoo_insert_bulk_launch": [_P, _P, _P, _P, _I64, _P, _U32, _U32]
+                                 + _GEOMETRY,
+    "cuckoo_insert_bulk_scratch_bytes": [_I64, _U32],
     # table, keys, ops, valid, scratch, log2 of its slots, n, ok, state.
     "cuckoo_mixed_launch": [_P, _P, _P, _P, _P, _U32, _I64, _P, _P] + _GEOMETRY,
     # table, sorted key values, order, its length, scratch, counts, ok.
@@ -66,8 +70,11 @@ ARGTYPES = {
 # ``cudaError_t``.
 EXPORTS = {"bloom_query": ("bloom_query_launch", "bloom_query_windowed_launch",
                            "bloom_query_scratch_bytes", "bloom_query_l2_bytes"),
+           "cuckoo_insert_bulk": ("cuckoo_insert_bulk_launch",
+                                  "cuckoo_insert_bulk_scratch_bytes"),
            "cuckoo_mixed": ("cuckoo_mixed_launch", "cuckoo_mixed_walk_launch")}
-RESTYPES = {"bloom_query_scratch_bytes": _I64, "bloom_query_l2_bytes": _I64}
+RESTYPES = {"bloom_query_scratch_bytes": _I64, "bloom_query_l2_bytes": _I64,
+            "cuckoo_insert_bulk_scratch_bytes": _I64}
 
 _LIBS: dict = {}
 

@@ -17,23 +17,14 @@
 // Windowed (bloom_query_windowed_launch), for a large batch on a table
 // larger than the L2: the table is cut into windows of 2^s blocks, a
 // window small enough to stay in L2, and the batch is partitioned by
-// window, so that each window's blocks come from device memory about once
-// while its keys are tested. Five launches, no host sync between them:
-//   1. count: each tile of TILE keys counts its keys of each window
-//      (shared-memory counters) into counts[window][tile];
-//   2. scan: one block a window scans its row of counts; the last block
-//      to finish turns the row totals into each window's base;
-//   3. scatter: each tile takes its keys' slots in its runs (one run a
-//      window, in window order) from shared-memory cursors, stages their
-//      (block, hash word) pairs there, and writes each run contiguously
-//      into its window's segment; each key's slot goes out as two bytes
-//      in input order;
-//   4. probe: blocks claim tiles of the concatenated segments in order
-//      through an atomic ticket, so the tiles in flight cover one or two
-//      windows; each entry's bits are tested against its block in L2, and
-//      its answer is written as one byte in segment order;
-//   5. un-permute: each tile loads its runs of answers into shared memory
-//      and writes hit[i] = the answer at key i's slot, in input order.
+// window (window_route.cuh: count, scan, scatter; an entry is the key's
+// (block, hash word)), so that each window's blocks come from device
+// memory about once while its keys are tested. Five launches, no host
+// sync between them: the partition's three, then the probe, in which
+// blocks claim tiles of the concatenated segments in order through an
+// atomic ticket, so that the tiles in flight cover one or two windows,
+// and test each entry's bits against its block in L2, writing its answer
+// as one byte in segment order; then the un-permute back to input order.
 // A thread's k loads of one block cost the L1 k requests, which hold a
 // probe from L2 at about the rate of the direct route from device memory.
 // So where a block is 4, 8, 16 or 32 words the warp stages its keys'
@@ -44,18 +35,9 @@
 // read back, 2; its hit written, 1), and the table read once. The wrapper
 // chooses the route from the shape alone (kernels/bloom.py: query_plan).
 #include "bloom_common.cuh"
+#include "window_route.cuh"
 
 namespace {
-
-constexpr uint32_t FULL = 0xFFFFFFFFu;
-constexpr int TILE = 4096;          // keys a tile of passes 1, 3, 4 and 5
-constexpr int WARPS = cuckoo::THREADS / 32;
-constexpr int PER_LANE = TILE / cuckoo::THREADS;  // keys a lane a tile
-constexpr int MAX_WINDOWS = 256;    // at most one window a thread
-constexpr int SCAN_THREADS = 1024;
-static_assert(MAX_WINDOWS <= cuckoo::THREADS, "tile_runs: a window a thread");
-static_assert(TILE <= 1 << 16, "a slot in the tile is two bytes");
-static_assert(TILE % (4 * cuckoo::THREADS) == 0, "four keys a thread a round");
 
 // The k bits of one key tested with one read-only load each.
 __device__ __forceinline__ bool loaded_hit(const uint32_t* __restrict__ table,
@@ -131,178 +113,22 @@ __global__ void __launch_bounds__(cuckoo::THREADS)
   hit[i] = loaded_hit(table, g, bloom::hash_block(key.x, key.y, g));
 }
 
-// Exclusive prefix of v over the block's threads (in thread order); the
-// block's total in *total. `buf` holds blockDim / 32 + 1 words. Every
-// thread calls.
-__device__ __forceinline__ uint32_t block_exclusive_scan(uint32_t v,
-                                                         uint32_t* buf,
-                                                         uint32_t* total) {
-  const uint32_t lane = threadIdx.x & 31u, warp = threadIdx.x >> 5;
-  uint32_t x = v;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const uint32_t y = __shfl_up_sync(FULL, x, d);
-    if (lane >= uint32_t(d)) x += y;
-  }
-  if (lane == 31) buf[warp] = x;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    uint32_t run = 0;
-    for (uint32_t w = 0; w < blockDim.x / 32; ++w) {
-      const uint32_t c = buf[w];
-      buf[w] = run;
-      run += c;
-    }
-    buf[blockDim.x / 32] = run;
-  }
-  __syncthreads();
-  const uint32_t out = buf[warp] + x - v;
-  *total = buf[blockDim.x / 32];
-  __syncthreads();  // buf may be reused at once
-  return out;
-}
+// The windowed route's partition: every key, its entry (block, hash word).
+struct BloomPartition {
+  bloom::Geometry g;
+  uint32_t log2_window;
 
-// A tile's runs, one a window in window order: dst[w] the run's first
-// position in the segments, len[w] its keys, run[w] its first slot in the
-// tile. From the scanned counts (`stride` words a window) and the
-// windows' bases (windows + 1 of them). Every thread calls.
-__device__ __forceinline__ void tile_runs(
-    uint32_t* run, uint32_t* len, uint32_t* dst, uint32_t* buf,
-    uint32_t windows, const uint32_t* __restrict__ offsets,
-    const uint32_t* __restrict__ bases, uint32_t stride, uint32_t tile) {
-  const uint32_t w = threadIdx.x;  // windows <= THREADS: one window a thread
-  uint32_t n_w = 0;
-  if (w < windows) {
-    const uint32_t* row = offsets + size_t(w) * stride;
-    const uint32_t first = bases[w] + row[tile];
-    const uint32_t end =
-        tile + 1 < gridDim.x ? bases[w] + row[tile + 1] : bases[w + 1];
-    dst[w] = first;
-    len[w] = n_w = end - first;
+  __device__ __forceinline__ bool entry(int64_t, uint2 key, uint2& e) const {
+    const bloom::Hashed hk = bloom::hash_block(key.x, key.y, g);
+    e = make_uint2(hk.block, hk.h);
+    return true;
   }
-  uint32_t total;
-  const uint32_t at = block_exclusive_scan(n_w, buf, &total);
-  if (w < windows) run[w] = at;
-  __syncthreads();
-}
+  __device__ __forceinline__ uint32_t window(uint2 e) const {
+    return e.x >> log2_window;
+  }
+};
 
-// Pass 1: counts[w * stride + t] = keys of tile t in window w. Block 0
-// also clears the scan's and the probe's counters.
-__global__ void __launch_bounds__(cuckoo::THREADS)
-    window_count_kernel(const uint2* __restrict__ keys, int64_t n,
-                        bloom::Geometry g, uint32_t log2_window,
-                        uint32_t windows, uint32_t stride,
-                        uint32_t* __restrict__ counts,
-                        uint32_t* __restrict__ control) {
-  __shared__ uint32_t cnt[MAX_WINDOWS];
-  for (uint32_t w = threadIdx.x; w < windows; w += blockDim.x) cnt[w] = 0;
-  if (blockIdx.x == 0 && threadIdx.x == 0) control[0] = control[1] = 0;
-  __syncthreads();
-  const int64_t base = int64_t(blockIdx.x) * TILE;
-#pragma unroll 4
-  for (int r = 0; r < PER_LANE; ++r) {
-    const int64_t i = base + r * cuckoo::THREADS + threadIdx.x;
-    if (i < n) {
-      const uint2 key = keys[i];
-      atomicAdd(&cnt[bloom::hash_block(key.x, key.y, g).block >> log2_window],
-                1u);
-    }
-  }
-  __syncthreads();
-  for (uint32_t w = threadIdx.x; w < windows; w += blockDim.x)
-    counts[size_t(w) * stride + blockIdx.x] = cnt[w];
-}
-
-// Pass 2: block w turns row w of counts into exclusive offsets within the
-// window (four to a thread, coalesced) and writes the row's total to
-// bases[w]; the last block to finish turns bases[0..windows] into each
-// window's exclusive prefix, bases[windows] = n.
-__global__ void __launch_bounds__(SCAN_THREADS)
-    window_scan_kernel(uint32_t* __restrict__ counts, uint32_t tiles,
-                       uint32_t stride, uint32_t windows,
-                       uint32_t* __restrict__ bases,
-                       uint32_t* __restrict__ control) {
-  __shared__ uint32_t buf[SCAN_THREADS / 32 + 1];
-  __shared__ bool last;
-  uint4* row = reinterpret_cast<uint4*>(counts + size_t(blockIdx.x) * stride);
-  uint32_t carry = 0;
-  for (uint32_t t0 = 0; t0 < tiles; t0 += 4 * SCAN_THREADS) {
-    const uint32_t t = t0 + 4 * threadIdx.x;
-    uint4 v = t < tiles ? row[t / 4] : make_uint4(0u, 0u, 0u, 0u);
-    if (t + 1 >= tiles) v.y = 0;  // the row's padding
-    if (t + 2 >= tiles) v.z = 0;
-    if (t + 3 >= tiles) v.w = 0;
-    uint32_t total;
-    const uint32_t at =
-        carry + block_exclusive_scan(v.x + v.y + v.z + v.w, buf, &total);
-    if (t < tiles)
-      row[t / 4] = make_uint4(at, at + v.x, at + v.x + v.y,
-                              at + v.x + v.y + v.z);
-    carry += total;
-  }
-  if (threadIdx.x == 0) {
-    bases[blockIdx.x] = carry;
-    __threadfence();
-    last = atomicAdd(&control[0], 1u) == windows - 1;
-  }
-  __syncthreads();
-  if (last && threadIdx.x == 0) {
-    __threadfence();
-    uint32_t at = 0;
-    for (uint32_t w = 0; w < windows; ++w) {
-      const uint32_t c = __ldcg(bases + w);
-      bases[w] = at;
-      at += c;
-    }
-    bases[windows] = at;
-  }
-}
-
-// Pass 3: each key's (block, hash word) into its window's run of its tile
-// (in the order the shared-memory cursors hand out the slots), and its
-// slot in the tile as two bytes in input order.
-__global__ void __launch_bounds__(cuckoo::THREADS)
-    window_scatter_kernel(const uint2* __restrict__ keys, int64_t n,
-                          bloom::Geometry g, uint32_t log2_window,
-                          uint32_t windows, uint32_t stride,
-                          const uint32_t* __restrict__ offsets,
-                          const uint32_t* __restrict__ bases,
-                          uint2* __restrict__ seg, uint16_t* __restrict__ slot) {
-  __shared__ uint2 stage[TILE];
-  __shared__ uint32_t run[MAX_WINDOWS], len[MAX_WINDOWS], dst[MAX_WINDOWS];
-  __shared__ uint32_t cursor[MAX_WINDOWS];
-  __shared__ uint32_t buf[WARPS + 1];
-  // The keys' loads go out before the runs are placed, to overlap both.
-  const int64_t base = int64_t(blockIdx.x) * TILE;
-  uint2 key[PER_LANE];
-#pragma unroll
-  for (int r = 0; r < PER_LANE; ++r) {
-    const int64_t i = base + r * cuckoo::THREADS + threadIdx.x;
-    key[r] = i < n ? keys[i] : make_uint2(0u, 0u);
-  }
-  tile_runs(run, len, dst, buf, windows, offsets, bases, stride, blockIdx.x);
-  if (threadIdx.x < windows) cursor[threadIdx.x] = run[threadIdx.x];
-  __syncthreads();
-#pragma unroll
-  for (int r = 0; r < PER_LANE; ++r) {
-    const int64_t i = base + r * cuckoo::THREADS + threadIdx.x;
-    if (i < n) {
-      const bloom::Hashed hk = bloom::hash_block(key[r].x, key[r].y, g);
-      const uint32_t at = atomicAdd(&cursor[hk.block >> log2_window], 1u);
-      stage[at] = make_uint2(hk.block, hk.h);
-      slot[i] = uint16_t(at);
-    }
-  }
-  __syncthreads();
-  // Each run contiguous in its segment: a warp a run.
-  const uint32_t warp = threadIdx.x >> 5, lane = threadIdx.x & 31u;
-  for (uint32_t w = warp; w < windows; w += WARPS) {
-    const uint32_t from = run[w], to = dst[w];
-    for (uint32_t k = lane; k < len[w]; k += 32) seg[to + k] = stage[from + k];
-  }
-}
-
-// Pass 4: the bits of each segment entry, a tile of TILE entries at a time
+// The probe: the bits of each segment entry, a tile of TILE entries at a time
 // in ticket order. LOG2C >= 0: blocks staged by the warp (staged_hits);
 // LOG2C < 0: a thread's own k loads.
 template <int LOG2C>
@@ -343,92 +169,6 @@ __global__ void __launch_bounds__(cuckoo::THREADS)
       ans[j] = loaded_hit(table, g, bloom::Hashed{e.x, e.y});
     }
   }
-}
-
-// Pass 5: hit[i] = the answer at key i's slot.
-__global__ void __launch_bounds__(cuckoo::THREADS)
-    window_unpermute_kernel(const uint16_t* __restrict__ slot,
-                            const uint8_t* __restrict__ ans, int64_t n,
-                            uint32_t windows, uint32_t stride,
-                            const uint32_t* __restrict__ offsets,
-                            const uint32_t* __restrict__ bases,
-                            uint8_t* __restrict__ hit) {
-  __shared__ uint8_t answers[TILE];
-  __shared__ uint32_t run[MAX_WINDOWS], len[MAX_WINDOWS], dst[MAX_WINDOWS];
-  __shared__ uint32_t buf[WARPS + 1];
-  // A thread's four keys a round are consecutive: one 8-byte load of their
-  // slots and one 4-byte store of their hits (lone bytes at the tail).
-  constexpr int QUADS = TILE / (4 * cuckoo::THREADS);
-  const int64_t base = int64_t(blockIdx.x) * TILE;
-  uint2 slots[QUADS];
-#pragma unroll
-  for (int r = 0; r < QUADS; ++r) {
-    const int64_t i = base + 4 * (r * cuckoo::THREADS + threadIdx.x);
-    if (i + 4 <= n) {
-      slots[r] = *reinterpret_cast<const uint2*>(slot + i);
-    } else {
-      uint16_t v[4] = {0, 0, 0, 0};
-      for (int q = 0; q < 4; ++q)
-        if (i + q < n) v[q] = slot[i + q];
-      slots[r] = make_uint2(v[0] | uint32_t(v[1]) << 16, v[2] | uint32_t(v[3]) << 16);
-    }
-  }
-  tile_runs(run, len, dst, buf, windows, offsets, bases, stride, blockIdx.x);
-  const uint32_t warp = threadIdx.x >> 5, lane = threadIdx.x & 31u;
-  for (uint32_t w = warp; w < windows; w += WARPS) {
-    const uint32_t from = dst[w], to = run[w];
-    for (uint32_t k = lane; k < len[w]; k += 32) answers[to + k] = ans[from + k];
-  }
-  __syncthreads();
-#pragma unroll
-  for (int r = 0; r < QUADS; ++r) {
-    const int64_t i = base + 4 * (r * cuckoo::THREADS + threadIdx.x);
-    const uint32_t got = answers[slots[r].x & 0xFFFFu] |
-                         uint32_t(answers[slots[r].x >> 16]) << 8 |
-                         uint32_t(answers[slots[r].y & 0xFFFFu]) << 16 |
-                         uint32_t(answers[slots[r].y >> 16]) << 24;
-    if (i + 4 <= n) {
-      *reinterpret_cast<uint32_t*>(hit + i) = got;
-    } else {
-      for (int q = 0; q < 4; ++q)
-        if (i + q < n) hit[i + q] = uint8_t(got >> (8 * q));
-    }
-  }
-}
-
-// The scratch of the windowed route, carved from one buffer: the
-// segments (8 bytes a key), counts (windows rows of `stride` words, 16-byte
-// aligned), bases (windows + 1), two control words, the slots (two bytes a
-// key, 16-byte aligned) and the answers (a byte a key).
-struct Scratch {
-  uint2* seg;
-  uint32_t *counts, *bases, *control;
-  uint16_t* slot;
-  uint8_t* ans;
-  uint32_t tiles, stride;
-  size_t bytes;
-};
-
-Scratch carve(void* base, int64_t n, uint32_t windows) {
-  Scratch s;
-  s.tiles = uint32_t((n + TILE - 1) / TILE);
-  s.stride = (s.tiles + 3) & ~3u;
-  const uintptr_t p = reinterpret_cast<uintptr_t>(base);
-  size_t at = 0;
-  s.seg = reinterpret_cast<uint2*>(p + at);
-  at = (at + 8 * size_t(n) + 15) & ~size_t(15);
-  s.counts = reinterpret_cast<uint32_t*>(p + at);
-  at += 4 * size_t(s.stride) * windows;
-  s.bases = reinterpret_cast<uint32_t*>(p + at);
-  at += 4 * (size_t(windows) + 1);
-  s.control = reinterpret_cast<uint32_t*>(p + at);
-  at = (at + 8 + 15) & ~size_t(15);
-  s.slot = reinterpret_cast<uint16_t*>(p + at);
-  at += 2 * size_t(n);
-  s.ans = reinterpret_cast<uint8_t*>(p + at);
-  at += size_t(n);
-  s.bytes = (at + 15) & ~size_t(15);
-  return s;
 }
 
 // log2 of the 16-byte chunks of a block where the blocks can be staged
@@ -493,26 +233,15 @@ CUCKOO_EXPORT int bloom_query_windowed_launch(
     uint32_t log2_window, uint32_t windows, uint32_t num_blocks,
     uint32_t words_per_block, uint32_t k, uint32_t bits_needed,
     uint32_t hash_kind, uint64_t seed, void* stream) {
-  if (n < 1 || n >= (int64_t(1) << 31) || windows < 2 ||
-      windows > MAX_WINDOWS || log2_window > 31 ||
-      (uint64_t(windows) << log2_window) < num_blocks ||
-      (uint64_t(windows - 1) << log2_window) >= num_blocks ||
-      reinterpret_cast<uintptr_t>(scratch) % 16 ||
-      reinterpret_cast<uintptr_t>(hit) % 4)
+  if (!windows_fit(n, log2_window, windows, num_blocks, scratch, hit))
     return int(cudaErrorInvalidValue);
   const bloom::Geometry g{num_blocks, words_per_block, k, bits_needed,
                           hash_kind, seed};
   const Scratch s = carve(scratch, n, windows);
-  const auto* kk = static_cast<const uint2*>(keys);
   const auto* t = static_cast<const uint32_t*>(table);
   auto st = static_cast<cudaStream_t>(stream);
-  window_count_kernel<<<s.tiles, cuckoo::THREADS, 0, st>>>(
-      kk, n, g, log2_window, windows, s.stride, s.counts, s.control);
-  window_scan_kernel<<<windows, SCAN_THREADS, 0, st>>>(
-      s.counts, s.tiles, s.stride, windows, s.bases, s.control);
-  window_scatter_kernel<<<s.tiles, cuckoo::THREADS, 0, st>>>(
-      kk, n, g, log2_window, windows, s.stride, s.counts, s.bases, s.seg,
-      s.slot);
+  partition(static_cast<const uint2*>(keys), n,
+            BloomPartition{g, log2_window}, windows, s, st);
   switch (staged_log2(table, words_per_block)) {
     case 0: launch_probe<0>(t, s, n, g, st); break;
     case 1: launch_probe<1>(t, s, n, g, st); break;
@@ -520,8 +249,6 @@ CUCKOO_EXPORT int bloom_query_windowed_launch(
     case 3: launch_probe<3>(t, s, n, g, st); break;
     default: launch_probe<-1>(t, s, n, g, st); break;
   }
-  window_unpermute_kernel<<<s.tiles, cuckoo::THREADS, 0, st>>>(
-      s.slot, s.ans, n, windows, s.stride, s.counts, s.bases,
-      static_cast<uint8_t*>(hit));
+  unpermute(n, windows, s, static_cast<uint8_t*>(hit), st);
   return int(cudaGetLastError());
 }

@@ -94,34 +94,50 @@ struct Probe {
   uint32_t start;       // circular scan start, tag mod bucket_size
 };
 
-__device__ __forceinline__ Probe prepare(uint32_t lo, uint32_t hi,
-                                         const Geometry& g) {
+// A key's tag and primary bucket, the part of a probe that needs the hash.
+__device__ __forceinline__ void primary(uint32_t lo, uint32_t hi,
+                                        const Geometry& g, uint32_t& tag,
+                                        uint32_t& i1) {
   uint32_t hhi, hlo;
   hash_key(lo, hi, g, hhi, hlo);
-  Probe p;
-  uint32_t tag;
   if (g.policy == 0) {  // XorPolicy
     const uint32_t fmask =
         g.fp_bits == 32 ? 0xFFFFFFFFu : (1u << g.fp_bits) - 1u;
     const uint32_t fp = hhi & fmask;
     tag = fp ? fp : 1u;
+    i1 = hlo & (g.num_buckets - 1u);
+  } else {  // OffsetPolicy: the tag leaves its top bit to the choice
+    const uint32_t fp = hhi & ((1u << (g.fp_bits - 1)) - 1u);
+    tag = fp ? fp : 1u;
+    i1 = hlo % g.num_buckets;
+  }
+}
+
+// The whole probe from a tag and its primary bucket.
+__device__ __forceinline__ Probe probe_of(uint32_t i1, uint32_t tag,
+                                          const Geometry& g) {
+  Probe p;
+  p.i1 = i1;
+  if (g.policy == 0) {  // XorPolicy
     const uint32_t bmask = g.num_buckets - 1u;
-    p.i1 = hlo & bmask;
-    p.i2 = p.i1 ^ (fmix32(tag) & bmask);
+    p.i2 = i1 ^ (fmix32(tag) & bmask);
     p.tag1 = p.tag2 = p.t1 = p.t2 = tag;
   } else {  // OffsetPolicy: choice bit in the tag's top bit
-    const uint32_t vmask = (1u << (g.fp_bits - 1)) - 1u;
     const uint32_t choice = 1u << (g.fp_bits - 1);
-    const uint32_t fp = hhi & vmask;
-    tag = fp ? fp : 1u;
     const uint32_t off = fmix32(tag ^ 0x27D4EB2Fu) % (g.num_buckets - 1u) + 1u;
-    p.i1 = hlo % g.num_buckets;
-    p.i2 = (p.i1 + off) % g.num_buckets;
+    p.i2 = (i1 + off) % g.num_buckets;
     p.tag1 = p.t1 = tag;
     p.tag2 = p.t2 = tag | choice;
   }
   p.start = tag % g.bucket_size;
   return p;
+}
+
+__device__ __forceinline__ Probe prepare(uint32_t lo, uint32_t hi,
+                                         const Geometry& g) {
+  uint32_t tag, i1;
+  primary(lo, hi, g, tag, i1);
+  return probe_of(i1, tag, g);
 }
 
 // ---------------------------------------------------------------------------
@@ -243,6 +259,48 @@ __device__ __forceinline__ void load_bucket(const uint32_t* table, uint32_t buck
   } else {
     static_assert(W == 1, "words per bucket must be 1, 2 or a multiple of 4");
     w[0] = READ_ONLY ? __ldg(base) : __ldcg(base);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Direct insert of one key, no eviction (cuckoo_insert.cu, and the insert
+// pass of cuckoo_insert_bulk.cu): the first free slot of bucket i1 (words
+// in ``w1``), else of bucket i2 (words in ``w2`` once ``have2``; read here
+// if i1 fills up while the key tries it), each scanned circularly from the
+// key's start. One loop and one CAS site serve both buckets, so a warp's
+// CASes go out together whichever bucket each thread settles in. A lost
+// CAS puts the word it returns into the copy and rescans the copy. False
+// once both copies show no free slot.
+// ---------------------------------------------------------------------------
+
+template <int W, int F>
+__device__ __forceinline__ bool settle(uint32_t* table, const Probe& p,
+                                       uint32_t (&w1)[W], uint32_t (&w2)[W],
+                                       bool have2) {
+  constexpr int TPW = 32 / F;
+  for (;;) {
+    int slot = first_circular<W, F>(free_slots<W, F>(w1), p.start);
+    const bool in1 = slot >= 0;
+    if (!in1) {
+      if (!have2) {
+        load_bucket<W, false>(table, p.i2, w2);
+        have2 = true;
+      }
+      slot = first_circular<W, F>(free_slots<W, F>(w2), p.start);
+    }
+    if (slot < 0) return false;
+    const int widx = slot / TPW;
+    const uint32_t old = in1 ? pick(w1, widx) : pick(w2, widx);
+    const uint32_t desired =
+        replace_lane<F>(old, slot % TPW, in1 ? p.tag1 : p.tag2);
+    const uint32_t seen =
+        atomicCAS(table + size_t(in1 ? p.i1 : p.i2) * W + widx, old, desired);
+    if (seen == old) return true;
+    if (in1) {
+      put(w1, widx, seen);
+    } else {
+      put(w2, widx, seen);
+    }
   }
 }
 

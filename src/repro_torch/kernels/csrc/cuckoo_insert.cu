@@ -47,43 +47,6 @@
 
 namespace {
 
-// Settle one key: the first free slot of bucket i1 (words in ``w1``), else
-// of bucket i2 (words in ``w2`` once ``have2``; read here if i1 fills up
-// while the key tries it), each scanned circularly from the key's start.
-// One loop and one CAS site serve both buckets, so a warp's CASes go out
-// together whichever bucket each thread settles in. False once both
-// copies show no free slot.
-template <int W, int F>
-__device__ __forceinline__ bool settle(uint32_t* table, const cuckoo::Probe& p,
-                                       uint32_t (&w1)[W], uint32_t (&w2)[W],
-                                       bool have2) {
-  constexpr int TPW = 32 / F;
-  for (;;) {
-    int slot = cuckoo::first_circular<W, F>(cuckoo::free_slots<W, F>(w1), p.start);
-    const bool in1 = slot >= 0;
-    if (!in1) {
-      if (!have2) {
-        cuckoo::load_bucket<W, false>(table, p.i2, w2);
-        have2 = true;
-      }
-      slot = cuckoo::first_circular<W, F>(cuckoo::free_slots<W, F>(w2), p.start);
-    }
-    if (slot < 0) return false;
-    const int widx = slot / TPW;
-    const uint32_t old = in1 ? cuckoo::pick(w1, widx) : cuckoo::pick(w2, widx);
-    const uint32_t desired =
-        cuckoo::replace_lane<F>(old, slot % TPW, in1 ? p.tag1 : p.tag2);
-    const uint32_t seen =
-        atomicCAS(table + size_t(in1 ? p.i1 : p.i2) * W + widx, old, desired);
-    if (seen == old) return true;
-    if (in1) {
-      cuckoo::put(w1, widx, seen);
-    } else {
-      cuckoo::put(w2, widx, seen);
-    }
-  }
-}
-
 template <int W, int F>
 __global__ void cuckoo_insert_kernel(uint32_t* table, const uint2* keys,
                                      const uint8_t* valid, uint8_t* ok,
@@ -100,7 +63,7 @@ __global__ void cuckoo_insert_kernel(uint32_t* table, const uint2* keys,
   cuckoo::load_bucket<W, false>(table, p.i1, w1);
   const bool have2 = cuckoo::free_slots<W, F>(w1) == 0;
   if (have2) cuckoo::load_bucket<W, false>(table, p.i2, w2);
-  ok[i] = settle<W, F>(table, p, w1, w2, have2);
+  ok[i] = cuckoo::settle<W, F>(table, p, w1, w2, have2);
 }
 
 }  // namespace

@@ -38,19 +38,6 @@ def cuckoo_mixed_plain(config: CuckooConfig, table: torch.Tensor,
     return apply_sequential(config, table, keys, ops, valid)
 
 
-def sorted_runs(values: torch.Tensor):
-    """Stable sort of int64[n] ``values`` into runs of equal values.
-
-    Returns (order int64[n]: batch positions in sorted order, batch order
-    within a run; seg_start int64[s]: the sorted position where each run
-    begins).
-    """
-    sorted_v, order = torch.sort(values, stable=True)
-    head = torch.ones_like(sorted_v, dtype=torch.bool)
-    head[1:] = sorted_v[1:] != sorted_v[:-1]
-    return order, head.nonzero().squeeze(1)
-
-
 def key_values(keys: torch.Tensor) -> torch.Tensor:
     """int32[n, 2] (lo, hi) keys -> their 64-bit values as int64[n]."""
     return ((keys[:, 1].to(torch.int64) << 32)

@@ -18,14 +18,14 @@ import numpy as np
 import torch
 
 from ..amq.protocol import OP_DELETE, OP_INSERT
-from ..core.cuckoo_filter import CuckooConfig, CuckooState, prepare_keys
+from ..core.cuckoo_filter import CuckooConfig, CuckooState
 from ..filters.blocked_bloom import BloomConfig, BloomState
 from .bloom import (bloom_insert_launch, bloom_insert_plain,
                     bloom_query_launch, bloom_query_plain)
 from .cuckoo_insert import (cuckoo_insert_direct_plain, cuckoo_insert_launch,
                             cuckoo_insert_unfused_launch)
 from .cuckoo_insert_bulk import cuckoo_insert_bulk_launch, cuckoo_insert_bulk_plain
-from .cuckoo_mixed import cuckoo_mixed_plain, cuckoo_mixed_route, sorted_runs
+from .cuckoo_mixed import cuckoo_mixed_plain, cuckoo_mixed_route
 from .cuckoo_query import (cuckoo_query_launch, cuckoo_query_plain,
                            cuckoo_query_unfused_launch,
                            cuckoo_query_unfused_plain)
@@ -188,11 +188,13 @@ def cuckoo_insert_bulk(config: CuckooConfig, state: CuckooState,
     """Kernel-backed bucket-major direct insert, no eviction -> (state',
     ok bool[n]).
 
-    Sorts the batch stably by primary bucket (the bulk-build order; on the
-    GPU the keys are hashed by the hash kernel), inserts the sorted stream
-    and returns ``ok`` in batch order. Keys with ``ok`` False (both buckets
-    full) need the eviction-capable core. ``valid`` (bool[n]) masks keys
-    out; masked keys report False.
+    On the CPU the plain version sorts the batch stably by primary bucket
+    and inserts the sorted stream; on the GPU the route partitions the
+    batch by table window, hashing as it goes (no hash kernel, no sort, no
+    host sync; ``kernels/cuckoo_insert_bulk.py``). ``ok`` comes back in
+    batch order. Keys with ``ok`` False (both buckets full) need the
+    eviction-capable core. ``valid`` (bool[n]) masks keys out; masked keys
+    report False.
     """
     n = _check_keys(keys)
     _check_state(config, state)
@@ -201,13 +203,10 @@ def cuckoo_insert_bulk(config: CuckooConfig, state: CuckooState,
         ok = cuckoo_insert_bulk_plain(config, state.table, keys, valid)
     else:
         _check_kernel_layout(config, state.table, keys)
-        _, i1, _ = prepare_keys(config, keys)        # the hash kernel
-        order, seg_start = sorted_runs(i1)
         ok = torch.empty((n,), dtype=torch.bool, device=keys.device)
         if n:
             with torch.cuda.device(keys.device):
-                cuckoo_insert_bulk_launch(config, state.table, keys, valid,
-                                          order, seg_start, ok)
+                cuckoo_insert_bulk_launch(config, state.table, keys, valid, ok)
             LAUNCHES["cuckoo_insert_bulk"] += 1
     count = state.count + ok.sum().to(torch.int32)
     return CuckooState(state.table, count), ok

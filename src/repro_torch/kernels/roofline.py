@@ -249,6 +249,25 @@ def bloom_windowed_bytes(config, n: int) -> float:
     return BLOOM_WINDOWED_BYTES_PER_KEY * n + config.table_bytes
 
 
+# Kernel #6's windowed route (csrc/cuckoo_insert_bulk.cu), by its own
+# passes. A key: the count reads it and its valid byte (8 + 1); the
+# scatter reads them again and writes its (i1, tag) entry and its two-byte
+# slot (9 + 8 + 2); the insert reads the entry and writes its answer
+# (8 + 1); the un-permute reads the slot and the answer and writes ok
+# (2 + 1 + 1).
+BULK_ROUTE_BYTES_PER_KEY = 9 + 19 + 9 + 4
+
+
+def bulk_route_bytes(config, n: int, written: int) -> float:
+    """The least bytes of kernel #6's windowed route on ``n`` keys: its
+    streamed bytes, the whole table read once (window by window into L2)
+    and the ``written`` buckets the batch changes written back once. Over
+    the memory rate, the route's own floor, beside the function's
+    (:func:`least_batch_bytes` of ``"bulk_insert"``)."""
+    return (BULK_ROUTE_BYTES_PER_KEY * n + config.table_bytes
+            + config.layout.words_per_bucket * 4 * written)
+
+
 # Kernel #7's route (csrc/cuckoo_mixed.cu), by its own passes. A valid op:
 # the mark reads its key, valid byte and op (8 + 1 + 4), writes its state
 # byte (1) and claims its 8-byte scratch slot (read and written, 16); the

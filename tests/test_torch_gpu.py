@@ -65,6 +65,7 @@ from repro_torch.kernels.bloom import bloom_insert_plain, bloom_query_plain
 from repro_torch.core.cuckoo_filter import prepare_keys_plain
 from repro_torch.kernels import ops as K
 from repro_torch.kernels.cuckoo_insert import cuckoo_insert_direct_plain
+from repro_torch.kernels import cuckoo_insert_bulk as bulk_module
 from repro_torch.kernels.cuckoo_insert_bulk import cuckoo_insert_bulk_plain
 from repro_torch.kernels.cuckoo_mixed import cuckoo_mixed_plain
 from repro_torch.kernels.cuckoo_query import (cuckoo_query_plain,
@@ -366,13 +367,37 @@ def test_apply_ops_on_the_card(cuda, mix):
         assert int((tags != 0).sum()) == h.count()
 
 
+def _bulk_route(monkeypatch, cfg, n, windows):
+    """Show kernel #6's route rule an L2 that cuts ``cfg``'s table into
+    ``windows`` windows and asks no keys a bucket (``windows`` 1: the rule
+    of this card, whose L2 holds the test's tables: the insert pass
+    alone). Returns the plan the wrapper will take."""
+    if windows > 1:
+        bucket_bytes = 4 * cfg.layout.words_per_bucket
+        s = (-(-cfg.num_buckets // windows) - 1).bit_length()
+        l2 = 5 * (bucket_bytes << s) + 4
+        monkeypatch.setattr(bulk_module, "l2_bytes", lambda device: l2)
+        monkeypatch.setattr(bulk_module, "WINDOWED_KEYS_PER_BUCKET", 0)
+    plan = bulk_module.bulk_plan(cfg, n, bulk_module.l2_bytes(
+        torch.device("cuda")))
+    assert plan.windowed == (windows > 1)
+    assert not plan.windowed or plan.windows == windows
+    return plan
+
+
+@pytest.mark.parametrize("windows", [1, 16], ids=["one-window", "16-windows"])
 @pytest.mark.parametrize("layout", LAYOUTS, ids=lambda c: "b{}f{}{}{}".format(*c))
-def test_bulk_insert_matches_plain(cuda, layout):
+def test_bulk_insert_matches_plain(cuda, monkeypatch, layout, windows):
+    """Kernel #6 by each route on keys that share no bucket, so that every
+    order of its CASes gives the sequential loop's outcome."""
     cfg = _cfg(*layout)
     state, _ = _half_full(cfg, cuda, 9)
-    keys = _keys(10, 256, cuda)
-    valid = (torch.rand(256, generator=torch.Generator().manual_seed(3))
+    pool = _keys(10, 4096, cuda)
+    keys = pool[_disjoint(cfg, pool)[:1024]]
+    n = keys.shape[0]
+    valid = (torch.rand(n, generator=torch.Generator().manual_seed(3))
              < 0.9).to(cuda)
+    _bulk_route(monkeypatch, cfg, n, windows)
     t_kernel, t_plain = state.table.clone(), state.table.clone()
     K.reset_launches()
     st, ok_kernel = K.cuckoo_insert_bulk(cfg, state._replace(table=t_kernel),
@@ -385,6 +410,46 @@ def test_bulk_insert_matches_plain(cuda, layout):
     assert int(st.count) == int(state.count) + int(ok_kernel.sum())
     assert torch.equal(_bucket_multisets(cfg, t_kernel),
                        _bucket_multisets(cfg, t_plain))
+
+
+# (layout, keys a bucket, the share of keys masked out) of kernel #6's
+# windowed route on 2^14-bucket tables cut into 16 windows, into the empty
+# table: eight keys a bucket (the long segments' shape, load 0.5 at 16
+# slots); a mask with a random fifth, a whole tile and the tail masked
+# out, with a ragged last tile; the offset policy, whose last window is
+# short; every key masked out.
+WINDOWED_CASES = [
+    pytest.param((16, 16, "xor", "fmix32"), 8, None, id="eight-keys-a-bucket"),
+    pytest.param((16, 16, "xor", "xxhash64"), 3.1, "mixed", id="partly-invalid"),
+    pytest.param((8, 8, "offset", "fmix32"), 2, None, id="offset-short-window"),
+    pytest.param((4, 8, "xor", "fmix32"), 1, "all", id="all-invalid"),
+]
+
+
+@pytest.mark.parametrize("layout,per_bucket,masked", WINDOWED_CASES)
+def test_bulk_windowed_route_holds_invariants(cuda, monkeypatch, layout,
+                                              per_bucket, masked):
+    cfg = _cfg(*layout)
+    n = int(per_bucket * cfg.num_buckets)
+    keys = _keys(13, n, cuda)
+    valid = torch.ones(n, dtype=torch.bool, device=cuda)
+    if masked == "mixed":
+        valid = (torch.rand(n, generator=torch.Generator().manual_seed(8))
+                 >= 0.2).to(cuda)
+        valid[4096:8192] = False
+        valid[-1000:] = False
+    elif masked == "all":
+        valid[:] = False
+    _bulk_route(monkeypatch, cfg, n, 16)
+    K.reset_launches()
+    state, ok = K.cuckoo_insert_bulk(cfg, cfg.init(cuda), keys, valid)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["cuckoo_insert_bulk"] == 1
+    assert not ok[~valid].any()
+    assert int(ok.sum()) > 0.9 * min(int(valid.sum()), cfg.num_slots) or (
+        masked == "all")
+    # The masked keys were never tried: the invariants hold on the others.
+    _hold_insert_invariants(cfg, state, keys[valid], ok[valid], cuda)
 
 
 def _hold_insert_invariants(cfg, state, keys, ok, device):
@@ -400,19 +465,23 @@ def _hold_insert_invariants(cfg, state, keys, ok, device):
     _, i1, i2 = prepare_keys_plain(cfg, keys[~ok])
     assert bool(full[i1].all()) and bool(full[i2].all())
     tag, j1, j2 = prepare_keys_plain(cfg, keys[ok])
+    alt = cfg.placement.place_tag(tag, True)   # the tag as bucket i2 holds it
     allowed = (set(zip(j1.tolist(), tag.tolist()))
-               | set(zip(j2.tolist(), tag.tolist())))
+               | set(zip(j2.tolist(), alt.tolist())))
     b, s = tags.nonzero(as_tuple=True)
     assert set(zip(b.tolist(), tags[b, s].tolist())) <= allowed
 
 
-def test_bulk_insert_under_contention_holds_invariants(cuda):
-    """4x more keys than slots (64x more than buckets): primary-bucket
-    segments of ~64 keys overflow into secondaries that other segments
-    own, so cached words go stale and secondary CASes collide."""
+@pytest.mark.parametrize("windows", [1, 16], ids=["one-window", "16-windows"])
+def test_bulk_insert_under_contention_holds_invariants(cuda, monkeypatch,
+                                                       windows):
+    """4x more keys than slots (64x more than buckets): keys of one primary
+    bucket race each other's CASes and overflow into secondaries that
+    other keys fill, so cached words go stale and CASes collide."""
     cfg = CuckooConfig(num_buckets=64, fp_bits=16, bucket_size=16,
                        hash_kind="fmix32")
     keys = _keys(11, 4 * cfg.num_slots, cuda)
+    _bulk_route(monkeypatch, cfg, keys.shape[0], windows)
     state, ok = K.cuckoo_insert_bulk(cfg, cfg.init(cuda), keys)
     torch.cuda.synchronize()
     assert int(ok.sum()) > cfg.num_slots * 0.9

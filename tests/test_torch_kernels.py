@@ -39,11 +39,12 @@ from repro_torch.core import cuckoo_filter as TCF
 from repro_torch.core import layout as TL
 from repro_torch.kernels import ops as K
 from repro_torch.kernels import ref as TR
+from repro_torch.kernels import cuckoo_insert_bulk as BULK
+from repro_torch.kernels.bloom import WINDOW_L2_SHARE
 from repro_torch.kernels import roofline
 from repro_torch.kernels.cuckoo_insert import cuckoo_insert_direct_plain
 from repro_torch.kernels.cuckoo_mixed import (cuckoo_mixed_plain, key_order,
-                                              key_values, scratch_slots,
-                                              sorted_runs)
+                                              key_values, scratch_slots)
 from repro_torch.kernels.cuckoo_query import (cuckoo_query_plain,
                                               cuckoo_query_unfused_plain)
 from _query_tables import crafted_query_table, expected_cases
@@ -323,8 +324,8 @@ def test_mixed_plain_matches_pallas_and_ref(cell, stream):
 
 
 def test_segments_group_keys_in_batch_order():
-    """The walk's order (a subset of positions by key) and #6's runs
-    (every position): each key one run, in batch order."""
+    """The walk's order (a subset of positions by key): each key one run,
+    in batch order."""
     rng = np.random.default_rng(3)
     uni = keys_from_numpy(_raw(rng, 10))
     keys = _t(uni[rng.integers(0, 10, size=200)])
@@ -333,17 +334,13 @@ def test_segments_group_keys_in_batch_order():
     order = positions[perm]
     assert sorted(order.tolist()) == positions.tolist()
     assert torch.equal(values, key_values(keys[order]))
-    all_order, seg_start = sorted_runs(key_values(keys))
-    for order, heads in ((order, None), (all_order, set(seg_start.tolist()))):
-        k64 = [tuple(k) for k in keys[order].tolist()]
-        runs = 1
-        for j in range(1, len(k64)):
-            runs += k64[j] != k64[j - 1]
-            if heads is not None:
-                assert (j in heads) == (k64[j] != k64[j - 1])
-            if k64[j] == k64[j - 1]:
-                assert order[j] > order[j - 1]   # batch order within a key
-        assert runs == len(set(k64))
+    k64 = [tuple(k) for k in keys[order].tolist()]
+    runs = 1
+    for j in range(1, len(k64)):
+        runs += k64[j] != k64[j - 1]
+        if k64[j] == k64[j - 1]:
+            assert order[j] > order[j - 1]   # batch order within a key
+    assert runs == len(set(k64))
     assert [scratch_slots(n) for n in (1, 2, 3, 4, 5, 1 << 24)] == [
         2, 4, 8, 8, 16, 1 << 25]
 
@@ -510,6 +507,64 @@ def test_mixed_route_bytes_by_hand():
     assert roofline.mixed_route_bytes(cfg, 1000, (700, 600), repeated=100) \
         == 1000 * (mark + apply + compact) + 100 * walk + 2048 * 8 \
         + 32 * (700 + 600)
+
+
+def test_bulk_route_bytes_by_hand():
+    """Kernel #6's windowed route floor at 1000 keys on fp 16 x bucket 16
+    (32-byte buckets, a 32 KiB table of 2^10 buckets), 600 buckets
+    written: count 9, scatter 19, insert 9, un-permute 4 bytes a key, the
+    table read once, the written buckets once."""
+    cfg = convert.config_from_reference(CuckooConfig(num_buckets=1 << 10))
+    assert roofline.bulk_route_bytes(cfg, 1000, 600) == (
+        1000 * (9 + 19 + 9 + 4) + 32 * 1024 + 32 * 600)
+
+
+_L2 = 50 << 20
+_MAIN = CuckooConfig(num_buckets=1 << 24)      # fp 16 x bucket 16: 512 MiB
+_AT = int(np.ceil(BULK.WINDOWED_KEYS_PER_BUCKET * (1 << 24)))
+
+
+# (config, n, L2 bytes, (windowed, log2 of a window's buckets, windows)):
+# kernel #6's route rule (kernels/cuckoo_insert_bulk.py: bulk_plan) on an
+# H100's 50 MiB L2 unless said. A window is the largest power of two of
+# buckets in a fifth of the L2 (2^18 buckets of 32 bytes); the windowed
+# route needs a table larger than the L2, at most 256 windows and
+# WINDOWED_KEYS_PER_BUCKET keys a bucket.
+BULK_ROUTES = [
+    pytest.param(_MAIN, 1 << 24, _L2, (True, 18, 64), id="main-path-windowed"),
+    pytest.param(_MAIN, 1 << 27, _L2, (True, 18, 64),
+                 id="long-segments-windowed"),
+    pytest.param(_MAIN, _AT, _L2, (True, 18, 64), id="crossover-windowed"),
+    pytest.param(_MAIN, _AT - 1, _L2, (False, 18, 64),
+                 id="crossover-less-one-one-window"),
+    pytest.param(CuckooConfig(num_buckets=1 << 20), 1 << 24, _L2,
+                 (False, 18, 4), id="table-in-l2-one-window"),
+    pytest.param(CuckooConfig(num_buckets=1 << 27), 1 << 30, _L2,
+                 (False, 18, 512), id="too-many-windows-one-window"),
+    pytest.param(_MAIN, 1 << 31, _L2, (False, 18, 64),
+                 id="n-past-int32-one-window"),
+    pytest.param(CuckooConfig(num_buckets=(1 << 24) - 3, policy="offset"),
+                 1 << 24, _L2, (True, 18, 64), id="offset-windowed"),
+    pytest.param(CuckooConfig(num_buckets=1 << 24, fp_bits=8, bucket_size=4),
+                 1 << 24, _L2, (True, 21, 8), id="4-byte-buckets-windowed"),
+    pytest.param(_MAIN, 1 << 24, 6 << 20, (False, 15, 512),
+                 id="small-l2-too-many-windows-one-window"),
+]
+
+
+@pytest.mark.parametrize("config,n,l2,want", BULK_ROUTES)
+def test_bulk_route_rule(config, n, l2, want):
+    cfg = convert.config_from_reference(config)
+    plan = BULK.bulk_plan(cfg, n, l2)
+    assert tuple(plan) == want
+    windowed, s, windows = want
+    # What cuckoo_insert_bulk_launch accepts: the windows cover the table
+    # and the last is not empty; a window stays within the L2's share.
+    assert (windows - 1) << s < cfg.num_buckets <= windows << s
+    assert (4 * cfg.layout.words_per_bucket << s) <= l2 * WINDOW_L2_SHARE
+    if windowed:
+        assert cfg.table_bytes > l2 and windows <= BULK.MAX_WINDOWS
+        assert n >= BULK.WINDOWED_KEYS_PER_BUCKET * cfg.num_buckets
 
 
 @pytest.mark.parametrize("hash_kind,want", [
