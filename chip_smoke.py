@@ -12,13 +12,15 @@ toolkit. Phases, one JSON line each:
    ``ptxas -v`` gives the flash-attention kernels (``flash_ptxas``) and
    the Bloom insert kernels (``bloom_insert_ptxas``, with each one's
    instructions, shuffles and reductions in its SASS), and the
-   direct-insert, fused query, Bloom query and mixed-op kernels
-   (``cuckoo_insert_ptxas``, ``cuckoo_query_ptxas``, ``bloom_query_ptxas``,
+   direct-insert, query (fused and unfused), unfused direct-insert, Bloom
+   query and mixed-op kernels (``cuckoo_insert_ptxas``,
+   ``cuckoo_query_ptxas``, ``cuckoo_query_unfused_ptxas``,
+   ``cuckoo_insert_unfused_ptxas``, ``bloom_query_ptxas``,
    ``cuckoo_mixed_ptxas``, with the threads an SM holds at each one's
    registers), both instantiations of the k-mer pack
    (``kmer_pack_ptxas``) and the bulk insert's route
    (``cuckoo_insert_bulk_ptxas``): no spill allowed. Where ``cuobjdump``
-   is there, the query kernels' SASS must hold bucket i2's loads behind
+   is there, both query kernels' SASS must hold bucket i2's loads behind
    the branch on bucket i1's match.
 2. main path at 2^28 slots — ``repro_torch.amq.make("cuckoo",
    capacity=floor(0.95 * 2^28))`` (fp 16, bucket 16, XOR, fmix32: a
@@ -54,7 +56,11 @@ toolkit. Phases, one JSON line each:
    tags added are exactly the placed keys', a key turned down only with
    both buckets full; on a 2^12 sub-batch the plain loop's ``ok`` and tag
    multisets); the unfused query equals its plain version on 2^22 keys.
-   Both timed beside the fused kernels at both loads.
+   Both timed beside the fused kernels at both loads. Each unfused kernel
+   is its fused sibling's design with the lane-by-lane scan (bucket i2
+   read only where i1 does not settle the key), so the pair measures the
+   scan. The same comparison on two tables that stay in the L2 follows
+   the 2^22 main path (phase 9).
 4. timings at the main path's shapes (median of CUDA-event runs) beside
    each kernel's bound, whose bytes count the buckets the timed batch's
    own data touches (see :func:`touched_buckets`); the bulk insert (#6)
@@ -62,9 +68,9 @@ toolkit. Phases, one JSON line each:
    window: five launches) and as its wrapper, beside the function's bound
    and the route's own floor, with one wrapper call's host syncs counted
    and one profiled (gates: no host sync, no sort kernel). Then the bulk
-   insert against the direct-insert kernel where segments are long: 2^27
-   keys into the empty 2^28-slot table (eight keys a primary bucket),
-   both held to the order-free outcome first. The direct-insert kernel
+   insert against the direct-insert kernels (#4, and #5 beside it) where
+   segments are long: 2^27 keys into the empty 2^28-slot table (eight
+   keys a primary bucket), each held to the order-free outcome first. The direct-insert kernel
    also at the main path's first batch (2^24 keys into the empty table) and past
    full buckets (2^24 keys into the table at load 0.95), each held to the
    order-free outcome at 2^24 keys and exactly to the plain loop at 2^12,
@@ -73,7 +79,9 @@ toolkit. Phases, one JSON line each:
    the fill (the row's stored keys) and on 2^24 fresh keys (all negative),
    each equal to its plain version under both hashes and timed beside a
    bound from the buckets it needs and the share of keys that bucket i1
-   settles (its row's ``shapes``, with the case study's query). The
+   settles (its row's ``shapes``, with the case study's query); the
+   unfused query (#3) at the same shapes and at its row's, each beside
+   #2's time there (``cuckoo_query_unfused_shapes``, #3's ``shapes``). The
    mixed-op route (#7) at four shapes (``cuckoo_mixed_route``, its row's
    ``shapes``): the main path's delete, 2^23 stored keys each deleted
    twice, a 2^24-op YCSB 50/40/10 stream on the table at load 0.5 whose
@@ -188,7 +196,16 @@ toolkit. Phases, one JSON line each:
    bf16) and a long prefill (B 1, S 8192), each beside its bound. The wgmma kernels'
    registers and spills from ``ptxas -v`` are printed after the build
    (no spill allowed).
-9. the main path again at 2^22 slots (an 8 MiB table, resident in L2).
+9. the main path again at 2^22 slots (an 8 MiB table, resident in L2);
+   then phase 3b's comparison on two tables of 2^22 slots that stay in
+   the L2 (``unfused_comparison_l2``): that fill's table at load 0.5 (fp
+   16 x bucket 16) and an fp 8 x bucket 16 table filled to load 0.5 by
+   the direct-insert kernel. On each, 2^22 keys (half stored, half
+   fresh) through both query kernels (the unfused hits equal the fused)
+   and 2^21 fresh keys through both insert kernels on copies of the
+   table (the unfused insert held to the order-free outcome), launch
+   counts zeroed just before and read just after; each pair timed beside
+   each other.
 
 Before the last line: the ``nvidia-smi`` name and power limit, then the
 ``kernels`` line. The last line is ``{"ok": true, "device": {...}}``. Any
@@ -254,6 +271,7 @@ from repro_torch.serve import PrefixCache, ServeEngine  # noqa: E402
 SEED = 20260316
 FULL_CAPACITY = 255_013_683      # floor(0.95 * 2**28)
 L2_CAPACITY = 3_984_588          # floor(0.95 * 2**22)
+L2_PROBES = 1 << 22              # the L2 tables' query probe
 BATCHES = 16
 PROBES = 1 << 24
 SUB = 1 << 12
@@ -1415,6 +1433,93 @@ def unfused_comparison(h, snaps, stored, ins_keys, gen):
     return launches, errs, records, wrapper
 
 
+def unfused_comparison_l2(h, snaps, batches, gen) -> None:
+    """Phase 3b on two tables of 2^22 slots that stay in the L2, where a
+    random bucket read costs less and the scans' instructions can show:
+    the registry default layout (fp 16 x bucket 16) at load 0.5 from the
+    2^22 main path's fill (``h``, ``snaps``, ``batches``), and fp 8 x
+    bucket 16 filled to load 0.5 by #4. On each, through the wrappers a
+    caller uses (launch counts zeroed just before and read just after):
+    the probe of ``L2_PROBES`` keys, half stored, half fresh, through both
+    query kernels (the unfused hits equal the fused; every stored key
+    found), and ``L2_PROBES / 2`` fresh keys through both insert kernels
+    on copies of the table (the unfused insert held to the order-free
+    outcome). Each pair then timed beside each other."""
+    t0 = time.perf_counter()
+    cfg = h.config
+    # The half snapshot holds the batches before the first at which the
+    # count (every key placed: ``fill``'s gate) reached half the slots.
+    sizes = np.cumsum([0] + [b.shape[0] for b in batches])
+    held = int(np.argmax(sizes >= cfg.num_slots // 2))
+    stored16 = normalize_keys(torch.cat(batches[:held]))
+    cfg8 = dataclasses.replace(cfg, fp_bits=8)
+    keys8 = normalize_keys(random_keys(gen, cfg8.num_slots // 2))
+    state8, ok8 = K.cuckoo_insert_direct(cfg8, cfg8.init("cuda"), keys8)
+    layouts = {"fp16_b16": (cfg, snaps["half"], stored16),
+               "fp8_b16": (cfg8, state8.table, keys8[ok8])}
+    half = L2_PROBES // 2
+    K.reset_launches()
+    runs = {}
+    for label, (c, table, stored) in layouts.items():
+        # Half the probe stored keys (#4 may turn a few of the fp 8 fill's
+        # keys down, with both buckets full), the rest fresh.
+        m = min(half, stored.shape[0])
+        check(m >= 0.99 * half, f"{label}: {m} stored keys")
+        probe = torch.cat([stored[:m], normalize_keys(
+            random_keys(gen, L2_PROBES - m, top_half=True))])
+        ins_keys = normalize_keys(random_keys(gen, half))
+        st = CF.CuckooState(table, torch.zeros((), dtype=torch.int32,
+                                               device="cuda"))
+        hits = [K.cuckoo_query(c, st, probe, fused=f) for f in (True, False)]
+        placed = [K.cuckoo_insert_direct(c, st._replace(table=table.clone()),
+                                         ins_keys, fused=f)[1]
+                  for f in (True, False)]
+        runs[label] = (c, st, probe, m, ins_keys, hits, placed)
+    torch.cuda.synchronize()
+    launches = check_launches("unfused_comparison_l2", [
+        "cuckoo_query", "cuckoo_query_unfused", "cuckoo_insert_direct",
+        "cuckoo_insert_unfused"])
+
+    out = {}
+    for label, (c, st, probe, m, ins_keys, hits, placed) in runs.items():
+        check(torch.equal(hits[0], hits[1]),
+              f"{label}: the unfused query differs from the fused on "
+              f"{int((hits[0] != hits[1]).sum())} keys")
+        check(bool(hits[0][:m].all()), f"{label}: a stored key missed")
+        turned_down = [int((~ok).sum()) for ok in placed]
+        turned_down.append(check_direct_insert(
+            c, st, st.table, ins_keys, f"cuckoo_insert_unfused {label}",
+            functools.partial(K.cuckoo_insert_direct, fused=False)))
+        work = torch.empty_like(st.table)
+        valid = torch.ones(half, dtype=torch.bool, device="cuda")
+        ok = torch.empty(half, dtype=torch.bool, device="cuda")
+        ms = {"query_fused": cuda_ms(lambda: K.cuckoo_query(c, st, probe)),
+              "query_unfused": cuda_ms(
+                  lambda: K.cuckoo_query(c, st, probe, fused=False)),
+              "insert_fused": cuda_ms(
+                  lambda: cuckoo_insert_launch(c, work, ins_keys, valid, ok),
+                  setup=lambda: work.copy_(st.table)),
+              "insert_unfused": cuda_ms(
+                  lambda: cuckoo_insert_unfused_launch(c, work, ins_keys,
+                                                       valid, ok),
+                  setup=lambda: work.copy_(st.table))}
+        ms["query_unfused_over_fused"] = ms["query_unfused"] / ms["query_fused"]
+        ms["insert_unfused_over_fused"] = (ms["insert_unfused"]
+                                           / ms["insert_fused"])
+        out[label] = {"table_bytes": c.table_bytes,
+                      "load": int((bucket_lanes(c, st.table, 0, c.num_buckets)
+                                   != 0).sum()) / c.num_slots,
+                      "probe_keys": probe.shape[0], "probe_stored": m,
+                      "insert_keys": ins_keys.shape[0],
+                      "turned_down_fused_unfused_checked": turned_down,
+                      "ms": ms}
+    emit({"phase": "unfused_comparison_l2", "launches": launches,
+          "tables": out,
+          "tolerance": "exact (0): unfused query hits == fused query hits; "
+                       "unfused insert: the order-free outcome",
+          "seconds": time.perf_counter() - t0})
+
+
 # ---------------------------------------------------------------------------
 # The mixed path: op batches through FilterHandle.apply_ops.
 # ---------------------------------------------------------------------------
@@ -2065,22 +2170,25 @@ def insert_shapes(h, bases, keys, sub, work) -> dict:
     return shapes
 
 
-def query_shape(cfg, state, keys, **rec) -> dict:
-    """Kernel #2 on ``keys`` against ``state``'s table: equal to its plain
-    version bit for bit under both hashes (in parts of 2^24 keys), then
-    timed beside it (the plain version on the first part), with the share
-    of keys whose bucket i1 holds a matching tag (the keys that skip bucket
-    i2) and the work the query needs: as buckets, every key's i1 and its
-    i2 where i1 holds no matching tag; as operations, the op's floor less
-    bucket i2's SWAR test for each key that i1 settles."""
+def query_shape(cfg, state, keys, fused=True, **rec) -> dict:
+    """Kernel #2 (#3 where not ``fused``) on ``keys`` against ``state``'s
+    table: equal to its plain version bit for bit under both hashes (in
+    parts of 2^24 keys), then timed beside it (the plain version on the
+    first part), with the share of keys whose bucket i1 holds a matching
+    tag (the keys that skip bucket i2) and the work the query needs: as
+    buckets, every key's i1 and its i2 where i1 holds no matching tag; as
+    operations, the op's floor less bucket i2's SWAR test for each key
+    that i1 settles (the op's bound, the same for both kernels)."""
     n = keys.shape[0]
     parts = keys.split(PROBES)
+    name = "cuckoo_query" if fused else "cuckoo_query_unfused"
+    plain = cuckoo_query_plain if fused else cuckoo_query_unfused_plain
     for kind in ("fmix32", "xxhash64"):
         c = dataclasses.replace(cfg, hash_kind=kind)
-        got = K.cuckoo_query(c, state, keys).split(PROBES)
-        bad = sum(int((g != cuckoo_query_plain(c, state.table, p)).sum())
+        got = K.cuckoo_query(c, state, keys, fused=fused).split(PROBES)
+        bad = sum(int((g != plain(c, state.table, p)).sum())
                   for g, p in zip(got, parts))
-        check(bad == 0, f"cuckoo_query {rec}: {bad} keys differ from the "
+        check(bad == 0, f"{name} {rec}: {bad} keys differ from the "
                         f"plain version's ({kind})")
     settled = 0
     need = torch.zeros(cfg.num_buckets, dtype=torch.bool, device=keys.device)
@@ -2091,9 +2199,10 @@ def query_shape(cfg, state, keys, **rec) -> dict:
         need[i1] = True
         need[i2[~at_i1]] = True
     touched = (int(need.sum()), 0)
-    return {**rec, "n": n, "ms": cuda_ms(lambda: K.cuckoo_query(cfg, state, keys)),
-            "plain_ms": cuda_ms(lambda: cuckoo_query_plain(
-                cfg, state.table, parts[0]), reps=3),
+    return {**rec, "n": n,
+            "ms": cuda_ms(lambda: K.cuckoo_query(cfg, state, keys, fused=fused)),
+            "plain_ms": cuda_ms(lambda: plain(cfg, state.table, parts[0]),
+                                reps=3),
             "plain_n": parts[0].shape[0], "i1_hit_share": settled / n,
             "touched": touched,
             "bound_bytes": roofline.least_batch_bytes(cfg, "query", n, touched),
@@ -2517,6 +2626,23 @@ def main() -> int:
           f"cuckoo_query: the kernels' ptxas report {ptxas}")
     check(loads is None or all(r["i2_behind_branch"] for r in loads.values()),
           f"cuckoo_query: bucket i2's loads not behind the branch: {loads}")
+    ptxas = ptxas_threads(logs.get("cuckoo_query_unfused", ""),
+                          "cuckoo_query_unfused")
+    loads = query_loads("cuckoo_query_unfused")
+    emit({"phase": "cuckoo_query_unfused_ptxas",
+          "compiled": "cuckoo_query_unfused" in logs, "kernels": ptxas,
+          "sass": loads})
+    check(all(r.get("spill_stores") == 0 for r in ptxas.values()),
+          f"cuckoo_query_unfused: the kernels' ptxas report {ptxas}")
+    check(loads is None or all(r["i2_behind_branch"] for r in loads.values()),
+          f"cuckoo_query_unfused: bucket i2's loads not behind the branch: "
+          f"{loads}")
+    ptxas = ptxas_threads(logs.get("cuckoo_insert_unfused", ""),
+                          "cuckoo_insert_unfused")
+    emit({"phase": "cuckoo_insert_unfused_ptxas",
+          "compiled": "cuckoo_insert_unfused" in logs, "kernels": ptxas})
+    check(all(r.get("spill_stores") == 0 for r in ptxas.values()),
+          f"cuckoo_insert_unfused: the kernels' ptxas report {ptxas}")
     ptxas = ptxas_threads(logs.get("cuckoo_mixed", ""), "cuckoo_mixed")
     emit({"phase": "cuckoo_mixed_ptxas", "compiled": "cuckoo_mixed" in logs,
           "kernels": ptxas})
@@ -2646,13 +2772,27 @@ def main() -> int:
     # Kernel #2 at more shapes: the row's stored keys on the table at load
     # 0.5 and on the table right after the fill, and 2^24 fresh keys from
     # the disjoint half of the key space (all negative) on the latter.
+    negative = normalize_keys(random_keys(gen, PROBES, top_half=True))
+    query_tables = {"load_0.5": (half, keys), "load_0.95": (snaps["full"], keys),
+                    "load_0.95_negative": (snaps["full"], negative)}
     query_shape_recs = {
-        "load_0.5": query_shape(cfg, h.state._replace(table=half), keys),
-        "load_0.95": query_shape(cfg, h.state._replace(table=snaps["full"]),
-                                 keys),
-        "load_0.95_negative": query_shape(
-            cfg, h.state._replace(table=snaps["full"]),
-            normalize_keys(random_keys(gen, PROBES, top_half=True)))}
+        label: query_shape(cfg, h.state._replace(table=table), qkeys)
+        for label, (table, qkeys) in query_tables.items()}
+    # Kernel #3 at the same shapes and at its row's (the stored keys on the
+    # table after the main path), each beside #2's time there.
+    query_tables["stored"] = (h.state.table, keys)
+    unfused_query_shapes = {}
+    for label, (table, qkeys) in query_tables.items():
+        rec = query_shape(cfg, h.state._replace(table=table), qkeys,
+                          fused=False)
+        rec["fused_ms"] = (query_shape_recs[label]["ms"]
+                           if label in query_shape_recs
+                           else timing["cuckoo_query"][0])
+        rec["unfused_over_fused"] = rec["ms"] / rec["fused_ms"]
+        unfused_query_shapes[label] = rec
+    emit({"phase": "cuckoo_query_unfused_shapes",
+          "shapes": unfused_query_shapes})
+    del negative, query_tables
     ins_valid = torch.ones(n, dtype=torch.bool, device="cuda")
     ins_ok = torch.empty(n, dtype=torch.bool, device="cuda")
     sub_valid = torch.ones(SUB, dtype=torch.bool, device="cuda")
@@ -2726,17 +2866,23 @@ def main() -> int:
     timing.update(unfused_records)
 
     # Kernel #6 against kernel #4 where segments are long: 2^27 keys into
-    # the empty table, eight keys a primary bucket on average (load 0.5).
-    # Both held to the order-free outcome first; #4 timed as one kernel,
+    # the empty table, eight keys a primary bucket on average (load 0.5),
+    # and #5 beside #4, where keys share buckets and CASes collide. Each
+    # held to the order-free outcome first; #4 and #5 timed as one kernel,
     # #6 as its route and its wrapper (bulk_shape).
     t1 = time.perf_counter()
     long_n = 1 << 27
     long_keys = normalize_keys(random_keys(gen, long_n))
     empty = torch.zeros_like(work)
+    long_kernels = {
+        "cuckoo_insert_direct": K.cuckoo_insert_direct,
+        "cuckoo_insert_unfused": functools.partial(K.cuckoo_insert_direct,
+                                                   fused=False),
+        "cuckoo_insert_bulk": K.cuckoo_insert_bulk}
     long_turned_down = {
         name: check_direct_insert(cfg, h.state, empty, long_keys,
-                                  f"{name} long segments", getattr(K, name))
-        for name in ("cuckoo_insert_direct", "cuckoo_insert_bulk")}
+                                  f"{name} long segments", kernel)
+        for name, kernel in long_kernels.items()}
     long_valid = torch.ones(long_n, dtype=torch.bool, device="cuda")
     long_ok = torch.empty(long_n, dtype=torch.bool, device="cuda")
     bulk_shapes["long_segments"] = bulk_shape(cfg, h.state, work, empty,
@@ -2746,9 +2892,15 @@ def main() -> int:
             lambda: cuckoo_insert_launch(cfg, work, long_keys, long_valid,
                                          long_ok),
             reps=3, setup=restore(empty)),
+        "cuckoo_insert_unfused": cuda_ms(
+            lambda: cuckoo_insert_unfused_launch(cfg, work, long_keys,
+                                                 long_valid, long_ok),
+            reps=3, setup=restore(empty)),
         "cuckoo_insert_bulk": bulk_shapes["long_segments"]["ms"],
         "cuckoo_insert_bulk_wrapper":
             bulk_shapes["long_segments"]["wrapper_ms"]}
+    long_ms["insert_unfused_over_fused"] = (
+        long_ms["cuckoo_insert_unfused"] / long_ms["cuckoo_insert_direct"])
     long_touched = bulk_shapes["long_segments"]["touched"]
     long_bytes = bulk_shapes["long_segments"]["bound_bytes"]
     emit({"phase": "long_segments", "keys": long_n,
@@ -2876,6 +3028,7 @@ def main() -> int:
         if key in mixed_shapes["main_path_delete"]:
             by_name["cuckoo_mixed"][key] = mixed_shapes["main_path_delete"][key]
     by_name["cuckoo_query"]["shapes"] = bounded(query_shape_recs)
+    by_name["cuckoo_query_unfused"]["shapes"] = bounded(unfused_query_shapes)
     # #10's row: the canonical instantiation's numbers (what ``kmer_keys``
     # runs), both instantiations in ``shapes``.
     by_name["kmer_pack"]["shapes"] = bounded(kmer_shapes)
@@ -2887,9 +3040,11 @@ def main() -> int:
 
     # --- the main path at 2^22 slots --------------------------------------
     t0 = time.perf_counter()
-    main_path(L2_CAPACITY, gen, "2^22")
+    h, snaps, batches, _ = main_path(L2_CAPACITY, gen, "2^22")
     emit({"phase": "main_path_2^22_seconds",
           "seconds": time.perf_counter() - t0})
+    unfused_comparison_l2(h, snaps, batches, gen)
+    del h, snaps, batches
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
 
     print(smi, flush=True)

@@ -263,30 +263,114 @@ __device__ __forceinline__ void load_bucket(const uint32_t* table, uint32_t buck
 }
 
 // ---------------------------------------------------------------------------
-// Direct insert of one key, no eviction (cuckoo_insert.cu, and the insert
-// pass of cuckoo_insert_bulk.cu): the first free slot of bucket i1 (words
-// in ``w1``), else of bucket i2 (words in ``w2`` once ``have2``; read here
-// if i1 fills up while the key tries it), each scanned circularly from the
-// key's start. One loop and one CAS site serve both buckets, so a warp's
-// CASes go out together whichever bucket each thread settles in. A lost
-// CAS puts the word it returns into the copy and rescans the copy. False
-// once both copies show no free slot.
+// Bucket scans. Each fused kernel and its unfused sibling share one body
+// (query and insert below) and differ only in the scan they instantiate it
+// with, as the TPU's pair differs:
+//   Swar:  SWAR zero and match masks on the packed words (layout.py), the
+//          fused kernels' scan (cuckoo_query.cu, cuckoo_insert.cu, and the
+//          insert pass of cuckoo_insert_bulk.cu);
+//   Lanes: every lane extracted with a shift and a mask and compared on
+//          its own, the unfused kernels' scan (cuckoo_query_unfused.cu,
+//          cuckoo_insert_unfused.cu), as the TPU's cuckoo_query_pallas and
+//          cuckoo_insert_pallas unpack their buckets.
+// free_lanes: bitmap over the bucket's slots (bit s = slot s) of empty
+//             lanes; has_tag: whether any lane equals ``tag``.
 // ---------------------------------------------------------------------------
 
-template <int W, int F>
+struct Swar {
+  template <int W, int F>
+  static __device__ __forceinline__ uint32_t free_lanes(
+      const uint32_t (&w)[W]) {
+    return free_slots<W, F>(w);
+  }
+  template <int W, int F>
+  static __device__ __forceinline__ bool has_tag(const uint32_t (&w)[W],
+                                                 uint32_t tag) {
+    const uint32_t b = broadcast_tag<F>(tag);
+    uint32_t any = 0;
+#pragma unroll
+    for (int k = 0; k < W; ++k) any |= swar_zero_mask<F>(w[k] ^ b);
+    return any != 0;
+  }
+};
+
+struct Lanes {
+  template <int W, int F>
+  static __device__ __forceinline__ uint32_t free_lanes(
+      const uint32_t (&w)[W]) {
+    constexpr int TPW = 32 / F;
+    constexpr uint32_t FMASK = uint32_t(0xFFFFFFFFull >> (32 - F));
+    uint32_t bits = 0;
+#pragma unroll
+    for (int i = 0; i < W; ++i)
+#pragma unroll
+      for (int j = 0; j < TPW; ++j)
+        bits |= uint32_t(((w[i] >> (j * F)) & FMASK) == 0) << (i * TPW + j);
+    return bits;
+  }
+  template <int W, int F>
+  static __device__ __forceinline__ bool has_tag(const uint32_t (&w)[W],
+                                                 uint32_t tag) {
+    constexpr int TPW = 32 / F;
+    constexpr uint32_t FMASK = uint32_t(0xFFFFFFFFull >> (32 - F));
+    bool hit = false;
+#pragma unroll
+    for (int i = 0; i < W; ++i)
+#pragma unroll
+      for (int j = 0; j < TPW; ++j) hit |= ((w[i] >> (j * F)) & FMASK) == tag;
+    return hit;
+  }
+};
+
+// ---------------------------------------------------------------------------
+// Query of one key (cuckoo_query.cu, cuckoo_query_unfused.cu): bucket i1
+// read with read-only vector loads (the table does not change during a
+// query) and scanned for t1; bucket i2 read and scanned for t2 only where
+// no lane of i1 equals t1. No case needs its own code: under XOR a key
+// with i1 == i2 reads its one bucket twice if it misses, and under OFFSET
+// t2 carries the choice bit, so a tag stored in i1 never matches at i2.
+// ---------------------------------------------------------------------------
+
+template <int W, int F, class Scan>
+__device__ __forceinline__ bool query(const uint32_t* table, const Probe& p) {
+  uint32_t w[W];
+  load_bucket<W, true>(table, p.i1, w);
+  bool found = Scan::template has_tag<W, F>(w, p.t1);
+  if (!found) {
+    load_bucket<W, true>(table, p.i2, w);
+    found = Scan::template has_tag<W, F>(w, p.t2);
+  }
+  return found;
+}
+
+// ---------------------------------------------------------------------------
+// Direct insert of one key, no eviction (cuckoo_insert.cu,
+// cuckoo_insert_unfused.cu, and the insert pass of cuckoo_insert_bulk.cu):
+// the first free slot of bucket i1 (words in ``w1``), else of bucket i2
+// (words in ``w2`` once ``have2``; read here if i1 fills up while the key
+// tries it), each scanned circularly from the key's start. One loop and
+// one CAS site serve both buckets, so a warp's CASes go out together
+// whichever bucket each thread settles in. A lost CAS puts the word it
+// returns into the copy and rescans the copy: no bucket is read again.
+// False once both copies show no free slot.
+// ---------------------------------------------------------------------------
+
+template <int W, int F, class Scan>
 __device__ __forceinline__ bool settle(uint32_t* table, const Probe& p,
                                        uint32_t (&w1)[W], uint32_t (&w2)[W],
                                        bool have2) {
   constexpr int TPW = 32 / F;
   for (;;) {
-    int slot = first_circular<W, F>(free_slots<W, F>(w1), p.start);
+    int slot =
+        first_circular<W, F>(Scan::template free_lanes<W, F>(w1), p.start);
     const bool in1 = slot >= 0;
     if (!in1) {
       if (!have2) {
         load_bucket<W, false>(table, p.i2, w2);
         have2 = true;
       }
-      slot = first_circular<W, F>(free_slots<W, F>(w2), p.start);
+      slot =
+          first_circular<W, F>(Scan::template free_lanes<W, F>(w2), p.start);
     }
     if (slot < 0) return false;
     const int widx = slot / TPW;
@@ -302,6 +386,17 @@ __device__ __forceinline__ bool settle(uint32_t* table, const Probe& p,
       put(w2, widx, seen);
     }
   }
+}
+
+// Bucket i1 read at L2 (other threads' CASes must be seen), bucket i2 only
+// if i1 shows no free slot, issued before the first CAS; then settle.
+template <int W, int F, class Scan>
+__device__ __forceinline__ bool insert(uint32_t* table, const Probe& p) {
+  uint32_t w1[W], w2[W];
+  load_bucket<W, false>(table, p.i1, w1);
+  const bool have2 = Scan::template free_lanes<W, F>(w1) == 0;
+  if (have2) load_bucket<W, false>(table, p.i2, w2);
+  return settle<W, F, Scan>(table, p, w1, w2, have2);
 }
 
 }  // namespace cuckoo

@@ -43,6 +43,10 @@
 // not help: a thread that owned two or four keys and issued all their
 // loads together ran slower on the H100 (PERF.md, section 6), so a thread
 // owns one key.
+//
+// The body is cuckoo::insert and cuckoo::settle (cuckoo_common.cuh) with
+// the SWAR scan; the unfused kernel (cuckoo_insert_unfused.cu) runs the
+// same body with the lane-by-lane scan.
 #include "cuckoo_common.cuh"
 
 namespace {
@@ -58,12 +62,8 @@ __global__ void cuckoo_insert_kernel(uint32_t* table, const uint2* keys,
     return;
   }
   const uint2 k = keys[i];
-  const cuckoo::Probe p = cuckoo::prepare(k.x, k.y, g);
-  uint32_t w1[W], w2[W];
-  cuckoo::load_bucket<W, false>(table, p.i1, w1);
-  const bool have2 = cuckoo::free_slots<W, F>(w1) == 0;
-  if (have2) cuckoo::load_bucket<W, false>(table, p.i2, w2);
-  ok[i] = cuckoo::settle<W, F>(table, p, w1, w2, have2);
+  ok[i] = cuckoo::insert<W, F, cuckoo::Swar>(table,
+                                             cuckoo::prepare(k.x, k.y, g));
 }
 
 }  // namespace

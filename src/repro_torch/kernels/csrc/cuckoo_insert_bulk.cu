@@ -77,17 +77,6 @@ struct CuckooPartition {
   }
 };
 
-// One key's direct insert: bucket i1 read, bucket i2 only if i1 is full.
-template <int W, int F>
-__device__ __forceinline__ bool insert_one(uint32_t* table,
-                                           const cuckoo::Probe& p) {
-  uint32_t w1[W], w2[W];
-  cuckoo::load_bucket<W, false>(table, p.i1, w1);
-  const bool have2 = cuckoo::free_slots<W, F>(w1) == 0;
-  if (have2) cuckoo::load_bucket<W, false>(table, p.i2, w2);
-  return cuckoo::settle<W, F>(table, p, w1, w2, have2);
-}
-
 // The insert pass alone, as one window: a thread a key in batch order.
 template <int W, int F>
 __global__ void __launch_bounds__(cuckoo::THREADS)
@@ -102,7 +91,8 @@ __global__ void __launch_bounds__(cuckoo::THREADS)
     return;
   }
   const uint2 k = keys[i];
-  ok[i] = insert_one<W, F>(table, cuckoo::prepare(k.x, k.y, g));
+  ok[i] = cuckoo::insert<W, F, cuckoo::Swar>(table,
+                                             cuckoo::prepare(k.x, k.y, g));
 }
 
 // Pass 4: the entries of the tile the block's ticket names, each settled,
@@ -158,7 +148,8 @@ __global__ void __launch_bounds__(cuckoo::THREADS)
     const uint32_t j = first + r * cuckoo::THREADS + threadIdx.x;
     if (j < total) {
       const uint2 e = seg[j];
-      ans[j] = insert_one<W, F>(table, cuckoo::probe_of(e.x, e.y, g));
+      ans[j] = cuckoo::insert<W, F, cuckoo::Swar>(
+          table, cuckoo::probe_of(e.x, e.y, g));
     }
   }
 }

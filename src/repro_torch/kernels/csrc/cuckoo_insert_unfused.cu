@@ -4,38 +4,34 @@
 // cuckoo_insert_pallas (_insert_kernel): unpack bucket i1, then bucket i2,
 // to fingerprint lanes; take the first free lane scanning circularly from
 // scan_start(tag); replace_tag into that one word; ok. It computes what
-// the fused kernel (cuckoo_insert.cu) computes; the pair measures the
-// fused design (SWAR zero masks on packed words) against this one (every
-// lane extracted with a shift and a mask and tested for zero), as the
-// roofline suite's insert rows do on the TPU.
+// the fused kernel (cuckoo_insert.cu) computes. The TPU pair measures what
+// SWAR zero masks on packed words buy over extracting every lane with a
+// shift and a mask and testing it for zero (the roofline suite's insert
+// rows), so this kernel is the fused kernel's Hopper design with the
+// lane-by-lane scan in place of the SWAR one, and nothing else: both run
+// cuckoo::insert and cuckoo::settle (cuckoo_common.cuh), this one
+// instantiated with cuckoo::Lanes.
 //
 // The TPU kernel applied keys in order inside one core, race-free. Here a
-// thread per key commits with atomicCAS on the one word it changes, as the
-// fused kernel does: a failed CAS means another thread changed that word,
-// so the thread re-reads both buckets (__ldcg, at L2, where the atomics
-// are coherent) and rescans; every retry follows someone else's success.
-// Keys with both buckets full report ok = 0; ``valid`` masks keys out.
+// thread per key reads bucket i1 at L2 (__ldcg, where the atomics are
+// coherent), and bucket i2 only when i1 shows no free lane, before its
+// first CAS; one loop with one CAS site serves both buckets. A lost CAS
+// puts the word it returns into the thread's register copy, which is
+// rescanned: no bucket is read again, and every failure follows another
+// thread's success. Keys with both buckets full report ok = 0; ``valid``
+// masks keys out.
 //
-// Bound: device-memory bytes, as the fused kernel's (the same function):
-// two random bucket reads and one 4-byte read-modify-write per key, plus
-// the key, valid and ok streams.
+// Bound: the insert's (kernels/roofline.py: the fused and unfused kernels
+// take one op's bound), device-memory bytes: each bucket the batch needs
+// read once (every key's i1, its i2 where i1 is full) and each changed one
+// written once, plus the key, valid and ok streams. What holds it on this
+// card is what holds the fused kernel: a random 32-byte sector read and
+// the write-back of the sector its CAS dirties, in a table ten times the
+// L2. The scan's instructions can show only where the table sits in the
+// L2.
 #include "cuckoo_common.cuh"
 
 namespace {
-
-// Bitmap over the bucket's slots of empty lanes, lane by lane.
-template <int W, int F>
-__device__ __forceinline__ uint32_t empty_lanes(const uint32_t (&w)[W]) {
-  constexpr int TPW = 32 / F;
-  constexpr uint32_t FMASK = uint32_t(0xFFFFFFFFull >> (32 - F));
-  uint32_t bits = 0;
-#pragma unroll
-  for (int i = 0; i < W; ++i)
-#pragma unroll
-    for (int j = 0; j < TPW; ++j)
-      bits |= uint32_t(((w[i] >> (j * F)) & FMASK) == 0) << (i * TPW + j);
-  return bits;
-}
 
 template <int W, int F>
 __global__ void cuckoo_insert_unfused_kernel(uint32_t* table, const uint2* keys,
@@ -48,31 +44,8 @@ __global__ void cuckoo_insert_unfused_kernel(uint32_t* table, const uint2* keys,
     return;
   }
   const uint2 k = keys[i];
-  const cuckoo::Probe p = cuckoo::prepare(k.x, k.y, g);
-  constexpr int TPW = 32 / F;
-  for (;;) {
-    uint32_t w1[W], w2[W];
-    cuckoo::load_bucket<W, false>(table, p.i1, w1);
-    int slot = cuckoo::first_circular<W, F>(empty_lanes<W, F>(w1), p.start);
-    const bool in1 = slot >= 0;
-    if (!in1) {
-      cuckoo::load_bucket<W, false>(table, p.i2, w2);
-      slot = cuckoo::first_circular<W, F>(empty_lanes<W, F>(w2), p.start);
-    }
-    if (slot < 0) {
-      ok[i] = 0;
-      return;
-    }
-    const int widx = slot / TPW;
-    const uint32_t old = in1 ? cuckoo::pick(w1, widx) : cuckoo::pick(w2, widx);
-    const uint32_t desired =
-        cuckoo::replace_lane<F>(old, slot % TPW, in1 ? p.tag1 : p.tag2);
-    uint32_t* addr = table + size_t(in1 ? p.i1 : p.i2) * W + widx;
-    if (atomicCAS(addr, old, desired) == old) {
-      ok[i] = 1;
-      return;
-    }
-  }
+  ok[i] = cuckoo::insert<W, F, cuckoo::Lanes>(table,
+                                              cuckoo::prepare(k.x, k.y, g));
 }
 
 }  // namespace

@@ -21,20 +21,12 @@
 // reads one after the other. No case needs its own code: under XOR a key
 // with i1 == i2 reads its one bucket twice if it misses, and under OFFSET
 // t2 carries the choice bit, so a tag stored in i1 never matches at i2.
+// The body is cuckoo::query (cuckoo_common.cuh) with the SWAR scan; the
+// unfused kernel (cuckoo_query_unfused.cu) runs the same body with the
+// lane-by-lane scan.
 #include "cuckoo_common.cuh"
 
 namespace {
-
-// True if any lane of the bucket's packed words equals ``tag``.
-template <int W, int F>
-__device__ __forceinline__ bool bucket_has(const uint32_t (&w)[W],
-                                           uint32_t tag) {
-  const uint32_t b = cuckoo::broadcast_tag<F>(tag);
-  uint32_t any = 0;
-#pragma unroll
-  for (int k = 0; k < W; ++k) any |= cuckoo::swar_zero_mask<F>(w[k] ^ b);
-  return any != 0;
-}
 
 template <int W, int F>
 __global__ void cuckoo_query_kernel(const uint32_t* __restrict__ table,
@@ -44,15 +36,8 @@ __global__ void cuckoo_query_kernel(const uint32_t* __restrict__ table,
   const int64_t i = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const uint2 k = keys[i];
-  const cuckoo::Probe p = cuckoo::prepare(k.x, k.y, g);
-  uint32_t w[W];
-  cuckoo::load_bucket<W, true>(table, p.i1, w);
-  bool found = bucket_has<W, F>(w, p.t1);
-  if (!found) {
-    cuckoo::load_bucket<W, true>(table, p.i2, w);
-    found = bucket_has<W, F>(w, p.t2);
-  }
-  hit[i] = found;
+  hit[i] = cuckoo::query<W, F, cuckoo::Swar>(table,
+                                             cuckoo::prepare(k.x, k.y, g));
 }
 
 }  // namespace

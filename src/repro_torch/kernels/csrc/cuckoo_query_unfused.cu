@@ -1,38 +1,32 @@
 // Batched cuckoo-filter query, unfused (paper Alg. 2).
 //
 // Replaces the TPU kernel repro/kernels/cuckoo_query.py: cuckoo_query_pallas
-// (_query_kernel): hash -> tag, i1, i2 -> bucket i1's words, unpacked to
+// (_query_kernel): hash -> tag, i1, i2 -> bucket i1's words unpacked to
 // fingerprint lanes and compared lane by lane -> the same for bucket i2 ->
-// hit. It computes what the fused kernel (cuckoo_query.cu) computes; the
-// pair measures the fused design (one gather of both buckets, SWAR match
-// on packed words) against this one (a bucket at a time, every lane
-// extracted with a shift and a mask), as the roofline suite's
-// query_kernel_{fused,prepr} rows do on the TPU.
+// hit. It computes what the fused kernel (cuckoo_query.cu) computes. The
+// TPU pair measures what the SWAR match on packed words buys over
+// extracting every lane with a shift and a mask (the roofline suite's
+// query_kernel_{fused,prepr} rows), so this kernel is the fused kernel's
+// Hopper design with the lane-by-lane scan in place of the SWAR one, and
+// nothing else: both run cuckoo::query (cuckoo_common.cuh), this one
+// instantiated with cuckoo::Lanes. One thread per key: hash, read bucket
+// i1 with 16-byte read-only vector loads (__ldg: the table does not change
+// during a query), compare its lanes one by one against t1, and only where
+// no lane equals t1 read bucket i2 and compare its lanes against t2. XOR
+// keys with i1 == i2 and OFFSET's t2, which carries the choice bit, need
+// no code of their own (see cuckoo_query.cu).
 //
-// Bound: device-memory bytes, as the fused kernel's (the same function):
-// two random bucket reads per key, 8 key bytes in, 1 hit byte out. One
-// thread per key; each bucket is read with 16-byte read-only vector loads
-// (__ldg) and its lanes compared in registers.
+// Bound: the query's (kernels/roofline.py: the fused and unfused kernels
+// take one op's bound), device-memory bytes: the buckets the batch needs,
+// each once (every key's i1, and its i2 where i1 holds no matching tag), 8
+// key bytes in and 1 hit byte out. What holds it on this card is what
+// holds the fused kernel: a random 32-byte sector a bucket from a table
+// ten times the L2, read one after the other for a key that i1 does not
+// settle. The scan's instructions can show only where the table sits in
+// the L2.
 #include "cuckoo_common.cuh"
 
 namespace {
-
-// True if any lane of bucket ``bucket`` holds ``tag``: each word's
-// 32 / F lanes are extracted and compared one by one.
-template <int W, int F>
-__device__ __forceinline__ bool bucket_has(const uint32_t* __restrict__ table,
-                                           uint32_t bucket, uint32_t tag) {
-  constexpr int TPW = 32 / F;
-  constexpr uint32_t FMASK = uint32_t(0xFFFFFFFFull >> (32 - F));
-  uint32_t w[W];
-  cuckoo::load_bucket<W, true>(table, bucket, w);
-  bool hit = false;
-#pragma unroll
-  for (int i = 0; i < W; ++i)
-#pragma unroll
-    for (int j = 0; j < TPW; ++j) hit |= ((w[i] >> (j * F)) & FMASK) == tag;
-  return hit;
-}
 
 template <int W, int F>
 __global__ void cuckoo_query_unfused_kernel(const uint32_t* __restrict__ table,
@@ -42,10 +36,8 @@ __global__ void cuckoo_query_unfused_kernel(const uint32_t* __restrict__ table,
   const int64_t i = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const uint2 k = keys[i];
-  const cuckoo::Probe p = cuckoo::prepare(k.x, k.y, g);
-  const bool h1 = bucket_has<W, F>(table, p.i1, p.t1);
-  const bool h2 = bucket_has<W, F>(table, p.i2, p.t2);
-  hit[i] = h1 | h2;
+  hit[i] = cuckoo::query<W, F, cuckoo::Lanes>(table,
+                                              cuckoo::prepare(k.x, k.y, g));
 }
 
 }  // namespace

@@ -10,7 +10,9 @@ both buckets full report ok = False.
   cuckoo_insert.py: cuckoo_insert_fused_pallas`` (SWAR zero masks; bucket
   i2 read only when i1 is full, a lost CAS refreshes the one word).
 * Unfused (``csrc/cuckoo_insert_unfused.cu``) replaces
-  ``cuckoo_insert_pallas`` (lanes unpacked one by one).
+  ``cuckoo_insert_pallas``: the fused kernel's reads and CAS loop (bucket
+  i2 read only when i1 is full, a lost CAS refreshes the one word), with
+  each lane unpacked and tested on its own instead of the SWAR masks.
 
 :func:`cuckoo_insert_direct_plain` is the plain version of both: the
 literal sequential loop in batch order (a port of ``cuckoo_insert_ref``,

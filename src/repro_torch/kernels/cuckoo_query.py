@@ -7,9 +7,11 @@ plain versions.
   :func:`cuckoo_query_plain` is the same function in vectorized torch
   (it gathers both buckets of every key).
 * Unfused (``csrc/cuckoo_query_unfused.cu``) replaces ``cuckoo_query_pallas``:
-  hash, then a bucket at a time its words unpacked to lanes and compared
+  the fused kernel's reads (bucket i1, and bucket i2 only where i1 holds
+  no matching tag), each bucket's words unpacked to lanes and compared
   lane by lane. :func:`cuckoo_query_unfused_plain` follows the same route
-  (``layout.unpack_words``, then a lane compare).
+  (``layout.unpack_words``, then a lane compare, i2 only for the keys i1
+  does not settle).
 
 Both compute one function; ``kernels.ops.cuckoo_query(fused=...)`` picks
 the kernel, and the device the table lives on picks kernel or plain
@@ -39,15 +41,20 @@ def cuckoo_query_plain(config: CuckooConfig, table: torch.Tensor,
 
 def cuckoo_query_unfused_plain(config: CuckooConfig, table: torch.Tensor,
                                keys: torch.Tensor) -> torch.Tensor:
-    """The unfused route: bucket i1's lanes, then bucket i2's -> bool[n]."""
+    """The unfused route: bucket i1's lanes, then bucket i2's for the keys
+    whose i1 holds no lane equal to t1 -> bool[n]."""
     lay = config.layout
     base_tag, i1, i2 = prepare_keys_plain(config, keys)
     t1, t2 = config.placement.query_match_tags(base_tag)
-    hit = torch.zeros((keys.shape[0],), dtype=torch.bool, device=keys.device)
-    for bucket, tag in ((i1, t1), (i2, t2)):
+
+    def lanes_hold(bucket, tag):
         lanes = L.unpack_words(L.gather_bucket_words(table, bucket, lay),
                                lay.fp_bits)
-        hit |= (lanes == tag[:, None]).any(dim=-1)
+        return (lanes == tag[:, None]).any(dim=-1)
+
+    hit = lanes_hold(i1, t1)
+    rest = (~hit).nonzero().squeeze(1)
+    hit[rest] = lanes_hold(i2[rest], t2[rest])
     return hit
 
 

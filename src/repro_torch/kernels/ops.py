@@ -131,10 +131,11 @@ def cuckoo_query(config: CuckooConfig, state: CuckooState,
                  keys: torch.Tensor, fused: bool = True) -> torch.Tensor:
     """Kernel-backed batch query. keys int32[n, 2] -> bool[n].
 
-    ``fused=True`` (default) runs the SWAR kernel, which reads bucket i2
-    only where bucket i1 holds no matching tag;
-    ``fused=False`` the unpack-based kernel (the roofline suite's
-    pre-fusion comparison). Both give the same answers.
+    Both kernels read bucket i2 only where bucket i1 holds no matching
+    tag. ``fused=True`` (default) matches tags with SWAR masks on the
+    packed words; ``fused=False`` unpacks each lane and compares it on its
+    own (the roofline suite's pre-fusion comparison). Both give the same
+    answers.
     """
     n = _check_keys(keys)
     _check_state(config, state)
@@ -159,10 +160,11 @@ def cuckoo_insert_direct(config: CuckooConfig, state: CuckooState,
 
     Keys with ``ok`` False (both buckets full) need the eviction-capable
     core (``core.cuckoo_filter.insert``). ``valid`` (bool[n]) masks keys
-    out; masked keys report False. ``fused=True`` (default) runs the SWAR
-    free-slot kernel; ``fused=False`` the unpack-based kernel (the
-    roofline suite's pre-fusion comparison). Both compute one function,
-    so both have one plain version.
+    out; masked keys report False. ``fused=True`` (default) finds free
+    slots with SWAR masks; ``fused=False`` unpacks each lane and tests it
+    on its own (the roofline suite's pre-fusion comparison); the reads
+    and the CAS loop are the same. Both compute one function, so both
+    have one plain version.
     """
     n = _check_keys(keys)
     _check_state(config, state)

@@ -28,8 +28,10 @@ same table on the card as on the CPU, and the adapter's frontier route
 invariants. The k-mer pack and the Bloom kernels equal their plain
 versions bit for bit, the Bloom query by both of its routes (the
 windowed one on small tables where the route rule is shown a small
-L2). The unfused query and direct-insert kernels are
-held as their fused counterparts are. The direct-insert kernel is also
+L2). The unfused query and direct-insert kernels (#3, #5), which share
+their fused siblings' reads and CAS loop and differ only in the scan,
+are held as those are: on the crafted tables, under contention and in
+every test below. The direct-insert kernels are also
 held exactly to the plain loop on tables near load 0.9, where keys go on
 to bucket i2 or are turned down, with keys chosen so that no two share a
 bucket: over every layout, on a 64-bucket XOR table where some keys have
@@ -94,6 +96,13 @@ LAYOUTS = [
     (16, 32, "offset", "fmix32"),
     (32, 32, "xor", "xxhash64"),
 ]
+# The fused kernels (#2, #4: SWAR scans) and the unfused ones (#3, #5:
+# lane-by-lane scans), which share their reads and CAS loop.
+FUSED = [True, False]
+FUSED_IDS = ["fused", "unfused"]
+QUERY_KERNEL = {True: "cuckoo_query", False: "cuckoo_query_unfused"}
+QUERY_PLAIN = {True: cuckoo_query_plain, False: cuckoo_query_unfused_plain}
+INSERT_KERNEL = {True: "cuckoo_insert_direct", False: "cuckoo_insert_unfused"}
 
 
 @pytest.fixture
@@ -153,13 +162,14 @@ def test_query_matches_plain(cuda, layout):
     assert got[:4096].all()
 
 
+@pytest.mark.parametrize("fused", FUSED, ids=FUSED_IDS)
 @pytest.mark.parametrize("layout", LAYOUTS, ids=lambda c: "b{}f{}{}{}".format(*c))
-def test_query_early_exit_matches_plain(cuda, layout):
-    """#2 reads bucket i2 only where bucket i1 holds no matching tag. On
-    tables whose hits are known (the tag only in i2 past a full i1, only in
-    i1, in both, in neither; XOR keys with i1 == i2, which 8-bit tags give
-    only in the 64-bucket table; OFFSET keys with the base tag in i2), in
-    one launch of the crafted keys drawn 2^16 times in random order, so
+def test_query_early_exit_matches_plain(cuda, layout, fused):
+    """#2 and #3 read bucket i2 only where bucket i1 holds no matching tag.
+    On tables whose hits are known (the tag only in i2 past a full i1, only
+    in i1, in both, in neither; XOR keys with i1 == i2, which 8-bit tags
+    give only in the 64-bucket table; OFFSET keys with the base tag in i2),
+    in one launch of the crafted keys drawn 2^16 times in random order, so
     that warps mix the cases: equal to the plain version and to the
     expected hits, bit for bit."""
     seen = set()
@@ -174,10 +184,11 @@ def test_query_early_exit_matches_plain(cuda, layout):
             0, keys.shape[0], size=1 << 16))
         probe = torch.cat([keys, keys[pick]]).to(cuda)
         K.reset_launches()
-        got = K.cuckoo_query(cfg, state, probe)
-        plain = cuckoo_query_plain(cfg, state.table, probe)
+        got = K.cuckoo_query(cfg, state, probe, fused=fused)
+        plain = QUERY_PLAIN[fused](cfg, state.table, probe)
         torch.cuda.synchronize()
-        assert K.LAUNCHES["cuckoo_query"] == 1
+        assert K.LAUNCHES[QUERY_KERNEL[fused]] == 1
+        assert K.LAUNCHES[QUERY_KERNEL[not fused]] == 0
         assert torch.equal(got, plain)
         np.testing.assert_array_equal(
             got.cpu().numpy(), np.concatenate([want, want[pick.numpy()]]))
@@ -312,16 +323,6 @@ def test_unfused_kernels_match_plain(cuda, layout):
                        _bucket_multisets(cfg, t_plain))
     assert (K.LAUNCHES["cuckoo_query_unfused"],
             K.LAUNCHES["cuckoo_insert_unfused"]) == (1, 1)
-
-
-def test_unfused_insert_under_contention_holds_invariants(cuda):
-    """As for #4: 4x more keys than slots in one launch of #5."""
-    cfg = CuckooConfig(num_buckets=64, fp_bits=16, bucket_size=16,
-                       hash_kind="fmix32")
-    keys = _keys(18, 4 * cfg.num_slots, cuda)
-    state, ok = K.cuckoo_insert_direct(cfg, cfg.init(cuda), keys, fused=False)
-    torch.cuda.synchronize()
-    _hold_insert_invariants(cfg, state, keys, ok, cuda)
 
 
 @pytest.mark.parametrize("mix", [(0.5, 0.4, 0.1), (0.95, 0.05, 0.0),
@@ -511,15 +512,19 @@ def test_bulk_fills_on_the_card(cuda):
                                        device=cuda), cuda)
 
 
-def test_insert_under_contention_holds_invariants(cuda):
-    """4x more keys than slots in one launch: thousands of threads CAS the
-    same words. Every placed key is stored once and queryable, and every
-    key that failed has both of its buckets full."""
+@pytest.mark.parametrize("fused", FUSED, ids=FUSED_IDS)
+def test_insert_under_contention_holds_invariants(cuda, fused):
+    """4x more keys than slots in one launch of #4 or #5: thousands of
+    threads CAS the same words, and lost CASes refresh their word. Every
+    placed key is stored once and queryable, and every key that failed
+    has both of its buckets full."""
     cfg = CuckooConfig(num_buckets=64, fp_bits=16, bucket_size=16,
                        hash_kind="fmix32")
-    keys = _keys(6, 4 * cfg.num_slots, cuda)
-    state, ok = K.cuckoo_insert_direct(cfg, cfg.init(cuda), keys)
+    keys = _keys(6 if fused else 18, 4 * cfg.num_slots, cuda)
+    K.reset_launches()
+    state, ok = K.cuckoo_insert_direct(cfg, cfg.init(cuda), keys, fused=fused)
     torch.cuda.synchronize()
+    assert K.LAUNCHES[INSERT_KERNEL[fused]] == 1
     _hold_insert_invariants(cfg, state, keys, ok, cuda)
 
 
@@ -548,17 +553,19 @@ def _disjoint(cfg, keys):
     return torch.tensor(keep, device=keys.device)
 
 
-def _direct_insert_exact(cfg, table, keys, valid):
-    """#4 (one launch) and the plain loop on copies of ``table``: equal
-    ``ok``, masked keys False, ``count`` following ``ok``, and equal tag
-    multisets in every bucket. Returns ``ok``."""
+def _direct_insert_exact(cfg, table, keys, valid, fused=True):
+    """#4 or #5 (one launch) and the plain loop on copies of ``table``:
+    equal ``ok``, masked keys False, ``count`` following ``ok``, and equal
+    tag multisets in every bucket. Returns ``ok``."""
     K.reset_launches()
     t_kernel, t_plain = table.clone(), table.clone()
     st, ok = K.cuckoo_insert_direct(
-        cfg, cfg.init(table.device)._replace(table=t_kernel), keys, valid)
+        cfg, cfg.init(table.device)._replace(table=t_kernel), keys, valid,
+        fused=fused)
     ok_plain = cuckoo_insert_direct_plain(cfg, t_plain, keys, valid)
     torch.cuda.synchronize()
-    assert K.LAUNCHES["cuckoo_insert_direct"] == 1
+    assert K.LAUNCHES[INSERT_KERNEL[fused]] == 1
+    assert K.LAUNCHES[INSERT_KERNEL[not fused]] == 0
     assert torch.equal(ok, ok_plain) and not ok[~valid].any()
     assert int(st.count) == int(ok.sum())
     assert torch.equal(_bucket_multisets(cfg, t_kernel),
@@ -571,17 +578,18 @@ def _i1_full(cfg, table, keys):
     return (L.bucket_tags(table, i1, cfg.layout) != 0).all(-1)
 
 
+@pytest.mark.parametrize("fused", FUSED, ids=FUSED_IDS)
 @pytest.mark.parametrize("layout", LAYOUTS, ids=lambda c: "b{}f{}{}{}".format(*c))
-def test_insert_past_full_buckets_matches_plain(cuda, layout):
-    """#4 on a table near load 0.9: many keys are placed in bucket i2 past
-    a full i1, and some are turned down with both buckets full."""
+def test_insert_past_full_buckets_matches_plain(cuda, layout, fused):
+    """#4 and #5 on a table near load 0.9: many keys are placed in bucket
+    i2 past a full i1, and some are turned down with both buckets full."""
     cfg = _cfg(*layout)
     table = _dense_table(cfg, 20, cuda)
     pool = _keys(21, 8192, cuda)
     keys = pool[_disjoint(cfg, pool)]
     valid = torch.from_numpy(
         np.random.default_rng(22).random(keys.shape[0]) < 0.9).to(cuda)
-    ok = _direct_insert_exact(cfg, table, keys, valid)
+    ok = _direct_insert_exact(cfg, table, keys, valid, fused)
     assert int((ok & _i1_full(cfg, table, keys)).sum()) > 100
     assert int((~ok & valid).sum()) > 100
 
@@ -589,9 +597,10 @@ def test_insert_past_full_buckets_matches_plain(cuda, layout):
 XOR_LAYOUTS = [c for c in LAYOUTS if c[2] == "xor"]
 
 
+@pytest.mark.parametrize("fused", FUSED, ids=FUSED_IDS)
 @pytest.mark.parametrize("layout", XOR_LAYOUTS,
                          ids=lambda c: "b{}f{}{}{}".format(*c))
-def test_insert_small_xor_table_with_one_candidate_bucket(cuda, layout):
+def test_insert_small_xor_table_with_one_candidate_bucket(cuda, layout, fused):
     """64 buckets under XOR, where a key has i1 == i2 when fmix32(tag) & 63
     is 0: such a key takes its one bucket's free slot, or is turned down
     when that bucket is full."""
@@ -603,7 +612,7 @@ def test_insert_small_xor_table_with_one_candidate_bucket(cuda, layout):
     keys = pool[_disjoint(cfg, pool)]
     ok = _direct_insert_exact(cfg, table, keys,
                               torch.ones(keys.shape[0], dtype=torch.bool,
-                                         device=cuda))
+                                         device=cuda), fused)
     _, j1, j2 = prepare_keys_plain(cfg, keys)
     one = j1 == j2
     assert bool(ok[one].any()) and bool((~ok[one]).any())
@@ -634,9 +643,10 @@ def test_insert_valid_mask_ending_false(cuda):
     assert not ok[-100:].any() and bool(ok[:900].any())
 
 
+@pytest.mark.parametrize("fused", FUSED, ids=FUSED_IDS)
 @pytest.mark.parametrize("layout", [LAYOUTS[0], LAYOUTS[5], LAYOUTS[9]],
                          ids=lambda c: "b{}f{}{}{}".format(*c))
-def test_insert_every_key_duplicated(cuda, layout):
+def test_insert_every_key_duplicated(cuda, layout, fused):
     """Every key twice in one launch, half the copies in neighbouring
     threads and half a batch apart. A key with two or more free slots
     across its buckets places both copies, one with none places neither:
@@ -658,10 +668,10 @@ def test_insert_every_key_duplicated(cuda, layout):
     K.reset_launches()
     t_kernel, t_plain = table.clone(), table.clone()
     st, ok = K.cuckoo_insert_direct(
-        cfg, cfg.init(cuda)._replace(table=t_kernel), keys)
+        cfg, cfg.init(cuda)._replace(table=t_kernel), keys, fused=fused)
     ok_plain = cuckoo_insert_direct_plain(cfg, t_plain, keys)
     torch.cuda.synchronize()
-    assert K.LAUNCHES["cuckoo_insert_direct"] == 1
+    assert K.LAUNCHES[INSERT_KERNEL[fused]] == 1
     decided = (free != 1)[copies]
     assert torch.equal(ok[decided], ok_plain[decided])
     placed = torch.zeros(1000, dtype=torch.int64, device=cuda)

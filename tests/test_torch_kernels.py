@@ -5,12 +5,13 @@ on CPU tensors) is held against its JAX counterpart run in interpret mode,
 as ``tests/test_kernel_differential.py`` does, and against the JAX
 oracles: the query on tables carried across with ``repro_torch.convert``
 (also on crafted tables whose hits are known, in every case of bucket
-i1 and i2 that the fused kernel's early exit tells apart);
+i1 and i2 that the early exit of either query kernel tells apart);
 the direct insert and the mixed op stream with table and ``ok`` bit-exact.
 The unfused kernels' plain versions (query #3, direct insert #5) are held
 against ``cuckoo_query_pallas`` and ``cuckoo_insert_pallas`` the same way,
 on the same cells; the direct insert's plain version also on tables near
-load 0.95, where bucket i2 and the turned-down keys decide the outcome.
+load 0.95, where bucket i2 and the turned-down keys decide the outcome,
+against both Pallas insert kernels.
 The wrappers must raise on what their kernels do not take, and count no
 launch on the CPU.
 """
@@ -139,18 +140,30 @@ def test_query_plain_matches_pallas_and_core(cell):
 
 # Both policies, two layouts each: 4 and 16 slots, 8 to 32 bits.
 CRAFTED_CELLS = [CELLS[0], CELLS[1], CELLS[3], CELLS[4]]
+# The two query kernels of one function, each with the TPU kernel it
+# replaces and its plain version: fused (#2, SWAR match) and unfused (#3,
+# lane by lane). Both read bucket i2 only where i1 holds no matching tag.
+QUERY_PAIR = {True: (cuckoo_query_fused_pallas, cuckoo_query_plain),
+              False: (cuckoo_query_pallas, cuckoo_query_unfused_plain)}
 
 
-@pytest.mark.parametrize("cell", CRAFTED_CELLS,
-                         ids=[f"b{c[0]}f{c[1]}{c[3]}" for c in CRAFTED_CELLS])
-def test_query_crafted_tables_match_pallas_and_core(cell):
-    """The answer #2's early exit must keep (bucket i2 read only where i1
-    holds no matching tag), on tables whose hits are known: the tag only
-    in i2 past a full i1, only in i1, in both, in neither, an XOR key with
-    i1 == i2, an OFFSET key with its base tag in i2. The plain version
-    and the CPU wrapper against ``cuckoo_query_fused_pallas`` (interpret)
-    and ``CF.query``, bit for bit."""
+def _pair_cases(cells):
+    """(cell, fused) cases, the fused one under the cell's own id."""
+    return [pytest.param(c, fused, id=f"b{c[0]}f{c[1]}{c[3]}"
+                         + ("" if fused else "-unfused"))
+            for fused in (True, False) for c in cells]
+
+
+@pytest.mark.parametrize("cell, fused", _pair_cases(CRAFTED_CELLS))
+def test_query_crafted_tables_match_pallas_and_core(cell, fused):
+    """The answer the early exit of #2 and #3 must keep (bucket i2 read
+    only where i1 holds no matching tag), on tables whose hits are known:
+    the tag only in i2 past a full i1, only in i1, in both, in neither, an
+    XOR key with i1 == i2, an OFFSET key with its base tag in i2. The
+    plain version and the CPU wrapper against the Pallas kernel the CUDA
+    kernel replaces (interpret) and ``CF.query``, bit for bit."""
     bs, fb, _, pol, hk = cell
+    pallas, plain = QUERY_PAIR[fused]
     cfg = _cfg(bs, fb, pol, hk)
     tcfg = convert.config_from_reference(cfg)
     pool = _t(keys_from_numpy(_raw(np.random.default_rng(15), 4096)))
@@ -162,13 +175,13 @@ def test_query_crafted_tables_match_pallas_and_core(cell):
     tstate = convert.state_from_numpy(arrays, "cpu")
     state = CF.CuckooState(jnp.asarray(words), jnp.asarray(arrays["count"]))
     pj = jnp.asarray(_u32(probe))
-    ref = np.asarray(_jit_blk(cuckoo_query_fused_pallas, cfg)(
+    ref = np.asarray(_jit_blk(pallas, cfg)(
         state.table, pj[:, 0], pj[:, 1])).astype(bool)
     np.testing.assert_array_equal(ref[:keys.shape[0]], want)
     np.testing.assert_array_equal(np.asarray(_jit(CF.query, cfg)(state, pj)), ref)
+    np.testing.assert_array_equal(plain(tcfg, tstate.table, probe).numpy(), ref)
     np.testing.assert_array_equal(
-        cuckoo_query_plain(tcfg, tstate.table, probe).numpy(), ref)
-    np.testing.assert_array_equal(K.cuckoo_query(tcfg, tstate, probe).numpy(), ref)
+        K.cuckoo_query(tcfg, tstate, probe, fused=fused).numpy(), ref)
 
 
 @pytest.mark.parametrize("cell", CELLS, ids=IDS)
@@ -209,13 +222,15 @@ FULL_CELLS = [(16, 16, 0.95, "xor", "fmix32"),
               (8, 32, 0.95, "offset", "xxhash64")]
 
 
-@pytest.mark.parametrize("cell", FULL_CELLS,
-                         ids=[f"b{c[0]}f{c[1]}{c[3]}" for c in FULL_CELLS])
-def test_insert_plain_matches_pallas_past_full_buckets(cell):
-    """#4's plain version against the fused Pallas kernel where the second
-    bucket and the turned-down keys decide the outcome: table and ``ok``
-    bit-exact."""
+@pytest.mark.parametrize("cell, fused", _pair_cases(FULL_CELLS))
+def test_insert_plain_matches_pallas_past_full_buckets(cell, fused):
+    """The direct insert's plain version (#4's and #5's: one function)
+    against the Pallas kernel the CUDA kernel replaces (fused or unfused,
+    interpret) where the second bucket and the turned-down keys decide the
+    outcome: table and ``ok`` bit-exact, through the plain version and
+    the CPU wrapper."""
     bs, fb, occ, pol, hk = cell
+    pallas = cuckoo_insert_fused_pallas if fused else cuckoo_insert_pallas
     cfg = _cfg(bs, fb, pol, hk)
     tcfg = convert.config_from_reference(cfg)
     rng = np.random.default_rng(14)
@@ -223,13 +238,17 @@ def test_insert_plain_matches_pallas_past_full_buckets(cell):
     keys_np = keys_from_numpy(_raw(rng, 2 * BLOCK))
     kj = jnp.asarray(keys_np)
     valid = rng.random(2 * BLOCK) < 0.9
-    t_want, ok_want = _jit_blk(cuckoo_insert_fused_pallas, cfg)(
+    t_want, ok_want = _jit_blk(pallas, cfg)(
         state.table, kj[:, 0], kj[:, 1], jnp.asarray(valid, jnp.uint32))
     table = tstate.table.clone()
     ok = cuckoo_insert_direct_plain(tcfg, table, _t(keys_np),
                                     torch.from_numpy(valid))
     np.testing.assert_array_equal(_u32(table), np.asarray(t_want))
     np.testing.assert_array_equal(ok.numpy(), np.asarray(ok_want).astype(bool))
+    st2, ok2 = K.cuckoo_insert_direct(
+        tcfg, CuckooState(tstate.table.clone(), tstate.count), _t(keys_np),
+        torch.from_numpy(valid), fused=fused)
+    assert torch.equal(ok2, ok) and torch.equal(st2.table, table)
     # The batch reaches both outcomes the first bucket cannot give: keys
     # placed in bucket i2, and valid keys turned down.
     _, i1, _ = TCF.prepare_keys_plain(tcfg, _t(keys_np))
