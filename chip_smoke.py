@@ -99,6 +99,41 @@ toolkit. Phases, one JSON line each:
    pass at 2^16 slots
    (both engines, and the k-mer and Bloom kernels) runs before anything
    is timed.
+4b. the lifecycle (``lifecycle``, DESIGN.md §8, §10, §12) — the main
+   path's handle (2^28 slots, 512 MiB) through ``snapshot()``,
+   ``save_snapshot`` into a temporary directory (removed after),
+   ``load_snapshot`` and ``make(snapshot=...)``, each step timed with its
+   GB/s: the twin's table equal word for word, both answering 2^24 stored
+   and 2^24 fresh keys alike, an insert into the twin leaving the original
+   and the snapshot's arrays as they were, a snapshot under another
+   fingerprint refused. That handle under a ``FilterService``, 2^20
+   acknowledged inserts, then ``hot_swap`` (migration) to a fresh handle
+   of its config: every acknowledged key found there. A cascade,
+   ``make("cuckoo", capacity=floor(0.95 * 2^24), auto_expand=True)``,
+   filled with 2^27 seeded keys in 8 batches of 2^24 (keys/s and host
+   syncs a batch): four levels of 2^24, 2^25 (fp 16), 2^26 and 2^27 slots
+   (fp 32, 64-byte buckets), every key placed, ``count`` exact, no level
+   past its watermark, each level's table holding exactly its run of keys,
+   no false negatives, the FPR of 2^24 fresh keys inside its band; one
+   query call of 2^24 stored keys (one launch of the query kernel a
+   level, timed, host syncs, each level's kernel time), 2^24 deletes drawn
+   from all four levels (all ``ok``, timed, host syncs; only lanes
+   cleared, each a deleted key's code, 2^24 in all; the deleted keys then
+   hit at the FPR), ``compact()`` after level 0's drain dropping it, a
+   snapshot round trip through a file answering as the cascade. A tiered
+   handle, ``make("cuckoo", capacity=floor(0.95 * 2^24), tiered=True,
+   device_budget_bytes=2^28)``, filled with the same keys: levels clamped
+   at 2^26 slots, levels 0–2 demoted (352 MiB in host RAM), each level's
+   answers on a 2^20-key probe (half stored, half fresh) recorded just
+   before its demotion and equal, bit for bit, to its ``host_query``
+   after; 2^22 stored keys from both tiers all found (the hot part and the
+   whole query timed apart, ``tier_stats()`` counting the keys probed
+   cold); 2^10 deletes of cold keys all ``ok`` and gone; the budget held,
+   broken by ``promote(force=True)`` and restored by ``maintain()``; a
+   snapshot round trip through a file. A Bloom cascade,
+   ``make("bloom", capacity=floor(0.95 * 2^24), auto_expand=True)``, of
+   2^26 keys (levels' k from the sizing ladder): no false negatives, the
+   FPR inside its band, kernels #8 and #9 launched.
 5. fills at 2^28 slots — five fresh handles at the main path's capacity,
    each filled to 0.95 in the main path's batches: bulk under ``auto``
    (orientation) and ``legacy`` (the bulk kernel, then the round loop),
@@ -158,8 +193,9 @@ toolkit. Phases, one JSON line each:
    20 heads of 128, vocab 151936: 3.56e9 parameters, 7.1 GB of bf16)
    built on the card from a seeded CUDA generator, served through
    ``repro_torch.serve.ServeEngine`` (batch 4, prompts of 1024 tokens,
-   32 greedy decode steps, a 4-entry prefix cache whose guard filter is a
-   ``cuckoo`` handle behind ``FilterService``) on the request sequence of
+   32 greedy decode steps, a 4-entry prefix cache whose guard filter is an
+   auto-expanding ``cuckoo`` cascade behind ``FilterService``, as in the
+   JAX package: a gate) on the request sequence of
    ``examples/serve_with_prefix_filter.py`` (prompt pools
    0,1,2,3,1,2,4,5,0,1 out of 6). Launch counts zeroed just before and
    read just after: the flash-attention kernel once a layer a prefill
@@ -225,6 +261,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -284,6 +321,18 @@ KMER_BATCH = 1 << 24
 PY_CHECKS = 300
 MIXED_BATCH = 1 << 24
 MIXED_BATCHES = 3
+# The lifecycle phase: a cascade and a tiered handle grown from a base of
+# floor(0.95 * 2^24) keys (2^24 slots) by 2^27 keys in batches of 2^24, a
+# 2^28-byte device budget for the tiered one, a Bloom cascade of 2^26 keys;
+# the cold tier's host probes and deletes kept to 2^22 and 2^10 keys.
+LIFE_CAPACITY = 15_938_355       # floor(0.95 * 2**24)
+LIFE_KEYS = 1 << 27
+LIFE_BATCH = 1 << 24
+LIFE_BUDGET = 1 << 28
+LIFE_COLD_PROBES = 1 << 22
+LIFE_COLD_DELETES = 1 << 10
+LIFE_RECORD_PROBES = 1 << 20
+LIFE_BLOOM_KEYS = 1 << 26
 # The JAX package's benchmarks/mixed_workload.py mixes: (query, insert,
 # delete) fractions.
 MIXES = {"ycsb_50_40_10": (0.50, 0.40, 0.10),
@@ -2468,6 +2517,11 @@ def serve_qwen(gen, bf16_rate):
         check(bool(torch.isfinite(logits).all()), "serve: cached logits")
     stats = dict(stats)
     slo = stats.pop("filter_service")
+    guard = engine.prefix_cache.filter
+    check(isinstance(guard, amq.CascadeHandle),
+          f"serve: the guard filter is a {type(guard).__name__}, not the "
+          "auto-expanding cascade")
+    guard_levels = level_rows(guard.report())
     check(stats["hits"] == 2 and stats["evictions"] == 4
           and stats["filtered"] + stats["misses"] == 8 and stats["stale"] == 0,
           f"serve: prefix-cache stats {stats}")
@@ -2563,7 +2617,8 @@ def serve_qwen(gen, bf16_rate):
           "decode_tokens_per_s": SERVE_BATCH / decode_med,
           "prefill_seconds_all": prefill_s, "decode_ms_all":
               [x * 1e3 for x in decode_s],
-          "filter_slo": slo, "guard_lookup_seconds": lookup_s,
+          "filter_slo": slo, "guard_levels": guard_levels,
+          "guard_lookup_seconds": lookup_s,
           "guard_lookup_host_syncs": syncs,
           "cache_entry_bytes": entry_bytes,
           "max_memory_allocated": peak, "memory_held_after": held,
@@ -2572,6 +2627,395 @@ def serve_qwen(gen, bf16_rate):
           "profile_decode_step": decode_profile,
           "seconds": time.perf_counter() - t_start})
     return launches, layer0
+
+
+# ---------------------------------------------------------------------------
+# The lifecycle: snapshots, the auto-expanding cascade, the GPU-hot /
+# host-cold tiered handle, hot swap with migration (DESIGN.md §8, §10, §12).
+# ---------------------------------------------------------------------------
+
+def synced(fn):
+    """(``fn()``, its wall seconds between two device synchronizations)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def level_ranges(levels):
+    """Each level's [lo, hi) slice of the key stream: a cascade fed in
+    order, every key placed, holds contiguous runs, oldest first."""
+    lo, out = 0, []
+    for lv in levels:
+        out.append((lo, lo + lv.count()))
+        lo += lv.count()
+    return out
+
+
+def cleared_codes(cfg, before, after, label: str):
+    """Sorted (pair, tag) codes of the lanes a delete cleared; any other
+    changed lane fails."""
+    codes = []
+    for b0 in range(0, cfg.num_buckets, CHUNK):
+        b1 = min(b0 + CHUNK, cfg.num_buckets)
+        tb = bucket_lanes(cfg, before, b0, b1)
+        ta = bucket_lanes(cfg, after, b0, b1)
+        cleared = (tb != 0) & (ta == 0)
+        check(not bool(((ta != tb) & ~cleared).any()),
+              f"{label}: a lane other than a cleared one changed")
+        bucket = torch.arange(b0, b1, device=before.device)[:, None].expand_as(
+            tb)[cleared]
+        tag = tb[cleared]
+        alt = cfg.placement.alt_bucket(bucket, tag)
+        codes.append((torch.minimum(bucket, alt) << cfg.fp_bits) | tag)
+    return torch.sort(torch.cat(codes)).values
+
+
+def snapshot_part(h, stored, gen, tmp) -> dict:
+    """The main path's handle through ``snapshot`` -> ``save_snapshot`` ->
+    ``load_snapshot`` -> ``make(snapshot=)``, each step timed."""
+    snap, snap_s = synced(h.snapshot)
+    nbytes = snap.nbytes
+    path = os.path.join(tmp, "filter.npz")
+    _, save_s = synced(lambda: amq.save_snapshot(path, snap))
+    loaded, load_s = synced(lambda: amq.load_snapshot(path))
+    os.remove(path)
+    twin, restore_s = synced(lambda: amq.make("cuckoo", config=h.config,
+                                              snapshot=loaded))
+    _, memory_restore_s = synced(lambda: amq.make("cuckoo", config=h.config,
+                                                  snapshot=snap))
+    check(torch.equal(twin.state.table, h.state.table),
+          "lifecycle: the restored table differs from the original")
+    check(twin.count() == h.count(), "lifecycle: the restored count")
+    fresh = normalize_keys(random_keys(gen, PROBES, top_half=True))
+    for label, keys in (("stored", stored), ("fresh", fresh)):
+        hits = h.query(keys).hits
+        check(torch.equal(twin.query(keys).hits, hits),
+              f"lifecycle: the twin answers {label} keys otherwise")
+        if label == "stored":
+            check(bool(hits.all()), "lifecycle: stored keys missed")
+    kept = snap.arrays["table"].copy()
+    before = h.state.table.clone()
+    check(bool(twin.insert(fresh[:1 << 20]).ok.all()),
+          "lifecycle: the twin's insert")
+    torch.cuda.synchronize()
+    check(torch.equal(h.state.table, before)
+          and np.array_equal(snap.arrays["table"], kept)
+          and np.array_equal(loaded.arrays["table"], kept),
+          "lifecycle: an insert into the twin reached the original or the "
+          "snapshot")
+    other = dataclasses.replace(h.config, seed=h.config.seed + 1)
+    try:
+        amq.make("cuckoo", config=other, snapshot=snap)
+        check(False, "lifecycle: a snapshot restored under another "
+                     "fingerprint")
+    except amq.SnapshotMismatchError:
+        pass
+    del twin, before, kept
+    return {"bytes": nbytes, "snapshot_s": snap_s,
+            "snapshot_gb_per_s": nbytes / snap_s / 1e9,
+            "save_s": save_s, "load_s": load_s, "restore_s": restore_s,
+            "restore_gb_per_s": nbytes / restore_s / 1e9,
+            "restore_from_memory_s": memory_restore_s,
+            "restore_from_memory_gb_per_s": nbytes / memory_restore_s / 1e9}
+
+
+def hot_swap_part(h, stored, gen) -> dict:
+    """The main path's handle under a FilterService: acknowledged inserts,
+    then ``hot_swap`` to a fresh handle of its config (migration)."""
+    svc = amq.FilterService(h, batch_size=LIFE_RECORD_PROBES)
+    acked = normalize_keys(random_keys(gen, LIFE_RECORD_PROBES,
+                                       top_half=True))
+    ticket = svc.insert(acked)
+    new = amq.make("cuckoo", config=h.config)
+    rec = svc.hot_swap(new)
+    check(rec["migrated"] and svc.handle is new and bool(ticket.result().all()),
+          f"lifecycle: hot swap {rec}")
+    check(bool(new.query(acked).hits.all())
+          and bool(new.query(stored).hits.all())
+          and torch.equal(new.state.table, h.state.table),
+          "lifecycle: an acknowledged key is missing after the hot swap")
+    after = svc.query(acked[:LIFE_RECORD_PROBES // 16]).result()
+    check(bool(after.all()), "lifecycle: the service after the swap")
+    del new
+    return {"acknowledged_keys": acked.shape[0], **rec}
+
+
+def fill_levels(h, keys, label: str) -> list:
+    """``keys`` into cascade ``h`` in batches of LIFE_BATCH: each batch's
+    seconds, keys/s, host syncs and levels; every key placed."""
+    per_batch = []
+    for b0 in range(0, keys.shape[0], LIFE_BATCH):
+        batch = keys[b0:b0 + LIFE_BATCH]
+        (rep, syncs, _), dt = synced(lambda: host_syncs(
+            lambda: h.insert(batch)))
+        check(bool(rep.ok.all()), f"{label}: batch at {b0}: "
+                                  f"{int((~rep.ok).sum())} keys not placed")
+        per_batch.append({"keys": batch.shape[0], "s": dt,
+                          "keys_per_s": batch.shape[0] / dt,
+                          "host_syncs": syncs, "levels": len(h.levels)})
+    check(h.count() == keys.shape[0], f"{label}: count {h.count()}")
+    return per_batch
+
+
+def level_rows(report) -> list:
+    return [dict(s._asdict()) for s in report.levels]
+
+
+def cascade_part(keys, gen, tmp) -> dict:
+    """``make("cuckoo", auto_expand=True)`` at the lifecycle's sizes."""
+    c = amq.make("cuckoo", capacity=LIFE_CAPACITY, auto_expand=True)
+    per_batch = fill_levels(c, keys, "cascade")
+    report = c.report()
+    slots = [lv.config.num_slots for lv in c.levels]
+    check(slots == [LIFE_BATCH << i for i in range(4)]
+          and [lv.config.fp_bits for lv in c.levels] == [16, 16, 32, 32],
+          f"cascade: levels {level_rows(report)}")
+    for lv in c.levels:
+        check(lv.count() <= int(c.watermark * lv.config.num_slots),
+              f"cascade: a level past its watermark: {level_rows(report)}")
+    ranges = level_ranges(c.levels)
+    for i, (lv, (lo, hi)) in enumerate(zip(c.levels, ranges)):
+        check_codes(f"cascade: level {i} after the fill",
+                    table_codes(lv.config, lv.state.table),
+                    key_codes(lv.config, [keys[lo:hi]]))
+    misses = sum(int((~c.query(keys[b0:b0 + LIFE_BATCH]).hits).sum())
+                 for b0 in range(0, keys.shape[0], LIFE_BATCH))
+    check(misses == 0, f"cascade: {misses} false negatives")
+    fresh = normalize_keys(random_keys(gen, PROBES, top_half=True))
+    fpr = fpr_of("cascade", c.query(fresh).hits, report.expected_fpr)
+
+    # One query call of 2^24 stored keys: one #2 launch a live level.
+    probe = keys[torch.randperm(keys.shape[0], device=keys.device,
+                                generator=gen)[:PROBES]]
+    c.query(probe)
+    K.reset_launches()
+    (qr, q_syncs, _), q_s = synced(lambda: host_syncs(lambda: c.query(probe)))
+    q_launches = dict(K.LAUNCHES)
+    check(bool(qr.hits.all()) and q_launches["cuckoo_query"] == len(c.levels),
+          f"cascade: query launches {q_launches}")
+    level_ms = [cuda_ms(lambda lv=lv: K.cuckoo_query(lv.config, lv.state,
+                                                     probe))
+                for lv in c.levels]
+
+    # 2^24 deletes drawn from all four levels.
+    gone = torch.randperm(keys.shape[0], device=keys.device,
+                          generator=gen)[:LIFE_BATCH]
+    dkeys = keys[gone]
+    befores = [lv.state.table.clone() for lv in c.levels]
+    counts = [lv.count() for lv in c.levels]
+    (dr, d_syncs, _), d_s = synced(lambda: host_syncs(lambda: c.delete(dkeys)))
+    check(bool(dr.ok.all()), f"cascade: {int((~dr.ok).sum())} deletes failed")
+    check(c.count() == keys.shape[0] - LIFE_BATCH, "cascade: count after "
+                                                   "the deletes")
+    removed = 0
+    for i, (lv, before) in enumerate(zip(c.levels, befores)):
+        codes = cleared_codes(lv.config, before, lv.state.table,
+                              f"cascade: level {i} delete")
+        removed += codes.shape[0]
+        check(codes.shape[0] == counts[i] - lv.count(),
+              f"cascade: level {i}'s count and its cleared lanes")
+        # Every cleared lane held a deleted key's code under the level's
+        # config (a delete routed by a false positive of a newer level
+        # clears a tag of the same code there).
+        want = key_codes(lv.config, [dkeys])
+        at = torch.searchsorted(want, codes).clamp(max=want.shape[0] - 1)
+        check(bool((want[at] == codes).all()),
+              f"cascade: level {i} cleared a tag no deleted key carries")
+    check(removed == LIFE_BATCH, f"cascade: {removed} lanes cleared")
+    del befores
+    left = c.query(dkeys).hits
+    gone_fpr = fpr_of("cascade: deleted keys", left, c.expected_fpr())
+    # compact() after draining level 0 drops it.
+    lo, hi = ranges[0]
+    rest = torch.ones(keys.shape[0], dtype=torch.bool, device=keys.device)
+    rest[gone] = False
+    drain = keys[lo:hi][rest[lo:hi]]
+    n0 = c.levels[0].count()
+    dr0 = c.delete(drain)
+    check(bool(dr0.ok.all()), "cascade: draining level 0")
+    # Keys of level 0 lost to deletes routed by false positives elsewhere.
+    leftover = c.levels[0].count()
+    if leftover:
+        c.levels[0].delete(keys[lo:hi])
+    check(c.levels[0].count() == 0, f"cascade: level 0 holds {leftover} "
+                                    "tags after its drain")
+    compacted = c.compact()
+    check(compacted.num_levels == 3 and c.level_alloc_ids == (1, 2, 3),
+          f"cascade: compact {level_rows(compacted)}")
+    # A cascade snapshot round trip through a file.
+    snap, snap_s = synced(c.snapshot)
+    path = os.path.join(tmp, "cascade.npz")
+    _, save_s = synced(lambda: amq.save_snapshot(path, snap))
+    loaded, load_s = synced(lambda: amq.load_snapshot(path))
+    os.remove(path)
+    twin, restore_s = synced(lambda: amq.make(
+        "cuckoo", capacity=LIFE_CAPACITY, auto_expand=True, snapshot=loaded))
+    mixed = torch.cat([keys[hi:hi + PROBES // 2], fresh[:PROBES // 2]])
+    check(torch.equal(twin.query(mixed).hits, c.query(mixed).hits)
+          and twin.count() == c.count(),
+          "cascade: the snapshot's twin answers otherwise")
+    out = {"levels": level_rows(report), "insert_batches": per_batch,
+           "insert_keys_per_s": keys.shape[0] / sum(
+               r["s"] for r in per_batch),
+           "query_keys": PROBES, "query_s": q_s,
+           "query_keys_per_s": PROBES / q_s, "query_host_syncs": q_syncs,
+           "query_launches": q_launches, "query_kernel_ms_by_level": level_ms,
+           "delete_keys": LIFE_BATCH, "delete_s": d_s,
+           "delete_keys_per_s": LIFE_BATCH / d_s,
+           "delete_host_syncs": d_syncs, "deleted_keys_hit_after": gone_fpr,
+           "level0_drained": n0, "level0_leftover_tags": leftover,
+           "fpr": fpr, "snapshot_bytes": snap.nbytes,
+           "snapshot_s": snap_s, "save_s": save_s, "load_s": load_s,
+           "restore_s": restore_s,
+           "levels_after_compact": level_rows(compacted)}
+    del c, twin, snap, loaded
+    return out
+
+
+def tiered_part(keys, gen, tmp) -> dict:
+    """``make("cuckoo", tiered=True, device_budget_bytes=2^28)``."""
+    t = amq.make("cuckoo", capacity=LIFE_CAPACITY, tiered=True,
+                 device_budget_bytes=LIFE_BUDGET)
+    fresh = normalize_keys(random_keys(gen, LIFE_RECORD_PROBES // 2,
+                                       top_half=True))
+    probe = torch.cat([keys[::keys.shape[0] // (LIFE_RECORD_PROBES // 2)],
+                       fresh])
+    answers = {}
+    demote = t.demote
+
+    def recording_demote():
+        """Each level's device answers on ``probe``, just before it goes."""
+        if len(t.hot.levels) > 1:
+            answers[t.hot.level_alloc_ids[0]] = t.hot.levels[0].query(
+                probe).hits.cpu().numpy()
+        return demote()
+
+    t.demote = recording_demote
+    per_batch = fill_levels(t, keys, "tiered")
+    del t.demote
+    stats = t.tier_stats()
+    check(stats["cold_levels"] == 3 and stats["hot_levels"] == 1
+          # 2^24 slots at fp 16, 2^25 at fp 16, 2^26 at fp 32: 352 MiB.
+          and stats["host_bytes"] == 22 * LIFE_BATCH
+          and t.device_bytes <= t.device_budget_bytes,
+          f"tiered: tiers after the fill {stats}")
+    check(all(lv.config.num_slots <= 4 * LIFE_BATCH for lv in t.hot.levels)
+          and all(c.config.num_slots <= 4 * LIFE_BATCH for c in t.cold),
+          "tiered: a level above the clamp")
+    host_ms = []
+    for c in t.cold:
+        got, dt = synced(lambda c=c: amq.get("cuckoo").host_query(
+            c.config, c.arrays, probe, device=t.device))
+        host_ms.append(dt * 1e3)
+        check(np.array_equal(got, answers[c.alloc_id]),
+              f"tiered: level {c.alloc_id}'s host probe differs from its "
+              "device answers")
+    # 2^22 stored keys from both tiers, the hot and cold parts timed apart.
+    draw = keys[torch.randperm(keys.shape[0], device=keys.device,
+                               generator=gen)[:LIFE_COLD_PROBES]]
+    hot, hot_s = synced(lambda: t.hot.query(draw))
+    missed_hot = int((~hot.hits).sum())
+    probes_before = t.tier_stats()["cold_probe_keys"]
+    (qr, q_syncs, _), q_s = synced(lambda: host_syncs(lambda: t.query(draw)))
+    check(bool(qr.hits.all()), f"tiered: {int((~qr.hits).sum())} of "
+                               f"{LIFE_COLD_PROBES} stored keys missed")
+    cold_probed = t.tier_stats()["cold_probe_keys"] - probes_before
+    check(cold_probed == missed_hot,
+          f"tiered: {cold_probed} keys probed cold, {missed_hot} missed "
+          "the hot tier")
+    # 2^10 deletes of cold keys (level 0's, the oldest).
+    cold_keys = keys[:LIFE_COLD_DELETES]
+    cold_before = sum(c.count for c in t.cold)
+    (dr, d_syncs, _), d_s = synced(lambda: host_syncs(
+        lambda: t.delete(cold_keys)))
+    check(bool(dr.ok.all()) and t.count() == keys.shape[0] - LIFE_COLD_DELETES
+          and sum(c.count for c in t.cold) == cold_before - LIFE_COLD_DELETES,
+          "tiered: cold deletes")
+    gone = fpr_of("tiered: deleted cold keys", t.query(cold_keys).hits,
+                  t.expected_fpr())
+    check(t.device_bytes <= t.device_budget_bytes, "tiered: over budget")
+    check(t.promote(force=True) and t.device_bytes > t.device_budget_bytes,
+          "tiered: promote(force=True)")
+    action = t.maintain()
+    check(action["action"] == "demote"
+          and t.device_bytes <= t.device_budget_bytes,
+          f"tiered: maintain after promote {action}")
+    snap, snap_s = synced(t.snapshot)
+    path = os.path.join(tmp, "tiered.npz")
+    _, save_s = synced(lambda: amq.save_snapshot(path, snap))
+    loaded, load_s = synced(lambda: amq.load_snapshot(path))
+    os.remove(path)
+    twin, restore_s = synced(lambda: amq.make(
+        "cuckoo", capacity=LIFE_CAPACITY, tiered=True, snapshot=loaded))
+    few = probe[::16]            # half stored, half fresh: cold probes
+    check(twin.count() == t.count()
+          and torch.equal(twin.query(few).hits, t.query(few).hits),
+          "tiered: the snapshot's twin answers otherwise")
+    out = {"insert_batches": per_batch,
+           "insert_keys_per_s": keys.shape[0] / sum(
+               r["s"] for r in per_batch),
+           "tiers": level_rows(t.report()), "tier_stats": t.tier_stats(),
+           "recorded_levels": sorted(answers),
+           "host_probe_ms_by_cold_level": host_ms,
+           "host_probe_keys": probe.shape[0],
+           "query_keys": LIFE_COLD_PROBES, "query_s": q_s,
+           "query_host_syncs": q_syncs, "hot_query_s": hot_s,
+           "cold_probe_keys": missed_hot, "cold_part_s": q_s - hot_s,
+           "delete_keys": LIFE_COLD_DELETES, "delete_s": d_s,
+           "delete_host_syncs": d_syncs, "deleted_keys_hit_after": gone,
+           "snapshot_bytes": snap.nbytes, "snapshot_s": snap_s,
+           "save_s": save_s, "load_s": load_s, "restore_s": restore_s}
+    del t, twin, snap, loaded
+    return out
+
+
+def bloom_cascade_part(gen) -> dict:
+    """``make("bloom", auto_expand=True)`` filled with 2^26 keys."""
+    b = amq.make("bloom", capacity=LIFE_CAPACITY, auto_expand=True)
+    keys = normalize_keys(random_keys(gen, LIFE_BLOOM_KEYS))
+    K.reset_launches()
+    per_batch = fill_levels(b, keys, "bloom cascade")
+    misses = sum(int((~b.query(keys[b0:b0 + LIFE_BATCH]).hits).sum())
+                 for b0 in range(0, keys.shape[0], LIFE_BATCH))
+    check(misses == 0, f"bloom cascade: {misses} false negatives")
+    launches = dict(K.LAUNCHES)
+    check(launches["bloom_insert"] > 0 and launches["bloom_query"] > 0,
+          f"bloom cascade: launches {launches}")
+    report = b.report()
+    fresh = normalize_keys(random_keys(gen, PROBES, top_half=True))
+    return {"levels": level_rows(report),
+            "sizings": [{"bits_per_key": lv.config.bits_per_key,
+                         "k": lv.config.k} for lv in b.levels],
+            "insert_batches": per_batch, "launches": launches,
+            **fpr_of("bloom cascade", b.query(fresh).hits,
+                     report.expected_fpr)}
+
+
+def lifecycle(h, stored, gen) -> None:
+    """The lifecycle phase on the main path's handle and on fresh cascades;
+    see the module docstring."""
+    t_start = time.perf_counter()
+    rec, seconds = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, part in (
+                ("snapshots", lambda: snapshot_part(h, stored, gen, tmp)),
+                ("hot_swap", lambda: hot_swap_part(h, stored, gen))):
+            t0 = time.perf_counter()
+            rec[name] = part()
+            seconds[name] = time.perf_counter() - t0
+        keys = normalize_keys(random_keys(gen, LIFE_KEYS))
+        for name, part in (("cascade", lambda: cascade_part(keys, gen, tmp)),
+                           ("tiered", lambda: tiered_part(keys, gen, tmp)),
+                           ("bloom_cascade", lambda: bloom_cascade_part(gen))):
+            t0 = time.perf_counter()
+            rec[name] = part()
+            seconds[name] = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+    del keys
+    emit({"phase": "lifecycle", **rec, "seconds_by_part": seconds,
+          "seconds": time.perf_counter() - t_start})
 
 
 def main() -> int:
@@ -2921,7 +3365,12 @@ def main() -> int:
     copy_bytes_per_s = 2 * copy_src.numel() * 4 / (copy_ms * 1e-3)
     emit({"phase": "timings", "copy_bytes_per_s": copy_bytes_per_s,
           "table_load": h.load_factor, "main_path_2^28_seconds": main_s})
-    del work, full_table, half, high, snaps, copy_src, copy_dst, h
+    del copy_src, copy_dst
+    torch.cuda.empty_cache()
+
+    # --- the lifecycle ---------------------------------------------------
+    lifecycle(h, second, gen)
+    del work, full_table, half, high, snaps, h
     torch.cuda.empty_cache()
 
     # --- the bulk build at full size ---------------------------------------

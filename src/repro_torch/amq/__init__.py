@@ -8,6 +8,8 @@
     h.delete(keys)
     h.apply_ops(amq.OpBatch.make(keys, ops))   # -> MixedReport(ok, ...)
     svc = amq.FilterService(h, batch_size=64)  # micro-batched op streams
+    c = amq.make("cuckoo", capacity=1 << 20, auto_expand=True)  # a cascade
+    amq.save_snapshot("f.npz", h.snapshot())   # restores in either package
 
 Only :mod:`.protocol` is imported eagerly; the registry, its adapter and
 the service, which import the kernels, load on first use so that
@@ -19,23 +21,36 @@ from .protocol import (  # noqa: F401
     OP_DELETE,
     OP_INSERT,
     OP_QUERY,
+    SNAPSHOT_VERSION,
     Capabilities,
+    CascadeReport,
     DeleteReport,
     InsertReport,
+    LevelStats,
     MixedReport,
     OpBatch,
     QueryResult,
+    Snapshot,
+    SnapshotMismatchError,
+    TieredReport,
+    TierStats,
+    fpr_share,
     fpr_tolerance,
     load_factor,
+    load_snapshot,
+    save_snapshot,
 )
 
 _LAZY = ("make", "get", "names", "FilterHandle", "AMQAdapter",
-         "segmented_apply_ops", "FilterService", "QueueFullError")
+         "segmented_apply_ops", "CascadeHandle", "TieredHandle", "ColdLevel",
+         "FilterService", "Ticket", "ServiceMetrics", "QueueFullError")
 
 __all__ = list(_LAZY) + [
-    "Capabilities", "DeleteReport", "InsertReport", "MixedReport", "OpBatch",
-    "OP_DELETE", "OP_INSERT", "OP_QUERY", "QueryResult", "fpr_tolerance",
-    "load_factor",
+    "Capabilities", "CascadeReport", "DeleteReport", "InsertReport",
+    "LevelStats", "MixedReport", "OpBatch", "OP_DELETE", "OP_INSERT",
+    "OP_QUERY", "QueryResult", "Snapshot", "SnapshotMismatchError",
+    "SNAPSHOT_VERSION", "TieredReport", "TierStats", "fpr_share",
+    "fpr_tolerance", "load_factor", "load_snapshot", "save_snapshot",
 ]
 
 
@@ -53,12 +68,20 @@ def __getattr__(name):
         from . import adapters
 
         return getattr(adapters, name)
-    if name == "FilterService":
-        from .service import FilterService
+    if name == "CascadeHandle":
+        from .cascade import CascadeHandle
 
-        return FilterService
-    if name == "QueueFullError":
-        from .dispatch import QueueFullError
+        return CascadeHandle
+    if name in ("TieredHandle", "ColdLevel"):
+        from . import tiering
 
-        return QueueFullError
+        return getattr(tiering, name)
+    if name in ("FilterService", "Ticket"):
+        from . import service
+
+        return getattr(service, name)
+    if name in ("ServiceMetrics", "QueueFullError"):
+        from . import dispatch
+
+        return getattr(dispatch, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

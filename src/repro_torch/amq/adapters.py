@@ -2,7 +2,9 @@
 unified AMQ protocol.
 
 Port of the ``CUCKOO``, ``BLOOM`` and ``CPU_CUCKOO`` adapters of
-``repro.amq.adapters``, and of ``segmented_apply_ops``. Where the JAX
+``repro.amq.adapters``, of their lifecycle hooks (snapshots, the
+cascade's sizing ladders, the cold tier's host probes) and of
+``segmented_apply_ops``. Where the JAX
 adapters run XLA code, these run the hot operations on the CUDA kernels
 (``kernels/ops.py``; on CPU tensors, their plain versions).
 
@@ -63,8 +65,9 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
+from .. import convert
 from ..core import cuckoo_filter as CF
-from ..core.hashing import keys_to_numpy
+from ..core.hashing import keys_to_numpy, normalize_keys
 from ..filters import blocked_bloom as BB
 from ..filters import cpu_reference as PYREF
 from ..kernels import ops as K
@@ -78,6 +81,7 @@ from .protocol import (
     MixedReport,
     OpBatch,
     QueryResult,
+    SnapshotMismatchError,
     all_routed,
     ensure_valid,
 )
@@ -85,7 +89,27 @@ from .protocol import (
 
 @dataclasses.dataclass(frozen=True)
 class AMQAdapter:
-    """One backend behind the AMQ protocol (plain callables, no state)."""
+    """One backend behind the AMQ protocol (plain callables, no state).
+
+    The lifecycle hooks are the JAX package's:
+
+    * ``growth_sizings`` — the cascade's sizing ladder (DESIGN.md §8):
+      sizing-kwarg overlays from loosest to tightest; a new level takes
+      the first whose config meets its FPR share. ``grow_config``
+      (``(prev_config, factor, **overlay) -> config``) derives a level
+      from the one before; no port backend sets it (the sharded backend
+      is the JAX package's only user).
+    * ``snapshot(config, state) -> {name: np.ndarray}`` pulls the packed
+      state to the host; ``restore(config, arrays, device) -> state``
+      places it back on ``device`` under the same config (the handle
+      checks the fingerprint first). ``fingerprint`` overrides
+      :func:`default_fingerprint`.
+    * ``host_query(config, arrays, keys, *, device) -> bool[n]`` probes a
+      cold level's snapshot arrays in host RAM with numpy gathers, the
+      keys hashed on ``device`` by the backend's own hashing; and
+      ``host_delete(config, arrays, keys, valid, *, device) -> ok
+      bool[n]`` clears one matching slot a key in place (DESIGN.md §12).
+    """
 
     name: str
     capabilities: Capabilities
@@ -101,6 +125,196 @@ class AMQAdapter:
     # A host backend's one device (its state is not a tensor); None: the
     # handle's device, the GPU by default.
     device: Optional[str] = None
+    growth_sizings: Optional[tuple] = None
+    grow_config: Optional[Callable[..., Any]] = None
+    snapshot: Optional[Callable[..., Any]] = None
+    restore: Optional[Callable[..., Any]] = None
+    fingerprint: Optional[Callable[[Any], str]] = None
+    host_query: Optional[Callable[..., Any]] = None
+    host_delete: Optional[Callable[..., Any]] = None
+
+
+# ---------------------------------------------------------------------------
+# Lifecycle hooks (DESIGN.md §10): snapshot / restore / config fingerprints.
+# ---------------------------------------------------------------------------
+
+def default_fingerprint(config) -> str:
+    """Config identity for snapshot validation: the frozen-dataclass repr
+    (the port's configs keep the JAX package's class names, field order
+    and defaults, so the strings are equal across the packages)."""
+    return repr(config)
+
+
+def config_fingerprint(adapter: AMQAdapter, config) -> str:
+    """The adapter's fingerprint for ``config`` (custom hook or default)."""
+    fn = adapter.fingerprint or default_fingerprint
+    return fn(config)
+
+
+def state_snapshot(config, state) -> dict:
+    """Table and count on the host, in the JAX package's names and dtypes
+    (``convert.state_to_numpy``: one device-to-host copy, owned)."""
+    del config
+    return convert.state_to_numpy(state)
+
+
+# The snapshot dtype of each state field: tables carry uint32 bits, which
+# the port holds as int32.
+_SNAPSHOT_DTYPES = {"table": np.dtype(np.uint32)}
+
+
+def _validated_state_arrays(config, arrays):
+    """Check snapshot arrays against the config's state template.
+
+    The template is ``config.init(device="meta")``: shapes and dtypes with
+    no allocation (restore latency is a tracked metric). Returns
+    ``(state_cls, host arrays in field order)``; any disagreement raises
+    :class:`~repro_torch.amq.protocol.SnapshotMismatchError`.
+    """
+    template = config.init(device="meta")
+    missing = set(template._fields) - set(arrays)
+    if missing:
+        raise SnapshotMismatchError(
+            f"snapshot is missing state arrays {sorted(missing)} "
+            f"(has {sorted(arrays)})")
+    values = []
+    for f in template._fields:
+        t = getattr(template, f)
+        want = _SNAPSHOT_DTYPES.get(
+            f, np.dtype(str(t.dtype).removeprefix("torch.")))
+        a = np.asarray(arrays[f])
+        if tuple(a.shape) != tuple(t.shape) or a.dtype != want:
+            raise SnapshotMismatchError(
+                f"state array {f!r}: snapshot has {a.dtype}"
+                f"{list(a.shape)}, config expects {want}{list(t.shape)}")
+        values.append(a)
+    return type(template), values
+
+
+def state_restore(config, arrays, device):
+    """Validate against the template, then place on ``device``: each array
+    copied once into a tensor that owns its memory (``convert.owned_tensor``)."""
+    state_cls, values = _validated_state_arrays(config, arrays)
+    return state_cls(*(convert.owned_tensor(a, device) for a in values))
+
+
+# ---------------------------------------------------------------------------
+# Cold-tier host probes (DESIGN.md §12): numpy gathers over the packed
+# snapshot arrays a demoted level left in host RAM. The per-key tags and
+# buckets come from the backend's own hashing on the handle's device (the
+# hash kernel on the GPU), so a cold probe answers as the level did there;
+# only the [n]-sized results cross to the host.
+# ---------------------------------------------------------------------------
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def _host_mask(valid, n: int) -> np.ndarray:
+    if valid is None:
+        return np.ones((n,), bool)
+    if isinstance(valid, torch.Tensor):
+        valid = _np(valid)
+    return np.asarray(valid, bool)
+
+
+def _np_bucket_tags(table: np.ndarray, buckets: np.ndarray, lay) -> np.ndarray:
+    """Numpy mirror of ``layout.bucket_tags``: -> uint32[n, bucket_size]."""
+    words = table.reshape(-1, lay.words_per_bucket)[buckets]  # [n, wpb] rows
+    shifts = np.arange(lay.tags_per_word, dtype=np.uint32) * np.uint32(
+        lay.fp_bits)
+    tags = (words[:, :, None] >> shifts) & np.uint32(lay.fp_mask)
+    return tags.reshape(words.shape[0], lay.bucket_size)
+
+
+def _cuckoo_host_prepare(config, keys, device):
+    """Per-key probe scalars (match tags, candidate buckets) as numpy."""
+    tag, i1, i2 = CF.prepare_keys(config, normalize_keys(keys, device=device))
+    t1, t2 = config.placement.query_match_tags(tag)
+    return tuple(_np(x).astype(np.uint32) for x in (t1, t2, i1, i2))
+
+
+def _cuckoo_host_query(config, arrays, keys, *, device=None) -> np.ndarray:
+    """Numpy membership probe over a cold level's snapshot arrays."""
+    lay = config.layout
+    table = np.asarray(arrays["table"])
+    t1, t2, i1, i2 = _cuckoo_host_prepare(config, keys, device)
+    hit1 = (_np_bucket_tags(table, i1, lay) == t1[:, None]).any(axis=-1)
+    hit2 = (_np_bucket_tags(table, i2, lay) == t2[:, None]).any(axis=-1)
+    return hit1 | hit2
+
+
+def _cuckoo_host_delete(config, arrays, keys, valid=None, *,
+                        device=None) -> np.ndarray:
+    """Clear one matching slot a key in the host-RAM table, in place.
+
+    Candidates come from the same probe as ``host_query``; the clears run
+    key by key, so duplicate deletes of one key consume distinct stored
+    copies. Cold deletes are the rare path (DESIGN.md §12): the loop runs
+    only over keys whose buckets matched at all.
+    """
+    lay = config.layout
+    table = arrays["table"]
+    if not (isinstance(table, np.ndarray) and table.flags.writeable):
+        table = arrays["table"] = np.array(table, np.uint32)
+    n = int(keys.shape[0])
+    v = _host_mask(valid, n)
+    ok = np.zeros((n,), bool)
+    if not v.any():
+        return ok
+    t1, t2, i1, i2 = _cuckoo_host_prepare(config, keys, device)
+    cand1 = (_np_bucket_tags(table, i1, lay) == t1[:, None]).any(axis=-1)
+    cand2 = (_np_bucket_tags(table, i2, lay) == t2[:, None]).any(axis=-1)
+    wpb, tpw = lay.words_per_bucket, lay.tags_per_word
+    fp_mask, fp_bits = np.uint32(lay.fp_mask), lay.fp_bits
+    removed = 0
+    for i in np.flatnonzero(v & (cand1 | cand2)):
+        for bucket, t in ((int(i1[i]), int(t1[i])),
+                          (int(i2[i]), int(t2[i]))):
+            done = False
+            for s in range(lay.bucket_size):
+                widx = bucket * wpb + s // tpw
+                shift = np.uint32((s % tpw) * fp_bits)
+                if int((table[widx] >> shift) & fp_mask) == t:
+                    table[widx] &= ~np.uint32(fp_mask << shift)
+                    done = True
+                    break
+            if done:
+                ok[i] = True
+                removed += 1
+                break
+    if removed:
+        count = arrays["count"]
+        arrays["count"] = np.asarray(int(count) - removed,
+                                     np.asarray(count).dtype)
+    return ok
+
+
+def _bloom_host_query(config, arrays, keys, *, device=None) -> np.ndarray:
+    """Numpy probe of a blocked-Bloom snapshot (all k bits set)."""
+    table = np.asarray(arrays["table"])
+    block, word, mask = (_np(x) for x in BB._bit_positions(
+        config, normalize_keys(keys, device=device)))
+    addr = block[:, None].astype(np.int64) * config.words_per_block + word
+    words = table[addr]                                  # [n, k]
+    mask = mask.astype(np.uint32)
+    return ((words & mask) == mask).all(axis=-1)
+
+
+# ---------------------------------------------------------------------------
+# Growth hooks (cascade level sizing, DESIGN.md §8): ordered loosest ->
+# tightest sizing overlays; the cascade picks the first meeting a share.
+# ---------------------------------------------------------------------------
+
+# The packed bucket layout quantizes tag widths to 32-bit-word fractions,
+# so the cuckoo ladder is the three hardware-friendly widths.
+_CUCKOO_SIZINGS = tuple({"fp_bits": f} for f in (8, 16, 32))
+
+# Blocked Bloom tightens by raising the per-key bit budget with the
+# matching near-optimal hash count k ~= bits_per_key * ln 2.
+_BLOOM_SIZINGS = tuple(
+    {"bits_per_key": b, "k": max(1, round(b * 0.693))}
+    for b in (8, 12, 16, 20, 24, 32, 40))
 
 
 def _cuckoo_insert(config, state, keys, *, valid=None,
@@ -194,7 +408,9 @@ def _cuckoo_make_config(capacity, **kw):
 CUCKOO = AMQAdapter(
     name="cuckoo",
     capabilities=Capabilities(supports_delete=True, supports_bulk=True,
-                              counting=True, supports_mixed=True),
+                              counting=True, supports_expand=True,
+                              supports_mixed=True, supports_snapshot=True,
+                              supports_tiering=True),
     make_config=_cuckoo_make_config,
     init=lambda cfg, device: cfg.init(device),
     insert=_cuckoo_insert,
@@ -202,6 +418,11 @@ CUCKOO = AMQAdapter(
     query=_cuckoo_query,
     delete=_cuckoo_delete,
     apply_ops=_cuckoo_apply_ops,
+    growth_sizings=_CUCKOO_SIZINGS,
+    snapshot=state_snapshot,
+    restore=state_restore,
+    host_query=_cuckoo_host_query,
+    host_delete=_cuckoo_host_delete,
 )
 
 
@@ -223,12 +444,18 @@ def _bloom_query(config, state, keys, *, valid=None):
 
 BLOOM = AMQAdapter(
     name="bloom",
-    capabilities=Capabilities(supports_delete=False, counting=False),
+    capabilities=Capabilities(supports_delete=False, counting=False,
+                              supports_expand=True, supports_snapshot=True,
+                              supports_tiering=True),
     make_config=lambda capacity, **kw: BB.BloomConfig.for_capacity(
         capacity, **kw),
     init=lambda cfg, device: cfg.init(device),
     insert=_bloom_insert,
     query=_bloom_query,
+    growth_sizings=_BLOOM_SIZINGS,
+    snapshot=state_snapshot,
+    restore=state_restore,
+    host_query=_bloom_host_query,
 )
 
 # ---------------------------------------------------------------------------
@@ -304,13 +531,35 @@ def _py_apply_ops(config, state, keys, ops, *, valid=None):
     return state, MixedReport(ok, routed, evictions, rounds)
 
 
-# The JAX adapter also sets supports_expand and supports_snapshot; the
-# cascade and snapshots are later port slices (ROADMAP queue A items 12
-# and 9b), so make(auto_expand="auto") gives a plain handle here.
+def _py_snapshot(config, state) -> dict:
+    """Oracle snapshot: the bucket grid and count (``convert.
+    py_cuckoo_to_numpy``). The eviction generator's position is not
+    kept: a snapshot carries membership, not future victim choices."""
+    del config
+    return convert.py_cuckoo_to_numpy(state)
+
+
+def _py_restore(config, arrays, device=None):
+    del device  # the oracle lives on the host
+    want = (config.num_buckets, config.bucket_size)
+    buckets = np.asarray(arrays.get("buckets"))
+    if "buckets" not in arrays or tuple(buckets.shape) != want:
+        raise SnapshotMismatchError(
+            f"state array 'buckets': snapshot has "
+            f"{None if 'buckets' not in arrays else list(buckets.shape)}, "
+            f"config expects {list(want)}")
+    if "count" not in arrays:
+        raise SnapshotMismatchError(
+            "snapshot is missing state array 'count' "
+            f"(has {sorted(arrays)})")
+    return convert.py_cuckoo_from_numpy(arrays, config)
+
+
 CPU_CUCKOO = AMQAdapter(
     name="cpu-cuckoo",
     capabilities=Capabilities(supports_delete=True, counting=True,
-                              serial_insert=True, supports_mixed=True),
+                              serial_insert=True, supports_expand=True,
+                              supports_mixed=True, supports_snapshot=True),
     make_config=lambda capacity, **kw: PYREF.PyCuckooConfig.for_capacity(
         capacity, **kw),
     init=lambda cfg, device: cfg.init(),
@@ -319,6 +568,9 @@ CPU_CUCKOO = AMQAdapter(
     delete=_py_delete,
     apply_ops=_py_apply_ops,
     device="cpu",
+    growth_sizings=_CUCKOO_SIZINGS,
+    snapshot=_py_snapshot,
+    restore=_py_restore,
 )
 
 

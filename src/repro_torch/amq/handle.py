@@ -1,10 +1,10 @@
 """FilterHandle: the one stateful object every consumer programs against.
 
 Port of ``repro.amq.handle.FilterHandle``: insert, query, delete, mixed
-op batches (``apply_ops``), count, load factor, table bytes and expected
-FPR. The handle owns ``(adapter, config, state)`` on one device; keys and
-op batches are moved onto that device. Snapshots are ROADMAP queue A
-item 9b and raise ``NotImplementedError``.
+op batches (``apply_ops``), count, load factor, table bytes, expected FPR
+and the lifecycle (``snapshot`` / ``restore`` / ``from_snapshot``,
+DESIGN.md §10). The handle owns ``(adapter, config, state)`` on one
+device; keys and op batches are moved onto that device.
 """
 
 from __future__ import annotations
@@ -13,7 +13,7 @@ from typing import Any, Optional
 
 from ..core.device import resolve_device
 from ..core.hashing import normalize_keys
-from .adapters import AMQAdapter, segmented_apply_ops
+from .adapters import AMQAdapter, config_fingerprint, segmented_apply_ops
 from .protocol import (
     Capabilities,
     DeleteReport,
@@ -21,14 +21,51 @@ from .protocol import (
     MixedReport,
     OpBatch,
     QueryResult,
+    Snapshot,
+    SnapshotMismatchError,
     load_factor as _load_factor,
     stored_count,
 )
 
 
-def _not_ported(what: str, slice_name: str):
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet ({slice_name})")
+def handle_device(adapter: AMQAdapter, device=None, state=None):
+    """The device a handle of ``adapter`` runs on.
+
+    A host backend (``adapter.device``) always runs on its own device; a
+    given state fixes the device to its table's; else ``device``, the GPU
+    by default (raising when there is none). A conflicting ``device``
+    raises ``ValueError``.
+    """
+    if adapter.device is not None:
+        if device is not None and resolve_device(device) != resolve_device(
+                adapter.device):
+            raise ValueError(f"{adapter.name} runs on {adapter.device}, "
+                             f"not on device={device!r}")
+        device = adapter.device
+    elif state is not None:
+        if device is not None and resolve_device(device) != state.table.device:
+            raise ValueError(f"state lives on {state.table.device}, not "
+                             f"on device={device!r}")
+        device = state.table.device
+    return resolve_device(device)
+
+
+def _check_snapshot_target(adapter: AMQAdapter, config: Any,
+                           snap: Snapshot) -> None:
+    """Validate that ``snap`` may restore onto (adapter, config) — loudly."""
+    if snap.kind != "filter":
+        raise SnapshotMismatchError(
+            f"cannot restore a {snap.kind!r} snapshot onto a static "
+            "FilterHandle (cascade snapshots restore onto cascades)")
+    if snap.backend != adapter.name:
+        raise SnapshotMismatchError(
+            f"snapshot is from backend {snap.backend!r}, "
+            f"this handle is {adapter.name!r}")
+    fp = config_fingerprint(adapter, config)
+    if snap.fingerprint != fp:
+        raise SnapshotMismatchError(
+            f"config fingerprint mismatch:\n  snapshot: "
+            f"{snap.fingerprint}\n  target:   {fp}")
 
 
 class FilterHandle:
@@ -48,18 +85,7 @@ class FilterHandle:
         when there is none — pass ``device="cpu"`` for the plain versions).
         A host backend (``adapter.device``) always runs on its own device.
         """
-        if adapter.device is not None:
-            if device is not None and resolve_device(device) != resolve_device(
-                    adapter.device):
-                raise ValueError(f"{adapter.name} runs on {adapter.device}, "
-                                 f"not on device={device!r}")
-            device = adapter.device
-        elif state is not None:
-            if device is not None and resolve_device(device) != state.table.device:
-                raise ValueError(f"state lives on {state.table.device}, not "
-                                 f"on device={device!r}")
-            device = state.table.device
-        self.device = resolve_device(device)
+        self.device = handle_device(adapter, device, state)
         self.adapter = adapter
         self.config = config
         self.state = adapter.init(config, self.device) if state is None else state
@@ -164,15 +190,66 @@ class FilterHandle:
         """Stored-key count."""
         return stored_count(self.state)
 
-    # -- later port slices ---------------------------------------------------
+    # -- lifecycle (DESIGN.md §10) -------------------------------------------
 
-    def snapshot(self):
-        """Snapshots: ROADMAP queue A item 9b (``Snapshot``,
-        ``save_snapshot``)."""
-        raise _not_ported("FilterHandle.snapshot",
-                          "ROADMAP queue A item 9b (snapshots)")
+    @property
+    def fingerprint(self) -> str:
+        """This handle's config-identity string (snapshot compatibility)."""
+        return config_fingerprint(self.adapter, self.config)
 
-    def restore(self, snap):
-        """Snapshots: ROADMAP queue A item 9b."""
-        raise _not_ported("FilterHandle.restore",
-                          "ROADMAP queue A item 9b (snapshots)")
+    def snapshot(self) -> Snapshot:
+        """Pull the filter state to the host as a versioned :class:`Snapshot`.
+
+        On the GPU the table crosses in one device-to-host copy; the
+        arrays own their memory, so later ops on this handle leave the
+        snapshot as it was. It restores onto any handle whose config
+        fingerprint matches (in this package or the JAX package, also
+        through :func:`~repro_torch.amq.save_snapshot`'s files) and feeds
+        :meth:`repro_torch.amq.FilterService.hot_swap`.
+        """
+        if not self.adapter.capabilities.supports_snapshot:
+            raise NotImplementedError(
+                f"{self.name}: state cannot be snapshotted "
+                "(capabilities.supports_snapshot is False)")
+        arrays = self.adapter.snapshot(self.config, self.state)
+        return Snapshot(
+            backend=self.name, kind="filter", fingerprint=self.fingerprint,
+            arrays=arrays,
+            meta={"count": self.count(),
+                  "num_slots": int(self.config.num_slots),
+                  "table_bytes": int(self.config.table_bytes)},
+            configs=(self.config,))
+
+    def restore(self, snap: Snapshot) -> "FilterHandle":
+        """Replace this handle's state with a snapshot's — validated.
+
+        The snapshot must come from the same backend and a config with an
+        identical fingerprint; anything else raises
+        :class:`~repro_torch.amq.protocol.SnapshotMismatchError`. The
+        restored table owns its memory (one host-to-device copy on the
+        GPU). Returns ``self``.
+        """
+        _check_snapshot_target(self.adapter, self.config, snap)
+        self.state = self.adapter.restore(self.config, snap.arrays,
+                                          self.device)
+        return self
+
+    @classmethod
+    def from_snapshot(cls, adapter: AMQAdapter, config: Any, snap: Snapshot,
+                      device=None) -> "FilterHandle":
+        """A handle whose initial state is the snapshot's: ``FilterHandle(
+        adapter, config, device=device).restore(snap)`` without building a
+        zero table first."""
+        _check_snapshot_target(adapter, config, snap)
+        device = handle_device(adapter, device)
+        return cls(adapter, config, adapter.restore(config, snap.arrays,
+                                                    device))
+
+    def resharded(self, num_shards: Optional[int] = None,
+                  **kw) -> "FilterHandle":
+        """Exact reshard onto another device layout: the mesh-sharded
+        backend's surface, which the port does not have yet (ROADMAP queue
+        A item 13)."""
+        raise NotImplementedError(
+            f"{self.name}: resharding needs the mesh-sharded backend, not "
+            "ported to repro_torch yet (ROADMAP queue A item 13)")

@@ -11,7 +11,10 @@ Port of the result types, capability model and helpers of
 ``keys`` are ``int32[n, 2]`` tensors holding (lo, hi) uint32 pairs
 (``repro_torch.core.hashing.normalize_keys``). Results are tuples of
 tensors on the keys' device. A mixed batch travels as an :class:`OpBatch`
-of tensors. Snapshots, cascades and tiering come with later port slices.
+of tensors. The lifecycle types (cascade and tier reports, versioned
+snapshots and their ``.npz`` files) are the JAX package's: a snapshot's
+arrays are numpy in the same names and dtypes, so a file written by
+either package restores on the other.
 
 This module imports only torch and numpy (and, inside ``OpBatch``'s
 constructors, the port's key normalization), so every other module may
@@ -31,10 +34,12 @@ import torch
 class Capabilities:
     """What a backend can do — consumers branch on these, never on names.
 
-    Same fields and defaults as the JAX package. The port's ``cuckoo``
-    backend sets ``supports_expand``, ``supports_snapshot`` and
-    ``supports_tiering`` to False: those surfaces are ported by later
-    slices.
+    Same fields and defaults as the JAX package. ``supports_expand``: the
+    backend stacks into an auto-expanding cascade (``amq/cascade.py``);
+    ``supports_snapshot``: its state round-trips through a versioned
+    host-side :class:`Snapshot`; ``supports_tiering``: frozen levels can
+    live in host RAM as snapshot arrays and still answer queries
+    (``amq/tiering.py``).
     """
 
     supports_delete: bool = True
@@ -271,3 +276,185 @@ def fpr_tolerance(expected: float, n_probes: int,
     hi = factor * expected + 8.0 / n_probes
     lo = expected / factor if expected * n_probes >= 30 else 0.0
     return lo, hi
+
+
+# ---------------------------------------------------------------------------
+# Cascade (auto-expansion) and tier reporting — host-side introspection.
+# ---------------------------------------------------------------------------
+
+class LevelStats(NamedTuple):
+    """One cascade level (host-side Python values).
+
+    ``fpr_share`` is the slice of the cascade's FPR budget this level was
+    sized against (DESIGN.md §8); ``expected_fpr`` is the level's analytic
+    FPR at its current load.
+    """
+
+    level: int
+    num_slots: int
+    count: int
+    load_factor: float
+    table_bytes: int
+    expected_fpr: float
+    fpr_share: float
+
+
+class CascadeReport(NamedTuple):
+    """Aggregate view of an auto-expanding cascade (DESIGN.md §8).
+
+    ``expected_fpr`` is ``1 - prod(1 - eps_i)`` over live levels; the
+    cascade keeps it under ``fpr_budget`` whenever every level met its
+    share.
+    """
+
+    levels: tuple
+    num_slots: int
+    table_bytes: int
+    count: int
+    load_factor: float
+    expected_fpr: float
+    fpr_budget: float
+
+    @property
+    def num_levels(self) -> int:
+        """Number of live levels in the cascade."""
+        return len(self.levels)
+
+
+class TierStats(NamedTuple):
+    """One level of a tiered handle, annotated with its residency.
+
+    ``residency`` is ``"hot"`` (on the device, write-absorbing) or
+    ``"cold"`` (frozen in host RAM as snapshot arrays — DESIGN.md §12).
+    Cold levels carry strictly smaller ``alloc_index`` values than hot
+    ones (demotion is oldest-first).
+    """
+
+    residency: str
+    alloc_index: int
+    num_slots: int
+    count: int
+    load_factor: float
+    table_bytes: int
+    expected_fpr: float
+    fpr_share: float
+
+
+class TieredReport(NamedTuple):
+    """Aggregate view of a GPU-hot / host-cold tiered handle (DESIGN.md §12).
+
+    ``device_bytes`` counts the hot levels only (what the handle keeps
+    under ``device_budget_bytes``); ``host_bytes`` is the cold tier's
+    footprint. ``expected_fpr`` aggregates all levels: a query consults
+    both tiers.
+    """
+
+    levels: tuple
+    device_budget_bytes: int
+    device_bytes: int
+    host_bytes: int
+    count: int
+    expected_fpr: float
+    fpr_budget: float
+    demotions: int
+    promotions: int
+    cold_probes: int
+    cold_hits: int
+
+    @property
+    def hot_levels(self) -> tuple:
+        """The device-resident subset of ``levels``."""
+        return tuple(s for s in self.levels if s.residency == "hot")
+
+    @property
+    def cold_levels(self) -> tuple:
+        """The host-RAM subset of ``levels``."""
+        return tuple(s for s in self.levels if s.residency == "cold")
+
+
+def fpr_share(budget: float, level: int, ratio: float = 0.5) -> float:
+    """Geometric FPR-budget split: level ``i`` gets ``budget*(1-r)*r^i``.
+
+    The shares of an infinite cascade sum to ``budget`` (Bender et al.
+    §3), so the aggregate analytic FPR stays under it however many levels
+    an insert stream provokes.
+    """
+    if not 0.0 < ratio < 1.0:
+        raise ValueError(f"fpr split ratio must be in (0, 1), got {ratio}")
+    return budget * (1.0 - ratio) * ratio ** level
+
+
+# ---------------------------------------------------------------------------
+# Filter-state lifecycle: versioned host-side snapshots (DESIGN.md §10).
+# ---------------------------------------------------------------------------
+
+SNAPSHOT_VERSION = 1
+"""Format version stamped into every :class:`Snapshot` (and snapshot file);
+``restore`` refuses newer versions instead of misreading them."""
+
+
+class SnapshotMismatchError(ValueError):
+    """A snapshot does not fit its restore target: backend names, config
+    fingerprints, format versions or array shapes/dtypes disagree."""
+
+
+class Snapshot(NamedTuple):
+    """Versioned host-side filter-state payload (DESIGN.md §10).
+
+    * ``backend`` — registry name of the producing backend.
+    * ``kind`` — ``"filter"``, ``"cascade"`` or ``"tiered"``.
+    * ``fingerprint`` — the producing config's identity string
+      (``repr(config)``); cascade and tiered snapshots keep per-level
+      fingerprints in ``meta`` instead.
+    * ``arrays`` — ``name -> numpy array``, the packed state on the host
+      (cascade levels prefix names with ``level<i>/``).
+    * ``meta`` — JSON-able descriptive payload (counts, level shares, ...).
+    * ``configs`` — the in-memory configs the snapshot was taken under
+      (empty for file-loaded snapshots, which restore onto a config the
+      caller builds, after the fingerprint check).
+    * ``version`` — :data:`SNAPSHOT_VERSION` at creation time.
+    """
+
+    backend: str
+    kind: str
+    fingerprint: str
+    arrays: dict
+    meta: dict
+    configs: tuple = ()
+    version: int = SNAPSHOT_VERSION
+
+    @property
+    def nbytes(self) -> int:
+        """Total host-side payload size in bytes."""
+        return int(sum(a.nbytes for a in self.arrays.values()))
+
+
+def save_snapshot(path, snap: Snapshot) -> None:
+    """Persist a snapshot as an ``.npz`` (arrays + a JSON header); the
+    in-memory ``configs`` are not written (a file restore rebuilds them
+    from code and checks the fingerprints)."""
+    import json
+
+    header = {"version": snap.version, "backend": snap.backend,
+              "kind": snap.kind, "fingerprint": snap.fingerprint,
+              "meta": snap.meta}
+    np.savez(path, __header__=np.frombuffer(
+        json.dumps(header).encode(), np.uint8),
+        **{k: np.asarray(v) for k, v in snap.arrays.items()})
+
+
+def load_snapshot(path) -> Snapshot:
+    """Load a snapshot written by :func:`save_snapshot` (no ``configs``;
+    restore it through a handle built with the matching config)."""
+    import json
+
+    with np.load(path) as z:
+        header = json.loads(bytes(z["__header__"]).decode())
+        arrays = {k: z[k] for k in z.files if k != "__header__"}
+    if header["version"] > SNAPSHOT_VERSION:
+        raise SnapshotMismatchError(
+            f"snapshot format v{header['version']} is newer than this "
+            f"library's v{SNAPSHOT_VERSION}; refusing to guess its layout")
+    return Snapshot(header["backend"], header["kind"],
+                    header["fingerprint"], arrays, header["meta"],
+                    (), header["version"])

@@ -7,8 +7,10 @@
     hits = handle.query(keys).hits
 
 The port registers the ``cuckoo`` backend, the blocked Bloom filter
-``bloom`` and the host oracle ``cpu-cuckoo``; the other baselines and the
-sharded backend are later port slices.
+``bloom`` and the host oracle ``cpu-cuckoo``. ``make`` also builds the
+lifecycle handles: a restored handle (``snapshot=``), an auto-expanding
+cascade (``auto_expand=``) and a GPU-hot / host-cold tiered handle
+(``tiered=True``).
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ from __future__ import annotations
 from typing import Any, Iterable, Optional
 
 from .adapters import DEFAULT_ADAPTERS, AMQAdapter
-from .handle import FilterHandle, _not_ported
+from .handle import FilterHandle
 
 _REGISTRY = dict(DEFAULT_ADAPTERS)
 
@@ -39,34 +41,74 @@ def names() -> Iterable[str]:
 def make(name: str, capacity: Optional[int] = None, *,
          config: Any = None, state: Any = None, device=None,
          snapshot: Any = None, auto_expand=False, tiered: bool = False,
-         **kw) -> FilterHandle:
+         **kw):
     """Build a ready-to-use filter handle.
 
     Pass ``capacity`` (+ backend sizing kwargs, forwarded to the adapter's
     ``make_config``) or a pre-built ``config``; ``state`` resumes from an
-    existing state (see ``repro_torch.convert.state_from_numpy``).
+    existing state (see ``repro_torch.convert.state_from_numpy``);
+    ``snapshot`` restores a :class:`~repro_torch.amq.protocol.Snapshot`
+    (``handle.snapshot()`` or :func:`~repro_torch.amq.load_snapshot`)
+    whose config fingerprint must match, else
+    :class:`~repro_torch.amq.protocol.SnapshotMismatchError`.
 
     ``device`` defaults to the GPU: without a CUDA device, ``make`` raises
     unless the caller passes ``device="cpu"`` (the plain versions of the
-    kernels). It never falls back silently.
+    kernels). It never falls back silently. Every level of a cascade or a
+    tiered handle lives on it.
 
-    ``auto_expand="auto"`` expands where the backend supports it
-    (``capabilities.supports_expand``, False for every port backend) and
-    returns a plain handle otherwise, as the JAX package does.
-    ``snapshot=``, ``auto_expand=True`` and ``tiered=True`` are later port
-    slices and raise ``NotImplementedError``.
+    ``auto_expand=True`` returns a :class:`~repro_torch.amq.cascade.
+    CascadeHandle`: ``capacity`` is the initial level's and the filter
+    grows online as a geometric cascade (DESIGN.md §8); the cascade knobs
+    (``growth``, ``watermark``, ``fpr_budget``, ``split_ratio``,
+    ``max_levels``) ride in ``**kw`` beside the backend's sizing kwargs.
+    ``auto_expand="auto"`` expands where the backend supports it and
+    returns a static handle otherwise.
+
+    ``tiered=True`` returns a :class:`~repro_torch.amq.tiering.TieredHandle`:
+    a cascade whose device footprint stays under ``device_budget_bytes``
+    (in ``**kw``, or from a tiered ``snapshot``), older levels frozen in
+    host RAM (DESIGN.md §12). It already auto-expands, so it takes no
+    ``auto_expand``.
     """
     adapter = get(name)
     if auto_expand == "auto":
         auto_expand = adapter.capabilities.supports_expand
-    if snapshot is not None:
-        raise _not_ported("make(snapshot=...)",
-                          "ROADMAP queue A item 9b (snapshots)")
-    if auto_expand:
-        raise _not_ported("make(auto_expand=...) (the cascade)",
-                          "ROADMAP queue A item 12")
+    if snapshot is not None and state is not None:
+        raise TypeError("pass state= or snapshot=, not both")
     if tiered:
-        raise _not_ported("make(tiered=True)", "ROADMAP queue A item 12")
+        if auto_expand:
+            raise TypeError(
+                "tiered=True already auto-expands; drop auto_expand=")
+        if config is not None or state is not None:
+            raise TypeError(
+                "tiered=True sizes and allocates levels itself; pass "
+                "capacity=..., not config=/state=")
+        if capacity is None:
+            raise TypeError("make(tiered=True) needs capacity=...")
+        if "device_budget_bytes" not in kw and snapshot is not None:
+            kw["device_budget_bytes"] = snapshot.meta["device_budget_bytes"]
+        if "device_budget_bytes" not in kw:
+            raise TypeError("make(tiered=True) needs device_budget_bytes=...")
+        from .tiering import TieredHandle
+
+        handle = TieredHandle(adapter, capacity, device=device, **kw)
+        if snapshot is not None:
+            handle.restore(snapshot)
+        return handle
+    if auto_expand:
+        if config is not None or state is not None:
+            raise TypeError(
+                "auto_expand=True sizes and allocates levels itself; pass "
+                "capacity=..., not config=/state=")
+        if capacity is None:
+            raise TypeError("make(auto_expand=True) needs capacity=...")
+        from .cascade import CascadeHandle
+
+        handle = CascadeHandle(adapter, capacity, device=device, **kw)
+        if snapshot is not None:
+            handle.restore(snapshot)
+        return handle
     if config is None:
         if capacity is None:
             raise TypeError("make() needs capacity=... or config=...")
@@ -74,4 +116,7 @@ def make(name: str, capacity: Optional[int] = None, *,
     elif capacity is not None or kw:
         extra = (["capacity"] if capacity is not None else []) + sorted(kw)
         raise TypeError(f"config= given; conflicting arguments {extra}")
+    if snapshot is not None:
+        # Built straight from the snapshot: no zero table first.
+        return FilterHandle.from_snapshot(adapter, config, snapshot, device)
     return FilterHandle(adapter, config, state, device=device)

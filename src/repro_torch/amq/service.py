@@ -41,9 +41,9 @@ serving engine §11):
   per-client admission outcomes, swap pauses) — read the legacy counters
   as ``svc.stats["ops"]`` and the full SLO snapshot as ``svc.stats()``.
 * **Hot swap** (DESIGN.md §10): :meth:`FilterService.hot_swap` drains the
-  pending stream onto the old backend and resumes on a new handle.
-  Migrating the old state (``migrate=True``) needs snapshots, ROADMAP
-  queue A item 9b, and raises until then.
+  pending stream onto the old backend, migrates its state onto a new
+  handle through a snapshot (``migrate=True``, the default) and resumes
+  there.
 
 Example::
 
@@ -172,6 +172,11 @@ class _ServiceStats(dict):
         out["batch_size"] = svc.batch_size
         out["shape_ladder"] = list(svc._ladder)
         out["backend"] = svc.handle.name
+        tiers = getattr(svc.handle, "tier_stats", None)
+        if callable(tiers):
+            # Tiered handles (DESIGN.md §12): budget use and cold-probe
+            # traffic, the service's only off-device work.
+            out["tiers"] = tiers()
         return out
 
 
@@ -417,12 +422,12 @@ class FilterService:
            *old* handle and the device is synced, so no acknowledged
            operation is lost (tickets already issued keep their claims on
            the old dispatches and stay readable);
-        2. **migrate** — moving the old handle's state onto
-           ``new_handle`` (``migrate=True``, the default) goes through
-           snapshots, which are ROADMAP queue A item 9b: it raises
-           ``NotImplementedError`` before anything drains. Pass
-           ``migrate=False`` to swap to a pre-populated handle (e.g.
-           rebuilt offline from the source of truth).
+        2. **migrate** — the old handle's state moves to ``new_handle``
+           through ``new_handle.restore(old.snapshot())`` (``migrate=True``,
+           the default): a same-config replica, or a cascade or tiered
+           handle built with the same knobs. Pass ``migrate=False`` to swap
+           to a pre-populated handle (e.g. rebuilt offline from the source
+           of truth).
         3. **resume** — subsequent submissions coalesce onto the new
            handle; the shape ladder is rebuilt for the new backend's
            ``batch_align``; nothing about tickets or batching changes.
@@ -430,14 +435,12 @@ class FilterService:
         Returns swap stats: ``pause_s`` (wall-clock the service could not
         accept dispatches), ``drained_ops``, ``migrated``, and the old/new
         backend names; the record is also appended to ``metrics.swaps``.
-        An incompatible ``batch_align`` raises ``ValueError`` before
-        anything drains.
+        A mismatched migration target raises
+        :class:`~repro_torch.amq.protocol.SnapshotMismatchError` before the
+        swap (the service keeps running on the old handle); an
+        incompatible ``batch_align`` raises ``ValueError`` before anything
+        drains.
         """
-        if migrate:
-            raise NotImplementedError(
-                "FilterService.hot_swap(migrate=True) moves state through "
-                "snapshots, not ported to repro_torch yet (ROADMAP queue A "
-                "item 9b (snapshots)); pass migrate=False")
         align = batch_align(new_handle)
         if self.batch_size % align:
             raise ValueError(
@@ -448,14 +451,17 @@ class FilterService:
         drained = self.pending_ops
         self.flush()
         old = self.handle
-        # Sync: the old table is fully written before the swap.
+        # Sync: the old table(s) are fully written before the migration
+        # (the snapshot would wait anyway; this also covers migrate=False).
         if old.device.type == "cuda":
             torch.cuda.synchronize(old.device)
+        if migrate:
+            new_handle.restore(old.snapshot())
         self.handle = new_handle
         self._align = align
         self._ladder = shape_ladder(self.batch_size, align)
         record = {"pause_s": time.perf_counter() - t0,
-                  "drained_ops": drained, "migrated": False,
+                  "drained_ops": drained, "migrated": bool(migrate),
                   "old_backend": old.name, "new_backend": new_handle.name}
         self.metrics.observe_swap(record)
         return record

@@ -3,7 +3,10 @@
 * :func:`state_from_numpy` / :func:`state_to_numpy` use the dict format of
   the JAX package's snapshots (``{"table": uint32[num_words], "count":
   int32[]}``), so ``jax_handle.snapshot().arrays`` loads straight into the
-  port and back.
+  port and back. ``state_to_numpy`` is the ``cuckoo`` and ``bloom``
+  backends' snapshot hook; their restore hook copies through
+  :func:`owned_tensor`. Either direction copies once, and the result owns
+  its memory.
 * :func:`config_from_reference` rebuilds the port's ``CuckooConfig`` from
   a JAX ``CuckooConfig``'s field values (duck-typed: this module imports
   nothing of the JAX package) and checks that the two reprs — the
@@ -22,6 +25,7 @@
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
 import numpy as np
 import torch
@@ -32,14 +36,29 @@ from .filters.blocked_bloom import BloomConfig, BloomState
 from .filters.cpu_reference import PyCuckooConfig, PyCuckooFilter
 
 
+def owned_tensor(arr: np.ndarray, device) -> torch.Tensor:
+    """A tensor on ``device`` with ``arr``'s bits (uint32 as int32) that owns
+    its memory: one host-to-device copy on the GPU, a clone on the CPU.
+    The kernels update tables in place, so a restored table must never
+    share the snapshot's buffer."""
+    arr = np.ascontiguousarray(arr)
+    if arr.dtype == np.uint32:
+        arr = arr.view(np.int32)
+    with warnings.catch_warnings():
+        # A read-only source is only read: the copy below owns the bits.
+        warnings.filterwarnings("ignore", message=".*not writ")
+        src = torch.from_numpy(arr)
+    return src.to(device, copy=True)
+
+
 def _table_and_count(arrays: dict, device):
-    table = np.array(arrays["table"], np.uint32)  # a writable copy
+    table = np.asarray(arrays["table"])
     count = np.asarray(arrays["count"], np.int32)
     if table.ndim != 1 or count.shape != ():
         raise ValueError(
             f"expected table uint32[num_words] and count int32[], got "
             f"{list(table.shape)} and {list(count.shape)}")
-    return (torch.from_numpy(table.view(np.int32)).to(device),
+    return (owned_tensor(table.astype(np.uint32, copy=False), device),
             torch.tensor(int(count), dtype=torch.int32, device=device))
 
 
@@ -54,8 +73,12 @@ def bloom_state_from_numpy(arrays: dict, device) -> BloomState:
 
 
 def state_to_numpy(state: CuckooState) -> dict:
-    """CuckooState -> ``{"table": uint32[num_words], "count": int32[]}``."""
-    return {"table": state.table.detach().cpu().numpy().view(np.uint32),
+    """CuckooState or BloomState -> ``{"table": uint32[num_words], "count":
+    int32[]}``, arrays that own their memory (one device-to-host copy of a
+    table on the GPU, a copy of one on the CPU)."""
+    table = state.table.detach()
+    table = table.cpu() if table.device.type != "cpu" else table.clone()
+    return {"table": table.numpy().view(np.uint32),
             "count": np.asarray(int(state.count), np.int32)}
 
 

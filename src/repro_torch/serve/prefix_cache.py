@@ -14,13 +14,12 @@ micro-batch (DESIGN.md §9): eviction deletes and admission inserts are
 *enqueued* and only forced when a lookup needs an answer, so a burst of
 cache churn costs one fused mixed-op dispatch.
 
-Deviation from the JAX package: ``auto_expand=True`` asks for an
-auto-expanding cascade where the backend supports one; no port backend
-does yet (``supports_expand`` is False until the cascade is ported), so
-the guard is a plain handle of ``4 * capacity_entries`` slots' capacity,
-which the cache's keys never fill. Entries are whatever the caller
-stores (the serving engine's hold device tensors): an LRU eviction drops
-the cache's reference to its entry.
+``auto_expand=True`` (the default) makes the guard an auto-expanding
+cascade where the backend supports one (``cuckoo``, ``bloom``,
+``cpu-cuckoo``), as in the JAX package, so ``filter_capacity`` (default
+``4 * capacity_entries``) is an initial size, not a ceiling. Entries are
+whatever the caller stores (the serving engine's hold device tensors): an
+LRU eviction drops the cache's reference to its entry.
 """
 
 from __future__ import annotations
@@ -93,8 +92,9 @@ class PrefixCache:
 
     def hot_swap_filter(self, new_handle, **kw) -> dict:
         """Swap the guard filter under live traffic: delegates to
-        :meth:`repro_torch.amq.FilterService.hot_swap` (``migrate=False``
-        until snapshots are ported)."""
+        :meth:`repro_torch.amq.FilterService.hot_swap` (queued admissions
+        and evictions drain to the old filter, its state migrates onto
+        ``new_handle`` by snapshot unless ``migrate=False``)."""
         return self.service.hot_swap(new_handle, **kw)
 
     def slo_stats(self) -> dict:

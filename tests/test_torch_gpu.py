@@ -48,7 +48,12 @@ inputs, at 1e-2 in absolute error and in error over each row's largest
 value; its bf16 output is its float32 output rounded; the model-layout
 entry on strided [B, S, H, D] views gives the same bits; and the reduced
 qwen served on the card through ``ServeEngine`` matches the same model on
-the CPU.
+the CPU. The lifecycle on the card: a snapshot and ``from_snapshot``
+round trip (the twin's table equal word for word, owned: an insert into
+it leaves the original and the snapshot as they were), a cascade whose
+levels span fp 8, 16 and 32 at bucket 16 (XOR, fmix32), each level's
+query equal to its plain version, and a demoted level's host probe equal
+to its device query.
 """
 
 import numpy as np
@@ -95,6 +100,7 @@ LAYOUTS = [
     (4, 32, "xor", "fmix32"),
     (16, 32, "offset", "fmix32"),
     (32, 32, "xor", "xxhash64"),
+    (16, 32, "xor", "fmix32"),      # the cascade's deep levels
 ]
 # The fused kernels (#2, #4: SWAR scans) and the unfused ones (#3, #5:
 # lane-by-lane scans), which share their reads and CAS loop.
@@ -1066,3 +1072,76 @@ def test_serve_engine_on_the_card(cuda):
     assert K.LAUNCHES["cuckoo_insert_direct"] > 0
     assert stats["gpu"] == stats["cpu"]
     assert stats["gpu"]["hits"] == 2 and stats["gpu"]["evictions"] == 4
+
+
+@pytest.mark.parametrize("name", ["cuckoo", "bloom"])
+def test_snapshot_round_trip_on_the_card(cuda, name):
+    h = amq.make(name, capacity=50_000, device=cuda)
+    stored, fresh = _keys(1, 40_000, cuda), _keys(2, 40_000, cuda)
+    assert bool(h.insert(stored).ok.all())
+    snap = h.snapshot()
+    kept = {k: v.copy() for k, v in snap.arrays.items()}
+    assert np.array_equal(snap.arrays["table"].view(np.int32),
+                          h.state.table.cpu().numpy())
+    twin = amq.make(name, config=h.config, snapshot=snap, device=cuda)
+    assert twin.state.table.is_cuda and twin.count() == h.count()
+    assert torch.equal(twin.state.table, h.state.table)
+    probe = torch.cat([stored, fresh])
+    assert torch.equal(twin.query(probe).hits, h.query(probe).hits)
+    before = h.state.table.clone()
+    assert bool(twin.insert(fresh[:5000]).ok.all())
+    torch.cuda.synchronize()
+    assert torch.equal(h.state.table, before)
+    for k in kept:
+        assert np.array_equal(kept[k], snap.arrays[k])
+    with pytest.raises(amq.SnapshotMismatchError):
+        amq.make(name, capacity=100_000, device=cuda, snapshot=snap)
+
+
+def test_cascade_levels_span_fp_widths_on_the_card(cuda):
+    """Shares that admit fp 8 at level 0, fp 16 at 1 and fp 32 at 2: each
+    level's query kernel equals its plain version on stored and fresh
+    keys, and the cascade finds every key."""
+    h = amq.make("cuckoo", capacity=4096, auto_expand=True, device=cuda,
+                 fpr_budget=0.12, split_ratio=0.01)
+    keys, fresh = _keys(3, 40_000, cuda), _keys(4, 20_000, cuda)
+    for s in range(0, 40_000, 8192):
+        assert bool(h.insert(keys[s:s + 8192]).ok.all())
+    widths = [lv.config.fp_bits for lv in h.levels]
+    assert widths[:3] == [8, 16, 32] and h.count() == 40_000
+    probe = torch.cat([keys, fresh])
+    for lv in h.levels:
+        assert (lv.config.bucket_size, lv.config.policy,
+                lv.config.hash_kind) == (16, "xor", "fmix32")
+        assert torch.equal(lv.query(probe).hits,
+                           cuckoo_query_plain(lv.config, lv.state.table, probe))
+    K.reset_launches()
+    assert bool(h.query(keys).hits.all())
+    assert K.LAUNCHES["cuckoo_query"] == len(h.levels)
+    assert bool(h.delete(keys[:5000]).ok.all())
+    assert h.count() == 35_000
+
+
+@pytest.mark.parametrize("name", ["cuckoo", "bloom"])
+def test_host_query_matches_device_query(cuda, name):
+    """Each hot level's device answers, then its host probe once demoted."""
+    h = amq.make(name, capacity=8192, tiered=True, device=cuda,
+                 device_budget_bytes=1 << 19)
+    keys, fresh = _keys(5, 60_000, cuda), _keys(6, 20_000, cuda)
+    assert bool(h.insert(keys).ok.all())
+    probe = torch.cat([keys[::3], fresh])
+    answers = {aid: lv.query(probe).hits.cpu().numpy()
+               for lv, aid in zip(h.hot.levels, h.hot.level_alloc_ids)}
+    assert len(answers) >= 2
+    while h.demote() is not None:
+        pass
+    adapter, checked = amq.get(name), 0
+    for cold in h.cold:
+        if cold.alloc_id in answers:
+            got = adapter.host_query(cold.config, cold.arrays, probe,
+                                     device=cuda)
+            assert np.array_equal(got, answers[cold.alloc_id])
+            checked += 1
+    assert checked == len(answers) - 1
+    assert bool(h.query(keys).hits.all())
+    assert h.device_bytes <= h.device_budget_bytes

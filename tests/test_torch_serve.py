@@ -11,9 +11,8 @@ with both packages fed the same tokens (numpy, seeded):
   atol max(5e-2, 2e-2 max|ref|): bf16 matmuls round in another order);
 * ``ServeEngine`` on the 10-request sequence of
   ``examples/serve_with_prefix_filter.py``: the prefix cache's counters
-  equal ``repro.serve.ServeEngine``'s (latencies are not compared). The
-  JAX engine's guard is an auto-expanding cascade, the port's a plain
-  handle (ROADMAP C): the counters agree because neither filter fills;
+  equal ``repro.serve.ServeEngine``'s (latencies are not compared). Both
+  engines' guards are auto-expanding cascades;
 * ``FilterService`` on one seeded op stream (three clients, deadline
   dispatches on an injected clock, a ladder of shapes): every ticket's
   ``result()`` and the counters of ``stats()`` equal the JAX service's;
@@ -170,6 +169,12 @@ def test_serve_engine_counters_match_reference():
     assert stats["hits"] == 2 and stats["evictions"] == 4
     assert stats["filtered"] + stats["misses"] == 8 and stats["stale"] == 0
     assert len(port.prefix_cache.entries) == 4
+    # Both guards are auto-expanding cascades of the same levels.
+    guard, r_guard = port.prefix_cache.filter, ref.prefix_cache.filter
+    assert type(guard).__name__ == type(r_guard).__name__ == "CascadeHandle"
+    assert [repr(lv.config) for lv in guard.levels] == [
+        repr(lv.config) for lv in r_guard.levels]
+    assert guard.count() == r_guard.count()
     svc, r_svc = stats["filter_service"], r_stats["filter_service"]
     assert svc["backend"] == "cuckoo"
     # The last request's eviction and admission wait for the next lookup.
@@ -236,13 +241,21 @@ def test_hot_swap_without_migration():
     svc = tamq.FilterService(h, batch_size=16)
     keys = np.arange(1, 11, dtype=np.uint64)
     t = svc.insert(keys)
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        svc.hot_swap(tamq.make("cuckoo", capacity=128, device="cpu"))
-    assert svc.handle is h and svc.pending_ops == 10   # nothing drained
+    # The default migrates: the pending inserts drain to h, its state
+    # moves onto the new handle by snapshot, and every key is found there.
+    moved = tamq.make("cuckoo", capacity=128, device="cpu")
+    rec = svc.hot_swap(moved)
+    assert rec["drained_ops"] == 10 and rec["migrated"]
+    assert svc.handle is moved and svc.query(keys).result().all()
+    assert t.result().all() and h.query(keys).hits.all()
+    # A mismatched target refuses before the swap.
+    with pytest.raises(tamq.SnapshotMismatchError):
+        svc.hot_swap(tamq.make("cuckoo", capacity=128, fp_bits=8,
+                               device="cpu"))
+    assert svc.handle is moved
     new = tamq.make("cuckoo", capacity=128, device="cpu")
     rec = svc.hot_swap(new, migrate=False)
-    assert rec["drained_ops"] == 10 and not rec["migrated"]
-    assert t.result().all() and h.query(keys).hits.all()
+    assert rec["drained_ops"] == 0 and not rec["migrated"]
     assert svc.handle is new and not svc.query(keys).result().any()
     with pytest.raises(tamq.QueueFullError):
         svc2 = tamq.FilterService(h, batch_size=16, max_pending=4,

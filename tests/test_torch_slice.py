@@ -12,10 +12,11 @@ queryable, every stored tag in one of its key's buckets, every key placed
 where the reference places every key, and the FPR inside the Eq. 4 band.
 Query answers on a JAX table carried across are bit-exact, and deletes
 agree with the JAX ``delete``'s ``ok``. ``make(..., auto_expand="auto")``
-gives a plain handle, as in the JAX package, and a mixed batch runs
+gives a cascade, as in the JAX package, and a mixed batch runs
 through ``FilterHandle.apply_ops``.
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -146,21 +147,25 @@ def test_make_needs_cuda_or_an_explicit_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tamq.make("cuckoo", capacity=1000)
     h = tamq.make("cuckoo", capacity=1000, device="cpu")
-    caps = h.capabilities
-    assert (caps.supports_delete, caps.supports_bulk, caps.counting,
-            caps.supports_mixed) == (True,) * 4
-    assert not (caps.supports_expand or caps.supports_snapshot
-                or caps.supports_tiering)
-    for call in (h.snapshot,
-                 lambda: tamq.make("cuckoo", capacity=10, device="cpu",
-                                   auto_expand=True),
-                 lambda: tamq.make("cuckoo", capacity=10, device="cpu",
-                                   tiered=True)):
-        with pytest.raises(NotImplementedError, match="item 9b|item 12"):
-            call()
-    # auto_expand="auto" resolves to supports_expand (False): a plain
-    # handle, as in the JAX package.
-    plain = tamq.make("cuckoo", capacity=10, device="cpu", auto_expand="auto")
+    # The JAX package's capabilities, backend by backend.
+    for name in tamq.names():
+        assert (dataclasses.asdict(tamq.get(name).capabilities)
+                == dataclasses.asdict(ramq.get(name).capabilities))
+    assert h.capabilities.supports_snapshot and h.snapshot().kind == "filter"
+    # auto_expand=True and "auto" give a cascade, tiered=True a tiered
+    # handle, every level on the handle's device.
+    for auto in (True, "auto"):
+        c = tamq.make("cuckoo", capacity=10, device="cpu", auto_expand=auto)
+        assert type(c) is tamq.CascadeHandle and c.device.type == "cpu"
+        assert c.levels[0].device.type == "cpu"
+    t = tamq.make("cuckoo", capacity=10, device="cpu", tiered=True,
+                  device_budget_bytes=4096)
+    assert type(t) is tamq.TieredHandle and t.device.type == "cpu"
+    with pytest.raises(TypeError, match="device_budget_bytes"):
+        tamq.make("cuckoo", capacity=10, device="cpu", tiered=True)
+    with pytest.raises(NotImplementedError, match="item 13"):
+        h.resharded(num_shards=2)
+    plain = tamq.make("cuckoo", capacity=10, device="cpu")
     assert type(plain) is type(h) and plain.device.type == "cpu"
     # A real mixed batch through the fused path.
     raw = _raw(8, 3)
