@@ -6,7 +6,7 @@
 From the repository root, on a machine with one NVIDIA H100 and the CUDA
 toolkit. Phases, one JSON line each:
 
-1. build — the eleven CUDA kernels from ``src/repro_torch/kernels/csrc``
+1. build — the twelve CUDA sources from ``src/repro_torch/kernels/csrc``
    (``nvcc``, ``sm_90a``, in parallel), with the build seconds and the
    card's name and power limit; then the registers and spills that
    ``ptxas -v`` gives the flash-attention kernels (``flash_ptxas``) and
@@ -18,8 +18,9 @@ toolkit. Phases, one JSON line each:
    ``cuckoo_insert_unfused_ptxas``, ``bloom_query_ptxas``,
    ``cuckoo_mixed_ptxas``, with the threads an SM holds at each one's
    registers), both instantiations of the k-mer pack
-   (``kmer_pack_ptxas``) and the bulk insert's route
-   (``cuckoo_insert_bulk_ptxas``): no spill allowed. Where ``cuobjdump``
+   (``kmer_pack_ptxas``), the bulk insert's route
+   (``cuckoo_insert_bulk_ptxas``) and the GQF's serial kernels
+   (``gqf_serial_ptxas``): no spill allowed. Where ``cuobjdump``
    is there, both query kernels' SASS must hold bucket i2's loads behind
    the branch on bucket i1's match.
 2. main path at 2^28 slots — ``repro_torch.amq.make("cuckoo",
@@ -134,6 +135,40 @@ toolkit. Phases, one JSON line each:
    ``make("bloom", capacity=floor(0.95 * 2^24), auto_expand=True)``, of
    2^26 keys (levels' k from the sizing ladder): no false negatives, the
    FPR inside its band, kernels #8 and #9 launched.
+4c. the baselines (``baselines``, the paper's §5.1 dynamic baselines, each
+   at its configuration's defaults). First the kernels beyond the TPU's
+   against their plain versions: G1 (the GQF's serial insert) and G2 (its
+   serial delete) on 2^12 keys into a 2^14-slot table at load 0.9 and at
+   0.99, the plain loops on a CPU copy (deterministic): table, ``ok`` and
+   ``count`` equal word for word; the TCF's and BCHT's rounds on
+   2^16-slot tables, the card's tables equal the CPU's after the same
+   insert and delete batches. Then ``make("tcf", capacity=floor(0.95 *
+   2^28))`` (2^23 blocks of 32 fp-16 tags: 512 MiB) filled in the main
+   path's 16 batches (per batch: seconds, keys/s, rounds, host syncs, peak
+   memory, the keys turned down with both blocks and the stash full and
+   those out of ``max_rounds``, which must account for every key turned
+   down); no false negatives among ``ok``; the FPR of 2^24 fresh keys in
+   its band; 2^24 stored keys deleted, ``count`` exact, a failed delete
+   only where a deleted key of the same tag and block took its copy (the
+   TCF's false delete). ``make("bcht", capacity=floor(0.9 * 2^28))`` (2^24
+   buckets of 16: 2^28 slots) in 15 batches: false negatives among ``ok``
+   at most the keys turned down (R7), no false positive on 2^24 fresh
+   keys, 2^24 deletes of keys that answer True all ``ok`` and gone after.
+   ``make("gqf", capacity=floor(0.95 * 2^24))`` (2^24 slots, 64 MiB)
+   through G1 in batches of 2^20, per batch seconds and keys/s (the 2^24
+   slots are fixed: no batch time switches the table): false negatives among
+   ``ok`` at most the keys turned down plus the slots at distance >=
+   ``max_probe`` (R5); the FPR of 2^24 fresh keys in its band; 2^20
+   deletes through G2 of keys that answer True, all ``ok``, ``count``
+   exact. Launch counts zeroed just before the TCF's and the GQF's runs
+   and read just after (the hash kernel; G1 and G2). G1 and G2 each timed
+   alone through its wrapper at its batch (the fill's last full batch, the
+   delete) beside a bound from the slots its probe runs touch; CPU copies
+   of those launches are held to the plain loops in phase 10. Beside the
+   BCHT and the GQF
+   a ``cuckoo`` handle of the same capacity, filled, probed and deleted
+   the same way (the TCF's is phase 2's); the cuckoo-over-baseline ratios
+   of insert, query and delete keys/s.
 5. fills at 2^28 slots — five fresh handles at the main path's capacity,
    each filled to 0.95 in the main path's batches: bulk under ``auto``
    (orientation) and ``legacy`` (the bulk kernel, then the round loop),
@@ -242,9 +277,16 @@ toolkit. Phases, one JSON line each:
    table (the unfused insert held to the order-free outcome), launch
    counts zeroed just before and read just after; each pair timed beside
    each other.
+10. G1 and G2 against their plain loops at the GQF path's own shapes
+   (``gqf_serial_vs_plain_at_path_shape``): the timed launches of phase
+   4c (2^20 keys into the table before the fill's last batch; the 2^20
+   deletes) replayed by the host loops on CPU copies of the same tables
+   and keys; table, ``ok`` and ``count`` equal word for word. Last, so
+   the loops (tens of seconds each) run after every host-bound phase.
 
 Before the last line: the ``nvidia-smi`` name and power limit, then the
-``kernels`` line. The last line is ``{"ok": true, "device": {...}}``. Any
+``kernels`` line (the 11 TPU kernels, then G1 and G2). The last line is
+``{"ok": true, "device": {...}}``. Any
 failed check raises and exits non-zero without it. Nothing here imports
 JAX or the JAX package.
 """
@@ -274,8 +316,11 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 from repro_torch import amq  # noqa: E402
 from repro_torch.core import cuckoo_filter as CF  # noqa: E402
 from repro_torch.core import layout as L  # noqa: E402
-from repro_torch.core.bits64 import from_i32  # noqa: E402
+from repro_torch.core.bits64 import from_i32, to_i32  # noqa: E402
 from repro_torch.core.hashing import hash_key_plain, normalize_keys  # noqa: E402
+from repro_torch.filters import bcht as HTm  # noqa: E402
+from repro_torch.filters import quotient as QFm  # noqa: E402
+from repro_torch.filters import two_choice as TCm  # noqa: E402
 from repro_torch.data.kmer import (  # noqa: E402
     canonicalize, kmer_keys, synthetic_genome)
 from repro_torch.kernels import bloom as bloom_kernels  # noqa: E402
@@ -293,6 +338,8 @@ from repro_torch.kernels.cuckoo_query import (  # noqa: E402
     cuckoo_query_plain, cuckoo_query_unfused_launch,
     cuckoo_query_unfused_plain)
 from repro_torch.kernels.hash64 import hash64_plain  # noqa: E402
+from repro_torch.kernels.ref import (  # noqa: E402
+    gqf_delete_plain, gqf_insert_plain)
 from repro_torch.kernels.bloom import (  # noqa: E402
     bloom_insert_launch, bloom_insert_plain, bloom_query_launch,
     bloom_query_plain)
@@ -333,6 +380,16 @@ LIFE_COLD_PROBES = 1 << 22
 LIFE_COLD_DELETES = 1 << 10
 LIFE_RECORD_PROBES = 1 << 20
 LIFE_BLOOM_KEYS = 1 << 26
+# The baselines phase: the TCF at floor(0.95 * 2^28) keys (2^23 blocks of
+# 32 tags, 512 MiB) in the main path's batches; the BCHT at floor(0.9 *
+# 2^28) (2^24 buckets of 16 slots, key words 1 GiB each) in 15 batches of
+# at most 2^24; the GQF at floor(0.95 * 2^24) (2^24 slots, 64 MiB) through
+# G1 in batches of 2^20; G1 and G2 held to their plain loops on 2^14-slot
+# tables and at the GQF's own shapes.
+BCHT_CAPACITY = 241_591_910      # floor(0.9 * 2**28)
+GQF_CAPACITY = LIFE_CAPACITY     # floor(0.95 * 2**24)
+GQF_BATCH = 1 << 20
+SERIAL_SLOTS = 1 << 14
 # The JAX package's benchmarks/mixed_workload.py mixes: (query, insert,
 # delete) fractions.
 MIXES = {"ycsb_50_40_10": (0.50, 0.40, 0.10),
@@ -382,6 +439,11 @@ TPU_KERNELS = {
     "kmer_pack": "src/repro/kernels/kmer_pack.py:39",
     "flash_attention": "src/repro/kernels/flash_attention.py:91",
 }
+# The kernels beyond the TPU's: the compiled device loops they replace.
+LOOP_KERNELS = {
+    "gqf_insert_serial": "src/repro/filters/quotient.py:97",
+    "gqf_delete_serial": "src/repro/filters/quotient.py:165",
+}
 SOURCES = {
     "hash64": "src/repro_torch/kernels/csrc/hash64.cu",
     "cuckoo_query": "src/repro_torch/kernels/csrc/cuckoo_query.cu",
@@ -394,6 +456,8 @@ SOURCES = {
     "bloom_insert": "src/repro_torch/kernels/csrc/bloom_insert.cu",
     "kmer_pack": "src/repro_torch/kernels/csrc/kmer_pack.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "gqf_insert_serial": "src/repro_torch/kernels/csrc/gqf_serial.cu",
+    "gqf_delete_serial": "src/repro_torch/kernels/csrc/gqf_serial.cu",
 }
 # Kernel #10's instantiations in the package under test: forward and, where
 # ``ops.kmer_pack`` takes ``canonical`` (the kernel canonicalizes in the same
@@ -708,8 +772,8 @@ def main_path(capacity: int, gen, label: str):
     """Fill, query, measure the FPR and delete through ``amq.make``.
 
     Returns the handle, clones of the table at load 0.5, before the last
-    batch and after the fill (load 0.95), every batch's keys and the
-    launch counts."""
+    batch and after the fill (load 0.95), every batch's keys, the launch
+    counts and the record it emitted."""
     K.reset_launches()
     h = amq.make("cuckoo", capacity=capacity)
     cfg = h.config
@@ -754,7 +818,8 @@ def main_path(capacity: int, gen, label: str):
 
     expect = routed_kernels(cfg, bulk, True)
     launches = check_launches(label, expect)
-    emit({"phase": f"main_path_{label}", "slots": cfg.num_slots,
+    record = {
+          "phase": f"main_path_{label}", "slots": cfg.num_slots,
           "table_bytes": cfg.table_bytes, "config": repr(cfg),
           "keys_inserted": inserted, "load": load, "batches": per_batch,
           "false_negatives": misses, "plain_false_negatives": plain_misses,
@@ -769,8 +834,9 @@ def main_path(capacity: int, gen, label: str):
           "residue_keys": sum(r["residue"] for r in per_batch),
           "max_memory_allocated": peak,
           "query_keys_per_s": max(sizes) / query_s,
-          "delete_keys_per_s": first.shape[0] / delete_s})
-    return h, snaps, batches, launches
+          "delete_keys_per_s": first.shape[0] / delete_s}
+    emit(record)
+    return h, snaps, batches, launches, record
 
 
 def warm_up(gen) -> float:
@@ -3018,6 +3084,460 @@ def lifecycle(h, stored, gen) -> None:
           "seconds": time.perf_counter() - t_start})
 
 
+# ---------------------------------------------------------------------------
+# The baselines (paper §5.1): the two-choice filter (TCF), the quotient
+# filter (GQF, its serial insert and delete kernels G1 / G2) and the
+# bucketed cuckoo hash table (BCHT) at the card's sizes, each beside a
+# cuckoo handle of its capacity filled and probed the same way.
+# ---------------------------------------------------------------------------
+
+def sizes_of(total: int, batch: int):
+    return [min(batch, total - s) for s in range(0, total, batch)]
+
+
+def rates(insert_s, inserted, query_s, queried, delete_s, deleted) -> dict:
+    return {"insert_keys_per_s": inserted / insert_s,
+            "query_keys_per_s": queried / query_s,
+            "delete_keys_per_s": deleted / delete_s}
+
+
+def fill_baseline(h, label, batches, module=None, on_batch=None):
+    """Insert ``batches`` through ``h.insert``: per batch seconds, keys/s,
+    host syncs, the peak of allocated memory and, where ``module`` records
+    them, rounds and the keys turned down by cause. Returns (ok of every
+    key, seconds, per-batch records). ``on_batch(b)`` runs before batch b,
+    outside the clock."""
+    oks, per_batch, insert_s = [], [], 0.0
+    for b, keys in enumerate(batches):
+        if on_batch is not None:
+            on_batch(b)
+        recs = []
+        if module is not None:
+            module.INSERT_RECORDS = recs
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            rep, syncs, _ = host_syncs(lambda: h.insert(keys))
+            torch.cuda.synchronize()
+        finally:
+            if module is not None:
+                module.INSERT_RECORDS = None
+        dt = time.perf_counter() - t0
+        insert_s += dt
+        oks.append(rep.ok)
+        m = keys.shape[0]
+        row = {"keys": m, "s": dt, "keys_per_s": m / dt, "host_syncs": syncs,
+               "placed": int(rep.ok.sum()), "load": h.load_factor,
+               "max_memory_allocated": torch.cuda.max_memory_allocated()}
+        for r in recs:
+            row.update({k: int(v) for k, v in r.items()})
+        per_batch.append(row)
+    ok = torch.cat(oks)
+    check(h.count() == int(ok.sum()),
+          f"{label}: count {h.count()} != {int(ok.sum())} keys placed")
+    return ok, insert_s, per_batch
+
+
+def query_batches(h, batches):
+    """Hits of every batch and the median seconds of a full-size batch."""
+    full = max(k.shape[0] for k in batches)
+    hits, secs = [], []
+    for keys in batches:
+        out, dt = synced(lambda: h.query(keys).hits)
+        hits.append(out)
+        if keys.shape[0] == full:
+            secs.append(dt)
+    return torch.cat(hits), statistics.median(secs)
+
+
+def stored_delete(h, keys, label):
+    """Delete ``keys`` in one call -> (ok, seconds); ``count`` must fall by
+    the keys deleted ``ok``."""
+    before = h.count()
+    rep, dt = synced(lambda: h.delete(keys))
+    check(before - h.count() == int(rep.ok.sum()),
+          f"{label}: count fell by {before - h.count()}, not "
+          f"{int(rep.ok.sum())}")
+    return rep.ok, dt
+
+
+def fpr_band(h, gen, label):
+    fresh = random_keys(gen, PROBES, top_half=True)
+    fpr = int(h.query(fresh).hits.sum()) / PROBES
+    expected = h.expected_fpr()
+    lo, hi = amq.fpr_tolerance(expected, PROBES)
+    check(lo <= fpr <= hi, f"{label}: FPR {fpr} outside [{lo}, {hi}] "
+                           f"(expected {expected})")
+    return {"fpr": fpr, "fpr_expected": expected, "fpr_band": [lo, hi]}
+
+
+def cuckoo_beside(capacity, batches, delete_keys, label):
+    """A ``cuckoo`` handle of ``capacity`` filled, queried and deleted as a
+    baseline is: every key placed."""
+    h = amq.make("cuckoo", capacity=capacity)
+    ok, insert_s, _ = fill_baseline(h, label, batches)
+    load = h.load_factor
+    check(bool(ok.all()), f"{label}: {int((~ok).sum())} keys not placed")
+    hits, query_s = query_batches(h, batches)
+    check(bool(hits.all()), f"{label}: false negatives")
+    del_ok, delete_s = stored_delete(h, delete_keys, label)
+    check(bool(del_ok.all()), f"{label}: deletes failed")
+    full = max(k.shape[0] for k in batches)
+    return {"config": repr(h.config), "load": load,
+            **rates(insert_s, ok.shape[0], query_s, full, delete_s,
+                    delete_keys.shape[0])}
+
+
+def tcf_part(gen, cuckoo_rates) -> dict:
+    """The TCF at 2^28 slots (its defaults: fp 16, blocks of 32, a stash of
+    128), filled in the main path's batches; its cuckoo is phase 2's."""
+    K.reset_launches()
+    h = amq.make("tcf", capacity=FULL_CAPACITY)
+    cfg = h.config
+    batches = [normalize_keys(random_keys(gen, m))
+               for m in batch_sizes(FULL_CAPACITY)]
+    ok, insert_s, per_batch = fill_baseline(h, "tcf", batches, TCm)
+    load = h.load_factor
+    failed = int((~ok).sum())
+    dead = sum(r["dead"] for r in per_batch)
+    expired = sum(r["expired"] for r in per_batch)
+    check(failed == dead + expired,
+          f"tcf: {failed} keys turned down, {dead} with both blocks and the "
+          f"stash full, {expired} out of max_rounds")
+    check(all(r["expired"] == 0 or r["rounds"] == cfg.max_rounds
+              for r in per_batch), "tcf: keys expired before max_rounds")
+    hits, query_s = query_batches(h, batches)
+    fn = int((ok & ~hits).sum())
+    check(fn == 0, f"tcf: {fn} false negatives among ok keys")
+    band = fpr_band(h, gen, "tcf")
+    # 2^24 stored keys deleted. A delete takes the first copy of its tag
+    # in its first block, which may be a key's of the same tag and block
+    # (the TCF's false delete, the JAX package's tests allow it); a delete
+    # then fails only where another deleted key took its copy.
+    stored = batches[0][ok[:batches[0].shape[0]]]
+    del_ok, delete_s = stored_delete(h, stored, "tcf")
+    tag, b1, b2 = TCm._prepare(cfg, stored)
+    codes = torch.cat([(b1 << 32) | tag, (b2 << 32) | tag])
+    took = torch.cat([del_ok, del_ok])
+    taken = torch.isin(codes[:stored.shape[0]][~del_ok], codes[took]) | \
+        torch.isin(codes[stored.shape[0]:][~del_ok], codes[took])
+    check(bool(taken.all()),
+          f"tcf: {int((~taken).sum())} failed deletes no deleted key of the "
+          "same tag and block explains")
+    launches = check_launches("tcf", ["hash64"])
+    return {"config": repr(cfg), "slots": cfg.num_slots,
+            "table_bytes": cfg.table_bytes, "load": load,
+            "batches": per_batch, "failed": failed, "dead": dead,
+            "expired": expired, "false_negatives": fn, **band,
+            "deleted": stored.shape[0], "delete_failed": int((~del_ok).sum()),
+            "count_after_delete": h.count(), "launches": launches,
+            **rates(insert_s, ok.shape[0], query_s, batches[0].shape[0],
+                    delete_s, stored.shape[0]),
+            "cuckoo": cuckoo_rates}
+
+
+def bcht_part(gen) -> dict:
+    """The BCHT at 2^28 slots (2^24 buckets of 16, load 0.9) in 15 batches,
+    and a ``cuckoo`` handle of its capacity beside it."""
+    h = amq.make("bcht", capacity=BCHT_CAPACITY)
+    cfg = h.config
+    batches = [normalize_keys(random_keys(gen, m))
+               for m in sizes_of(BCHT_CAPACITY, 1 << 24)]
+    ok, insert_s, per_batch = fill_baseline(h, "bcht", batches, HTm)
+    load = h.load_factor
+    failed = int((~ok).sum())
+    hits, query_s = query_batches(h, batches)
+    fn = int((ok & ~hits).sum())
+    check(fn <= failed, f"bcht: {fn} false negatives among ok keys, more "
+                        f"than the {failed} failed (R7)")
+    fresh = random_keys(gen, PROBES, top_half=True)
+    fp = int(h.query(fresh).hits.sum())
+    check(fp == 0, f"bcht: {fp} false positives (exact membership)")
+    first = batches[0]
+    keep = (ok & hits)[:first.shape[0]]
+    stored = first[keep]
+    del_ok, delete_s = stored_delete(h, stored, "bcht")
+    check(bool(del_ok.all()), f"bcht: {int((~del_ok).sum())} deletes failed")
+    gone = int(h.query(stored).hits.sum())
+    check(gone == 0, f"bcht: {gone} deleted keys still answer True")
+    rec = {"config": repr(cfg), "slots": cfg.num_slots,
+           "table_bytes": cfg.table_bytes, "load": load,
+           "batches": per_batch, "failed": failed, "false_negatives": fn,
+           "false_positives": fp, "deleted": stored.shape[0],
+           **rates(insert_s, ok.shape[0], query_s, first.shape[0], delete_s,
+                   stored.shape[0])}
+    del h
+    torch.cuda.empty_cache()
+    rec["cuckoo"] = cuckoo_beside(BCHT_CAPACITY, batches, stored,
+                                  "bcht: cuckoo")
+    return rec
+
+
+def serial_spans(cfg, before, home, rem, insert: bool):
+    """The slots each key of a serial batch scans at least, from ``home``:
+    an insert up to the first empty slot of the table as the batch found
+    it (the batch only fills slots), a delete up to its match in the
+    window (its whole window where none)."""
+    m = cfg.num_slots
+    if insert:
+        empty = (before == 0).nonzero().squeeze(1)
+        if empty.numel() == 0:
+            return torch.full_like(home, cfg.max_probe)
+        ext = torch.cat([empty, empty[:1] + m])
+        nxt = ext[torch.searchsorted(ext, home).clamp_(max=ext.shape[0] - 1)]
+        return (nxt - home).clamp_(max=cfg.max_probe)
+    offs = torch.arange(cfg.max_probe, device=home.device)
+    spans = []
+    for s in range(0, home.shape[0], 1 << 20):
+        window = from_i32(before[(home[s:s + (1 << 20), None] + offs) % m])
+        match = (((window & cfg.rmask) == rem[s:s + (1 << 20), None])
+                 & ((window >> cfg.remainder_bits) == offs))
+        spans.append(torch.where(match.any(dim=1),
+                                 match.to(torch.uint8).argmax(dim=1),
+                                 cfg.max_probe - 1))
+    return torch.cat(spans)
+
+
+def serial_bound(cfg, before, after, home, rem, insert: bool) -> dict:
+    """A bytes bound of a serial batch: each slot its probe runs scan at
+    least (:func:`serial_spans`) and each slot it changed read once, each
+    changed slot written once, and the keys' rem, home, valid and ok."""
+    m = cfg.num_slots
+    span = serial_spans(cfg, before, home, rem, insert)
+    cover = torch.zeros(2 * m + 1, dtype=torch.int32, device=home.device)
+    cover.index_add_(0, home, torch.ones_like(home, dtype=torch.int32))
+    cover.index_add_(0, home + span + 1,
+                     -torch.ones_like(home, dtype=torch.int32))
+    covered = torch.cumsum(cover, 0, dtype=torch.int32)[:2 * m] > 0
+    changed = before != after
+    read = int((covered[:m] | covered[m:] | changed).sum())
+    written = int(changed.sum())
+    n = home.shape[0]
+    nbytes = 4 * read + 4 * written + 10 * n
+    return {"slots_read": read, "slots_written": written,
+            "mean_span": float(span.float().mean()) + 1, "bound_bytes": nbytes,
+            # ~8 integer instructions a slot a probe step reads.
+            "bound_int32_ops": 8 * read}
+
+
+def time_serial(op, cfg, before, keys, valid=None):
+    """One call of the wrapper of G1 (``op`` "insert") or G2 ("delete") on
+    a copy of ``before`` between two CUDA events -> (ms, the state and ok
+    it left, rem, home)."""
+    rem, home = QFm._prepare(cfg, keys)
+    state = QFm.GQFState(before.clone(), torch.zeros(
+        (), dtype=torch.int32, device=before.device))
+    wrapper = K.gqf_insert if op == "insert" else K.gqf_delete
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    state, ok = wrapper(cfg, state, rem, home, valid)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end), state, ok, rem, home
+
+
+def plain_case(op, cfg, before, rem, home, state, ok) -> dict:
+    """CPU copies of one timed G1 ("insert") or G2 ("delete") launch: the
+    table it started from, the keys' rem and home, and what it left."""
+    return {"op": op, "cfg": cfg, "before": before.cpu(), "rem": rem.cpu(),
+            "home": home.cpu(), "table": state.table.cpu(),
+            "count": int(state.count), "ok": ok.cpu()}
+
+
+def serial_plain_at_shape(case, label) -> float:
+    """The plain loop of G1 or G2 on the CPU copy of the table a timed
+    launch started from, with its keys: table, ok and count (from 0) must
+    equal the launch's word for word. Returns the loop's ms."""
+    op, cfg = case["op"], case["cfg"]
+    plain = gqf_insert_plain if op == "insert" else gqf_delete_plain
+    table = case["before"]
+    valid = torch.ones(case["rem"].shape[0], dtype=torch.bool)
+    t0 = time.perf_counter()
+    want = plain(table, case["rem"], case["home"], valid, cfg.remainder_bits,
+                 cfg.max_probe)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    placed = int(want.sum())
+    check(torch.equal(case["ok"], want) and torch.equal(case["table"], table)
+          and case["count"] == (placed if op == "insert" else -placed),
+          f"{label}: differs from its plain loop at the GQF's shape")
+    return plain_ms
+
+
+def gqf_part(gen) -> tuple:
+    """The GQF at 2^24 slots, filled through G1 in batches of 2^20 (the JAX
+    suites' batch for serial structures). Returns (its record, G1's and
+    G2's records, CPU copies of their timed launches for
+    :func:`serial_plain_at_shape`)."""
+    K.reset_launches()
+    h = amq.make("gqf", capacity=GQF_CAPACITY)
+    batches = [normalize_keys(random_keys(gen, m))
+               for m in sizes_of(GQF_CAPACITY, GQF_BATCH)]
+    kept = {}
+
+    def keep(b):
+        if b == len(batches) - 2:
+            kept["table"] = h.state.table.clone()
+
+    ok, insert_s, per_batch = fill_baseline(h, "gqf", batches, on_batch=keep)
+    before_last = kept.pop("table")
+    cfg = h.config
+    load = h.load_factor
+    failed = int((~ok).sum())
+    hits, query_s = query_batches(h, batches)
+    fn = int((ok & ~hits).sum())
+    table = from_i32(h.state.table)
+    far = int(((table >> cfg.remainder_bits) >= cfg.max_probe).sum())
+    check(fn <= failed + far,
+          f"gqf: {fn} false negatives among ok keys, more than {failed} "
+          f"failed + {far} slots at distance >= max_probe (R5)")
+    band = fpr_band(h, gen, "gqf")
+    stored = batches[0][(ok & hits)[:batches[0].shape[0]]]
+    before_delete = h.state.table.clone()
+    del_ok, delete_s = stored_delete(h, stored, "gqf")
+    check(bool(del_ok.all()), f"gqf: {int((~del_ok).sum())} deletes failed")
+    launches = check_launches("gqf", ["hash64", "gqf_insert_serial",
+                                      "gqf_delete_serial"])
+    rec = {"config": repr(cfg), "slots": cfg.num_slots,
+           "table_bytes": cfg.table_bytes, "load": load,
+           "batches": per_batch, "failed": failed,
+           "false_negatives": fn, "slots_at_max_probe_or_more": far, **band,
+           "deleted": stored.shape[0], "count_after_delete": h.count(),
+           "launches": launches,
+           **rates(insert_s, ok.shape[0], query_s, GQF_BATCH, delete_s,
+                   stored.shape[0])}
+
+    # G1 and G2 timed alone at the fill's last full batch and at the
+    # delete, each beside a bound from the slots its runs touch; CPU copies
+    # of each launch are held to the plain loop at the end of the script.
+    last = batches[-2]
+    ins_ms, after, ins_ok, rem, home = time_serial("insert", cfg,
+                                                   before_last, last)
+    g1 = {"ms": ins_ms, "n": last.shape[0],
+          **serial_bound(cfg, before_last, after.table, home, rem, True)}
+    cases = {"gqf_insert_serial": plain_case("insert", cfg, before_last, rem,
+                                             home, after, ins_ok)}
+    del_ms, after, timed_ok, rem, home = time_serial("delete", cfg,
+                                                    before_delete, stored)
+    check(torch.equal(after.table, h.state.table)
+          and torch.equal(timed_ok, del_ok),
+          "gqf: G2 timed alone left another table or ok than the delete")
+    g2 = {"ms": del_ms, "n": stored.shape[0],
+          **serial_bound(cfg, before_delete, after.table, home, rem, False)}
+    cases["gqf_delete_serial"] = plain_case("delete", cfg, before_delete, rem,
+                                            home, after, timed_ok)
+    for g in (g1, g2):
+        g["keys_per_s"] = g["n"] / g["ms"] * 1e3
+    rec["g1"], rec["g2"] = g1, g2
+    del h, before_last, before_delete, after, table
+    torch.cuda.empty_cache()
+    rec["cuckoo"] = cuckoo_beside(GQF_CAPACITY, batches, stored,
+                                  "gqf: cuckoo")
+    serial = {name: (g, launches[name]) for name, g in
+              (("gqf_insert_serial", g1), ("gqf_delete_serial", g2))}
+    return rec, serial, cases
+
+
+def serial_vs_plain(gen) -> dict:
+    """G1 and G2 against their plain loops: 2^12 keys into a 2^14-slot
+    table filled (by G1) to the load less those keys, then 2^12 deletes
+    (stored keys, some twice, under a mask); table, ok and count equal
+    word for word. The plain loop runs on a CPU copy (deterministic).
+    Each kernel is also timed alone at this shape."""
+    out = {}
+    for load in (0.9, 0.99):
+        cfg = QFm.GQFConfig(num_slots=SERIAL_SLOTS)
+        dev = cfg.init("cuda")
+        base = normalize_keys(random_keys(
+            gen, int(load * SERIAL_SLOTS) - SUB))
+        dev, _ = QFm.insert(cfg, dev, base)
+        host = QFm.GQFState(dev.table.to("cpu", copy=True),
+                            dev.count.to("cpu", copy=True))
+        keys = normalize_keys(random_keys(gen, SUB))
+        dels = torch.cat([base[:SUB // 2], keys[:SUB // 4],
+                          base[:SUB // 4]])[torch.randperm(
+                              SUB, device="cuda", generator=gen)]
+        valid = torch.rand(SUB, device="cuda", generator=gen) < 0.9
+        rec = {}
+        for op, k, v in (("insert", keys, None), ("delete", dels, valid)):
+            before = dev.table.clone()
+            dev, ok = getattr(QFm, op)(cfg, dev, k, v)
+            # The kernel timed alone at this shape, beside its plain loop.
+            rec[f"{op}_kernel_ms"] = time_serial(op, cfg, before, k, v)[0]
+            t0 = time.perf_counter()
+            host, want = getattr(QFm, op)(cfg, host, k.cpu(),
+                                          None if v is None else v.cpu())
+            rec[f"{op}_plain_ms"] = (time.perf_counter() - t0) * 1e3
+            check(torch.equal(ok.cpu(), want)
+                  and torch.equal(dev.table.cpu(), host.table)
+                  and int(dev.count) == int(host.count),
+                  f"gqf_{op}_serial differs from its plain loop at load "
+                  f"{load}")
+            rec[f"{op}_ok"] = int(want.sum())
+        out[f"load_{load}"] = rec
+    return out
+
+
+def rounds_vs_cpu(gen) -> dict:
+    """The TCF's and BCHT's rounds on 2^16-slot tables: after the same
+    insert and delete batches the card's tables equal the CPU's word for
+    word (stable-sort claims, unique winners)."""
+    out = {}
+    for name, mod, cfg in (("tcf", TCm, TCm.TCFConfig(num_blocks=1 << 11)),
+                           ("bcht", HTm, HTm.BCHTConfig(num_buckets=1 << 12))):
+        dev, host = cfg.init("cuda"), cfg.init("cpu")
+        keys = normalize_keys(random_keys(gen, int(0.95 * cfg.num_slots)))
+        half = keys.shape[0] // 2
+        for op, k in (("insert", keys[:half]), ("insert", keys[half:]),
+                      ("delete", keys[::3])):
+            dev, ok = getattr(mod, op)(cfg, dev, k)
+            host, want = getattr(mod, op)(cfg, host, k.cpu())
+            check(torch.equal(ok.cpu(), want), f"{name} {op}: ok differs "
+                                               "between the card and the CPU")
+            for f in dev._fields:
+                check(torch.equal(getattr(dev, f).cpu(), getattr(host, f)),
+                      f"{name} {op}: {f} differs between the card and the CPU")
+        out[name] = {"slots": cfg.num_slots, "count": int(dev.count)}
+    return out
+
+
+def baselines(gen, main_rates) -> dict:
+    """The baselines phase; see the module docstring. Returns the kernel
+    records of G1 and G2 with their launches, and the CPU copies of their
+    timed launches (:func:`plain_case`)."""
+    t_start = time.perf_counter()
+    rec, seconds = {}, {}
+    t0 = time.perf_counter()
+    rec["serial_vs_plain"] = serial_vs_plain(gen)
+    rec["rounds_vs_cpu"] = rounds_vs_cpu(gen)
+    seconds["vs_plain"] = time.perf_counter() - t0
+    for name, part in (("tcf", lambda: tcf_part(gen, main_rates)),
+                       ("bcht", lambda: bcht_part(gen))):
+        t0 = time.perf_counter()
+        rec[name] = part()
+        seconds[name] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rec["gqf"], serial, cases = gqf_part(gen)
+    seconds["gqf"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    # The paper's ratios, as measured on this card: cuckoo keys/s over the
+    # baseline's, for each op.
+    rec["cuckoo_over"] = {
+        name: {op: rec[name]["cuckoo"][f"{op}_keys_per_s"]
+               / rec[name][f"{op}_keys_per_s"]
+               for op in ("insert", "query", "delete")}
+        for name in ("tcf", "gqf", "bcht")}
+    emit({"phase": "baselines", **rec, "seconds_by_part": seconds,
+          "seconds": time.perf_counter() - t_start})
+    plain = rec["serial_vs_plain"]["load_0.9"]
+    return {name: (g, launches, plain[f"{op}_plain_ms"],
+                   plain[f"{op}_kernel_ms"])
+            for (name, (g, launches)), op in zip(serial.items(),
+                                                 ("insert", "delete"))}, cases
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3106,6 +3626,12 @@ def main() -> int:
     check("cuckoo_insert_bulk" not in logs or (ptxas and all(
         r.get("spill_stores") == 0 for r in ptxas.values())),
           f"cuckoo_insert_bulk: the kernels' ptxas report {ptxas}")
+    ptxas = ptxas_threads(logs.get("gqf_serial", ""), "gqf")
+    emit({"phase": "gqf_serial_ptxas", "compiled": "gqf_serial" in logs,
+          "kernels": ptxas})
+    check("gqf_serial" not in logs or (len(ptxas) == 2 and all(
+        r.get("spill_stores") == 0 for r in ptxas.values())),
+          f"gqf_serial: the kernels' ptxas report {ptxas}")
     for name in build.SOURCES:
         build.load(name)
 
@@ -3114,7 +3640,8 @@ def main() -> int:
 
     # --- the main path at full size -------------------------------------
     t0 = time.perf_counter()
-    h, snaps, batches, launches = main_path(FULL_CAPACITY, gen, "2^28")
+    h, snaps, batches, launches, main_record = main_path(FULL_CAPACITY,
+                                                         gen, "2^28")
     half, high = snaps["half"], snaps["high"]
     cfg = h.config
     first, second = (normalize_keys(k) for k in batches[:2])
@@ -3373,6 +3900,15 @@ def main() -> int:
     del work, full_table, half, high, snaps, h
     torch.cuda.empty_cache()
 
+    # --- the baselines ------------------------------------------------------
+    main_rates = {k: main_record[k] for k in (
+        "config", "load", "insert_keys_per_s", "query_keys_per_s",
+        "delete_keys_per_s")}
+    # Its own generator: the phases after it draw the same keys as without
+    # it, so their figures compare with an older tree's.
+    serial, serial_cases = baselines(
+        torch.Generator(device="cuda").manual_seed(SEED + 29), main_rates)
+
     # --- the bulk build at full size ---------------------------------------
     t0 = time.perf_counter()
     fill_launches = fills_2_28(gen, batches)
@@ -3486,14 +4022,52 @@ def main() -> int:
                     "replaces": TPU_KERNELS["flash_attention"],
                     "launches": serve_launches["flash_attention"],
                     "launches_path": "serve_qwen1_5_4b", **flash})
-
     # --- the main path at 2^22 slots --------------------------------------
     t0 = time.perf_counter()
-    h, snaps, batches, _ = main_path(L2_CAPACITY, gen, "2^22")
+    h, snaps, batches, _, _ = main_path(L2_CAPACITY, gen, "2^22")
     emit({"phase": "main_path_2^22_seconds",
           "seconds": time.perf_counter() - t0})
     unfused_comparison_l2(h, snaps, batches, gen)
     del h, snaps, batches
+
+    # --- G1 and G2 against their plain loops at the GQF path's shapes -----
+    # Last: the host loops (tens of seconds each) then cannot disturb the
+    # host-bound phases above, which compare with an older tree's.
+    t0 = time.perf_counter()
+    plain_at_shape = {name: serial_plain_at_shape(case, name)
+                      for name, case in serial_cases.items()}
+    del serial_cases
+    emit({"phase": "gqf_serial_vs_plain_at_path_shape",
+          "plain_ms": plain_at_shape,
+          "checks": "table, ok and count of the timed launch == the plain "
+                    "loop's on a CPU copy, word for word",
+          "seconds": time.perf_counter() - t0})
+    # G1 and G2, each launched by the GQF's path in the baselines phase:
+    # timed at its batch there (2^20 keys) beside its plain loop on the
+    # same inputs; both also at 2^12 keys into a 2^14-slot table
+    # (``at_2^12_keys``).
+    for name, (g, count, small_plain_ms, small_ms) in serial.items():
+        bytes_ms = g["bound_bytes"] / HBM_BYTES_PER_S * 1e3
+        ops_ms = g["bound_int32_ops"] / int_ops_per_s * 1e3
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": LOOP_KERNELS[name], "launches": count,
+            "max_abs_err": 0, "ms": g["ms"],
+            "plain_ms": plain_at_shape[name],
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None, "n": g["n"],
+            "at_2^12_keys": {"ms": small_ms, "plain_ms": small_plain_ms},
+            "launches_path": "baselines_gqf",
+            "keys_per_s": g["keys_per_s"], "bound_bytes": g["bound_bytes"],
+            "bound_int32_ops": g["bound_int32_ops"],
+            "slots_read": g["slots_read"],
+            "slots_written": g["slots_written"], "ops_ms": ops_ms,
+            "bytes_ms_at_measured_copy":
+                g["bound_bytes"] / copy_bytes_per_s * 1e3,
+            "note": "one thread, latency-bound by design: the bound is "
+                    "printed, not a target"})
+
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
 
     print(smi, flush=True)

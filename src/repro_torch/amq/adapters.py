@@ -1,10 +1,10 @@
-"""The ``cuckoo``, ``bloom`` and ``cpu-cuckoo`` backends behind the
-unified AMQ protocol.
+"""The ``cuckoo``, ``bloom``, ``tcf``, ``gqf``, ``bcht`` and ``cpu-cuckoo``
+backends behind the unified AMQ protocol.
 
-Port of the ``CUCKOO``, ``BLOOM`` and ``CPU_CUCKOO`` adapters of
-``repro.amq.adapters``, of their lifecycle hooks (snapshots, the
-cascade's sizing ladders, the cold tier's host probes) and of
-``segmented_apply_ops``. Where the JAX
+Port of the ``CUCKOO``, ``BLOOM``, ``TCF``, ``GQF``, ``BCHT`` and
+``CPU_CUCKOO`` adapters of ``repro.amq.adapters``, of their lifecycle
+hooks (snapshots, the cascade's sizing ladders, the cold tier's host
+probes) and of ``segmented_apply_ops``. Where the JAX
 adapters run XLA code, these run the hot operations on the CUDA kernels
 (``kernels/ops.py``; on CPU tensors, their plain versions).
 
@@ -12,6 +12,14 @@ adapters run XLA code, these run the hot operations on the CUDA kernels
 insert kernel, query the Bloom query kernel; every valid insert is ``ok``
 and reports no evictions and no rounds. It has no fused mixed path: the
 handle serves its op batches with :func:`segmented_apply_ops`.
+
+``tcf``, ``gqf`` and ``bcht`` (the paper's dynamic baselines) call their
+filter modules as the JAX adapters do, with the same capabilities; every
+report's evictions and rounds are zero, and ``dedup_within_batch`` raises
+``NotImplementedError``. The TCF's and BCHT's rounds are torch ops on the
+table's device; the GQF's insert and delete are the serial kernels G1 and
+G2 (``kernels/csrc/gqf_serial.cu``) on the card, and its query torch ops.
+None has a fused mixed path.
 
 ``cpu-cuckoo`` is the pure-Python sequential filter on the host
 (``filters/cpu_reference.py``): one op at a time, in batch order. Its
@@ -68,8 +76,11 @@ import torch
 from .. import convert
 from ..core import cuckoo_filter as CF
 from ..core.hashing import keys_to_numpy, normalize_keys
+from ..filters import bcht as HT
 from ..filters import blocked_bloom as BB
 from ..filters import cpu_reference as PYREF
+from ..filters import quotient as QF
+from ..filters import two_choice as TC
 from ..kernels import ops as K
 from .protocol import (
     OP_DELETE,
@@ -152,15 +163,16 @@ def config_fingerprint(adapter: AMQAdapter, config) -> str:
 
 
 def state_snapshot(config, state) -> dict:
-    """Table and count on the host, in the JAX package's names and dtypes
-    (``convert.state_to_numpy``: one device-to-host copy, owned)."""
+    """Every field of the state on the host, in the JAX package's names and
+    dtypes (``convert.state_to_numpy``: one device-to-host copy a field,
+    owned)."""
     del config
     return convert.state_to_numpy(state)
 
 
-# The snapshot dtype of each state field: tables carry uint32 bits, which
-# the port holds as int32.
-_SNAPSHOT_DTYPES = {"table": np.dtype(np.uint32)}
+# The snapshot dtype of each state field: tables, the TCF's stash and the
+# BCHT's key words carry uint32 bits, which the port holds as int32.
+_SNAPSHOT_DTYPES = {f: np.dtype(np.uint32) for f in convert.UINT32_FIELDS}
 
 
 def _validated_state_arrays(config, arrays):
@@ -316,6 +328,9 @@ _BLOOM_SIZINGS = tuple(
     {"bits_per_key": b, "k": max(1, round(b * 0.693))}
     for b in (8, 12, 16, 20, 24, 32, 40))
 
+# The GQF's remainder is an arbitrary bit slice of a uint32 slot word.
+_GQF_SIZINGS = tuple({"remainder_bits": r} for r in (8, 12, 16, 20, 24, 28))
+
 
 def _cuckoo_insert(config, state, keys, *, valid=None,
                    dedup_within_batch=False, _bulk=False):
@@ -457,6 +472,82 @@ BLOOM = AMQAdapter(
     restore=state_restore,
     host_query=_bloom_host_query,
 )
+
+
+# ---------------------------------------------------------------------------
+# The dynamic baselines (TCF, GQF, BCHT): the filter modules' masks wrapped
+# in reports, as the JAX adapters wrap them.
+# ---------------------------------------------------------------------------
+
+def _zero_stats(keys: torch.Tensor) -> tuple:
+    """Zero evictions and rounds on the keys' device (the baselines')."""
+    return (torch.zeros((keys.shape[0],), dtype=torch.int32,
+                        device=keys.device),
+            torch.zeros((), dtype=torch.int32, device=keys.device))
+
+
+def _baseline_ops(name: str, module) -> dict:
+    """insert / query / delete of a baseline module, as the JAX adapters
+    wrap it: bare masks to reports, no dedup within a batch."""
+
+    def insert(config, state, keys, *, valid=None, dedup_within_batch=False):
+        if dedup_within_batch:
+            raise NotImplementedError(
+                f"{name}: dedup_within_batch not supported")
+        state, ok = module.insert(config, state, keys, valid)
+        return state, InsertReport(ok, *_zero_stats(keys), all_routed(keys))
+
+    def query(config, state, keys, *, valid=None):
+        hits = module.query(config, state, keys) & ensure_valid(keys, valid)
+        return state, QueryResult(hits, all_routed(keys))
+
+    def delete(config, state, keys, *, valid=None):
+        state, ok = module.delete(config, state, keys, valid)
+        return state, DeleteReport(ok, all_routed(keys))
+
+    return {"insert": insert, "query": query, "delete": delete}
+
+
+TCF = AMQAdapter(
+    name="tcf",
+    capabilities=Capabilities(supports_delete=True, counting=True,
+                              supports_snapshot=True),
+    make_config=lambda capacity, **kw: TC.TCFConfig.for_capacity(
+        capacity, **kw),
+    init=lambda cfg, device: cfg.init(device),
+    **_baseline_ops("tcf", TC),
+    snapshot=state_snapshot,
+    restore=state_restore,
+)
+
+GQF = AMQAdapter(
+    name="gqf",
+    capabilities=Capabilities(supports_delete=True, counting=True,
+                              serial_insert=True, supports_expand=True,
+                              supports_snapshot=True),
+    make_config=lambda capacity, **kw: QF.GQFConfig.for_capacity(
+        capacity, **kw),
+    init=lambda cfg, device: cfg.init(device),
+    **_baseline_ops("gqf", QF),
+    growth_sizings=_GQF_SIZINGS,
+    snapshot=state_snapshot,
+    restore=state_restore,
+)
+
+BCHT = AMQAdapter(
+    name="bcht",
+    capabilities=Capabilities(supports_delete=True, counting=True,
+                              exact=True, supports_expand=True,
+                              supports_snapshot=True),
+    make_config=lambda capacity, **kw: HT.BCHTConfig.for_capacity(
+        capacity, **kw),
+    init=lambda cfg, device: cfg.init(device),
+    **_baseline_ops("bcht", HT),
+    growth_sizings=({},),  # exact: any level trivially meets its FPR share
+    snapshot=state_snapshot,
+    restore=state_restore,
+)
+
 
 # ---------------------------------------------------------------------------
 # Pure-Python oracle (host-side; the conformance reference).
@@ -631,5 +722,5 @@ def segmented_apply_ops(target, batch: OpBatch) -> MixedReport:
                        torch.tensor(rounds, dtype=torch.int32, device=dev))
 
 
-DEFAULT_ADAPTERS = {CUCKOO.name: CUCKOO, BLOOM.name: BLOOM,
-                    CPU_CUCKOO.name: CPU_CUCKOO}
+DEFAULT_ADAPTERS = {a.name: a for a in
+                    (CUCKOO, BLOOM, TCF, GQF, BCHT, CPU_CUCKOO)}

@@ -32,7 +32,7 @@ def handle_device(adapter: AMQAdapter, device=None, state=None):
     """The device a handle of ``adapter`` runs on.
 
     A host backend (``adapter.device``) always runs on its own device; a
-    given state fixes the device to its table's; else ``device``, the GPU
+    given state fixes the device to its tensors'; else ``device``, the GPU
     by default (raising when there is none). A conflicting ``device``
     raises ``ValueError``.
     """
@@ -43,10 +43,11 @@ def handle_device(adapter: AMQAdapter, device=None, state=None):
                              f"not on device={device!r}")
         device = adapter.device
     elif state is not None:
-        if device is not None and resolve_device(device) != state.table.device:
-            raise ValueError(f"state lives on {state.table.device}, not "
+        where = state[0].device   # every field of a state on one device
+        if device is not None and resolve_device(device) != where:
+            raise ValueError(f"state lives on {where}, not "
                              f"on device={device!r}")
-        device = state.table.device
+        device = where
     return resolve_device(device)
 
 

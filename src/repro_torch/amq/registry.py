@@ -7,7 +7,10 @@
     hits = handle.query(keys).hits
 
 The port registers the ``cuckoo`` backend, the blocked Bloom filter
-``bloom`` and the host oracle ``cpu-cuckoo``. ``make`` also builds the
+``bloom``, the paper's dynamic baselines ``tcf`` (two-choice filter),
+``gqf`` (quotient filter, its serial insert and delete CUDA kernels) and
+``bcht`` (bucketed cuckoo hash table), and the host oracle ``cpu-cuckoo``,
+in the JAX package's order (``sharded-cuckoo`` is not ported yet). ``make`` also builds the
 lifecycle handles: a restored handle (``snapshot=``), an auto-expanding
 cascade (``auto_expand=``) and a GPU-hot / host-cold tiered handle
 (``tiered=True``).

@@ -3,10 +3,16 @@
 * :func:`state_from_numpy` / :func:`state_to_numpy` use the dict format of
   the JAX package's snapshots (``{"table": uint32[num_words], "count":
   int32[]}``), so ``jax_handle.snapshot().arrays`` loads straight into the
-  port and back. ``state_to_numpy`` is the ``cuckoo`` and ``bloom``
-  backends' snapshot hook; their restore hook copies through
-  :func:`owned_tensor`. Either direction copies once, and the result owns
-  its memory.
+  port and back. ``state_to_numpy`` takes any state (every field, uint32
+  bits for :data:`UINT32_FIELDS`) and is the snapshot hook of every
+  tensor backend; their restore hook copies through :func:`owned_tensor`.
+  Either direction copies once, and the result owns its memory.
+* :func:`tcf_state_from_numpy`, :func:`gqf_state_from_numpy` and
+  :func:`bcht_state_from_numpy` carry the baselines' states in the JAX
+  package's names and dtypes: TCF ``table`` and ``stash`` uint32, GQF
+  ``table`` uint32, BCHT ``key_lo`` and ``key_hi`` uint32[nb, b] and
+  ``used`` bool; ``count`` int32 in each. ``config_from_reference(cfg,
+  TCFConfig | GQFConfig | BCHTConfig)`` carries their configs.
 * :func:`config_from_reference` rebuilds the port's ``CuckooConfig`` from
   a JAX ``CuckooConfig``'s field values (duck-typed: this module imports
   nothing of the JAX package) and checks that the two reprs — the
@@ -32,8 +38,14 @@ import torch
 
 from .amq.protocol import OpBatch
 from .core.cuckoo_filter import CuckooConfig, CuckooState
+from .filters.bcht import BCHTState
 from .filters.blocked_bloom import BloomConfig, BloomState
 from .filters.cpu_reference import PyCuckooConfig, PyCuckooFilter
+from .filters.quotient import GQFState
+from .filters.two_choice import TCFState
+
+# State fields that carry uint32 bits (held as int32 in the port).
+UINT32_FIELDS = ("table", "stash", "key_lo", "key_hi")
 
 
 def owned_tensor(arr: np.ndarray, device) -> torch.Tensor:
@@ -41,7 +53,7 @@ def owned_tensor(arr: np.ndarray, device) -> torch.Tensor:
     its memory: one host-to-device copy on the GPU, a clone on the CPU.
     The kernels update tables in place, so a restored table must never
     share the snapshot's buffer."""
-    arr = np.ascontiguousarray(arr)
+    arr = np.ascontiguousarray(arr).reshape(np.shape(arr))  # 0-d stays 0-d
     if arr.dtype == np.uint32:
         arr = arr.view(np.int32)
     with warnings.catch_warnings():
@@ -72,14 +84,52 @@ def bloom_state_from_numpy(arrays: dict, device) -> BloomState:
     return BloomState(*_table_and_count(arrays, device))
 
 
-def state_to_numpy(state: CuckooState) -> dict:
-    """CuckooState or BloomState -> ``{"table": uint32[num_words], "count":
-    int32[]}``, arrays that own their memory (one device-to-host copy of a
-    table on the GPU, a copy of one on the CPU)."""
-    table = state.table.detach()
-    table = table.cpu() if table.device.type != "cpu" else table.clone()
-    return {"table": table.numpy().view(np.uint32),
-            "count": np.asarray(int(state.count), np.int32)}
+def _fields_from_numpy(cls, arrays: dict, device, dtypes: dict):
+    """A ``cls`` state from its snapshot arrays: each checked against
+    ``dtypes`` (name -> numpy dtype) and copied once onto ``device``."""
+    values = []
+    for f in cls._fields:
+        a = np.asarray(arrays[f])
+        if a.dtype != dtypes[f] or (f == "count") != (a.ndim == 0):
+            raise ValueError(f"{f}: expected {np.dtype(dtypes[f])}, got "
+                             f"{a.dtype}{list(a.shape)}")
+        values.append(owned_tensor(a, device))
+    return cls(*values)
+
+
+def tcf_state_from_numpy(arrays: dict, device) -> TCFState:
+    """``{"table": uint32[num_words], "stash": uint32[stash_size], "count":
+    int32[]}`` -> TCFState."""
+    return _fields_from_numpy(TCFState, arrays, device, {
+        "table": np.uint32, "stash": np.uint32, "count": np.int32})
+
+
+def gqf_state_from_numpy(arrays: dict, device) -> GQFState:
+    """``{"table": uint32[num_slots], "count": int32[]}`` -> GQFState."""
+    return _fields_from_numpy(GQFState, arrays, device, {
+        "table": np.uint32, "count": np.int32})
+
+
+def bcht_state_from_numpy(arrays: dict, device) -> BCHTState:
+    """``{"key_lo", "key_hi": uint32[nb, b], "used": bool[nb, b], "count":
+    int32[]}`` -> BCHTState."""
+    return _fields_from_numpy(BCHTState, arrays, device, {
+        "key_lo": np.uint32, "key_hi": np.uint32, "used": np.bool_,
+        "count": np.int32})
+
+
+def state_to_numpy(state) -> dict:
+    """Any port state -> ``{field: array}`` in the JAX package's names and
+    dtypes (the fields of :data:`UINT32_FIELDS` as uint32; a CuckooState or
+    BloomState gives ``{"table": uint32[num_words], "count": int32[]}``),
+    arrays that own their memory (one device-to-host copy a field on the
+    GPU, a copy on the CPU)."""
+    out = {}
+    for f in state._fields:
+        t = getattr(state, f).detach()
+        a = (t.cpu() if t.device.type != "cpu" else t.clone()).numpy()
+        out[f] = a.view(np.uint32) if f in UINT32_FIELDS else a
+    return out
 
 
 def config_from_reference(cfg, cls=CuckooConfig):

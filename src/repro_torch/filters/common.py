@@ -1,6 +1,8 @@
-"""Shared machinery for the baseline filters: the batched OR scatter.
+"""Shared machinery for the baseline filters: the batched OR scatter and
+the single-address claim election.
 
-Port of ``scatter_or`` from ``repro.filters.common``. The JAX package
+Port of ``scatter_or`` and ``resolve_claims_single`` from
+``repro.filters.common``. The JAX package
 merges duplicate addresses with a segmented OR-scan, the TPU-functional
 stand-in for the GPU baselines' ``atomicOr``. Here no scan is needed: the
 OR of distinct bits equals their sum, so each value is split into its set
@@ -44,3 +46,17 @@ def scatter_or(table: torch.Tensor, addr: torch.Tensor, val: torch.Tensor,
     bits.index_add_(0, inv, torch.ones_like(codes) << (codes & 31))
     table[words] = to_i32(from_i32(table[words]) | bits)
     return table
+
+
+def resolve_claims_single(addr: torch.Tensor, invalid: int) -> torch.Tensor:
+    """Single-address claim election: True where this entry owns ``addr``.
+
+    addr: int64[n] flat addresses (``invalid`` = no claim). Lowest batch
+    index wins, by a stable sort (the core's ``_resolve_claims`` rule).
+    """
+    sa, order = torch.sort(addr, stable=True)
+    first = torch.ones_like(sa, dtype=torch.bool)
+    first[1:] = sa[1:] != sa[:-1]
+    win = torch.zeros(addr.shape, dtype=torch.bool, device=addr.device)
+    win[order] = first & (sa != invalid)
+    return win

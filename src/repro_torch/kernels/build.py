@@ -26,7 +26,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("hash64", "cuckoo_query", "cuckoo_query_unfused", "cuckoo_insert",
            "cuckoo_insert_unfused", "cuckoo_insert_bulk", "cuckoo_mixed",
-           "bloom_query", "bloom_insert", "kmer_pack", "flash_attention")
+           "bloom_query", "bloom_insert", "kmer_pack", "flash_attention",
+           "gqf_serial")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -64,6 +65,10 @@ ARGTYPES = {
     # q_offset, the scale and the stream.
     "flash_attention_launch": [_P, _P, _P, _P, _I64] + [_I32] * 6 + [_P] * 4
                               + [_I32] * 6 + [_F32, _P],
+    # table, rem, home, valid, ok, count, n, num_slots, remainder bits,
+    # max_probe, the stream.
+    "gqf_insert_serial_launch": [_P] * 6 + [_I64, _U64, _U32, _U32, _P],
+    "gqf_delete_serial_launch": [_P] * 6 + [_I64, _U64, _U32, _U32, _P],
 }
 
 # Entry points beyond ``<name>_launch``, and those that do not return a
@@ -72,7 +77,9 @@ EXPORTS = {"bloom_query": ("bloom_query_launch", "bloom_query_windowed_launch",
                            "bloom_query_scratch_bytes", "bloom_query_l2_bytes"),
            "cuckoo_insert_bulk": ("cuckoo_insert_bulk_launch",
                                   "cuckoo_insert_bulk_scratch_bytes"),
-           "cuckoo_mixed": ("cuckoo_mixed_launch", "cuckoo_mixed_walk_launch")}
+           "cuckoo_mixed": ("cuckoo_mixed_launch", "cuckoo_mixed_walk_launch"),
+           "gqf_serial": ("gqf_insert_serial_launch",
+                          "gqf_delete_serial_launch")}
 RESTYPES = {"bloom_query_scratch_bytes": _I64, "bloom_query_l2_bytes": _I64,
             "cuckoo_insert_bulk_scratch_bytes": _I64}
 

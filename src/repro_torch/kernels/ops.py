@@ -18,8 +18,10 @@ import numpy as np
 import torch
 
 from ..amq.protocol import OP_DELETE, OP_INSERT
+from ..core.bits64 import to_i32
 from ..core.cuckoo_filter import CuckooConfig, CuckooState
 from ..filters.blocked_bloom import BloomConfig, BloomState
+from ..filters.quotient import GQFConfig, GQFState
 from .bloom import (bloom_insert_launch, bloom_insert_plain,
                     bloom_query_launch, bloom_query_plain)
 from .cuckoo_insert import (cuckoo_insert_direct_plain, cuckoo_insert_launch,
@@ -33,14 +35,17 @@ from .flash_attention import (DTYPES as FLASH_DTYPES, bshd_views,
                               flash_attention_launch, flash_attention_plain,
                               flash_variant, from_kernel_layout,
                               kernel_strides, to_kernel_layout)
+from .gqf import gqf_delete_launch, gqf_insert_launch
 from .hash64 import HASH_KINDS, hash64_launch, hash64_plain
 from .kmer_pack import kmer_pack_launch, kmer_pack_plain
+from .ref import gqf_delete_plain, gqf_insert_plain
 
 LAUNCHES = {"hash64": 0, "cuckoo_query": 0, "cuckoo_query_unfused": 0,
             "cuckoo_insert_direct": 0, "cuckoo_insert_unfused": 0,
             "cuckoo_insert_bulk": 0, "cuckoo_mixed": 0, "cuckoo_mixed_walk": 0,
             "bloom_query": 0, "bloom_insert": 0, "kmer_pack": 0,
-            "flash_attention": 0}
+            "flash_attention": 0, "gqf_insert_serial": 0,
+            "gqf_delete_serial": 0}
 
 _KERNEL_WPB = (1, 2, 4, 8, 16, 32)
 
@@ -300,6 +305,66 @@ def bloom_insert(config: BloomConfig, state: BloomState, keys: torch.Tensor,
             LAUNCHES["bloom_insert"] += 1
     count = state.count + valid.sum().to(torch.int32)
     return BloomState(state.table, count), valid.clone()
+
+
+def _gqf_serial(config: GQFConfig, state: GQFState, rem: torch.Tensor,
+                home: torch.Tensor, valid, insert: bool):
+    n = rem.shape[0] if isinstance(rem, torch.Tensor) and rem.ndim == 1 else -1
+    _check(state.table, "state.table", torch.int32, (config.num_slots,))
+    _check(rem, "rem", torch.int64, (n,))
+    _check(home, "home", torch.int64, (n,))
+    valid = _valid_mask(valid, n, rem.device)
+    # R6: with r > 24 the stored distance wraps, so an insert carried round
+    # a full table never ends (the JAX loop too; on the card G1 would hold
+    # the GPU). Occupied slots equal count, and an insert that finds an
+    # empty slot ends, so only a batch that would overfill can hang.
+    if insert and config.remainder_bits > 24 and (
+            int(state.count) + int(valid.sum()) > config.num_slots):
+        raise ValueError(
+            f"gqf insert: {int(valid.sum())} keys into {config.num_slots} "
+            f"slots holding {int(state.count)} would never end with "
+            f"remainder_bits={config.remainder_bits} > 24 (R6)")
+    if not _on_cuda(state.table, rem, home, valid):
+        plain = gqf_insert_plain if insert else gqf_delete_plain
+        ok = plain(state.table, rem, home, valid, config.remainder_bits,
+                   config.max_probe)
+        placed = ok.sum(dtype=torch.int32)
+        return GQFState(state.table, state.count + (placed if insert
+                                                    else -placed)), ok
+    if not 1 <= config.num_slots < 2 ** 32:
+        raise ValueError(f"num_slots={config.num_slots} out of range")
+    ok = torch.empty((n,), dtype=torch.bool, device=rem.device)
+    count = state.count.clone()
+    if n:
+        launch, name = ((gqf_insert_launch, "gqf_insert_serial") if insert
+                        else (gqf_delete_launch, "gqf_delete_serial"))
+        with torch.cuda.device(rem.device):
+            launch(state.table, to_i32(rem), to_i32(home), valid, ok, count,
+                   config.remainder_bits, config.max_probe)
+        LAUNCHES[name] += 1
+    return GQFState(state.table, count), ok
+
+
+def gqf_insert(config: GQFConfig, state: GQFState, rem: torch.Tensor,
+               home: torch.Tensor, valid: torch.Tensor = None):
+    """The quotient filter's serial Robin Hood insert (G1) -> (state', ok
+    bool[n]).
+
+    ``rem`` and ``home`` are ``quotient._prepare``'s int64[n] (uint32
+    values). Keys go in batch order, one after another, as in the JAX
+    package's loop; the table is updated in place and ``count`` grows by
+    the keys placed. On a CUDA table G1 runs in one thread; on a CPU table
+    its plain version.
+    """
+    return _gqf_serial(config, state, rem, home, valid, True)
+
+
+def gqf_delete(config: GQFConfig, state: GQFState, rem: torch.Tensor,
+               home: torch.Tensor, valid: torch.Tensor = None):
+    """The quotient filter's serial delete with backward-shift compaction
+    (G2) -> (state', ok bool[n]); arguments and routes as
+    :func:`gqf_insert`, ``count`` falls by the keys removed."""
+    return _gqf_serial(config, state, rem, home, valid, False)
 
 
 def kmer_pack(bases: torch.Tensor, k: int = 31, *,

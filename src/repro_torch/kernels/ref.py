@@ -148,3 +148,78 @@ def kmer_pack_ref(bases: torch.Tensor, k: int = 31):
                                     device=bases.device)])
     keys = kmer_pack_plain(padded, k)
     return keys[:, 1], keys[:, 0]
+
+
+# ---------------------------------------------------------------------------
+# The quotient filter's serial loops: the plain versions of G1 and G2
+# (csrc/gqf_serial.cu). Each runs the JAX loop statement for statement on
+# host integers in uint32 arithmetic, over a copy of the table, and writes
+# the table back in place.
+# ---------------------------------------------------------------------------
+
+def _u32_shifts(r: int):
+    """uint32 ``<<`` and ``>>`` by ``r`` as XLA computes them (0 past the
+    width; ``<<`` wraps modulo 2^32)."""
+    if r >= 32:
+        return (lambda x: 0), (lambda x: 0), MASK32
+    return (lambda x: (x << r) & MASK32), (lambda x: x >> r), (1 << r) - 1
+
+
+def gqf_insert_plain(table: torch.Tensor, rem: torch.Tensor,
+                     home: torch.Tensor, valid: torch.Tensor,
+                     remainder_bits: int, max_probe: int) -> torch.Tensor:
+    """G1's plain version (``repro/filters/quotient.py:108-141``): Robin
+    Hood insertion, one key after another, in place. table int32[m]; rem,
+    home int64[n] (uint32 values); valid bool[n]. Returns ok bool[n]."""
+    shl, shr, rmask = _u32_shifts(remainder_bits)
+    t = from_i32(table).tolist()
+    m = len(t)
+    ok = []
+    for pos, cur, live in zip(home.tolist(), rem.tolist(), valid.tolist()):
+        dist, placed = 0, False
+        while live:
+            slot = t[pos]
+            empty = slot == 0
+            s_dist = shr(slot)
+            rich = s_dist < dist
+            if empty or rich:
+                t[pos] = shl(dist) | (cur & rmask)
+            placed = placed or empty
+            if rich and not empty:
+                cur, dist = slot & rmask, s_dist
+            live = not empty and dist < max_probe
+            pos = (pos + 1) % m
+            dist = (dist + 1) & MASK32
+        ok.append(placed)
+    table.copy_(to_i32(torch.tensor(t, dtype=torch.int64)))
+    return torch.tensor(ok, dtype=torch.bool, device=table.device)
+
+
+def gqf_delete_plain(table: torch.Tensor, rem: torch.Tensor,
+                     home: torch.Tensor, valid: torch.Tensor,
+                     remainder_bits: int, max_probe: int) -> torch.Tensor:
+    """G2's plain version (``repro/filters/quotient.py:177-211``): the
+    first match in the key's window of ``max_probe`` slots, then
+    backward-shift compaction, in place. Arguments as
+    :func:`gqf_insert_plain`; returns ok bool[n]."""
+    shl, shr, rmask = _u32_shifts(remainder_bits)
+    t = from_i32(table).tolist()
+    m = len(t)
+    ok = []
+    for h, want, v in zip(home.tolist(), rem.tolist(), valid.tolist()):
+        at = next((d for d in range(max_probe)
+                   if (t[(h + d) % m] & rmask) == want
+                   and shr(t[(h + d) % m]) == d), None)
+        found = at is not None and v
+        pos = (h + (at or 0)) % m
+        live = found
+        while live:
+            nxt = (pos + 1) % m
+            nslot = t[nxt]
+            nd = shr(nslot)
+            live = nslot != 0 and nd > 0
+            t[pos] = shl(nd - 1) | (nslot & rmask) if live else 0
+            pos = nxt
+        ok.append(found)
+    table.copy_(to_i32(torch.tensor(t, dtype=torch.int64)))
+    return torch.tensor(ok, dtype=torch.bool, device=table.device)

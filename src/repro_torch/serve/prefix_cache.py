@@ -15,8 +15,9 @@ micro-batch (DESIGN.md §9): eviction deletes and admission inserts are
 cache churn costs one fused mixed-op dispatch.
 
 ``auto_expand=True`` (the default) makes the guard an auto-expanding
-cascade where the backend supports one (``cuckoo``, ``bloom``,
-``cpu-cuckoo``), as in the JAX package, so ``filter_capacity`` (default
+cascade where the backend supports one (``cuckoo``, ``bloom``, ``gqf``,
+``bcht``, ``cpu-cuckoo``; ``tcf`` gets a static guard), as in the JAX
+package, so ``filter_capacity`` (default
 ``4 * capacity_entries``) is an initial size, not a ceiling. Entries are
 whatever the caller stores (the serving engine's hold device tensors): an
 LRU eviction drops the cache's reference to its entry.

@@ -11,8 +11,10 @@ the newest level holding the key, ``compact`` frees drained levels, the
 ``valid`` mask, ``apply_ops`` on its single-level fast path and on its
 segmented path against a ``cpu-cuckoo`` cascade (the sequential oracle,
 same hashes and sizes), ``PrefixCache()`` builds a cascade, and the Bloom
-cascade's FPR stays inside its split budget. One JAX cascade is built for
-the module.
+cascade's FPR stays inside its split budget. A GQF and a BCHT cascade
+grow ``repro``'s levels and tables; the TCF cannot expand, so
+``PrefixCache(backend="tcf")`` guards with a static handle. One JAX
+cuckoo cascade is built for the module.
 """
 
 import numpy as np
@@ -219,3 +221,33 @@ def test_bloom_cascade_fpr_within_split_budget():
     assert _np(h.query(NEG).hits).mean() <= hi
     with pytest.raises(NotImplementedError):
         h.delete(POS[:4])
+
+
+@pytest.mark.parametrize("name", ("gqf", "bcht"))
+def test_baseline_cascade_matches_reference(name):
+    """A GQF and a BCHT cascade grow ``repro``'s levels (configs, shares,
+    allocation ids, counts) from the same keys, with the same tables word
+    for word: both inserts are deterministic in both packages."""
+    ref = ramq.make(name, capacity=CAPACITY, auto_expand=True)
+    h = _cascade(name)
+    keys = POS[:1024]
+    want = np.concatenate([_np(ref.insert(keys[s:s + CHUNK]).ok)
+                           for s in range(0, keys.size, CHUNK)])
+    assert np.array_equal(_stream(h, keys), want)
+    assert len(h.levels) > 1 and _structure(h) == _structure(ref)
+    for lv, r_lv in zip(h.levels, ref.levels):
+        got = tamq.get(name).snapshot(lv.config, lv.state)
+        for f, a in got.items():
+            assert np.array_equal(a, np.asarray(getattr(r_lv.state, f))), f
+    probe = np.concatenate([keys, NEG[:1024]])
+    assert np.array_equal(_np(h.query(probe).hits),
+                          _np(ref.query(probe).hits))
+
+
+def test_tcf_cannot_expand_and_guards_statically():
+    with pytest.raises(NotImplementedError, match="supports_expand"):
+        _cascade("tcf")
+    pc = PrefixCache(2, backend="tcf", device="cpu")
+    assert isinstance(pc.filter, tamq.FilterHandle) and pc.filter.name == "tcf"
+    pc.insert([1, 2, 3], entry="e")
+    assert pc.lookup([1, 2, 3]) == "e"

@@ -53,7 +53,10 @@ round trip (the twin's table equal word for word, owned: an insert into
 it leaves the original and the snapshot as they were), a cascade whose
 levels span fp 8, 16 and 32 at bucket 16 (XOR, fmix32), each level's
 query equal to its plain version, and a demoted level's host probe equal
-to its device query.
+to its device query. The dynamic baselines: the GQF's serial kernels (G1
+insert, G2 delete) equal their plain loops word for word at loads 0.5,
+0.9 and 0.99 and remainder bits 8, 16 and 28 (R6's wrap), and the TCF's
+and BCHT's tables on the card equal the CPU's.
 """
 
 import numpy as np
@@ -66,6 +69,9 @@ from repro_torch.core.bits64 import to_i32
 from repro_torch.core import cuckoo_filter as CF
 from repro_torch.core import layout as L
 from repro_torch.data.kmer import kmer_keys
+from repro_torch.filters import bcht as HTm
+from repro_torch.filters import quotient as QF
+from repro_torch.filters import two_choice as TCm
 from repro_torch.filters.blocked_bloom import BloomConfig
 from repro_torch.kernels import bloom as bloom_kernels
 from repro_torch.kernels.bloom import bloom_insert_plain, bloom_query_plain
@@ -1145,3 +1151,75 @@ def test_host_query_matches_device_query(cuda, name):
     assert checked == len(answers) - 1
     assert bool(h.query(keys).hits.all())
     assert h.device_bytes <= h.device_budget_bytes
+
+
+# ---------------------------------------------------------------------------
+# The dynamic baselines: the GQF's serial kernels G1 / G2 against their
+# plain loops; the TCF's and BCHT's rounds (torch ops, deterministic) leave
+# the same tables on the card as on the CPU.
+# ---------------------------------------------------------------------------
+
+def _baseline_states_equal(a, b):
+    for f in a._fields:
+        x, y = getattr(a, f), getattr(b, f)
+        assert torch.equal(x.cpu(), y.cpu()), f
+
+
+@pytest.mark.parametrize("remainder_bits", [8, 16, 28])
+@pytest.mark.parametrize("load", [0.5, 0.9, 0.99])
+def test_gqf_serial_kernels_match_plain(cuda, load, remainder_bits):
+    """A 2^14-slot table filled through G1 to ``load`` less 2^12 keys, then
+    those 2^12 inserts and 2^12 deletes (stored keys, some twice, and
+    absent keys, under a mask): table, ``ok`` and ``count`` equal the plain
+    loops' word for word. At r = 28 the distance field wraps (R6) in both;
+    the table is never overfilled there, where an insert into a full table
+    would never end (in the JAX loop too)."""
+    cfg = QF.GQFConfig(num_slots=1 << 14, remainder_bits=remainder_bits)
+    dev, host = cfg.init(cuda), cfg.init("cpu")
+    fill = _keys(40 + remainder_bits, int(load * cfg.num_slots) - (1 << 12),
+                 cuda)
+    more = _keys(41, 1 << 12, cuda)
+    rng = np.random.default_rng(42)
+    pick = torch.from_numpy(rng.integers(0, fill.shape[0], 1 << 12)).to(cuda)
+    dels = torch.cat([fill[pick[: 3 << 10]], _keys(43, 1 << 10, cuda)])
+    dvalid = torch.from_numpy(rng.random(1 << 12) < 0.9).to(cuda)
+    K.reset_launches()
+    for op, keys, valid in (("insert", fill, None), ("insert", more, None),
+                            ("delete", dels, dvalid)):
+        dev, ok = getattr(QF, op)(cfg, dev, keys, valid)
+        host, want = getattr(QF, op)(
+            cfg, host, keys.cpu(), None if valid is None else valid.cpu())
+        assert torch.equal(ok.cpu(), want)
+        _baseline_states_equal(dev, host)
+        assert int(dev.count) == int(host.count)
+    assert K.LAUNCHES["gqf_insert_serial"] == 2
+    assert K.LAUNCHES["gqf_delete_serial"] == 1
+    probe = torch.cat([fill, more, _keys(44, 1 << 12, cuda)])
+    assert torch.equal(QF.query(cfg, dev, probe).cpu(),
+                       QF.query(cfg, host, probe.cpu()))
+
+
+@pytest.mark.parametrize("name", ["tcf", "bcht"])
+def test_tcf_bcht_tables_on_the_card_equal_cpu(cuda, name):
+    """2^16-slot tables filled to 0.95 in two batches (repeats and a mask
+    in the first), then deletes: the card's tables, ``ok`` and answers
+    equal the CPU's word for word (stable-sort claims, unique winners)."""
+    mod, cfg = ((TCm, TCm.TCFConfig(num_blocks=1 << 11)) if name == "tcf"
+                else (HTm, HTm.BCHTConfig(num_buckets=1 << 12)))
+    dev, host = cfg.init(cuda), cfg.init("cpu")
+    keys = _keys(50, int(0.95 * cfg.num_slots), cuda)
+    keys[7::11] = keys[6::11][: keys[7::11].shape[0]]
+    half = keys.shape[0] // 2
+    valid = torch.from_numpy(
+        np.random.default_rng(51).random(half) < 0.9).to(cuda)
+    for op, k, v in (("insert", keys[:half], valid),
+                     ("insert", keys[half:], None),
+                     ("delete", keys[::3], None)):
+        dev, ok = getattr(mod, op)(cfg, dev, k, v)
+        host, want = getattr(mod, op)(cfg, host, k.cpu(),
+                                      None if v is None else v.cpu())
+        assert torch.equal(ok.cpu(), want)
+        _baseline_states_equal(dev, host)
+    probe = torch.cat([keys, _keys(52, 1 << 14, cuda)])
+    assert torch.equal(mod.query(cfg, dev, probe).cpu(),
+                       mod.query(cfg, host, probe.cpu()))

@@ -1,7 +1,7 @@
 """The port's filter-state lifecycle vs the JAX package's (DESIGN.md §10).
 
-For ``cuckoo``, ``bloom`` and ``cpu-cuckoo`` on the CPU (the kernels'
-plain versions): snapshot / restore is bit-exact and restores in place; a
+For ``cuckoo``, ``bloom``, ``tcf``, ``gqf``, ``bcht`` and ``cpu-cuckoo``
+on the CPU (the kernels' plain versions): snapshot / restore is bit-exact and restores in place; a
 snapshot of another backend, config fingerprint or kind, and a file of a
 future format version, are refused with ``SnapshotMismatchError``; a
 ``.npz`` written by either package restores on the other, with equal
@@ -21,7 +21,7 @@ from repro_torch import amq as tamq
 
 torch.set_num_threads(1)
 
-BACKENDS = ("cuckoo", "bloom", "cpu-cuckoo")
+BACKENDS = ("cuckoo", "bloom", "tcf", "gqf", "bcht", "cpu-cuckoo")
 CAPACITY = 1000
 N_STORED = 600
 
@@ -73,6 +73,11 @@ def test_snapshot_restore_bit_exact(name):
         name, "filter", repr(h.config))
     want = {"cuckoo": {"table": np.uint32, "count": np.int32},
             "bloom": {"table": np.uint32, "count": np.int32},
+            "tcf": {"table": np.uint32, "stash": np.uint32,
+                    "count": np.int32},
+            "gqf": {"table": np.uint32, "count": np.int32},
+            "bcht": {"key_lo": np.uint32, "key_hi": np.uint32,
+                     "used": np.bool_, "count": np.int32},
             "cpu-cuckoo": {"buckets": np.uint32, "count": np.int64}}[name]
     assert {k: v.dtype for k, v in snap.arrays.items()} == {
         k: np.dtype(v) for k, v in want.items()}
@@ -96,7 +101,9 @@ def test_snapshot_restore_in_place(name):
 def test_restore_mismatch_fails_loudly(name):
     snap = _port(name).snapshot()
     other = tamq.make(name, capacity=4 * CAPACITY, device="cpu")
-    for bad in (snap._replace(backend="tcf"), snap._replace(kind="cascade")):
+    stranger = "gqf" if name == "tcf" else "tcf"
+    for bad in (snap._replace(backend=stranger),
+                snap._replace(kind="cascade")):
         with pytest.raises(tamq.SnapshotMismatchError):
             tamq.make(name, capacity=CAPACITY, device="cpu", snapshot=bad)
     with pytest.raises(tamq.SnapshotMismatchError, match="fingerprint"):
@@ -107,7 +114,7 @@ def test_restore_mismatch_fails_loudly(name):
         tamq.make(name, capacity=CAPACITY, device="cpu", snapshot=snap,
                   state=other.state)
     # A table of the wrong shape under the right fingerprint.
-    table = "buckets" if name == "cpu-cuckoo" else "table"
+    table = {"cpu-cuckoo": "buckets", "bcht": "key_lo"}.get(name, "table")
     cut = dict(snap.arrays, **{table: snap.arrays[table][1:]})
     with pytest.raises(tamq.SnapshotMismatchError):
         tamq.make(name, capacity=CAPACITY, device="cpu",

@@ -14,8 +14,10 @@ The mixed batches' definition is the sequential replay of the ported
 ``test_mixed_ops.py::test_mixed_matches_sequential_oracle`` means to make):
 below the design load, ``FilterHandle.apply_ops`` on ``cuckoo`` (its fused
 path, CPU route) and on ``bloom`` (``segmented_apply_ops``) give the
-oracle's ``ok``. The oracle itself is held slot for slot against the JAX
-package's, and ``OpBatch`` and the oracle's state carry across.
+oracle's ``ok``; on ``tcf``, ``gqf`` and ``bcht`` (``segmented_apply_ops``)
+the JAX package's handle's ``ok`` and snapshot, array by array. The
+oracle itself is held slot for slot against the JAX package's, and
+``OpBatch`` and the oracle's state carry across.
 """
 
 import functools
@@ -235,16 +237,26 @@ MIXES = {                   # (query, insert, delete) fractions
 }
 
 
+# The backends whose sequential replay is the JAX package's own handle
+# (``segmented_apply_ops`` there too), held to it snapshot by snapshot.
+REFERENCE_REPLAYED = ("tcf", "gqf", "bcht")
+
+
 @pytest.mark.parametrize("backend,mix", [
     ("cuckoo", "ycsb_50_40_10"), ("cuckoo", "read_heavy_95_5"),
     ("cuckoo", "churn_20_40_40"), ("bloom", "write_heavy_50_50"),
-    ("bloom", "read_heavy_95_5"), ("cpu-cuckoo", "churn_20_40_40")])
+    ("bloom", "read_heavy_95_5"), ("cpu-cuckoo", "churn_20_40_40"),
+    ("tcf", "ycsb_50_40_10"), ("gqf", "churn_20_40_40"),
+    ("bcht", "churn_20_40_40")])
 def test_mixed_matches_sequential_oracle(backend, mix):
     """Below the design load the handle's ``apply_ops`` gives the
-    ``cpu-cuckoo`` replay's ``ok`` in every slot: ``cuckoo`` through its
-    fused path, ``bloom`` (append-only: no deletes) and ``cpu-cuckoo``
-    itself through ``segmented_apply_ops``. A small key universe makes
-    same-key ops collide within a batch."""
+    sequential replay's ``ok`` in every slot: ``cuckoo`` through its fused
+    path, ``bloom`` (append-only: no deletes) and ``cpu-cuckoo`` itself
+    through ``segmented_apply_ops``, each against the ``cpu-cuckoo``
+    replay; ``tcf``, ``gqf`` and ``bcht`` through ``segmented_apply_ops``
+    against the JAX package's handle on the same ops and keys, ``ok``,
+    ``count`` and every snapshot array equal after each batch. A small
+    key universe makes same-key ops collide within a batch."""
     rng = np.random.default_rng(sum(map(ord, backend + mix)))
     pre = rng.integers(0, 2**64, size=600, dtype=np.uint64)
     uni = np.concatenate([pre[:60], rng.integers(0, 2**64, size=90,
@@ -252,18 +264,33 @@ def test_mixed_matches_sequential_oracle(backend, mix):
     h = (tamq.make(backend, capacity=CAPACITY, hash_kind="fmix32")
          if backend == "cpu-cuckoo"
          else tamq.make(backend, capacity=CAPACITY, device="cpu"))
-    oracle = tamq.make("cpu-cuckoo", capacity=CAPACITY, hash_kind="fmix32")
-    assert backend == "bloom" or oracle.config.num_buckets == h.config.num_buckets
+    if backend in REFERENCE_REPLAYED:
+        oracle = ramq.make(backend, capacity=CAPACITY)
+    else:
+        oracle = tamq.make("cpu-cuckoo", capacity=CAPACITY,
+                           hash_kind="fmix32")
+        assert (backend == "bloom"
+                or oracle.config.num_buckets == h.config.num_buckets)
     h.insert(pre)
     oracle.insert(pre)
     p = np.array(MIXES[mix])
     for _ in range(3):
-        batch = tamq.OpBatch.make(uni[rng.integers(0, uni.size, 300)],
-                                  rng.choice(3, size=300, p=p / p.sum()),
-                                  rng.random(300) < 0.9)
+        args = (uni[rng.integers(0, uni.size, 300)],
+                rng.choice(3, size=300, p=p / p.sum()), rng.random(300) < 0.9)
+        batch = tamq.OpBatch.make(*args)
         rep = (tamq.segmented_apply_ops(h, batch) if backend == "cpu-cuckoo"
                else h.apply_ops(batch))
-        want = oracle.apply_ops(batch)
+        if backend in REFERENCE_REPLAYED:
+            want = oracle.apply_ops(ramq.OpBatch.make(*args))
+            want = tamq.MixedReport(torch.from_numpy(np.asarray(want.ok)),
+                                    batch.valid, None, None)
+            got, ref = h.snapshot().arrays, oracle.snapshot().arrays
+            assert sorted(got) == sorted(ref)
+            for f in ref:
+                assert got[f].dtype == ref[f].dtype, f
+                assert np.array_equal(got[f], np.asarray(ref[f])), f
+        else:
+            want = oracle.apply_ops(batch)
         assert torch.equal(rep.ok, want.ok)
         assert not rep.ok[~batch.valid].any() and bool(rep.routed.all())
         if backend != "bloom":

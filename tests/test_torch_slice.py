@@ -177,8 +177,9 @@ def test_make_needs_cuda_or_an_explicit_cpu(monkeypatch):
     with pytest.raises(TypeError, match="OpBatch"):
         h.apply_ops(None)
     with pytest.raises(KeyError):
-        tamq.make("tcf", capacity=10, device="cpu")
-    assert tamq.names() == ("cuckoo", "bloom", "cpu-cuckoo")
+        tamq.make("sharded-cuckoo", capacity=10, device="cpu")
+    assert tamq.names() == ("cuckoo", "bloom", "tcf", "gqf", "bcht",
+                            "cpu-cuckoo")
     # The host oracle runs on the CPU without being asked.
     assert tamq.make("cpu-cuckoo", capacity=1000).device.type == "cpu"
     with pytest.raises(RuntimeError, match="device='cpu'"):
