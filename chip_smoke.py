@@ -277,6 +277,49 @@ toolkit. Phases, one JSON line each:
    table (the unfused insert held to the order-free outcome), launch
    counts zeroed just before and read just after; each pair timed beside
    each other.
+9b. the mesh-sharded filter (``sharded``) — ``make("sharded-cuckoo",
+   capacity=8 * floor(0.95 * 2^25), num_shards=4, partitions_per_shard=2)``
+   on the card (see ``SHARDED_CAPACITY``): fp 16, bucket 16, XOR, fmix32;
+   8 partitions of 2^25 slots
+   (64 MiB each, past the L2), 2^28 slots and 512 MiB in all, the four
+   shards on the one card (the exchange a transpose). Filled to load 0.95
+   in the main path's 16 batches (12 incremental, 4 ``bulk=True``), each
+   padded to a multiple of 4 under a valid mask, unrouted keys retried
+   until none is left. Gates: every key placed; each partition's
+   ``count`` equal to the keys its hash gives it; no false negatives; the
+   FPR of 2^24 fresh keys inside the Eq. 4 band; 2^24 deletes all ``ok``,
+   ``count`` exact; one ``ycsb_50_40_10`` batch of 2^24 ops through
+   ``FilterHandle.apply_ops`` whose ``ok`` and ``routed`` equal the core
+   driver's (``ShardedCuckooFilter.apply_ops``) on a copy of the state.
+   Launch counts zeroed just before the fill and read just after the
+   mixed batch: the hash, query, direct-insert and mixed-op kernels must
+   have launched. Then kernel #2 on partition 0 held answer for answer to
+   its plain version on the streams the path gives it from the 2^24 fresh
+   and 2^24 stored probes (each shard's local batch binned, ``K*cap``
+   slots); partition 0's direct insert held to the order-free
+   outcome on 2^22 keys and exactly to the plain loop on 2^12; reshards
+   4→2, 4→8 and 4→1, each with equal table words and identical answers
+   to 2^24 stored and 2^24 fresh probes (seconds of each); a snapshot
+   through a ``.npz`` file restored under a 2-shard config, answering
+   alike. Reported: keys/s of each op, the routed share, launches, the
+   peak of allocated device memory.
+9c. filter-backed dedup (``dedup``) — ``data_iterator``'s batches of
+   ``DataConfig(vocab_size=151936, batch=2^14, seq_len=1024,
+   duplicate_fraction=0.2)`` (Qwen1.5's vocabulary), 32 of them (2^19
+   sequences, made on the host by 8 threads), through
+   ``make_deduper(capacity=2^17, service_batch=2^14)`` on ``cuckoo`` and
+   on ``sharded-cuckoo`` over 4 shards (auto-expanding cascades behind a
+   ``FilterService``), each against a host set of the sequences' 64-bit
+   keys: every repeated sequence masked, the fresh sequences masked no
+   more often than the cascade's FPR band allows, the ``duplicates``
+   stat equal to the masked count, no insert failure after the flush,
+   then ``forget`` of 2^14 stored keys (``count`` falls by 2^14). Launch
+   counts zeroed just before each stream and read just after (the hash,
+   query and direct-insert kernels; the mixed-op kernel in ``forget``);
+   after the flush kernel #2 on the active level (partition 0 on
+   ``sharded-cuckoo``) held answer for answer to its plain version on the
+   last batch's keys. Then one ``dedup_batch`` on a static ``sharded-cuckoo`` filter.
+   Reported: sequences/s, levels grown, host syncs a batch.
 10. G1 and G2 against their plain loops at the GQF path's own shapes
    (``gqf_serial_vs_plain_at_path_shape``): the timed launches of phase
    4c (2^20 keys into the table before the fill's last batch; the 2^20
@@ -293,6 +336,7 @@ JAX or the JAX package.
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import functools
 import inspect
@@ -317,12 +361,16 @@ from repro_torch import amq  # noqa: E402
 from repro_torch.core import cuckoo_filter as CF  # noqa: E402
 from repro_torch.core import layout as L  # noqa: E402
 from repro_torch.core.bits64 import from_i32, to_i32  # noqa: E402
-from repro_torch.core.hashing import hash_key_plain, normalize_keys  # noqa: E402
+from repro_torch.core.hashing import (  # noqa: E402
+    hash_key_plain, keys_to_numpy, normalize_keys)
 from repro_torch.filters import bcht as HTm  # noqa: E402
 from repro_torch.filters import quotient as QFm  # noqa: E402
 from repro_torch.filters import two_choice as TCm  # noqa: E402
+from repro_torch.core import sharded_filter as SF  # noqa: E402
+from repro_torch.data import dedup as DD  # noqa: E402
 from repro_torch.data.kmer import (  # noqa: E402
     canonicalize, kmer_keys, synthetic_genome)
+from repro_torch.data.pipeline import DataConfig, make_batch  # noqa: E402
 from repro_torch.kernels import bloom as bloom_kernels  # noqa: E402
 from repro_torch.kernels import build, roofline  # noqa: E402
 from repro_torch.kernels import ops as K  # noqa: E402
@@ -390,6 +438,20 @@ BCHT_CAPACITY = 241_591_910      # floor(0.9 * 2**28)
 GQF_CAPACITY = LIFE_CAPACITY     # floor(0.95 * 2**24)
 GQF_BATCH = 1 << 20
 SERIAL_SLOTS = 1 << 14
+# The mesh-sharded filter (phase 9b): the main path's size over 4 shards
+# of 2 partitions, all on the one card. Each partition is sized for
+# ceil(capacity / 8) keys, and ceil(floor(0.95 * 2^28) / 8) is one key past
+# 2^21 buckets of 16 at load 0.95 (it would double every partition), so the
+# capacity is 8 x floor(0.95 * 2^25): 3 keys fewer than the main path's.
+SHARDS = 4
+SHARDED_PPS = 2
+SHARDED_CAPACITY = 255_013_680
+# Filter-backed dedup (phase 9c): Qwen1.5's vocabulary.
+DEDUP_DATA = dict(vocab_size=151936, batch=1 << 14, seq_len=1024,
+                  duplicate_fraction=0.2)
+DEDUP_BATCHES = 32
+DEDUP_CAPACITY = 1 << 17
+DEDUP_THREADS = 8
 # The JAX package's benchmarks/mixed_workload.py mixes: (query, insert,
 # delete) fractions.
 MIXES = {"ycsb_50_40_10": (0.50, 0.40, 0.10),
@@ -3538,6 +3600,371 @@ def baselines(gen, main_rates) -> dict:
                                                  ("insert", "delete"))}, cases
 
 
+# ---------------------------------------------------------------------------
+# The mesh-sharded filter and filter-backed dedup (phases 9b, 9c).
+# ---------------------------------------------------------------------------
+
+def until_routed(h, keys, call, label: str):
+    """``call(batch, valid)`` over ``keys`` (padded to the handle's
+    ``batch_align`` under a valid mask), then again over the keys it did
+    not route, until none is left. Returns (each key's ``ok`` or ``hits``,
+    the first pass's routed share, the passes)."""
+    n, align = keys.shape[0], h.config.batch_align
+    out = torch.zeros(n, dtype=torch.bool, device=keys.device)
+    pending = torch.arange(n, device=keys.device)
+    share, passes = None, 0
+    while pending.numel():
+        check(passes < 8, f"{label}: {pending.numel()} keys still unrouted "
+                          "after 8 passes")
+        m = pending.numel()
+        batch = torch.cat([keys[pending],
+                           keys.new_zeros(((-m) % align, 2))])
+        valid = torch.arange(batch.shape[0], device=keys.device) < m
+        rep = call(batch, valid)
+        routed = rep.routed[:m]
+        got = (rep.hits if isinstance(rep, amq.QueryResult) else rep.ok)[:m]
+        if share is None:
+            share = float(routed.float().mean())
+        out[pending[routed]] = got[routed]
+        pending = pending[~routed]
+        passes += 1
+    return out, share, passes
+
+
+def sharded_query(h, keys, label: str):
+    return until_routed(h, keys, lambda k, v: h.query(k, valid=v), label)[0]
+
+
+def query_vs_plain(level, keys, label: str) -> int:
+    """Kernel #2 against its plain version, answer for answer, on ``keys``
+    as ``level``'s query path hands them to it. A sharded level is held on
+    partition 0: its stream of the keys binned from every shard's local
+    batch (``K*cap`` slots, padding zeros). Returns the keys checked. Not
+    the path's launches."""
+    cfg, state = level.config, level.state
+    if isinstance(state, SF.ShardedCuckooState):
+        inner = cfg.inner
+        local = keys.view(inner.num_shards, -1, 2)
+        bins = SF._route(inner, local, inner.bin_capacity(local.shape[1]))[0]
+        keys = bins[:, 0].reshape(-1, 2).contiguous()
+        cfg, state = inner.shard, CF.CuckooState(state.table[0],
+                                                 state.count[0])
+    got = K.cuckoo_query(cfg, state, keys)
+    want = cuckoo_query_plain(cfg, state.table, keys)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want),
+          f"{label}: cuckoo_query differs from its plain version on "
+          f"{int((got != want).sum())} of {keys.shape[0]} keys")
+    return keys.shape[0]
+
+
+def sharded_phase(gen) -> dict:
+    """Phase 9b (see the module docstring). Returns the phase's record."""
+    t_start = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    h = amq.make("sharded-cuckoo", capacity=SHARDED_CAPACITY,
+                 num_shards=SHARDS, partitions_per_shard=SHARDED_PPS)
+    inner, part_cfg = h.config.inner, h.config.inner.shard
+    check(inner.partitions == SHARDS * SHARDED_PPS
+          and part_cfg.num_slots == 1 << 25 and h.config.num_slots == 1 << 28
+          and (part_cfg.fp_bits, part_cfg.bucket_size, part_cfg.policy,
+               part_cfg.hash_kind) == (16, 16, "xor", "fmix32"),
+          f"sharded: config {inner!r}")
+    sizes = batch_sizes(SHARDED_CAPACITY)
+    batches = [normalize_keys(random_keys(gen, m)) for m in sizes]
+    bulk = [b >= BATCHES - 4 for b in range(len(sizes))]
+
+    K.reset_launches()
+    per_batch, insert_s = [], 0.0
+    expect = torch.zeros(inner.partitions, dtype=torch.int64, device="cuda")
+    for b, keys in enumerate(batches):
+        (ok, share, passes), dt = timed(lambda: until_routed(
+            h, keys, lambda k, v: h.insert(k, bulk=bulk[b], valid=v),
+            f"sharded: batch {b}"))
+        insert_s += dt
+        placed = int(ok.sum())
+        check(placed == keys.shape[0], f"sharded: batch {b}: "
+              f"{keys.shape[0] - placed} keys not placed at load "
+              f"{h.load_factor:.4f}")
+        expect += torch.bincount(SF.partition_of(inner, keys),
+                                 minlength=inner.partitions)
+        per_batch.append({"keys": keys.shape[0], "bulk": bulk[b], "s": dt,
+                          "routed_share": share, "passes": passes,
+                          "load": h.load_factor})
+    inserted = sum(sizes)
+    check(torch.equal(h.state.count.long(), expect),
+          f"sharded: partition counts {h.state.count.tolist()} != the keys' "
+          f"{expect.tolist()}")
+    check(h.count() == inserted, f"sharded: count {h.count()} != {inserted}")
+    load = h.load_factor
+
+    query_s, misses = [], 0
+    for keys in batches:
+        hits, dt = timed(lambda: sharded_query(h, keys, "sharded: query"))
+        if keys.shape[0] == sizes[0]:
+            query_s.append(dt)
+        misses += int((~hits).sum())
+    check(misses == 0, f"sharded: {misses} false negatives")
+    fresh = normalize_keys(random_keys(gen, PROBES, top_half=True))
+    fpr = fpr_of("sharded", sharded_query(h, fresh, "sharded: FPR"),
+                 h.expected_fpr())
+
+    before = h.count()
+    (dok, delete_share, _), delete_s = timed(lambda: until_routed(
+        h, batches[0], lambda k, v: h.delete(k, valid=v), "sharded: delete"))
+    check(bool(dok.all()), f"sharded: {int((~dok).sum())} deletes failed")
+    check(before - h.count() == sizes[0], "sharded: count after the deletes")
+
+    # One ycsb_50_40_10 batch: stored keys queried and deleted, fresh keys
+    # inserted, shuffled; against the core driver on a copy of the state.
+    n = MIXED_BATCH
+    n_q, n_i = (round(f * n) for f in MIXES["ycsb_50_40_10"][:2])
+    n_d = n - n_q - n_i
+    stored = torch.cat(batches[1:])
+    pick = torch.randperm(stored.shape[0], generator=gen,
+                          device="cuda")[:n_q + n_d]
+    raw = torch.cat([stored[pick[:n_q]],
+                     normalize_keys(random_keys(gen, n_i, top_half=True)),
+                     stored[pick[n_q:]]])
+    del stored, pick
+    ops = torch.cat([torch.full((m,), code, dtype=torch.int32, device="cuda")
+                     for m, code in ((n_q, amq.OP_QUERY), (n_i, amq.OP_INSERT),
+                                     (n_d, amq.OP_DELETE))])
+    shuffle = torch.randperm(n, generator=gen, device="cuda")
+    batch = amq.OpBatch.make(raw[shuffle], ops[shuffle])
+    del raw, ops, shuffle
+    copy = SF.ShardedCuckooState(h.state.table.clone(), h.state.count.clone())
+    rep, mixed_s = timed(lambda: h.apply_ops(batch))
+    launches = check_launches("sharded", ("hash64", "cuckoo_query",
+                                          "cuckoo_insert_direct",
+                                          "cuckoo_mixed"))
+    core = SF.ShardedCuckooFilter(inner, h.config.mesh, n // SHARDS,
+                                  state=copy)
+    core_ok, core_routed = core.apply_ops(batch.keys, batch.ops,
+                                          valid=batch.valid)
+    check(torch.equal(rep.routed, core_routed)
+          and torch.equal(rep.ok, core_ok),
+          f"sharded: apply_ops differs from the core driver on "
+          f"{int((rep.ok != core_ok).sum())} ok, "
+          f"{int((rep.routed != core_routed).sum())} routed")
+    check(bool(rep.ok[rep.routed].all()),
+          f"sharded: {int((~rep.ok & rep.routed).sum())} routed ops not ok")
+    mixed_routed = float(rep.routed.float().mean())
+    del core, copy, batch, rep, core_ok, core_routed
+    peak = torch.cuda.max_memory_allocated()
+
+    query_checked = {name: query_vs_plain(h, p, f"sharded: {name} probe")
+                     for name, p in (("fresh", fresh),
+                                     ("stored", batches[1]))}
+
+    # Partition 0's direct insert: order-free on its share of the fresh
+    # keys, exactly the plain loop's on 2^12 keys of which no two share a
+    # bucket (at load 0.9 two keys racing for a bucket's last free slot
+    # would make the outcome order's). Not the path's launches.
+    base, count0 = h.state.table[0], h.state.count[0]
+    keys0 = fresh[SF.partition_of(inner, fresh) == 0]
+    turned_down = check_direct_insert(
+        part_cfg, CF.CuckooState(base, count0), base, keys0,
+        "sharded: partition 0 direct insert")
+    _, i1, i2 = CF.prepare_keys_plain(part_cfg, keys0[:4 * SUB])
+    uses = torch.bincount(torch.cat([i1, i2]),
+                          minlength=part_cfg.num_buckets)
+    sub = keys0[:4 * SUB][(uses[i1] == 1) & (uses[i2] == 1)][:SUB]
+    check(sub.shape[0] == SUB, "sharded: too few bucket-disjoint keys")
+    valid = torch.rand(sub.shape[0], device="cuda", generator=gen) < 0.9
+    direct_err = same_outcome(
+        part_cfg, base, sub,
+        lambda t: K.cuckoo_insert_direct(part_cfg, CF.CuckooState(t, count0),
+                                         sub, valid)[1],
+        lambda t: cuckoo_insert_direct_plain(part_cfg, t, sub, valid))
+
+    # Exact reshards, then a snapshot through a file onto 2 shards.
+    probes = {"stored": batches[1], "fresh": fresh}
+    want = {name: sharded_query(h, p, "sharded: reshard probe")
+            for name, p in probes.items()}
+    reshards = {}
+    for k2 in (2, 8, 1):
+        moved, dt = timed(lambda: h.resharded(num_shards=k2))
+        check(moved.config.inner.num_shards == k2
+              and torch.equal(moved.state.table, h.state.table)
+              and torch.equal(moved.state.count, h.state.count),
+              f"sharded: 4->{k2} moved the words")
+        for name, p in probes.items():
+            check(torch.equal(sharded_query(moved, p, "sharded: resharded"),
+                              want[name]),
+                  f"sharded: 4->{k2} answers {name} probes otherwise")
+        reshards[f"4->{k2}"] = {"s": dt}
+        del moved
+        torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
+    try:
+        path = os.path.join(tmp, "sharded.npz")
+        snap, snap_s = timed(h.snapshot)
+        _, save_s = timed(lambda: amq.save_snapshot(path, snap))
+        loaded, load_s = timed(lambda: amq.load_snapshot(path))
+        twin, restore_s = timed(lambda: amq.make(
+            "sharded-cuckoo", config=h.config.resharded(2), snapshot=loaded))
+        snapshot_bytes = snap.nbytes
+    finally:
+        shutil.rmtree(tmp)
+    check(torch.equal(twin.state.table, h.state.table)
+          and all(torch.equal(sharded_query(twin, p, "sharded: twin"),
+                              want[name]) for name, p in probes.items()),
+          "sharded: the snapshot's 2-shard twin answers otherwise")
+    del twin, snap, loaded
+    record = {
+        "phase": "sharded", "config": repr(h.config.inner),
+        "fingerprint": h.fingerprint, "shards": SHARDS,
+        "partitions": inner.partitions, "slots": h.config.num_slots,
+        "table_bytes": h.config.table_bytes, "keys_inserted": inserted,
+        "load": load, "batches": per_batch,
+        "insert_keys_per_s": inserted / insert_s,
+        "routed_share_min": min(r["routed_share"] for r in per_batch),
+        "query_keys_per_s": sizes[0] / statistics.median(query_s),
+        "false_negatives": misses, "fpr": fpr,
+        "delete_keys": sizes[0], "delete_keys_per_s": sizes[0] / delete_s,
+        "delete_routed_share": delete_share,
+        "mixed_ops": n, "mixed_ops_per_s": n / mixed_s,
+        "mixed_routed_share": mixed_routed,
+        "mixed_checks": "ok and routed == ShardedCuckooFilter.apply_ops "
+                        "(core) on a copy of the state",
+        "launches": launches, "max_memory_allocated": peak,
+        "partition0_query_vs_plain_keys": query_checked,
+        "partition0_direct_insert": {
+            "keys": keys0.shape[0], "turned_down": turned_down,
+            "ok_mismatches_at_2^12": direct_err},
+        "reshards": reshards,
+        "snapshot": {"bytes": snapshot_bytes, "snapshot_s": snap_s, "save_s": save_s,
+                     "load_s": load_s, "restore_2_shards_s": restore_s},
+        "seconds": time.perf_counter() - t_start}
+    emit(record)
+    del h, batches, fresh, probes, want
+    torch.cuda.empty_cache()
+    return record
+
+
+def dedup_stream(backend: str, tokens, kw) -> dict:
+    """One ``StreamingDeduper`` over ``tokens`` against a host set of the
+    sequences' keys (phase 9c)."""
+    d = DD.make_deduper(DEDUP_CAPACITY, backend=backend,
+                        service_batch=DEDUP_DATA["batch"], **kw)
+    seen = np.zeros(0, np.uint64)
+    fresh_total = masked_fresh = 0
+    admitted, dedup_s, syncs = [], 0.0, None
+    K.reset_launches()
+    for b, t in enumerate(tokens):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if b == len(tokens) // 2:
+            (out, stats), syncs, _ = host_syncs(lambda: d.dedup({"tokens": t}))
+        else:
+            out, stats = d.dedup({"tokens": t})
+        torch.cuda.synchronize()
+        dedup_s += time.perf_counter() - t0
+        keys = keys_to_numpy(DD.sequence_keys(t))
+        mask = out["mask"].cpu().numpy()
+        first = np.zeros(keys.shape[0], bool)
+        first[np.unique(keys, return_index=True)[1]] = True
+        repeat = np.isin(keys, seen) | ~first
+        check(not mask[repeat].any(), f"dedup {backend}: batch {b}: "
+              f"{int(mask[repeat].sum())} repeated sequences kept")
+        check(stats["duplicates"] == int((~mask).sum()),
+              f"dedup {backend}: batch {b}: duplicates stat")
+        fresh_total += int((~repeat).sum())
+        masked_fresh += int((~repeat & ~mask).sum())
+        admitted.append(keys[mask])
+        seen = np.union1d(seen, keys)
+    d.flush()
+    launches = check_launches(f"dedup {backend}", (
+        "hash64", "cuckoo_query", "cuckoo_insert_direct"))
+    query_checked = query_vs_plain(d.handle.levels[-1],
+                                   DD.sequence_keys(tokens[-1]),
+                                   f"dedup {backend}: active level")
+    check(d.stats["insert_failures"] == 0,
+          f"dedup {backend}: {d.stats['insert_failures']} insert failures")
+    report = d.handle.report()
+    lo, hi = amq.fpr_tolerance(report.expected_fpr, fresh_total)
+    check(masked_fresh <= hi * fresh_total,
+          f"dedup {backend}: {masked_fresh} of {fresh_total} fresh sequences "
+          f"masked, above the FPR band's {hi}")
+    check(d.handle.count() == fresh_total - masked_fresh,
+          f"dedup {backend}: count {d.handle.count()} != "
+          f"{fresh_total - masked_fresh} admitted")
+    # Forget 2^14 admitted keys: each delete ``ok`` drops the count by one.
+    forget = np.concatenate(admitted)[:DEDUP_DATA["batch"]]
+    before = d.handle.count()
+    K.reset_launches()
+    _, forget_s = timed(lambda: d.forget(forget))
+    forget_launches = check_launches(f"dedup {backend}: forget",
+                                     ("cuckoo_mixed",))
+    check(before - d.handle.count() == forget.shape[0],
+          f"dedup {backend}: forget dropped {before - d.handle.count()} of "
+          f"{forget.shape[0]}")
+    sequences = sum(t.shape[0] for t in tokens)
+    return {"backend": backend, "sequences": sequences,
+            "sequences_per_s": sequences / dedup_s,
+            "levels": len(d.handle.levels),
+            "level_slots": [lv.config.num_slots for lv in d.handle.levels],
+            "host_syncs_a_batch": syncs, "fresh": fresh_total,
+            "fresh_masked": masked_fresh, "fpr_band": [lo, hi],
+            "expected_fpr": report.expected_fpr, "count": d.handle.count(),
+            "launches": launches, "query_vs_plain_keys": query_checked,
+            "forget_keys": forget.shape[0],
+            "forget_s": forget_s, "forget_launches": forget_launches}
+
+
+def dedup_phase() -> dict:
+    """Phase 9c (see the module docstring). Returns the phase's record."""
+    t_start = time.perf_counter()
+    cfg = DataConfig(**DEDUP_DATA)
+    t0 = time.perf_counter()
+    # numpy's generators release the GIL: a batch a thread.
+    with concurrent.futures.ThreadPoolExecutor(DEDUP_THREADS) as pool:
+        host = list(pool.map(
+            lambda step: make_batch(cfg, step, device="cpu")["tokens"],
+            range(DEDUP_BATCHES)))
+    tokens = [t.to("cuda") for t in host]
+    del host
+    make_s = time.perf_counter() - t0
+    streams = {name: dedup_stream(name, tokens, kw) for name, kw in (
+        ("cuckoo", {}), ("sharded-cuckoo", {"num_shards": SHARDS}))}
+    torch.cuda.empty_cache()
+
+    # One dedup_batch on a static sharded filter.
+    fcfg, state = DD.make_dedup(DEDUP_CAPACITY, backend="sharded-cuckoo",
+                                num_shards=SHARDS)
+    K.reset_launches()
+    (state, out, stats), static_s = timed(
+        lambda: DD.dedup_batch(fcfg, state, {"tokens": tokens[0]}))
+    # The query and direct-insert kernels hash in place: on an empty
+    # filter no key reaches the round loop, so the hash kernel need not run.
+    static_launches = check_launches("dedup_batch sharded-cuckoo", (
+        "cuckoo_query", "cuckoo_insert_direct"))
+    # On the empty filter the mask is each sequence's first occurrence.
+    keys = keys_to_numpy(DD.sequence_keys(tokens[0]))
+    first = np.zeros(keys.shape[0], bool)
+    first[np.unique(keys, return_index=True)[1]] = True
+    mask = out["mask"].cpu().numpy()
+    check(np.array_equal(mask, first)
+          and int(stats["duplicates"]) == int((~mask).sum())
+          and int(stats["insert_failures"]) == 0
+          and int(stats["unrouted"]) == 0
+          and int(state.count.sum()) == int(mask.sum()),
+          f"dedup_batch sharded-cuckoo: {({k: int(v) for k, v in stats.items()})}")
+    record = {"phase": "dedup", "data": DEDUP_DATA, "batches": DEDUP_BATCHES,
+              "capacity": DEDUP_CAPACITY, "make_batches_s": make_s,
+              "streams": streams,
+              "static_sharded_dedup_batch": {
+                  "s": static_s, "launches": static_launches,
+                  **{k: int(v) for k, v in stats.items()}},
+              "seconds": time.perf_counter() - t_start}
+    emit(record)
+    del tokens
+    torch.cuda.empty_cache()
+    return record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4029,6 +4456,24 @@ def main() -> int:
           "seconds": time.perf_counter() - t0})
     unfused_comparison_l2(h, snaps, batches, gen)
     del h, snaps, batches
+
+    # --- the mesh-sharded filter and filter-backed dedup ------------------
+    # Their own generator: the phases before them draw the same keys as an
+    # older tree's. Each path's launches, counted from zero, stand beside
+    # the main path's in its kernels' rows.
+    sharded = sharded_phase(
+        torch.Generator(device="cuda").manual_seed(SEED + 30))
+    dedup = dedup_phase()
+    phase_launches = {"sharded": sharded["launches"]}
+    for name, stream in dedup["streams"].items():
+        phase_launches[f"dedup_{name}"] = stream["launches"]
+        phase_launches[f"dedup_{name}_forget"] = stream["forget_launches"]
+    phase_launches["dedup_batch_sharded-cuckoo"] = dedup[
+        "static_sharded_dedup_batch"]["launches"]
+    for name in ("hash64", "cuckoo_query", "cuckoo_insert_direct",
+                 "cuckoo_mixed"):
+        by_name[name]["launches_by_phase"] = {
+            phase: counts[name] for phase, counts in phase_launches.items()}
 
     # --- G1 and G2 against their plain loops at the GQF path's shapes -----
     # Last: the host loops (tens of seconds each) then cannot disturb the

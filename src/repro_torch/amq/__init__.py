@@ -3,7 +3,7 @@
     from repro_torch import amq
 
     h = amq.make("cuckoo", capacity=1_000_000)    # device="cpu" for the CPU
-    amq.names()    # cuckoo, bloom, tcf, gqf, bcht, cpu-cuckoo
+    amq.names()    # cuckoo, bloom, tcf, gqf, bcht, sharded-cuckoo, cpu-cuckoo
     h.insert(keys, bulk=True)            # -> InsertReport(ok, evictions, ...)
     h.query(keys).hits                   # -> bool[n]
     h.delete(keys)

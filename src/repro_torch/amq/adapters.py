@@ -1,8 +1,9 @@
-"""The ``cuckoo``, ``bloom``, ``tcf``, ``gqf``, ``bcht`` and ``cpu-cuckoo``
-backends behind the unified AMQ protocol.
+"""The ``cuckoo``, ``bloom``, ``tcf``, ``gqf``, ``bcht``, ``sharded-cuckoo``
+and ``cpu-cuckoo`` backends behind the unified AMQ protocol.
 
-Port of the ``CUCKOO``, ``BLOOM``, ``TCF``, ``GQF``, ``BCHT`` and
-``CPU_CUCKOO`` adapters of ``repro.amq.adapters``, of their lifecycle
+Port of the ``CUCKOO``, ``BLOOM``, ``TCF``, ``GQF``, ``BCHT``,
+``SHARDED_CUCKOO`` and ``CPU_CUCKOO`` adapters of ``repro.amq.adapters``,
+of their lifecycle
 hooks (snapshots, the cascade's sizing ladders, the cold tier's host
 probes) and of ``segmented_apply_ops``. Where the JAX
 adapters run XLA code, these run the hot operations on the CUDA kernels
@@ -20,6 +21,15 @@ report's evictions and rounds are zero, and ``dedup_within_batch`` raises
 table's device; the GQF's insert and delete are the serial kernels G1 and
 G2 (``kernels/csrc/gqf_serial.cu``) on the card, and its query torch ops.
 None has a fused mixed path.
+
+``sharded-cuckoo`` is the mesh-sharded filter (``core/sharded_filter.py``:
+fixed partitions, fixed-capacity routing, the exchange a transpose on the
+one device every shard lives on). Each partition runs the ``cuckoo``
+adapter's routes below on ``CuckooState(table[p], count[p])``, one
+partition after another, so its tables hold the JAX adapter's keys in the
+kernels' placement; ``routed`` and the answers on a given table are the
+JAX adapter's bit for bit. Its config carries its mesh, which fixes the
+handle's device (``config_device``).
 
 ``cpu-cuckoo`` is the pure-Python sequential filter on the host
 (``filters/cpu_reference.py``): one op at a time, in batch order. Its
@@ -75,6 +85,8 @@ import torch
 
 from .. import convert
 from ..core import cuckoo_filter as CF
+from ..core import sharded_filter as SF
+from ..core.device import resolve_device
 from ..core.hashing import keys_to_numpy, normalize_keys
 from ..filters import bcht as HT
 from ..filters import blocked_bloom as BB
@@ -108,8 +120,12 @@ class AMQAdapter:
       sizing-kwarg overlays from loosest to tightest; a new level takes
       the first whose config meets its FPR share. ``grow_config``
       (``(prev_config, factor, **overlay) -> config``) derives a level
-      from the one before; no port backend sets it (the sharded backend
-      is the JAX package's only user).
+      from the one before; the sharded backend sets it, so that every
+      level of a cascade of shards keeps one mesh.
+    * ``config_device(config) -> torch.device`` — for a backend whose
+      config places its state (the sharded backend's mesh): the device
+      the handle runs on, and ``make_config`` then takes ``device=`` (see
+      :func:`make_config`). None: the handle picks the device.
     * ``snapshot(config, state) -> {name: np.ndarray}`` pulls the packed
       state to the host; ``restore(config, arrays, device) -> state``
       places it back on ``device`` under the same config (the handle
@@ -143,6 +159,15 @@ class AMQAdapter:
     fingerprint: Optional[Callable[[Any], str]] = None
     host_query: Optional[Callable[..., Any]] = None
     host_delete: Optional[Callable[..., Any]] = None
+    config_device: Optional[Callable[[Any], torch.device]] = None
+
+
+def make_config(adapter: AMQAdapter, capacity, device=None, **kw):
+    """``adapter.make_config(capacity, **kw)``, handed the handle's
+    ``device`` where the adapter's config places its state on one."""
+    if adapter.config_device is not None:
+        kw["device"] = device
+    return adapter.make_config(capacity, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -550,6 +575,198 @@ BCHT = AMQAdapter(
 
 
 # ---------------------------------------------------------------------------
+# Mesh-sharded cuckoo filter.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ShardedAMQConfig:
+    """Protocol config for the sharded backend: inner config + its mesh.
+
+    The mesh's shard count must be the inner config's; its one device is
+    where the state lives (``device``).
+    """
+
+    inner: SF.ShardedCuckooConfig
+    mesh: SF.Mesh
+
+    def __post_init__(self):
+        k = self.mesh.shape.get(self.inner.axis_name)
+        if k != self.inner.num_shards:
+            raise ValueError(
+                f"mesh axis {self.inner.axis_name} has size {k}, want "
+                f"{self.inner.num_shards}")
+
+    @property
+    def device(self) -> torch.device:
+        return self.mesh.device
+
+    @property
+    def num_slots(self) -> int:
+        """Aggregate nominal capacity across all partitions."""
+        return self.inner.num_slots
+
+    @property
+    def table_bytes(self) -> int:
+        """Aggregate memory footprint across all partitions."""
+        return self.inner.table_bytes
+
+    def expected_fpr(self, load_factor: float) -> float:
+        """The per-partition filter's FPR (paper Eq. 4): partitions are
+        independent same-config cuckoo filters."""
+        return self.inner.expected_fpr(load_factor)
+
+    @property
+    def batch_align(self) -> int:
+        """Dispatch widths must divide across the shards (DESIGN.md §11)."""
+        return self.inner.batch_align
+
+    def init(self, device=None) -> SF.ShardedCuckooState:
+        """Fresh empty sharded state on the mesh's device (``device``:
+        ``"meta"`` for a shape template)."""
+        return self.inner.init(self.mesh.device if device is None else device)
+
+    def resharded(self, num_shards: Optional[int] = None, *,
+                  mesh: Any = None,
+                  axis_name: Optional[str] = None) -> "ShardedAMQConfig":
+        """The same filter over another shard layout — exactly.
+
+        Key→partition is fixed, so only the partition→shard placement
+        changes: a state restored under the resharded config answers
+        every query identically (DESIGN.md §10). Pass ``num_shards`` (a
+        divisor of the partition count; that many shards on this mesh's
+        device) and/or an explicit ``mesh``.
+        """
+        ax = axis_name or self.inner.axis_name
+        if mesh is None and num_shards is None:
+            mesh, num_shards = _default_mesh(ax, None, self.device)
+        elif num_shards is None:
+            num_shards = mesh.shape[ax]
+        # Validate the partition math first: a divisibility error should
+        # name partitions, not fail while deriving a default mesh.
+        inner = self.inner.resharded(num_shards, axis_name=axis_name)
+        if mesh is None:
+            mesh, _ = _default_mesh(ax, num_shards, self.device)
+        return ShardedAMQConfig(inner, mesh)
+
+
+def _default_mesh(axis_name: str, num_shards: Optional[int], device):
+    """``num_shards`` shards (default one) on ``device`` (default: the
+    GPU), and their count."""
+    n = num_shards or 1
+    return SF.make_mesh(n, axis_name, device=device), n
+
+
+def _sharded_make_config(capacity, *, num_shards=None, mesh=None,
+                         axis_name="data", device=None, **kw):
+    if mesh is None:
+        mesh, num_shards = _default_mesh(axis_name, num_shards, device)
+    elif num_shards is None:
+        num_shards = mesh.shape[axis_name]
+    kw.setdefault("hash_kind", "fmix32")
+    inner = SF.ShardedCuckooConfig.for_capacity(
+        capacity, num_shards, axis_name=axis_name, **kw)
+    return ShardedAMQConfig(inner, mesh)
+
+
+def _partition_route(op, config, state, keys, valid, ops, dedup):
+    """One partition's op through the ``cuckoo`` adapter's kernel routes
+    (``SF.PartitionOp``)."""
+    if op == "apply_ops":
+        state, rep = _cuckoo_apply_ops(config, state, keys, ops, valid=valid)
+    elif op in ("insert", "insert_bulk"):
+        state, rep = _cuckoo_insert(config, state, keys, valid=valid,
+                                    dedup_within_batch=dedup,
+                                    _bulk=op == "insert_bulk")
+    elif op == "delete":
+        state, rep = _cuckoo_delete(config, state, keys, valid=valid)
+    else:
+        _, res = _cuckoo_query(config, state, keys, valid=valid)
+        return state, res.hits
+    return state, rep.ok
+
+
+def _sharded_run(config, state, keys, op, valid, dedup=False, ops=None):
+    valid = ensure_valid(keys, valid)
+    # The global batch splits across the shards; bin capacity is sized
+    # from the per-shard slice, not the global batch.
+    fn = SF._make_sharded_op(config.inner, op,
+                             keys.shape[0] // config.inner.num_shards,
+                             dedup_within_batch=dedup,
+                             per_partition=_partition_route)
+    table, count, result, routed = fn(state.table, state.count, keys, valid,
+                                      ops)
+    return SF.ShardedCuckooState(table, count), result, routed
+
+
+def _sharded_insert(config, state, keys, *, valid=None,
+                    dedup_within_batch=False, _op="insert"):
+    state, ok, routed = _sharded_run(config, state, keys, _op, valid,
+                                     dedup_within_batch)
+    return state, InsertReport(ok, *_zero_stats(keys), routed)
+
+
+def _sharded_query(config, state, keys, *, valid=None):
+    state, hits, routed = _sharded_run(config, state, keys, "query", valid)
+    return state, QueryResult(hits, routed)
+
+
+def _sharded_delete(config, state, keys, *, valid=None):
+    state, ok, routed = _sharded_run(config, state, keys, "delete", valid)
+    return state, DeleteReport(ok, routed)
+
+
+def _sharded_apply_ops(config, state, keys, ops, *, valid=None):
+    state, ok, routed = _sharded_run(
+        config, state, keys, "apply_ops", valid,
+        ops=torch.as_tensor(ops, dtype=torch.int32, device=keys.device))
+    return state, MixedReport(ok, routed, *_zero_stats(keys))
+
+
+def _sharded_fingerprint(config: ShardedAMQConfig) -> str:
+    """Sharded config identity: per-partition filter + partition count,
+    letter for letter the JAX adapter's. Placement (mesh, shard count,
+    axis name) and routing overprovision are excluded: they shape where
+    partitions live, not what they hold, which is what lets a snapshot
+    restore onto another shard count (DESIGN.md §10)."""
+    inner = config.inner
+    return f"sharded-cuckoo[P={inner.partitions}]:{inner.shard!r}"
+
+
+def _sharded_grow_config(prev: ShardedAMQConfig, factor: float,
+                         **overlay) -> ShardedAMQConfig:
+    """Next cascade level: grow the per-partition filter, keep the *same*
+    mesh, so every level routes over one topology (DESIGN.md §8 "cascade
+    of shards")."""
+    return ShardedAMQConfig(
+        prev.inner.grown(factor, fp_bits=overlay.pop("fp_bits", None)),
+        prev.mesh)
+
+
+SHARDED_CUCKOO = AMQAdapter(
+    name="sharded-cuckoo",
+    capabilities=Capabilities(supports_delete=True, supports_bulk=True,
+                              supports_sharding=True, counting=True,
+                              supports_expand=True, supports_mixed=True,
+                              supports_snapshot=True),
+    make_config=_sharded_make_config,
+    init=lambda cfg, device: cfg.init(device),
+    insert=_sharded_insert,
+    insert_bulk=functools.partial(_sharded_insert, _op="insert_bulk"),
+    query=_sharded_query,
+    delete=_sharded_delete,
+    apply_ops=_sharded_apply_ops,
+    growth_sizings=_CUCKOO_SIZINGS,  # fp_bits flows to the per-partition config
+    grow_config=_sharded_grow_config,
+    snapshot=state_snapshot,
+    # A snapshot restores under another shard count (the fingerprint
+    # excludes placement): the exact reshard path.
+    restore=state_restore,
+    fingerprint=_sharded_fingerprint,
+    config_device=lambda cfg: cfg.device,
+)
+
+
+# ---------------------------------------------------------------------------
 # Pure-Python oracle (host-side; the conformance reference).
 # ---------------------------------------------------------------------------
 
@@ -723,4 +940,5 @@ def segmented_apply_ops(target, batch: OpBatch) -> MixedReport:
 
 
 DEFAULT_ADAPTERS = {a.name: a for a in
-                    (CUCKOO, BLOOM, TCF, GQF, BCHT, CPU_CUCKOO)}
+                    (CUCKOO, BLOOM, TCF, GQF, BCHT, SHARDED_CUCKOO,
+                     CPU_CUCKOO)}

@@ -41,7 +41,8 @@ from typing import Any, Optional
 import torch
 
 from ..core.hashing import normalize_keys
-from .adapters import AMQAdapter, config_fingerprint, segmented_apply_ops
+from .adapters import (AMQAdapter, config_fingerprint, make_config,
+                       segmented_apply_ops)
 from .handle import FilterHandle, handle_device
 from .protocol import (
     OP_INSERT,
@@ -125,8 +126,8 @@ class CascadeHandle:
             # Twice the base config's design FPR for level 0, decaying
             # geometrically: level 0's share admits the backend's default
             # sizing and the infinite sum stays bounded.
-            probe = adapter.make_config(self.base_capacity,
-                                        **self.base_kwargs)
+            probe = make_config(adapter, self.base_capacity, self.device,
+                                **self.base_kwargs)
             fpr_budget = (2.0 * probe.expected_fpr(_REF_LOAD)
                           / (1.0 - self.split_ratio))
         self.fpr_budget = float(fpr_budget)
@@ -232,8 +233,8 @@ class CascadeHandle:
             if prev is not None and self.adapter.grow_config is not None:
                 cfg = self.adapter.grow_config(prev, self.growth, **overlay)
             else:
-                cfg = self.adapter.make_config(
-                    capacity, **{**self.base_kwargs, **overlay})
+                cfg = make_config(self.adapter, capacity, self.device,
+                                  **{**self.base_kwargs, **overlay})
             if cfg.expected_fpr(_REF_LOAD) <= share:
                 break
         return cfg

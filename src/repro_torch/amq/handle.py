@@ -28,14 +28,22 @@ from .protocol import (
 )
 
 
-def handle_device(adapter: AMQAdapter, device=None, state=None):
+def handle_device(adapter: AMQAdapter, device=None, state=None,
+                  config=None):
     """The device a handle of ``adapter`` runs on.
 
     A host backend (``adapter.device``) always runs on its own device; a
-    given state fixes the device to its tensors'; else ``device``, the GPU
-    by default (raising when there is none). A conflicting ``device``
-    raises ``ValueError``.
+    config that places its state (``adapter.config_device``: the sharded
+    backend's mesh) fixes the device to its own; a given state fixes it to
+    its tensors'; else ``device``, the GPU by default (raising when there
+    is none). A conflicting ``device`` raises ``ValueError``.
     """
+    if adapter.config_device is not None and config is not None:
+        where = adapter.config_device(config)
+        if device is not None and resolve_device(device) != where:
+            raise ValueError(f"{adapter.name}: the config places its state "
+                             f"on {where}, not on device={device!r}")
+        device = where
     if adapter.device is not None:
         if device is not None and resolve_device(device) != resolve_device(
                 adapter.device):
@@ -86,7 +94,7 @@ class FilterHandle:
         when there is none — pass ``device="cpu"`` for the plain versions).
         A host backend (``adapter.device``) always runs on its own device.
         """
-        self.device = handle_device(adapter, device, state)
+        self.device = handle_device(adapter, device, state, config)
         self.adapter = adapter
         self.config = config
         self.state = adapter.init(config, self.device) if state is None else state
@@ -242,15 +250,28 @@ class FilterHandle:
         adapter, config, device=device).restore(snap)`` without building a
         zero table first."""
         _check_snapshot_target(adapter, config, snap)
-        device = handle_device(adapter, device)
+        device = handle_device(adapter, device, config=config)
         return cls(adapter, config, adapter.restore(config, snap.arrays,
                                                     device))
 
     def resharded(self, num_shards: Optional[int] = None,
                   **kw) -> "FilterHandle":
-        """Exact reshard onto another device layout: the mesh-sharded
-        backend's surface, which the port does not have yet (ROADMAP queue
-        A item 13)."""
-        raise NotImplementedError(
-            f"{self.name}: resharding needs the mesh-sharded backend, not "
-            "ported to repro_torch yet (ROADMAP queue A item 13)")
+        """Exact reshard: the same filter on another shard layout.
+
+        Only for backends whose config has a ``resharded`` hook (the
+        mesh-sharded cuckoo filter): returns a *new* handle whose state
+        holds the same partitions over ``num_shards`` shards (or an
+        explicit ``mesh=``), every word moved verbatim and every answer
+        the same — the config fingerprint excludes placement, so the
+        snapshot round trip is legal by construction (DESIGN.md §10).
+
+            >>> h2 = h.resharded(num_shards=2)     # K -> K' migration
+            >>> svc.hot_swap(h2)                   # and into service
+        """
+        hook = getattr(self.config, "resharded", None)
+        if hook is None:
+            raise NotImplementedError(
+                f"{self.name}: backend config has no resharding surface "
+                "(only mesh-sharded backends relocate partitions)")
+        return FilterHandle.from_snapshot(
+            self.adapter, hook(num_shards, **kw), self.snapshot())

@@ -9,8 +9,9 @@
 The port registers the ``cuckoo`` backend, the blocked Bloom filter
 ``bloom``, the paper's dynamic baselines ``tcf`` (two-choice filter),
 ``gqf`` (quotient filter, its serial insert and delete CUDA kernels) and
-``bcht`` (bucketed cuckoo hash table), and the host oracle ``cpu-cuckoo``,
-in the JAX package's order (``sharded-cuckoo`` is not ported yet). ``make`` also builds the
+``bcht`` (bucketed cuckoo hash table), the mesh-sharded filter
+``sharded-cuckoo`` (its shards on one device) and the host oracle
+``cpu-cuckoo``, in the JAX package's order. ``make`` also builds the
 lifecycle handles: a restored handle (``snapshot=``), an auto-expanding
 cascade (``auto_expand=``) and a GPU-hot / host-cold tiered handle
 (``tiered=True``).
@@ -20,7 +21,7 @@ from __future__ import annotations
 
 from typing import Any, Iterable, Optional
 
-from .adapters import DEFAULT_ADAPTERS, AMQAdapter
+from .adapters import DEFAULT_ADAPTERS, AMQAdapter, make_config
 from .handle import FilterHandle
 
 _REGISTRY = dict(DEFAULT_ADAPTERS)
@@ -115,7 +116,7 @@ def make(name: str, capacity: Optional[int] = None, *,
     if config is None:
         if capacity is None:
             raise TypeError("make() needs capacity=... or config=...")
-        config = adapter.make_config(capacity, **kw)
+        config = make_config(adapter, capacity, device, **kw)
     elif capacity is not None or kw:
         extra = (["capacity"] if capacity is not None else []) + sorted(kw)
         raise TypeError(f"config= given; conflicting arguments {extra}")

@@ -23,6 +23,10 @@
   ``cpu-cuckoo`` oracle's state in the JAX adapter's snapshot format
   (``{"buckets": uint32[num_buckets, bucket_size], "count": int64[]}``);
   ``config_from_reference(cfg, PyCuckooConfig)`` carries its config.
+* :func:`sharded_state_from_numpy` carries a ``ShardedCuckooState``
+  (``{"table": uint32[P, num_words], "count": int32[P]}``, the JAX
+  sharded adapter's snapshot format; :func:`state_to_numpy` takes it back)
+  and :func:`sharded_config_from_reference` a JAX ``ShardedCuckooConfig``.
 * :func:`op_batch_from_reference` carries a JAX ``OpBatch``.
 * :func:`model_params_from_reference` turns the JAX ``Model.init``
   parameter tree (as numpy arrays) into the port's ``Model`` state dict.
@@ -38,6 +42,7 @@ import torch
 
 from .amq.protocol import OpBatch
 from .core.cuckoo_filter import CuckooConfig, CuckooState
+from .core.sharded_filter import ShardedCuckooConfig, ShardedCuckooState
 from .filters.bcht import BCHTState
 from .filters.blocked_bloom import BloomConfig, BloomState
 from .filters.cpu_reference import PyCuckooConfig, PyCuckooFilter
@@ -145,6 +150,34 @@ def config_from_reference(cfg, cls=CuckooConfig):
 def bloom_config_from_reference(cfg) -> BloomConfig:
     """The port's BloomConfig with the same field values as ``cfg``."""
     return config_from_reference(cfg, BloomConfig)
+
+
+def sharded_state_from_numpy(arrays: dict, device) -> ShardedCuckooState:
+    """``{"table": uint32[P, num_words], "count": int32[P]}`` ->
+    ShardedCuckooState (the table as its int32 bit view)."""
+    table = np.asarray(arrays["table"])
+    count = np.asarray(arrays["count"])
+    if (table.dtype != np.uint32 or count.dtype != np.int32
+            or table.ndim != 2 or count.shape != table.shape[:1]):
+        raise ValueError(
+            f"expected table uint32[P, num_words] and count int32[P], got "
+            f"{table.dtype}{list(table.shape)} and "
+            f"{count.dtype}{list(count.shape)}")
+    return ShardedCuckooState(owned_tensor(table, device),
+                              owned_tensor(count, device))
+
+
+def sharded_config_from_reference(cfg) -> ShardedCuckooConfig:
+    """The port's ShardedCuckooConfig with the same field values as a JAX
+    ``ShardedCuckooConfig`` (its per-partition config through
+    :func:`config_from_reference`); the reprs must be equal."""
+    port = ShardedCuckooConfig(
+        config_from_reference(cfg.shard), cfg.num_shards, cfg.axis_name,
+        cfg.capacity_factor, cfg.num_partitions)
+    if repr(port) != repr(cfg):
+        raise ValueError(f"config fingerprints differ:\n  reference: {cfg!r}"
+                         f"\n  port:      {port!r}")
+    return port
 
 
 def py_cuckoo_from_numpy(arrays: dict, config: PyCuckooConfig) -> PyCuckooFilter:

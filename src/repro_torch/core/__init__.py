@@ -7,8 +7,23 @@
   graph-orientation engine, the unpack-based query, claim-round deletes
   and the fused mixed-op pass).
 * :class:`CuckooFilter` — convenience object wrapper.
+* ``sharded_filter`` — the mesh-sharded filter (fixed partitions, its
+  shards on one device).
+* The AMQ protocol types (``Capabilities``, ``InsertReport``,
+  ``QueryResult``, ``DeleteReport``, ...) re-exported from
+  :mod:`repro_torch.amq.protocol`, as the JAX package's ``core`` does.
 """
 
+from ..amq.protocol import (  # noqa: F401
+    Capabilities,
+    CascadeReport,
+    DeleteReport,
+    InsertReport,
+    LevelStats,
+    MixedReport,
+    OpBatch,
+    QueryResult,
+)
 from .cuckoo_filter import (  # noqa: F401
     CuckooConfig,
     CuckooFilter,

@@ -56,7 +56,14 @@ query equal to its plain version, and a demoted level's host probe equal
 to its device query. The dynamic baselines: the GQF's serial kernels (G1
 insert, G2 delete) equal their plain loops word for word at loads 0.5,
 0.9 and 0.99 and remainder bits 8, 16 and 28 (R6's wrap), and the TCF's
-and BCHT's tables on the card equal the CPU's.
+and BCHT's tables on the card equal the CPU's. The mesh-sharded filter
+(4 shards on the card): the core driver's tables and answers equal the
+CPU's; the ``sharded-cuckoo`` adapter runs the query, direct-insert and
+mixed-op kernels on every partition, routes as on the CPU, keeps each
+partition's count, answers ``apply_ops`` as the core driver does and
+reshards exactly. Dedup on the card: ``sequence_keys`` and the Bloom
+dedup equal the CPU's; a streaming deduper on a cascade of shards masks
+every repeat.
 """
 
 import numpy as np
@@ -68,6 +75,10 @@ from repro_torch.core import CuckooConfig, keys_from_numpy
 from repro_torch.core.bits64 import to_i32
 from repro_torch.core import cuckoo_filter as CF
 from repro_torch.core import layout as L
+from repro_torch.core import sharded_filter as SF
+from repro_torch.core.hashing import keys_to_numpy
+from repro_torch.data import dedup as DD
+from repro_torch.data.pipeline import DataConfig, make_batch
 from repro_torch.data.kmer import kmer_keys
 from repro_torch.filters import bcht as HTm
 from repro_torch.filters import quotient as QF
@@ -1223,3 +1234,130 @@ def test_tcf_bcht_tables_on_the_card_equal_cpu(cuda, name):
     probe = torch.cat([keys, _keys(52, 1 << 14, cuda)])
     assert torch.equal(mod.query(cfg, dev, probe).cpu(),
                        mod.query(cfg, host, probe.cpu()))
+
+
+def _sharded_steps(seed, n, device):
+    """Two rounds of (keys, valid, ops) drawn from a pool, so keys repeat
+    within and across batches."""
+    rng = np.random.default_rng(seed)
+    pool = rng.integers(0, 2**64, size=4 * n, dtype=np.uint64)
+    return [(keys_from_numpy(pool[rng.integers(0, 3 * n, n)], device),
+             torch.from_numpy(rng.random(n) < 0.9).to(device),
+             torch.from_numpy(rng.integers(0, 3, n).astype(np.int32)).to(
+                 device)) for _ in range(2)]
+
+
+def _sharded_call(target, op, keys, valid, ops):
+    if op == "insert_bulk":
+        return target.insert(keys, bulk=True, dedup_within_batch=True,
+                             valid=valid)
+    if op == "apply_ops":
+        return target.apply_ops(keys, ops, valid=valid)
+    return getattr(target, op)(keys, valid=valid)
+
+
+def test_sharded_driver_on_the_card_equals_cpu(cuda):
+    """The core driver over 4 shards of 2 partitions: the card's tables,
+    ``count``, ``ok`` and ``routed`` equal the CPU's after every op (the
+    routing sort is stable, the core ops deterministic)."""
+    cfg = SF.ShardedCuckooConfig.for_capacity(
+        1 << 16, 4, partitions_per_shard=2, hash_kind="fmix32",
+        capacity_factor=1.0)
+    n = 1 << 13
+    dev = SF.ShardedCuckooFilter(cfg, SF.make_mesh(4, device=cuda), n // 4)
+    host = SF.ShardedCuckooFilter(cfg, SF.make_mesh(4, device="cpu"), n // 4)
+    for keys, valid, ops in _sharded_steps(60, n, cuda):
+        for op in ("insert", "insert_bulk", "query", "delete", "apply_ops"):
+            got = _sharded_call(dev, op, keys, valid, ops)
+            want = _sharded_call(host, op, keys.cpu(), valid.cpu(), ops.cpu())
+            assert torch.equal(got[0].cpu(), want[0]), op
+            assert torch.equal(got[1].cpu(), want[1]), op
+            assert not bool(want[1].all())             # bins overflowed
+            assert torch.equal(dev.state.table.cpu(), host.state.table), op
+            assert torch.equal(dev.state.count.cpu(), host.state.count), op
+
+
+def test_sharded_adapter_on_the_card(cuda):
+    """``sharded-cuckoo`` over 4 shards on the card runs the hash, query,
+    direct-insert and mixed-op kernels on every partition: ``routed`` as
+    on the CPU, each partition's ``count`` its accepted keys, no false
+    negative, ``apply_ops``'s ``ok`` the core driver's on a copy, and a
+    reshard onto 2 and 8 shards moving every word and answer."""
+    h = amq.make("sharded-cuckoo", capacity=1 << 18, num_shards=4,
+                 partitions_per_shard=2)
+    assert h.device.type == "cuda" and h.config.mesh.device == h.device
+    cpu = amq.make("sharded-cuckoo", capacity=1 << 18, num_shards=4,
+                   partitions_per_shard=2, device="cpu")
+    inner = h.config.inner
+    keys = _keys(61, 1 << 16, cuda)
+    K.reset_launches()
+    accepted = []
+    for part, bulk in ((keys[:1 << 15], False), (keys[1 << 15:], True)):
+        rep = h.insert(part, bulk=bulk)
+        want = cpu.insert(part.cpu(), bulk=bulk)
+        assert torch.equal(rep.routed.cpu(), want.routed)
+        assert bool((rep.ok == rep.routed).all())
+        accepted.append(part[rep.ok])
+    stored = torch.cat(accepted)
+    part_of = SF.partition_of(inner, stored)
+    assert torch.equal(h.state.count.cpu(), torch.bincount(
+        part_of, minlength=inner.partitions).to(torch.int32).cpu())
+    q = h.query(stored[:stored.shape[0] // 4 * 4])
+    assert bool((q.hits | ~q.routed).all())
+    for k2 in (2, 8):
+        moved = h.resharded(num_shards=k2)
+        assert torch.equal(moved.state.table, h.state.table)
+        probe = torch.cat([keys, _keys(62, 1 << 14, cuda)])
+        a, b = moved.query(probe), h.query(probe)
+        assert torch.equal(a.hits & a.routed, b.hits & b.routed)
+    steps = _sharded_steps(63, 1 << 14, cuda)
+    keys2, valid, ops = steps[0]
+    core = SF.ShardedCuckooFilter(
+        inner, h.config.mesh, (1 << 14) // 4,
+        state=SF.ShardedCuckooState(h.state.table.clone(),
+                                    h.state.count.clone()))
+    want_ok, want_routed = core.apply_ops(keys2, ops, valid=valid)
+    rep = h.apply_ops(amq.OpBatch(keys2, ops, valid))
+    assert torch.equal(rep.routed, want_routed)
+    assert torch.equal(rep.ok, want_ok)
+    d = h.delete(stored[:1 << 12])
+    assert bool(d.ok[d.routed].all())
+    for name in ("hash64", "cuckoo_query", "cuckoo_insert_direct",
+                 "cuckoo_mixed"):
+        assert K.LAUNCHES[name] > 0, name
+
+
+def test_dedup_on_the_card(cuda):
+    """``sequence_keys`` on the card equals the CPU's; ``dedup_batch`` on
+    ``bloom`` leaves the CPU's masks and table; a ``StreamingDeduper`` on
+    a cascade of 4 shards masks every repeat and only repeats or false
+    positives."""
+    dcfg = DataConfig(vocab_size=151936, batch=512, seq_len=64)
+    tokens = [make_batch(dcfg, s, device=cuda)["tokens"] for s in range(4)]
+    assert torch.equal(make_batch(dcfg, 0, device="cpu")["tokens"],
+                       tokens[0].cpu())
+    for t in tokens:
+        assert torch.equal(DD.sequence_keys(t).cpu(),
+                           DD.sequence_keys(t.cpu()))
+    (gcfg, gstate), (ccfg, cstate) = (
+        DD.make_dedup(1 << 12, backend="bloom", device=dev)
+        for dev in (cuda, "cpu"))
+    for t in tokens:
+        gstate, gout, _ = DD.dedup_batch(gcfg, gstate, {"tokens": t})
+        cstate, cout, _ = DD.dedup_batch(ccfg, cstate, {"tokens": t.cpu()})
+        assert torch.equal(gout["mask"].cpu(), cout["mask"])
+    assert torch.equal(gstate.table.cpu(), cstate.table)
+    d = DD.make_deduper(512, backend="sharded-cuckoo", service_batch=256,
+                        num_shards=4, device=cuda)
+    seen, fresh_masked = set(), 0
+    for t in tokens:
+        out, stats = d.dedup({"tokens": t})
+        mask = out["mask"].cpu().numpy()
+        for i, k in enumerate(keys_to_numpy(DD.sequence_keys(t)).tolist()):
+            if k in seen:
+                assert not mask[i]
+            fresh_masked += k not in seen and not mask[i]
+            seen.add(k)
+    d.flush()
+    assert len(d.handle.levels) > 1 and d.stats["insert_failures"] == 0
+    assert fresh_masked <= 2 and d.handle.count() == len(seen) - fresh_masked

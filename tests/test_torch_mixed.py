@@ -240,6 +240,9 @@ MIXES = {                   # (query, insert, delete) fractions
 # The backends whose sequential replay is the JAX package's own handle
 # (``segmented_apply_ops`` there too), held to it snapshot by snapshot.
 REFERENCE_REPLAYED = ("tcf", "gqf", "bcht")
+# ``sharded-cuckoo``'s shard count in each of its cases (the mix names
+# the case).
+SHARDS = {"ycsb_50_40_10": 1, "churn_20_40_40": 2}
 
 
 @pytest.mark.parametrize("backend,mix", [
@@ -247,29 +250,36 @@ REFERENCE_REPLAYED = ("tcf", "gqf", "bcht")
     ("cuckoo", "churn_20_40_40"), ("bloom", "write_heavy_50_50"),
     ("bloom", "read_heavy_95_5"), ("cpu-cuckoo", "churn_20_40_40"),
     ("tcf", "ycsb_50_40_10"), ("gqf", "churn_20_40_40"),
-    ("bcht", "churn_20_40_40")])
+    ("bcht", "churn_20_40_40"), ("sharded-cuckoo", "ycsb_50_40_10"),
+    ("sharded-cuckoo", "churn_20_40_40")])
 def test_mixed_matches_sequential_oracle(backend, mix):
     """Below the design load the handle's ``apply_ops`` gives the
     sequential replay's ``ok`` in every slot: ``cuckoo`` through its fused
-    path, ``bloom`` (append-only: no deletes) and ``cpu-cuckoo`` itself
-    through ``segmented_apply_ops``, each against the ``cpu-cuckoo``
-    replay; ``tcf``, ``gqf`` and ``bcht`` through ``segmented_apply_ops``
-    against the JAX package's handle on the same ops and keys, ``ok``,
-    ``count`` and every snapshot array equal after each batch. A small
-    key universe makes same-key ops collide within a batch."""
+    path, ``sharded-cuckoo`` (over 1 and 2 shards; every key routed at
+    this width) through the fused path of each partition, ``bloom``
+    (append-only: no deletes) and ``cpu-cuckoo`` itself through
+    ``segmented_apply_ops``, each against the ``cpu-cuckoo`` replay;
+    ``tcf``, ``gqf`` and ``bcht`` through ``segmented_apply_ops`` against
+    the JAX package's handle on the same ops and keys, ``ok``, ``count``
+    and every snapshot array equal after each batch. A small key universe
+    makes same-key ops collide within a batch."""
     rng = np.random.default_rng(sum(map(ord, backend + mix)))
     pre = rng.integers(0, 2**64, size=600, dtype=np.uint64)
     uni = np.concatenate([pre[:60], rng.integers(0, 2**64, size=90,
                                                  dtype=np.uint64)])
-    h = (tamq.make(backend, capacity=CAPACITY, hash_kind="fmix32")
-         if backend == "cpu-cuckoo"
-         else tamq.make(backend, capacity=CAPACITY, device="cpu"))
+    if backend == "cpu-cuckoo":
+        h = tamq.make(backend, capacity=CAPACITY, hash_kind="fmix32")
+    elif backend == "sharded-cuckoo":
+        h = tamq.make(backend, capacity=CAPACITY, device="cpu",
+                      num_shards=SHARDS[mix])
+    else:
+        h = tamq.make(backend, capacity=CAPACITY, device="cpu")
     if backend in REFERENCE_REPLAYED:
         oracle = ramq.make(backend, capacity=CAPACITY)
     else:
         oracle = tamq.make("cpu-cuckoo", capacity=CAPACITY,
                            hash_kind="fmix32")
-        assert (backend == "bloom"
+        assert (backend in ("bloom", "sharded-cuckoo")
                 or oracle.config.num_buckets == h.config.num_buckets)
     h.insert(pre)
     oracle.insert(pre)
@@ -292,7 +302,10 @@ def test_mixed_matches_sequential_oracle(backend, mix):
         else:
             want = oracle.apply_ops(batch)
         assert torch.equal(rep.ok, want.ok)
-        assert not rep.ok[~batch.valid].any() and bool(rep.routed.all())
+        assert not rep.ok[~batch.valid].any()
+        # A sharded filter reports masked slots unrouted, as JAX's does.
+        assert (torch.equal(rep.routed, batch.valid)
+                if backend == "sharded-cuckoo" else bool(rep.routed.all()))
         if backend != "bloom":
             assert h.count() == oracle.count()
         ins = rep.insert_report(batch)

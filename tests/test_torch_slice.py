@@ -163,7 +163,7 @@ def test_make_needs_cuda_or_an_explicit_cpu(monkeypatch):
     assert type(t) is tamq.TieredHandle and t.device.type == "cpu"
     with pytest.raises(TypeError, match="device_budget_bytes"):
         tamq.make("cuckoo", capacity=10, device="cpu", tiered=True)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="resharding"):
         h.resharded(num_shards=2)
     plain = tamq.make("cuckoo", capacity=10, device="cpu")
     assert type(plain) is type(h) and plain.device.type == "cpu"
@@ -176,10 +176,16 @@ def test_make_needs_cuda_or_an_explicit_cpu(monkeypatch):
     assert h.count() == 0 and rep.ok.device.type == "cpu"
     with pytest.raises(TypeError, match="OpBatch"):
         h.apply_ops(None)
-    with pytest.raises(KeyError):
-        tamq.make("sharded-cuckoo", capacity=10, device="cpu")
-    assert tamq.names() == ("cuckoo", "bloom", "tcf", "gqf", "bcht",
-                            "cpu-cuckoo")
+    # The sharded backend: its mesh on the handle's device.
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tamq.make("sharded-cuckoo", capacity=10)
+    s = tamq.make("sharded-cuckoo", capacity=10, device="cpu",
+                  partitions_per_shard=2)
+    assert s.device.type == "cpu" and s.config.mesh.device.type == "cpu"
+    assert s.resharded(num_shards=2).device.type == "cpu"
+    assert tamq.names() == tuple(ramq.names()) == (
+        "cuckoo", "bloom", "tcf", "gqf", "bcht", "sharded-cuckoo",
+        "cpu-cuckoo")
     # The host oracle runs on the CPU without being asked.
     assert tamq.make("cpu-cuckoo", capacity=1000).device.type == "cpu"
     with pytest.raises(RuntimeError, match="device='cpu'"):
