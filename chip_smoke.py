@@ -264,7 +264,14 @@ toolkit. Phases, one JSON line each:
    layout, the kernel-layout wrapper, the model's call,
    ``F.scaled_dot_product_attention`` as the library yardstick; then the
    plain version) at the serving prefill (B 4, S 1024, 20 heads, causal,
-   bf16) and a long prefill (B 1, S 8192), each beside its bound. The wgmma kernels'
+   bf16) and a long prefill (B 1, S 8192), each beside its bound. Head
+   sizes past the tensor cores' (the FMA variant, up to 256 in any
+   combination, as the Pallas kernel takes them): D 256 in float32 and
+   bf16 and D 192 / Dv 128 among ``FLASH_SHAPES``, and ``WIDE_HEADS``
+   (gemma2_2b's attention, B 4, S 1024, H 8 / KVH 4, D 256; MLA's heads,
+   H 16, D 192 / Dv 128; bf16, causal) each held to the plain version on
+   the timed tensors and timed beside SDPA (``enable_gqa`` for shared KV
+   heads). The wgmma kernels'
    registers and spills from ``ptxas -v`` are printed after the build
    (no spill allowed).
 9. the main path again at 2^22 slots (an 8 MiB table, resident in L2);
@@ -320,6 +327,31 @@ toolkit. Phases, one JSON line each:
    ``sharded-cuckoo``) held answer for answer to its plain version on the
    last batch's keys. Then one ``dedup_batch`` on a static ``sharded-cuckoo`` filter.
    Reported: sequences/s, levels grown, host syncs a batch.
+9d. the tile autotuner (``autotune``) on the main path's config (2^28
+   slots, 512 MiB): for each of the four ops, on ``kernels.autotune``'s
+   own synthetic state (2^21 keys from seed 0, 2^22 probes of the same
+   stream and their op codes), every candidate ``block_keys`` (256, 512,
+   1024, 2048) through the public wrapper against the default launch:
+   the query's answers equal; the inserts' and the mixed ops' ``ok.sum()``
+   and ``count`` equal, every key they accept found. The default launch
+   against its plain version as in phase 3 (the query on every key; the
+   inserts by the order-free outcome, and exactly to the plain loop on
+   2^12 keys; the mixed ops on 2^12). Each candidate timed
+   (``autotune.sweep``, the median of ``AUTOTUNE_ITERS``, each call on a
+   fresh copy of the table made outside the timed interval) and
+   ``autotune.autotune``'s winner. The bulk insert also at 2^24 keys (a
+   key a bucket), where its windowed route runs.
+9e. the tools (``tools``): ``tools/filterctl_torch.py`` in-process on
+   the card: ``save`` of a ``cuckoo`` filter at capacity 2^24 holding
+   floor(0.95 * 2^24) seeded keys, ``inspect``, ``load`` with
+   ``--verify-random`` (every key found), a tiered ``save`` of the same
+   keys from capacity 2^22 under a device budget of half the first
+   table's bytes (levels demoted to host RAM, the budget held), ``tiers``;
+   each command's seconds. Then ``examples/quickstart_torch.py`` and
+   ``examples/kmer_index_torch.py`` by their ``main("cuda")``, launch
+   counts zeroed just before each: quickstart's registry loop launches the
+   cuckoo, Bloom (#8, #9) and GQF (G1, G2) kernels; ``kmer_index`` the
+   k-mer pack (#10).
 10. G1 and G2 against their plain loops at the GQF path's own shapes
    (``gqf_serial_vs_plain_at_path_shape``): the timed launches of phase
    4c (2^20 keys into the table before the fill's last batch; the 2^20
@@ -373,6 +405,7 @@ from repro_torch.data.kmer import (  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, make_batch  # noqa: E402
 from repro_torch.kernels import bloom as bloom_kernels  # noqa: E402
 from repro_torch.kernels import build, roofline  # noqa: E402
+from repro_torch.kernels import autotune as AT  # noqa: E402
 from repro_torch.kernels import ops as K  # noqa: E402
 from repro_torch.kernels.cuckoo_insert import (  # noqa: E402
     cuckoo_insert_direct_plain, cuckoo_insert_launch,
@@ -485,7 +518,27 @@ FLASH_SHAPES = [
     (1, 2, 3, 333, 517, 64, 64, True, None, 0, torch.bfloat16),
     (2, 2, 2, 1000, 1000, 128, 128, True, 300, 0, torch.bfloat16),
     (1, 2, 2, 200, 389, 128, 128, False, None, 0, torch.bfloat16),
+    (2, 2, 2, 200, 260, 256, 256, True, None, 0, torch.float32),
+    (2, 2, 2, 200, 260, 256, 256, True, None, 0, torch.bfloat16),
+    (1, 2, 3, 130, 200, 192, 128, True, 64, 16, torch.bfloat16),
 ]
+# Kernel #11 past the tensor cores' head sizes, timed beside SDPA, causal,
+# bf16, at S 1024 and the serving batch: gemma2_2b's attention (H 8, KVH
+# 4, D 256) and MLA's heads (deepseek_v3_671b: H 16, D 192, Dv 128):
+# label -> (B, S, H, KVH, D, Dv).
+WIDE_HEADS = {"gemma2_2b_d256": (4, 1024, 8, 4, 256, 256),
+              "mla_d192_dv128": (4, 1024, 16, 16, 192, 128)}
+WIDE_HEADS_ROUNDS = 3            # samples of each timing (5-7 ms a call)
+# The autotune phase: the main path's config and batch, and #6's windowed
+# route at the legacy bulk fill's batch (a key a bucket).
+AUTOTUNE_KEYS = 1 << 22
+AUTOTUNE_WINDOWED_KEYS = 1 << 24
+AUTOTUNE_ITERS = 10
+# The tools phase: filterctl_torch's cuckoo save of floor(0.95 * 2^24) keys
+# at capacity 2^24, loaded and verified; a tiered save of the same keys
+# from a quarter of that capacity under half that table's bytes.
+TOOLS_CAPACITY = 1 << 24
+TOOLS_KEYS = LIFE_CAPACITY
 # H100 SXM HBM3 rate (NVIDIA data sheet, at the full 700 W).
 HBM_BYTES_PER_S = 3.35e12
 TPU_KERNELS = {
@@ -2435,7 +2488,7 @@ def rotated_ms(timers: dict, rounds: int) -> dict:
     return {n: statistics.median(x) for n, x in samples.items()}
 
 
-def flash_record(qkv, causal, bf16_rate):
+def flash_record(qkv, causal, bf16_rate, rounds: int = FLASH_ROUNDS):
     """Kernel #11 at one shape, q, k, v in the model's layout ([B, S, H,
     D], as the serving path hands them over): the kernel's time on them
     with the bf16 output the model path asks for (``ms``) and with a
@@ -2455,17 +2508,25 @@ def flash_record(qkv, causal, bf16_rate):
     model's call and the library's (its clock over ``FLASH_BATCH`` calls,
     the card behind it), what a host-paced prefill pays for each. The
     timings run in rotated order (:func:`rotated_ms`), the median of
-    ``FLASH_ROUNDS`` samples each."""
+    ``rounds`` samples each. The FMA variant (head sizes past the
+    tensor cores') reads only the contiguous kernel layout, so there
+    ``ms`` is its launch on the kernel-layout copies (the wrapper's and
+    the model's calls make those copies themselves); SDPA takes KV heads
+    shared by several query heads with ``enable_gqa``."""
     import torch.nn.functional as F
 
     q, k, v = qkv
     B, S, H, D = q.shape
     views = bshd_views(q, k, v)
     qk, kk, vk = to_kernel_layout(q, k, v)
-    out = torch.empty(q.shape, dtype=q.dtype, device="cuda")
-    out32 = torch.empty(q.shape, dtype=torch.float32, device="cuda")
-    kl_out = torch.empty(qk.shape, dtype=q.dtype, device="cuda")
+    out_shape = q.shape[:3] + (v.shape[-1],)
+    out = torch.empty(out_shape, dtype=q.dtype, device="cuda")
+    out32 = torch.empty(out_shape, dtype=torch.float32, device="cuda")
+    kl_out = torch.empty(qk.shape[:3] + (v.shape[-1],), dtype=q.dtype,
+                         device="cuda")
     contiguous = [t.transpose(1, 2).contiguous() for t in qkv]
+    # SDPA reads KV heads shared by H / KVH query heads itself.
+    gqa = {"enable_gqa": True} if k.shape[2] != H else {}
     variant = K.check_flash_kernel(q, k, v)
     scale = 1.0 / D ** 0.5
 
@@ -2477,19 +2538,25 @@ def flash_record(qkv, causal, bf16_rate):
     def out_view(o):
         return o.unflatten(2, views[0].shape[1:3]).permute(0, 2, 3, 1, 4)
 
+    kernel_layout = (qk[:, None], kk[:, None], vk[:, None])
+    if variant == "wgmma":
+        model_args, outs = views, (out_view(out), out_view(out32))
+    else:   # the FMA variant reads the contiguous kernel layout only
+        model_args = kernel_layout
+        outs = (kl_out[:, None], torch.empty(
+            kl_out.shape, dtype=torch.float32, device="cuda")[:, None])
     calls = {
-        "ms": launch(views, out_view(out)),
-        "ms_out_float32": launch(views, out_view(out32)),
-        "ms_kernel_layout": launch((qk[:, None], kk[:, None], vk[:, None]),
-                                   kl_out[:, None]),
+        "ms": launch(model_args, outs[0]),
+        "ms_out_float32": launch(model_args, outs[1]),
+        "ms_kernel_layout": launch(kernel_layout, kl_out[:, None]),
         "wrapper_ms": lambda: K.flash_attention(qk, kk, vk, causal=causal,
                                                 out_dtype=q.dtype),
         "model_layout_ms": lambda: attention.flash_attention(
             q, k, v, causal=causal, out_dtype=q.dtype),
         "library_ms": lambda: F.scaled_dot_product_attention(
-            *(t.transpose(1, 2) for t in qkv), is_causal=causal),
+            *(t.transpose(1, 2) for t in qkv), is_causal=causal, **gqa),
         "library_contiguous_ms": lambda: F.scaled_dot_product_attention(
-            *contiguous, is_causal=causal),
+            *contiguous, is_causal=causal, **gqa),
     }
 
     def single(fn):
@@ -2515,10 +2582,10 @@ def flash_record(qkv, causal, bf16_rate):
     timers.update({"back_to_back " + n: back_to_back(fn)
                    for n, fn in calls.items()})
     timers.update({"host " + n: host(calls[n]) for n in issued})
-    times = rotated_ms(timers, FLASH_ROUNDS)
+    times = rotated_ms(timers, rounds)
     plain_ms = cuda_ms(lambda: flash_attention_plain(qk, kk, vk, causal=causal),
                        reps=3)
-    del out32, kl_out, contiguous, qk, kk, vk
+    del out32, kl_out, outs, contiguous, qk, kk, vk
     nbytes = roofline.attention_bytes(q, k, v, out)
     flops = roofline.attention_flops(B * H, S, k.shape[1], D, v.shape[-1],
                                      causal=causal)
@@ -2569,13 +2636,28 @@ def flash_attention_vs_plain(gen, layer0, bf16_rate):
                          for t in (lq, lk, lv)], True, bf16_rate)
     del lq, lk, lv
     torch.cuda.empty_cache()
+    # Head sizes past the tensor cores' (the FMA variant), each held to the
+    # plain version on the timed tensors, then timed beside SDPA.
+    wide = {}
+    for label, (B, S, H, KVH, D, Dv) in WIDE_HEADS.items():
+        q, k, v = ((torch.randn((B, S, h, d), generator=gen, device="cuda")
+                    * 0.3).to(torch.bfloat16)
+                   for h, d in ((H, D), (KVH, D), (KVH, Dv)))
+        errs[label] = flash_check(label, *to_kernel_layout(q, k, v), True,
+                                  None, 0, KVH)
+        wide[label] = flash_record((q, k, v), True, bf16_rate,
+                                   WIDE_HEADS_ROUNDS)
+        check(wide[label]["variant"] == "fma",
+              f"flash {label}: variant {wide[label]['variant']}")
+        del q, k, v
+    torch.cuda.empty_cache()
     emit({"phase": "flash_attention_vs_plain", "errors": errs,
           "tolerance": "float32 output vs plain: 1e-4 for float32 inputs "
                        "(tests/test_flash_kernel.py); 1e-2 absolute and "
                        "over the row's max for bf16 inputs; bf16 output "
                        "equal to the float32 output rounded",
           "serving_prefill": serving, "long_prefill": long,
-          "bf16_flops_per_s": bf16_rate,
+          "wide_heads": wide, "bf16_flops_per_s": bf16_rate,
           "seconds": time.perf_counter() - t0})
     return {**{k: serving[k] for k in ("ms", "plain_ms", "library_ms",
                                        "bound_ms", "bound_by", "wrapper_ms",
@@ -2586,7 +2668,11 @@ def flash_attention_vs_plain(gen, layer0, bf16_rate):
             "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
             "n": serving["shape"],
             "bound_bytes": serving["bound_bytes"],
-            "bound_flops": serving["bound_flops"], "long_prefill": long}
+            "bound_flops": serving["bound_flops"], "long_prefill": long,
+            "wide_heads": {label: {k: r[k] for k in (
+                "shape", "variant", "ms", "plain_ms", "library_ms",
+                "bound_ms", "bound_by", "back_to_back")}
+                for label, r in wide.items()}}
 
 
 def timed_sync(fn):
@@ -3965,6 +4051,194 @@ def dedup_phase() -> dict:
     return record
 
 
+# ---------------------------------------------------------------------------
+# The autotuner and the tools.
+# ---------------------------------------------------------------------------
+
+AUTOTUNE_PLAIN = {"insert": cuckoo_insert_direct_plain,
+                  "bulk_insert": cuckoo_insert_bulk_plain}
+AUTOTUNE_WRAPPER = {"insert": K.cuckoo_insert_direct,
+                    "bulk_insert": K.cuckoo_insert_bulk}
+
+
+def autotune_cell(cfg, op: str, n: int) -> dict:
+    """One op of the ``autotune`` phase on the autotuner's own synthetic
+    state (``autotune.synthetic_cell``: ``n // 2`` keys from seed 0, ``n``
+    probes of the same stream): every candidate tile through the public
+    wrapper against the default launch (query: equal answers; the inserts
+    and the mixed ops: equal ``ok.sum()`` and ``count``, every key they
+    accept found), the default launch against the plain version as
+    ``kernels_vs_plain`` holds it (the query on every key; the inserts by
+    the order-free outcome on the whole batch; and exactly to the plain
+    loop on a 2^12-key sub-batch), then each candidate timed
+    (``autotune.sweep``) and ``autotune.autotune``'s winner."""
+    default = AT.DEFAULT_BLOCK_KEYS[op]
+    state, keys, opcodes = AT.synthetic_cell(cfg, n, "cuda")
+    base = state.table
+    got = {}
+    for bk in AT.CANDIDATES:
+        table = base.clone()
+        K.reset_launches()
+        out = AT.run_op(cfg, op, state._replace(table=table), keys, opcodes,
+                        bk)
+        torch.cuda.synchronize()
+        check(sum(K.LAUNCHES.values()) > 0, f"autotune {op} {bk}: no launch")
+        if op == "query":
+            got[bk] = out
+            continue
+        st, ok = out
+        accepted = ok if op != "apply_ops" else ok & (opcodes == amq.OP_INSERT)
+        check(bool(K.cuckoo_query(cfg, st, keys[accepted]).all()),
+              f"autotune {op} {bk}: an accepted key is not found")
+        got[bk] = (int(ok.sum()), int(st.count))
+        del table, st, ok, accepted
+    for bk, res in got.items():
+        same = (torch.equal(res, got[default]) if op == "query"
+                else res == got[default])
+        check(same, f"autotune {op}: block_keys={bk} differs from the "
+                    f"default launch ({default})")
+    sub = keys[:SUB]
+    if op == "query":
+        check(torch.equal(got[default], cuckoo_query_plain(cfg, base, keys)),
+              "autotune query: the default launch differs from its plain "
+              "version")
+    elif op == "apply_ops":
+        ops_sub = opcodes[:SUB]
+        same_outcome(cfg, base, sub,
+                     lambda t: K.cuckoo_apply_ops(
+                         cfg, state._replace(table=t), sub, ops_sub,
+                         block_keys=default)[1],
+                     lambda t: cuckoo_mixed_plain(cfg, t, sub, ops_sub))
+    else:
+        wrapper = functools.partial(AUTOTUNE_WRAPPER[op], block_keys=default)
+        check_direct_insert(cfg, state, base, keys, f"autotune {op}", wrapper)
+        same_outcome(cfg, base, sub,
+                     lambda t: wrapper(cfg, state._replace(table=t), sub)[1],
+                     lambda t: AUTOTUNE_PLAIN[op](cfg, t, sub))
+    outcome = ({"hits": int(got[default].sum())} if op == "query" else
+               {"ok": got[default][0], "count": got[default][1]})
+    del state, keys, opcodes, base, got, sub
+    torch.cuda.empty_cache()
+    ms = AT.sweep(cfg, op, n=n, iters=AUTOTUNE_ITERS, device="cuda")
+    AT.clear()
+    winner = AT.autotune(cfg, op, n=n, iters=AUTOTUNE_ITERS, device="cuda")
+    AT.clear()
+    torch.cuda.empty_cache()
+    return {"keys": n, "default": default, "default_ms": ms[default],
+            "ms": ms, "winner": winner, "winner_over_default":
+            ms[winner] / ms[default], **outcome}
+
+
+def autotune_phase(cfg) -> None:
+    """Phase 9d (see the module docstring)."""
+    t0 = time.perf_counter()
+    cells = {op: autotune_cell(cfg, op, AUTOTUNE_KEYS)
+             for op in AT.DEFAULT_BLOCK_KEYS}
+    plan = BULK.bulk_plan(cfg, AUTOTUNE_WINDOWED_KEYS,
+                          bloom_kernels.l2_bytes(torch.device("cuda")))
+    check(plan.windowed, f"autotune: {AUTOTUNE_WINDOWED_KEYS} keys do not "
+                         f"take #6's windowed route: {plan}")
+    cells["bulk_insert_windowed"] = autotune_cell(
+        cfg, "bulk_insert", AUTOTUNE_WINDOWED_KEYS)
+    emit({"phase": "autotune", "config": repr(cfg),
+          "backend": AT.backend_name("cuda"), "candidates": AT.CANDIDATES,
+          "iters": AUTOTUNE_ITERS, "cells": cells,
+          "checks": "every candidate == the default launch (query answers; "
+                    "ok.sum(), count, accepted keys found); the default "
+                    "launch == its plain version (query: every key; "
+                    "inserts: the order-free outcome, and at 2^12 keys the "
+                    "plain loop's ok and tag multisets; mixed: at 2^12)",
+          "seconds": time.perf_counter() - t0})
+
+
+def load_file(rel: str, name: str):
+    """A script of the checkout (a tool or an example) as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, os.path.join(ROOT, rel))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def captured(fn, *args) -> tuple:
+    """(fn's result, what it printed, seconds)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    torch.cuda.synchronize()
+    return out, buf.getvalue(), time.perf_counter() - t0
+
+
+def tools_phase() -> None:
+    """Phase 9e (see the module docstring)."""
+    t0 = time.perf_counter()
+    cli = load_file("tools/filterctl_torch.py", "filterctl_torch")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tools_")
+    runs, seconds = {}, {}
+    try:
+        path = os.path.join(tmp, "cuckoo.npz")
+        tiered = os.path.join(tmp, "tiered.npz")
+        argv = {
+            "save": ["save", path, "--backend", "cuckoo", "--capacity",
+                     str(TOOLS_CAPACITY), "--insert-random", str(TOOLS_KEYS)],
+            "inspect": ["inspect", path],
+            "load": ["load", path, "--backend", "cuckoo", "--capacity",
+                     str(TOOLS_CAPACITY), "--verify-random", str(TOOLS_KEYS)]}
+        for name, args in argv.items():
+            rc, out, seconds[name] = captured(cli.main, args)
+            runs[name] = out.strip().splitlines()[-3:]
+            check(rc == 0, f"filterctl_torch {name}: exit {rc}: {out[-2000:]}")
+        check(f"inserted {TOOLS_KEYS}/{TOOLS_KEYS}" in "\n".join(runs["save"]),
+              f"filterctl_torch save: {runs['save']}")
+        check(f"verify: {TOOLS_KEYS}/{TOOLS_KEYS}" in "\n".join(runs["load"]),
+              f"filterctl_torch load: {runs['load']}")
+        table_bytes = amq.load_snapshot(path).meta["table_bytes"]
+        budget = table_bytes // 2
+        argv = {
+            "save_tiered": ["save", tiered, "--backend", "cuckoo",
+                            "--capacity", str(TOOLS_CAPACITY // 4),
+                            "--device-budget-bytes", str(budget),
+                            "--insert-random", str(TOOLS_KEYS)],
+            "tiers": ["tiers", tiered]}
+        for name, args in argv.items():
+            rc, out, seconds[name] = captured(cli.main, args)
+            runs[name] = out.strip().splitlines()
+            check(rc == 0, f"filterctl_torch {name}: exit {rc}: {out[-2000:]}")
+        meta = amq.load_snapshot(tiered).meta
+        check(meta["cold_levels"] and meta["count"] == TOOLS_KEYS
+              and sum(lm["table_bytes"] for lm in meta["hot_levels"])
+              <= budget, f"filterctl_torch tiered save: {runs['tiers']}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    examples = {}
+    for rel, name, kernels in (
+            ("examples/quickstart_torch.py", "quickstart_torch",
+             ("cuckoo_query", "cuckoo_insert_direct", "cuckoo_mixed",
+              "bloom_query", "bloom_insert", "gqf_insert_serial",
+              "gqf_delete_serial")),
+            ("examples/kmer_index_torch.py", "kmer_index_torch",
+             ("kmer_pack",))):
+        module = load_file(rel, name)
+        K.reset_launches()
+        _, out, secs = captured(module.main, "cuda")
+        launched = {k: v for k, v in K.LAUNCHES.items() if v}
+        check(all(launched.get(k) for k in kernels),
+              f"{name}: launches {launched}, expected {kernels}")
+        examples[name] = {"seconds": secs, "launches": launched,
+                          "output": out.strip().splitlines()}
+    torch.cuda.empty_cache()
+    emit({"phase": "tools", "filterctl_torch": runs,
+          "filterctl_torch_seconds": seconds, "tiered_budget_bytes": budget,
+          "table_bytes": table_bytes, "examples": examples,
+          "seconds": time.perf_counter() - t0})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4474,6 +4748,10 @@ def main() -> int:
                  "cuckoo_mixed"):
         by_name[name]["launches_by_phase"] = {
             phase: counts[name] for phase, counts in phase_launches.items()}
+
+    # --- the autotuner on the main path's config, then the tools ---------
+    autotune_phase(cfg)
+    tools_phase()
 
     # --- G1 and G2 against their plain loops at the GQF path's shapes -----
     # Last: the host loops (tens of seconds each) then cannot disturb the

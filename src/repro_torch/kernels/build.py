@@ -38,17 +38,21 @@ _I32, _F32 = ctypes.c_int32, ctypes.c_float
 _GEOMETRY = [_U32, _U32, _U32, _U32, _U32, _U64, _P]
 ARGTYPES = {
     "hash64_launch": [_P, _P, _P, _I64, _U32, _U64, _P],
-    "cuckoo_query_launch": [_P, _P, _P, _I64] + _GEOMETRY,
-    "cuckoo_query_unfused_launch": [_P, _P, _P, _I64] + _GEOMETRY,
-    "cuckoo_insert_launch": [_P, _P, _P, _P, _I64] + _GEOMETRY,
-    "cuckoo_insert_unfused_launch": [_P, _P, _P, _P, _I64] + _GEOMETRY,
+    # table, keys, hit, n, block_keys (the per-key kernels' tile).
+    "cuckoo_query_launch": [_P, _P, _P, _I64, _U32] + _GEOMETRY,
+    "cuckoo_query_unfused_launch": [_P, _P, _P, _I64, _U32] + _GEOMETRY,
+    # table, keys, valid, ok, n, block_keys.
+    "cuckoo_insert_launch": [_P, _P, _P, _P, _I64, _U32] + _GEOMETRY,
+    "cuckoo_insert_unfused_launch": [_P, _P, _P, _P, _I64, _U32] + _GEOMETRY,
     # table, keys, valid, ok, n, scratch, log2 of a window's buckets,
-    # windows (1: the insert pass alone).
-    "cuckoo_insert_bulk_launch": [_P, _P, _P, _P, _I64, _P, _U32, _U32]
+    # windows (1: the insert pass alone), block_keys.
+    "cuckoo_insert_bulk_launch": [_P, _P, _P, _P, _I64, _P, _U32, _U32, _U32]
                                  + _GEOMETRY,
     "cuckoo_insert_bulk_scratch_bytes": [_I64, _U32],
-    # table, keys, ops, valid, scratch, log2 of its slots, n, ok, state.
-    "cuckoo_mixed_launch": [_P, _P, _P, _P, _P, _U32, _I64, _P, _P] + _GEOMETRY,
+    # table, keys, ops, valid, scratch, log2 of its slots, n, ok, state,
+    # block_keys.
+    "cuckoo_mixed_launch": [_P, _P, _P, _P, _P, _U32, _I64, _P, _P, _U32]
+                           + _GEOMETRY,
     # table, sorted key values, order, its length, scratch, counts, ok.
     "cuckoo_mixed_walk_launch": [_P, _P, _P, _I64, _P, _P, _P] + _GEOMETRY,
     "bloom_query_launch": [_P, _P, _P, _I64] + _GEOMETRY,

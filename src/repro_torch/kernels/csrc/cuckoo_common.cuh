@@ -27,6 +27,29 @@ constexpr int OP_DELETE = 2;
 
 constexpr int THREADS = 256;
 
+// The per-key kernels' tile (kernels/autotune.py: block_keys): a block of
+// THREADS threads owns block_keys consecutive keys, each thread every
+// THREADS-th of them from its own (block-strided rounds); the last block
+// owns fewer. block_keys is a power of two in [THREADS, 8 * THREADS]:
+// the autotuner's candidates, each one a launch of every op.
+constexpr uint32_t MAX_BLOCK_KEYS = 8 * THREADS;
+
+__host__ __device__ __forceinline__ bool block_keys_ok(uint32_t block_keys) {
+  return block_keys >= uint32_t(THREADS) && block_keys <= MAX_BLOCK_KEYS &&
+         (block_keys & (block_keys - 1)) == 0;
+}
+
+inline dim3 tile_grid(int64_t n, uint32_t block_keys) {
+  return dim3(unsigned((n + block_keys - 1) / block_keys));
+}
+
+// The keys [first, end) of this block's tile.
+__device__ __forceinline__ void block_tile(int64_t n, uint32_t block_keys,
+                                           int64_t& first, int64_t& end) {
+  first = int64_t(blockIdx.x) * block_keys;
+  end = first + block_keys < n ? first + block_keys : n;
+}
+
 // Runtime geometry of one filter (CuckooConfig's fields the kernels read).
 struct Geometry {
   uint32_t num_buckets;

@@ -42,7 +42,8 @@
 // at a random place in a table ten times the L2. More loads in flight do
 // not help: a thread that owned two or four keys and issued all their
 // loads together ran slower on the H100 (PERF.md, section 6), so a thread
-// owns one key.
+// settles one key at a time: one by default, and with a tile of block_keys
+// > 256 keys a block (kernels/autotune.py) its keys one after another.
 //
 // The body is cuckoo::insert and cuckoo::settle (cuckoo_common.cuh) with
 // the SWAR scan; the unfused kernel (cuckoo_insert_unfused.cu) runs the
@@ -54,24 +55,29 @@ namespace {
 template <int W, int F>
 __global__ void cuckoo_insert_kernel(uint32_t* table, const uint2* keys,
                                      const uint8_t* valid, uint8_t* ok,
-                                     int64_t n, cuckoo::Geometry g) {
-  const int64_t i = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  if (!valid[i]) {
-    ok[i] = 0;
-    return;
+                                     int64_t n, uint32_t block_keys,
+                                     cuckoo::Geometry g) {
+  int64_t first, end;
+  cuckoo::block_tile(n, block_keys, first, end);
+  for (int64_t i = first + threadIdx.x; i < end; i += cuckoo::THREADS) {
+    if (!valid[i]) {
+      ok[i] = 0;
+      continue;
+    }
+    const uint2 k = keys[i];
+    ok[i] = cuckoo::insert<W, F, cuckoo::Swar>(
+        table, cuckoo::prepare(k.x, k.y, g));
   }
-  const uint2 k = keys[i];
-  ok[i] = cuckoo::insert<W, F, cuckoo::Swar>(table,
-                                             cuckoo::prepare(k.x, k.y, g));
 }
 
 }  // namespace
 
 // table: uint32[num_buckets * wpb], updated in place; keys: uint32[n, 2]
-// (lo, hi); valid, ok: uint8[n]. Returns the cudaError_t of the launch.
+// (lo, hi); valid, ok: uint8[n]; block_keys: keys a block
+// (cuckoo::block_keys_ok). Returns the cudaError_t of the launch.
 CUCKOO_EXPORT int cuckoo_insert_launch(void* table, const void* keys,
                                        const void* valid, void* ok, int64_t n,
+                                       uint32_t block_keys,
                                        uint32_t num_buckets,
                                        uint32_t bucket_size, uint32_t fp_bits,
                                        uint32_t policy, uint32_t hash_kind,
@@ -79,13 +85,14 @@ CUCKOO_EXPORT int cuckoo_insert_launch(void* table, const void* keys,
   const cuckoo::Geometry g{num_buckets, bucket_size, fp_bits, policy,
                            hash_kind, seed};
   const uint32_t wpb = bucket_size / (32 / fp_bits);
-  const dim3 grid(unsigned((n + cuckoo::THREADS - 1) / cuckoo::THREADS));
+  if (!cuckoo::block_keys_ok(block_keys)) return int(cudaErrorInvalidValue);
+  const dim3 grid = cuckoo::tile_grid(n, block_keys);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   CUCKOO_DISPATCH(wpb, fp_bits,
                   cuckoo_insert_kernel<W, F><<<grid, cuckoo::THREADS, 0, s>>>(
                       static_cast<uint32_t*>(table),
                       static_cast<const uint2*>(keys),
                       static_cast<const uint8_t*>(valid),
-                      static_cast<uint8_t*>(ok), n, g))
+                      static_cast<uint8_t*>(ok), n, block_keys, g))
   return int(cudaGetLastError());
 }

@@ -19,7 +19,7 @@
 // permutation. Five launches, no host sync between them:
 //   1-3. count, scan and scatter (window_route.cuh); keys with valid = 0
 //        are left out;
-//   4.   insert: blocks claim tiles of INSERT_TILE entries of the
+//   4.   insert: blocks claim tiles of block_keys entries of the
 //        concatenated segments in order through an atomic ticket, so the
 //        tiles in flight cover one or two windows, and each entry is
 //        settled as the direct insert settles a key (cuckoo::settle): a
@@ -40,6 +40,15 @@
 // order, as one window (one launch). The wrapper decides from the shape
 // alone (kernels/cuckoo_insert_bulk.py: bulk_plan).
 //
+// The tile (kernels/autotune.py: block_keys, a power of two in [256,
+// 2048]) is the entries a ticket of pass 4, a thread settling block_keys /
+// 256 of them in block-strided rounds; pass 4 is compiled once for each
+// tile, so each keeps its rounds unrolled. The insert pass alone gives a
+// block half a tile, block_keys / 2 keys (a key a thread at the default
+// 512), so that the default launches both routes as they were before the
+// tile could be tuned. The partition's own TILE (window_route.cuh) is
+// structural and does not change.
+//
 // Bound: device-memory bytes. The function's: each key read once, ok
 // written once, each bucket the batch needs read once and each changed
 // one written once (kernels/roofline.py). The route's own floor adds its
@@ -52,11 +61,9 @@
 
 namespace {
 
-// Entries a thread a tile: at one key a bucket two were as fast as one or
-// faster, and faster than four (four gained a little at eight keys a
-// bucket).
-constexpr int INSERT_PER_THREAD = 2;
-constexpr uint32_t INSERT_TILE = INSERT_PER_THREAD * cuckoo::THREADS;
+// The default tile is two entries a thread: at one key a bucket two were
+// as fast as one or faster, and faster than four (four gained a little at
+// eight keys a bucket).
 constexpr uint32_t PREFETCH_CHUNK = 4096;  // bytes a bulk prefetch
 
 // The route's partition: keys with valid = 1, their entry (i1, tag).
@@ -77,34 +84,38 @@ struct CuckooPartition {
   }
 };
 
-// The insert pass alone, as one window: a thread a key in batch order.
+// The insert pass alone, as one window: a block's keys in batch order,
+// `block_keys` of them (half the route's tile).
 template <int W, int F>
 __global__ void __launch_bounds__(cuckoo::THREADS)
     bulk_direct_kernel(uint32_t* table, const uint2* __restrict__ keys,
                        const uint8_t* __restrict__ valid,
                        uint8_t* __restrict__ ok, int64_t n,
-                       cuckoo::Geometry g) {
-  const int64_t i = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  if (!valid[i]) {
-    ok[i] = 0;
-    return;
+                       uint32_t block_keys, cuckoo::Geometry g) {
+  int64_t first, end;
+  cuckoo::block_tile(n, block_keys, first, end);
+  for (int64_t i = first + threadIdx.x; i < end; i += cuckoo::THREADS) {
+    if (!valid[i]) {
+      ok[i] = 0;
+      continue;
+    }
+    const uint2 k = keys[i];
+    ok[i] = cuckoo::insert<W, F, cuckoo::Swar>(
+        table, cuckoo::prepare(k.x, k.y, g));
   }
-  const uint2 k = keys[i];
-  ok[i] = cuckoo::insert<W, F, cuckoo::Swar>(table,
-                                             cuckoo::prepare(k.x, k.y, g));
 }
 
-// Pass 4: the entries of the tile the block's ticket names, each settled,
-// its answer written in segment order. bases[windows] is the number of
-// entries (the valid keys).
-template <int W, int F>
+// Pass 4: the PER * THREADS entries of the tile the block's ticket names,
+// each settled, its answer written in segment order. bases[windows] is the
+// number of entries (the valid keys).
+template <int W, int F, int PER>
 __global__ void __launch_bounds__(cuckoo::THREADS)
     bulk_insert_kernel(uint32_t* table, const uint2* __restrict__ seg,
                        uint8_t* __restrict__ ans,
                        const uint32_t* __restrict__ bases, uint32_t windows,
                        uint32_t log2_window, cuckoo::Geometry g,
                        uint32_t* __restrict__ control) {
+  constexpr uint32_t INSERT_TILE = PER * cuckoo::THREADS;
   __shared__ uint32_t ticket, window;
   if (threadIdx.x == 0) ticket = atomicAdd(&control[1], 1u);
   __syncthreads();
@@ -144,7 +155,7 @@ __global__ void __launch_bounds__(cuckoo::THREADS)
     }
   }
 #pragma unroll
-  for (int r = 0; r < INSERT_PER_THREAD; ++r) {
+  for (int r = 0; r < PER; ++r) {
     const uint32_t j = first + r * cuckoo::THREADS + threadIdx.x;
     if (j < total) {
       const uint2 e = seg[j];
@@ -154,23 +165,43 @@ __global__ void __launch_bounds__(cuckoo::THREADS)
   }
 }
 
+// Pass 4 with a tile of PER * THREADS entries.
+template <int W, int F, int PER>
+void insert_pass(uint32_t* table, int64_t n, uint32_t log2_window,
+                 uint32_t windows, const Scratch& s, const cuckoo::Geometry& g,
+                 cudaStream_t st) {
+  bulk_insert_kernel<W, F, PER>
+      <<<cuckoo::tile_grid(n, PER * cuckoo::THREADS), cuckoo::THREADS, 0,
+         st>>>(table, s.seg, s.ans, s.bases, windows, log2_window, g,
+               s.control);
+}
+
 template <int W, int F>
 int launch(uint32_t* table, const uint2* keys, const uint8_t* valid,
            uint8_t* ok, int64_t n, void* scratch, uint32_t log2_window,
-           uint32_t windows, const cuckoo::Geometry& g, cudaStream_t st) {
+           uint32_t windows, uint32_t block_keys, const cuckoo::Geometry& g,
+           cudaStream_t st) {
+  if (!cuckoo::block_keys_ok(block_keys)) return int(cudaErrorInvalidValue);
   if (windows <= 1) {
-    const dim3 grid(unsigned((n + cuckoo::THREADS - 1) / cuckoo::THREADS));
-    bulk_direct_kernel<W, F><<<grid, cuckoo::THREADS, 0, st>>>(
-        table, keys, valid, ok, n, g);
+    const uint32_t half = block_keys / 2;
+    bulk_direct_kernel<W, F>
+        <<<cuckoo::tile_grid(n, half), cuckoo::THREADS, 0, st>>>(
+            table, keys, valid, ok, n, half, g);
     return int(cudaGetLastError());
   }
   if (!windows_fit(n, log2_window, windows, g.num_buckets, scratch, ok))
     return int(cudaErrorInvalidValue);
   const Scratch s = carve(scratch, n, windows);
   partition(keys, n, CuckooPartition{g, valid, log2_window}, windows, s, st);
-  const dim3 grid(unsigned((n + INSERT_TILE - 1) / INSERT_TILE));
-  bulk_insert_kernel<W, F><<<grid, cuckoo::THREADS, 0, st>>>(
-      table, s.seg, s.ans, s.bases, windows, log2_window, g, s.control);
+  const uint32_t per = block_keys / cuckoo::THREADS;
+  if (per == 1)
+    insert_pass<W, F, 1>(table, n, log2_window, windows, s, g, st);
+  else if (per == 2)
+    insert_pass<W, F, 2>(table, n, log2_window, windows, s, g, st);
+  else if (per == 4)
+    insert_pass<W, F, 4>(table, n, log2_window, windows, s, g, st);
+  else
+    insert_pass<W, F, 8>(table, n, log2_window, windows, s, g, st);
   unpermute(n, windows, s, ok, st);
   return int(cudaGetLastError());
 }
@@ -189,13 +220,14 @@ CUCKOO_EXPORT int64_t cuckoo_insert_bulk_scratch_bytes(int64_t n,
 // pass alone over the batch (scratch unused); else `windows` windows of
 // 2^log2_window buckets (at most 256, the last one not empty), 1 <= n <
 // 2^31, ok 4-byte aligned, scratch: cuckoo_insert_bulk_scratch_bytes(n,
-// windows) bytes, 16-byte aligned. Returns the cudaError_t of the
-// launches.
+// windows) bytes, 16-byte aligned; block_keys: the tile
+// (cuckoo::block_keys_ok). Returns the cudaError_t of the launches.
 CUCKOO_EXPORT int cuckoo_insert_bulk_launch(
     void* table, const void* keys, const void* valid, void* ok, int64_t n,
     void* scratch, uint32_t log2_window, uint32_t windows,
-    uint32_t num_buckets, uint32_t bucket_size, uint32_t fp_bits,
-    uint32_t policy, uint32_t hash_kind, uint64_t seed, void* stream) {
+    uint32_t block_keys, uint32_t num_buckets, uint32_t bucket_size,
+    uint32_t fp_bits, uint32_t policy, uint32_t hash_kind, uint64_t seed,
+    void* stream) {
   const cuckoo::Geometry g{num_buckets, bucket_size, fp_bits, policy,
                            hash_kind, seed};
   const uint32_t wpb = bucket_size / (32 / fp_bits);
@@ -204,7 +236,7 @@ CUCKOO_EXPORT int cuckoo_insert_bulk_launch(
                                       static_cast<const uint2*>(keys),
                                       static_cast<const uint8_t*>(valid),
                                       static_cast<uint8_t*>(ok), n, scratch,
-                                      log2_window, windows, g,
+                                      log2_window, windows, block_keys, g,
                                       static_cast<cudaStream_t>(stream)))
   return int(cudaErrorInvalidValue);
 }

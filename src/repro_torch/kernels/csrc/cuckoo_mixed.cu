@@ -16,15 +16,16 @@
 //
 //   1. clear — cudaMemsetAsync of a scratch table of 2^s >= 2n 64-bit
 //      slots (load <= 0.5 for linear probing).
-//   2. mark — one thread an op, in batch layout (keys, ops and valid read
-//      coalesced). A valid op's digest (cuckoo::hash_key, the filter's own
+//   2. mark — a block a tile of block_keys ops (kernels/autotune.py; 256,
+//      one thread an op, by default), in batch layout (keys, ops and
+//      valid read coalesced). A valid op's digest (cuckoo::hash_key, the filter's own
 //      hash) gives a value v, its 63 low bits (0 taken as 1), and a home
 //      slot. Linear probing from there claims the first empty slot with a
 //      64-bit atomicCAS, or meets v and sets the slot's top bit with
 //      atomicOr: a repeat. The op's kind goes into its state byte.
 //   3. apply — three launches of one kernel: once-only queries, then
-//      deletes, then inserts. One thread an op of that kind, in batch
-//      layout. It finds v's slot; if the top bit is set it writes the
+//      deletes, then inserts, each over the mark's tiles; a thread
+//      settles the ops of that kind among its own, in batch layout. It finds v's slot; if the top bit is set it writes the
 //      state byte 1 + its kind (repeated) and stops, else it settles the
 //      op (below) and writes state 0 and ok coalesced.
 //   4. walk — only where the caller's one compaction of the state bytes
@@ -184,21 +185,10 @@ __device__ __forceinline__ bool settle(uint32_t* table, const cuckoo::Probe& p) 
   }
 }
 
-__global__ void cuckoo_mixed_mark_kernel(unsigned long long* scratch,
-                                         uint32_t log2_slots, const uint2* keys,
-                                         const int32_t* ops,
-                                         const uint8_t* valid, uint8_t* ok,
-                                         uint8_t* state, int64_t n,
-                                         cuckoo::Geometry g) {
-  const int64_t i = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  if (!valid[i]) {
-    ok[i] = 0;
-    state[i] = 0;
-    return;
-  }
-  state[i] = uint8_t(KIND_BASE + kind_of(ops[i]));
-  const uint2 k = keys[i];
+// Claim op i's value in the scratch, or mark it repeated.
+__device__ __forceinline__ void mark_op(unsigned long long* scratch,
+                                        uint32_t log2_slots, uint2 k,
+                                        const cuckoo::Geometry& g) {
   uint32_t hhi, hlo;
   cuckoo::hash_key(k.x, k.y, g, hhi, hlo);
   const uint64_t v = mark_value(hhi, hlo);
@@ -213,24 +203,48 @@ __global__ void cuckoo_mixed_mark_kernel(unsigned long long* scratch,
   }
 }
 
+__global__ void cuckoo_mixed_mark_kernel(unsigned long long* scratch,
+                                         uint32_t log2_slots, const uint2* keys,
+                                         const int32_t* ops,
+                                         const uint8_t* valid, uint8_t* ok,
+                                         uint8_t* state, int64_t n,
+                                         uint32_t block_keys,
+                                         cuckoo::Geometry g) {
+  int64_t first, end;
+  cuckoo::block_tile(n, block_keys, first, end);
+  for (int64_t i = first + threadIdx.x; i < end; i += cuckoo::THREADS) {
+    if (!valid[i]) {
+      ok[i] = 0;
+      state[i] = 0;
+      continue;
+    }
+    state[i] = uint8_t(KIND_BASE + kind_of(ops[i]));
+    mark_op(scratch, log2_slots, keys[i], g);
+  }
+}
+
 template <int W, int F, int OP>
 __global__ void cuckoo_mixed_apply_kernel(uint32_t* table, const uint2* keys,
                                           const unsigned long long* scratch,
                                           uint32_t log2_slots, uint8_t* ok,
                                           uint8_t* state, int64_t n,
+                                          uint32_t block_keys,
                                           cuckoo::Geometry g) {
-  const int64_t i = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n || state[i] != KIND_BASE + OP) return;
-  const uint2 k = keys[i];
-  uint32_t hhi, hlo;
-  cuckoo::hash_key(k.x, k.y, g, hhi, hlo);
-  if (is_repeat(scratch, log2_slots, mark_value(hhi, hlo))) {
-    state[i] = 1 + OP;
-    return;
+  int64_t first, end;
+  cuckoo::block_tile(n, block_keys, first, end);
+  for (int64_t i = first + threadIdx.x; i < end; i += cuckoo::THREADS) {
+    if (state[i] != KIND_BASE + OP) continue;
+    const uint2 k = keys[i];
+    uint32_t hhi, hlo;
+    cuckoo::hash_key(k.x, k.y, g, hhi, hlo);
+    if (is_repeat(scratch, log2_slots, mark_value(hhi, hlo))) {
+      state[i] = 1 + OP;
+      continue;
+    }
+    ok[i] = settle<W, F, OP, OP == cuckoo::OP_QUERY>(
+        table, cuckoo::prepare(k.x, k.y, g));
+    state[i] = 0;
   }
-  ok[i] = settle<W, F, OP, OP == cuckoo::OP_QUERY>(
-      table, cuckoo::prepare(k.x, k.y, g));
-  state[i] = 0;
 }
 
 // ``info[j]``: at sorted position j, the length of the run that begins
@@ -415,12 +429,14 @@ cudaError_t launch_walk(uint32_t* table, const int64_t* value,
 // uint32[n, 2]; ops: int32[n]; valid: uint8[n]; scratch: uint64[2^s],
 // 2^s >= 2n; ok, state: uint8[n]. Afterwards state[i] is 1 + the kind of
 // op i (0 query, 1 insert, 2 delete) where it is a valid op of a repeated
-// value (its ok left for the walk), else 0.
-// Returns the cudaError_t of the launches.
+// value (its ok left for the walk), else 0. block_keys: the ops a block of
+// the mark and of each apply launch (cuckoo::block_keys_ok); the walk's
+// grid is its own. Returns the cudaError_t of the launches.
 CUCKOO_EXPORT int cuckoo_mixed_launch(void* table, const void* keys,
                                       const void* ops, const void* valid,
                                       void* scratch, uint32_t log2_slots,
                                       int64_t n, void* ok, void* state,
+                                      uint32_t block_keys,
                                       uint32_t num_buckets,
                                       uint32_t bucket_size, uint32_t fp_bits,
                                       uint32_t policy, uint32_t hash_kind,
@@ -429,9 +445,10 @@ CUCKOO_EXPORT int cuckoo_mixed_launch(void* table, const void* keys,
                            hash_kind, seed};
   const uint32_t wpb = bucket_size / (32 / fp_bits);
   CUCKOO_DISPATCH(wpb, fp_bits, (void)0)  // refuse a layout before any launch
-  if (log2_slots < 1 || log2_slots > 62 || (int64_t(1) << log2_slots) < 2 * n)
+  if (log2_slots < 1 || log2_slots > 62 ||
+      (int64_t(1) << log2_slots) < 2 * n || !cuckoo::block_keys_ok(block_keys))
     return int(cudaErrorInvalidValue);
-  const dim3 grid(unsigned((n + cuckoo::THREADS - 1) / cuckoo::THREADS));
+  const dim3 grid = cuckoo::tile_grid(n, block_keys);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto* slots = static_cast<unsigned long long*>(scratch);
   const auto* k = static_cast<const uint2*>(keys);
@@ -442,15 +459,18 @@ CUCKOO_EXPORT int cuckoo_mixed_launch(void* table, const void* keys,
   if (e != cudaSuccess) return int(e);
   cuckoo_mixed_mark_kernel<<<grid, cuckoo::THREADS, 0, s>>>(
       slots, log2_slots, k, static_cast<const int32_t*>(ops),
-      static_cast<const uint8_t*>(valid), o, st, n, g);
+      static_cast<const uint8_t*>(valid), o, st, n, block_keys, g);
   if ((e = cudaGetLastError()) != cudaSuccess) return int(e);
   CUCKOO_DISPATCH(wpb, fp_bits,
       cuckoo_mixed_apply_kernel<W, F, cuckoo::OP_QUERY>
-          <<<grid, cuckoo::THREADS, 0, s>>>(t, k, slots, log2_slots, o, st, n, g);
+          <<<grid, cuckoo::THREADS, 0, s>>>(t, k, slots, log2_slots, o, st, n,
+                                            block_keys, g);
       cuckoo_mixed_apply_kernel<W, F, cuckoo::OP_DELETE>
-          <<<grid, cuckoo::THREADS, 0, s>>>(t, k, slots, log2_slots, o, st, n, g);
+          <<<grid, cuckoo::THREADS, 0, s>>>(t, k, slots, log2_slots, o, st, n,
+                                            block_keys, g);
       cuckoo_mixed_apply_kernel<W, F, cuckoo::OP_INSERT>
-          <<<grid, cuckoo::THREADS, 0, s>>>(t, k, slots, log2_slots, o, st, n, g))
+          <<<grid, cuckoo::THREADS, 0, s>>>(t, k, slots, log2_slots, o, st, n,
+                                            block_keys, g))
   return int(cudaGetLastError());
 }
 

@@ -13,7 +13,8 @@
 // 8 key bytes in and 1 hit byte out.
 //
 // The design reads no bucket the answer does not need. One thread per key
-// (more keys a thread lost on the direct insert's same random traffic):
+// at a time (more keys a thread in flight lost on the direct insert's same
+// random traffic; a block owns block_keys keys, kernels/autotune.py):
 // hash, read bucket i1 with 16-byte read-only vector loads (__ldg: the
 // table does not change during a query), SWAR-match it against t1 on the
 // packed words in registers, and only if no lane matches read bucket i2
@@ -32,20 +33,24 @@ template <int W, int F>
 __global__ void cuckoo_query_kernel(const uint32_t* __restrict__ table,
                                     const uint2* __restrict__ keys,
                                     uint8_t* __restrict__ hit, int64_t n,
-                                    cuckoo::Geometry g) {
-  const int64_t i = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const uint2 k = keys[i];
-  hit[i] = cuckoo::query<W, F, cuckoo::Swar>(table,
-                                             cuckoo::prepare(k.x, k.y, g));
+                                    uint32_t block_keys, cuckoo::Geometry g) {
+  int64_t first, end;
+  cuckoo::block_tile(n, block_keys, first, end);
+  for (int64_t i = first + threadIdx.x; i < end; i += cuckoo::THREADS) {
+    const uint2 k = keys[i];
+    hit[i] = cuckoo::query<W, F, cuckoo::Swar>(table,
+                                               cuckoo::prepare(k.x, k.y, g));
+  }
 }
 
 }  // namespace
 
 // table: uint32[num_buckets * wpb]; keys: uint32[n, 2] (lo, hi);
-// hit: uint8[n]. Returns the cudaError_t of the launch.
+// hit: uint8[n]; block_keys: keys a block (cuckoo::block_keys_ok).
+// Returns the cudaError_t of the launch.
 CUCKOO_EXPORT int cuckoo_query_launch(const void* table, const void* keys,
                                       void* hit, int64_t n,
+                                      uint32_t block_keys,
                                       uint32_t num_buckets,
                                       uint32_t bucket_size, uint32_t fp_bits,
                                       uint32_t policy, uint32_t hash_kind,
@@ -53,12 +58,13 @@ CUCKOO_EXPORT int cuckoo_query_launch(const void* table, const void* keys,
   const cuckoo::Geometry g{num_buckets, bucket_size, fp_bits, policy,
                            hash_kind, seed};
   const uint32_t wpb = bucket_size / (32 / fp_bits);
-  const dim3 grid(unsigned((n + cuckoo::THREADS - 1) / cuckoo::THREADS));
+  if (!cuckoo::block_keys_ok(block_keys)) return int(cudaErrorInvalidValue);
+  const dim3 grid = cuckoo::tile_grid(n, block_keys);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   CUCKOO_DISPATCH(wpb, fp_bits,
                   cuckoo_query_kernel<W, F><<<grid, cuckoo::THREADS, 0, s>>>(
                       static_cast<const uint32_t*>(table),
                       static_cast<const uint2*>(keys),
-                      static_cast<uint8_t*>(hit), n, g))
+                      static_cast<uint8_t*>(hit), n, block_keys, g))
   return int(cudaGetLastError());
 }

@@ -66,10 +66,19 @@
 //   thread) spilled and serialised the wgmmas. TMA zero-fills K/V rows
 //   past Sk because S is a dimension of its own in the tensor maps. Under
 //   the causal mask the heaviest query tiles launch first.
-// * FMA (fp32, and bf16 at other head sizes up to 128): 4 warps of 4
-//   query rows each, a 32-key tile in shared memory as fp32, a lane per
-//   key for the scores and a lane per output column for P V; everything
-//   fp32, as the TPU kernel computes.
+// * FMA (fp32, and bf16 at other head sizes; D and Dv up to 256 in any
+//   combination, as the Pallas kernel takes them: gemma's 256, MLA's 192
+//   against 128): 4 warps of 4 query rows each, a 32-key tile in shared
+//   memory as fp32, a lane per key for the scores and a lane per output
+//   column for P V; everything fp32, as the TPU kernel computes. It is
+//   compiled for a head-size bound of 128 and of 256, its tiles sized by
+//   the bound: at 256 they take 80 KB, past the 48 KB of static shared
+//   memory, so both bounds take theirs dynamically (the attribute set
+//   once a device). A smaller key tile would have kept them static, but a
+//   tile is a lane a key: fewer keys would leave lanes idle in every
+//   score and every P V step. At 256 a block of 80 KB leaves two blocks
+//   an SM; this variant is the plain-and-right one, the tensor cores at
+//   these shapes are later work.
 #include <atomic>
 #include <cstdint>
 #include <cuda.h>  // CUtensorMap; the encoder comes from the runtime
@@ -649,20 +658,31 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 }
 
 // ---------------------------------------------------------------------------
-// FMA variant (fp32 or bf16 inputs, D and Dv up to 128).
+// FMA variant (fp32 or bf16 inputs, D and Dv up to 256).
 // ---------------------------------------------------------------------------
 
 constexpr int FMA_ROWS = 4;                       // query rows a warp
 constexpr int FMA_BQ = FMA_ROWS * (THREADS / 32); // 16 rows a block
 constexpr int FMA_BKT = 32;                       // keys a tile: a lane each
-constexpr int FMA_DMAX = 128;
+constexpr int FMA_DMAX = 256;                     // the larger bound
 
-template <typename T>
+// Shared memory of the tiles at head-size bound DMAX: the block's q rows,
+// a tile of k rows (one float more a row: lane j reads row j) and of v
+// rows, all fp32.
+template <int DMAX>
+constexpr int fma_smem_bytes() {
+  return int(sizeof(float)) *
+         (FMA_BQ * DMAX + FMA_BKT * (DMAX + 1) + FMA_BKT * DMAX);
+}
+
+template <typename T, int DMAX>
 __global__ void __launch_bounds__(THREADS)
 flash_fma_kernel(Params p) {
-  __shared__ float qs[FMA_BQ][FMA_DMAX];
-  __shared__ float kf[FMA_BKT][FMA_DMAX + 1];   // +1: lane j reads row j
-  __shared__ float vf[FMA_BKT][FMA_DMAX];
+  extern __shared__ __align__(16) float fma_smem[];
+  auto qs = reinterpret_cast<float (*)[DMAX]>(fma_smem);
+  auto kf = reinterpret_cast<float (*)[DMAX + 1]>(fma_smem + FMA_BQ * DMAX);
+  auto vf = reinterpret_cast<float (*)[DMAX]>(
+      fma_smem + FMA_BQ * DMAX + FMA_BKT * (DMAX + 1));
 
   const int bh = blockIdx.x;
   const int q0 = blockIdx.y * FMA_BQ;
@@ -678,14 +698,14 @@ flash_fma_kernel(Params p) {
     qs[r][c] = q0 + r < p.sq ? to_f(q[int64_t(q0 + r) * p.d + c]) : 0.f;
   }
 
-  float acc[FMA_ROWS][FMA_DMAX / 32];
+  float acc[FMA_ROWS][DMAX / 32];
   float m[FMA_ROWS], l[FMA_ROWS];
 #pragma unroll
   for (int r = 0; r < FMA_ROWS; ++r) {
     m[r] = NEG_INF;
     l[r] = 0.f;
 #pragma unroll
-    for (int j = 0; j < FMA_DMAX / 32; ++j) acc[r][j] = 0.f;
+    for (int j = 0; j < DMAX / 32; ++j) acc[r][j] = 0.f;
   }
 
   int lo, hi;
@@ -724,11 +744,11 @@ flash_fma_kernel(Params p) {
       l[r] = l[r] * corr + sum;
       m[r] = mn;
 #pragma unroll
-      for (int j = 0; j < FMA_DMAX / 32; ++j) acc[r][j] *= corr;
+      for (int j = 0; j < DMAX / 32; ++j) acc[r][j] *= corr;
       for (int kk = 0; kk < FMA_BKT; ++kk) {
         const float pk = __shfl_sync(FULL, pr, kk);
 #pragma unroll
-        for (int j = 0; j < FMA_DMAX / 32; ++j) {
+        for (int j = 0; j < DMAX / 32; ++j) {
           const int c = lane + 32 * j;
           if (c < p.dv) acc[r][j] = fmaf(pk, vf[kk][c], acc[r][j]);
         }
@@ -742,7 +762,7 @@ flash_fma_kernel(Params p) {
     if (row >= p.sq) continue;
     const float den = fmaxf(l[r], L_FLOOR);
 #pragma unroll
-    for (int j = 0; j < FMA_DMAX / 32; ++j) {
+    for (int j = 0; j < DMAX / 32; ++j) {
       const int c = lane + 32 * j;
       if (c < p.dv)
         store1(p, out0 + int64_t(row) * p.dv + c, acc[r][j] / den);
@@ -848,13 +868,34 @@ int launch_wgmma(const void* q, const void* k, const void* v, int64_t batch,
   return int(cudaGetLastError());
 }
 
+// The FMA variant at head-size bound DMAX, its tiles in dynamic shared
+// memory (the attribute set once a device, as for the wgmma variant).
+template <typename T, int DMAX>
+int launch_fma(dim3 grid, const Params& p, cudaStream_t stream) {
+  constexpr int smem = fma_smem_bytes<DMAX>();
+  static std::atomic<uint64_t> set_on{0};
+  int device = 0;
+  const cudaError_t dev = cudaGetDevice(&device);
+  if (dev != cudaSuccess) return int(dev);
+  const uint64_t bit = device < 64 ? uint64_t(1) << device : 0;
+  if (!(set_on.load(std::memory_order_relaxed) & bit)) {
+    const cudaError_t attr = cudaFuncSetAttribute(
+        flash_fma_kernel<T, DMAX>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (attr != cudaSuccess) return int(attr);
+    set_on.fetch_or(bit, std::memory_order_relaxed);
+  }
+  flash_fma_kernel<T, DMAX><<<grid, THREADS, smem, stream>>>(p);
+  return int(cudaGetLastError());
+}
+
 }  // namespace
 
 // Variant 1 (wgmma: bf16, d == dv in {32, 64, 128}): q and out are
 // (batch, kvh, g, sq, d) views and k, v (batch, kvh, sk, d) views, with
 // element strides outermost first (q_strides / o_strides: b, kvh, g, s;
 // k_strides / v_strides: b, kvh, s), D contiguous. Variant 0 (FMA: d, dv
-// <= 128, dtype 0 = float32 or 1 = bfloat16) takes the contiguous kernel
+// <= 256, dtype 0 = float32 or 1 = bfloat16) takes the contiguous kernel
 // layout, q [batch * kvh, g, sq, d], k [batch * kvh, sk, d], v [..., dv],
 // out [batch * kvh, g, sq, dv], and ignores the strides. out_dtype 0 =
 // float32, 1 = bfloat16; window < 0: none. Returns the cudaError_t of the
@@ -889,9 +930,10 @@ extern "C" __attribute__((visibility("default"))) int flash_attention_launch(
   const Params p{q, k, v, out, g, sq, sk, d, dv, causal, window, q_offset,
                  out_dtype == 1, scale};
   const dim3 grid(unsigned(rows), unsigned((sq + FMA_BQ - 1) / FMA_BQ));
+  const bool wide = d > 128 || dv > 128;
   if (dtype == 0)
-    flash_fma_kernel<float><<<grid, THREADS, 0, s>>>(p);
-  else
-    flash_fma_kernel<__nv_bfloat16><<<grid, THREADS, 0, s>>>(p);
-  return int(cudaGetLastError());
+    return wide ? launch_fma<float, 256>(grid, p, s)
+                : launch_fma<float, 128>(grid, p, s);
+  return wide ? launch_fma<__nv_bfloat16, 256>(grid, p, s)
+              : launch_fma<__nv_bfloat16, 128>(grid, p, s);
 }

@@ -29,6 +29,7 @@ import torch
 from ..amq.protocol import OP_INSERT
 from ..core.cuckoo_filter import CuckooConfig
 from . import build
+from .autotune import DEFAULT_BLOCK_KEYS
 from .ref import apply_sequential
 
 
@@ -43,22 +44,26 @@ def cuckoo_insert_direct_plain(config: CuckooConfig, table: torch.Tensor,
 
 def cuckoo_insert_launch(config: CuckooConfig, table: torch.Tensor,
                          keys: torch.Tensor, valid: torch.Tensor,
-                         ok: torch.Tensor) -> None:
-    """Launch the kernel on the current stream (arguments already checked)."""
+                         ok: torch.Tensor,
+                         block_keys: int = DEFAULT_BLOCK_KEYS["insert"]
+                         ) -> None:
+    """Launch the kernel on the current stream, ``block_keys`` keys a
+    block (arguments already checked)."""
     rc = build.load("cuckoo_insert").cuckoo_insert_launch(
         table.data_ptr(), keys.data_ptr(), valid.data_ptr(), ok.data_ptr(),
-        keys.shape[0], *build.geometry(config),
+        keys.shape[0], block_keys, *build.geometry(config),
         torch.cuda.current_stream(table.device).cuda_stream)
     build.check(rc, "cuckoo_insert")
 
 
-def cuckoo_insert_unfused_launch(config: CuckooConfig, table: torch.Tensor,
-                                 keys: torch.Tensor, valid: torch.Tensor,
-                                 ok: torch.Tensor) -> None:
-    """Launch the unfused kernel on the current stream (arguments already
-    checked)."""
+def cuckoo_insert_unfused_launch(
+        config: CuckooConfig, table: torch.Tensor, keys: torch.Tensor,
+        valid: torch.Tensor, ok: torch.Tensor,
+        block_keys: int = DEFAULT_BLOCK_KEYS["insert"]) -> None:
+    """Launch the unfused kernel on the current stream, ``block_keys``
+    keys a block (arguments already checked)."""
     rc = build.load("cuckoo_insert_unfused").cuckoo_insert_unfused_launch(
         table.data_ptr(), keys.data_ptr(), valid.data_ptr(), ok.data_ptr(),
-        keys.shape[0], *build.geometry(config),
+        keys.shape[0], block_keys, *build.geometry(config),
         torch.cuda.current_stream(table.device).cuda_stream)
     build.check(rc, "cuckoo_insert_unfused")

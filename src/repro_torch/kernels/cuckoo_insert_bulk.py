@@ -24,6 +24,7 @@ import torch
 
 from ..core.cuckoo_filter import CuckooConfig, prepare_keys_plain
 from . import build
+from .autotune import DEFAULT_BLOCK_KEYS
 from .bloom import MAX_WINDOWS, WindowPlan, l2_bytes, window_split
 from .cuckoo_insert import cuckoo_insert_direct_plain
 
@@ -71,11 +72,14 @@ def bulk_plan(config: CuckooConfig, n: int, l2_bytes: int) -> WindowPlan:
 
 def cuckoo_insert_bulk_launch(config: CuckooConfig, table: torch.Tensor,
                               keys: torch.Tensor, valid: torch.Tensor,
-                              ok: torch.Tensor,
-                              plan: WindowPlan = None) -> None:
+                              ok: torch.Tensor, plan: WindowPlan = None, *,
+                              block_keys: int = DEFAULT_BLOCK_KEYS[
+                                  "bulk_insert"]) -> None:
     """Run the route on the current stream (arguments checked, ``n >= 1``)
-    by ``plan``, by default :func:`bulk_plan`'s for this card. The windowed
-    route's scratch comes from torch's allocator."""
+    by ``plan``, by default :func:`bulk_plan`'s for this card, with a tile
+    of ``block_keys`` entries (half of it a block where the insert pass
+    runs alone). The windowed route's scratch comes from torch's
+    allocator."""
     n = keys.shape[0]
     if plan is None:
         plan = bulk_plan(config, n, l2_bytes(table.device))
@@ -89,6 +93,6 @@ def cuckoo_insert_bulk_launch(config: CuckooConfig, table: torch.Tensor,
     rc = lib.cuckoo_insert_bulk_launch(
         table.data_ptr(), keys.data_ptr(), valid.data_ptr(), ok.data_ptr(), n,
         None if scratch is None else scratch.data_ptr(), plan.log2_window,
-        windows, *build.geometry(config),
+        windows, block_keys, *build.geometry(config),
         torch.cuda.current_stream(table.device).cuda_stream)
     build.check(rc, "cuckoo_insert_bulk")

@@ -28,6 +28,7 @@ import torch
 from ..core.bits64 import MASK32
 from ..core.cuckoo_filter import CuckooConfig
 from . import build
+from .autotune import DEFAULT_BLOCK_KEYS
 from .ref import apply_sequential
 
 
@@ -60,16 +61,19 @@ def scratch_slots(n: int) -> int:
 def cuckoo_mixed_launch(config: CuckooConfig, table: torch.Tensor,
                         keys: torch.Tensor, ops: torch.Tensor,
                         valid: torch.Tensor, scratch: torch.Tensor,
-                        ok: torch.Tensor, state: torch.Tensor) -> None:
+                        ok: torch.Tensor, state: torch.Tensor,
+                        block_keys: int = DEFAULT_BLOCK_KEYS["apply_ops"]
+                        ) -> None:
     """Clear ``scratch`` (int64[:func:`scratch_slots`]), mark the repeated
-    keys and apply the once-only ops, on the current stream (arguments
-    already checked). Afterwards ``state`` (uint8[n]) is 1 + the op's kind
-    (0 query, 1 insert, 2 delete) where its key is repeated, its ``ok``
-    left for :func:`cuckoo_mixed_walk_launch`, else 0."""
+    keys and apply the once-only ops, ``block_keys`` ops a block, on the
+    current stream (arguments already checked). Afterwards ``state``
+    (uint8[n]) is 1 + the op's kind (0 query, 1 insert, 2 delete) where
+    its key is repeated, its ``ok`` left for
+    :func:`cuckoo_mixed_walk_launch`, else 0."""
     rc = build.load("cuckoo_mixed").cuckoo_mixed_launch(
         table.data_ptr(), keys.data_ptr(), ops.data_ptr(), valid.data_ptr(),
         scratch.data_ptr(), scratch.shape[0].bit_length() - 1, keys.shape[0],
-        ok.data_ptr(), state.data_ptr(), *build.geometry(config),
+        ok.data_ptr(), state.data_ptr(), block_keys, *build.geometry(config),
         torch.cuda.current_stream(table.device).cuda_stream)
     build.check(rc, "cuckoo_mixed")
 
@@ -92,16 +96,20 @@ def cuckoo_mixed_walk_launch(config: CuckooConfig, table: torch.Tensor,
 
 def cuckoo_mixed_route(config: CuckooConfig, table: torch.Tensor,
                        keys: torch.Tensor, ops: torch.Tensor,
-                       valid: torch.Tensor, ok: torch.Tensor) -> int:
+                       valid: torch.Tensor, ok: torch.Tensor, *,
+                       block_keys: int = DEFAULT_BLOCK_KEYS["apply_ops"]
+                       ) -> int:
     """The whole route on ``n >= 1`` ops: scratch, the marks and the
-    once-only ops, then (only where some key repeats) the sort and the
-    walk. One host sync, the compaction of the repeated ops. Returns how
-    many ops the walk took (0: it launched nothing and sorted nothing)."""
+    once-only ops (``block_keys`` ops a block), then (only where some key
+    repeats) the sort and the walk. One host sync, the compaction of the
+    repeated ops. Returns how many ops the walk took (0: it launched
+    nothing and sorted nothing)."""
     n = keys.shape[0]
     scratch = torch.empty((scratch_slots(n),), dtype=torch.int64,
                           device=keys.device)
     state = torch.empty((n,), dtype=torch.uint8, device=keys.device)
-    cuckoo_mixed_launch(config, table, keys, ops, valid, scratch, ok, state)
+    cuckoo_mixed_launch(config, table, keys, ops, valid, scratch, ok, state,
+                        block_keys)
     repeated = state.nonzero().squeeze(1)
     if repeated.numel():
         values, perm = key_order(keys, repeated)

@@ -25,6 +25,7 @@ import torch
 from ..core import layout as L
 from ..core.cuckoo_filter import CuckooConfig, prepare_keys_plain
 from . import build
+from .autotune import DEFAULT_BLOCK_KEYS
 
 
 def cuckoo_query_plain(config: CuckooConfig, table: torch.Tensor,
@@ -59,21 +60,25 @@ def cuckoo_query_unfused_plain(config: CuckooConfig, table: torch.Tensor,
 
 
 def cuckoo_query_launch(config: CuckooConfig, table: torch.Tensor,
-                        keys: torch.Tensor, hit: torch.Tensor) -> None:
-    """Launch the kernel on the current stream (arguments already checked)."""
+                        keys: torch.Tensor, hit: torch.Tensor,
+                        block_keys: int = DEFAULT_BLOCK_KEYS["query"]) -> None:
+    """Launch the kernel on the current stream, ``block_keys`` keys a
+    block (arguments already checked)."""
     rc = build.load("cuckoo_query").cuckoo_query_launch(
         table.data_ptr(), keys.data_ptr(), hit.data_ptr(), keys.shape[0],
-        *build.geometry(config),
+        block_keys, *build.geometry(config),
         torch.cuda.current_stream(table.device).cuda_stream)
     build.check(rc, "cuckoo_query")
 
 
-def cuckoo_query_unfused_launch(config: CuckooConfig, table: torch.Tensor,
-                                keys: torch.Tensor, hit: torch.Tensor) -> None:
-    """Launch the unfused kernel on the current stream (arguments already
-    checked)."""
+def cuckoo_query_unfused_launch(
+        config: CuckooConfig, table: torch.Tensor, keys: torch.Tensor,
+        hit: torch.Tensor,
+        block_keys: int = DEFAULT_BLOCK_KEYS["query"]) -> None:
+    """Launch the unfused kernel on the current stream, ``block_keys``
+    keys a block (arguments already checked)."""
     rc = build.load("cuckoo_query_unfused").cuckoo_query_unfused_launch(
         table.data_ptr(), keys.data_ptr(), hit.data_ptr(), keys.shape[0],
-        *build.geometry(config),
+        block_keys, *build.geometry(config),
         torch.cuda.current_stream(table.device).cuda_stream)
     build.check(rc, "cuckoo_query_unfused")

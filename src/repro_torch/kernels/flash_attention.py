@@ -32,9 +32,10 @@ from . import build
 NEG_INF = -1e30
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # Head sizes of the tensor-core variant (bf16, D == Dv); the FMA variant
-# takes D and Dv up to FMA_DMAX.
+# takes D and Dv up to FMA_DMAX, in any combination (gemma's 256, MLA's
+# 192 against 128), as the Pallas kernel takes them.
 WGMMA_HEAD_DIMS = (32, 64, 128)
-FMA_DMAX = 128
+FMA_DMAX = 256
 
 
 def _softcap(s: torch.Tensor, cap):

@@ -10,6 +10,14 @@ kernels; the plain versions count nothing.
 
 Mutating wrappers update ``state.table`` in place and return a state that
 holds the same table tensor with the new count.
+
+The four cuckoo wrappers take ``block_keys`` (keyword only): the keys a
+block of their kernels owns (:mod:`.autotune`). ``None`` asks
+:func:`.autotune.resolve_block_keys` for this (op, device, geometry) cell,
+outside the launch: a recorded sweep's tile, else the default, which
+launches what the kernels launched before the tile could be tuned. A tile
+is one of ``autotune.CANDIDATES`` (256 to 2048); the plain versions ignore
+it.
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ from ..core.bits64 import to_i32
 from ..core.cuckoo_filter import CuckooConfig, CuckooState
 from ..filters.blocked_bloom import BloomConfig, BloomState
 from ..filters.quotient import GQFConfig, GQFState
+from . import autotune
 from .bloom import (bloom_insert_launch, bloom_insert_plain,
                     bloom_query_launch, bloom_query_plain)
 from .cuckoo_insert import (cuckoo_insert_direct_plain, cuckoo_insert_launch,
@@ -31,7 +40,7 @@ from .cuckoo_mixed import cuckoo_mixed_plain, cuckoo_mixed_route
 from .cuckoo_query import (cuckoo_query_launch, cuckoo_query_plain,
                            cuckoo_query_unfused_launch,
                            cuckoo_query_unfused_plain)
-from .flash_attention import (DTYPES as FLASH_DTYPES, bshd_views,
+from .flash_attention import (DTYPES as FLASH_DTYPES, FMA_DMAX, bshd_views,
                               flash_attention_launch, flash_attention_plain,
                               flash_variant, from_kernel_layout,
                               kernel_strides, to_kernel_layout)
@@ -103,6 +112,18 @@ def _check_kernel_layout(config: CuckooConfig, table: torch.Tensor,
         raise ValueError("table must be 16-byte and keys 8-byte aligned")
 
 
+def _block_keys(config: CuckooConfig, op: str, block_keys,
+                device) -> int:
+    """The tile a wrapper launches with: ``block_keys``, or for ``None``
+    the autotuner's for this cell; raises on one no kernel takes."""
+    if block_keys is None:
+        block_keys = autotune.resolve_block_keys(config, op, device)
+    if block_keys not in autotune.CANDIDATES:
+        raise ValueError(f"block_keys={block_keys}: the kernels take "
+                         f"{autotune.CANDIDATES}")
+    return int(block_keys)
+
+
 def _valid_mask(valid, n: int, device) -> torch.Tensor:
     if valid is None:
         return torch.ones((n,), dtype=torch.bool, device=device)
@@ -133,17 +154,19 @@ def hash64(keys: torch.Tensor, seed: int = 0, kind: str = "xxhash64"):
 
 
 def cuckoo_query(config: CuckooConfig, state: CuckooState,
-                 keys: torch.Tensor, fused: bool = True) -> torch.Tensor:
+                 keys: torch.Tensor, fused: bool = True, *,
+                 block_keys: int = None) -> torch.Tensor:
     """Kernel-backed batch query. keys int32[n, 2] -> bool[n].
 
     Both kernels read bucket i2 only where bucket i1 holds no matching
     tag. ``fused=True`` (default) matches tags with SWAR masks on the
     packed words; ``fused=False`` unpacks each lane and compares it on its
     own (the roofline suite's pre-fusion comparison). Both give the same
-    answers.
+    answers, at every ``block_keys``.
     """
     n = _check_keys(keys)
     _check_state(config, state)
+    bk = _block_keys(config, "query", block_keys, keys.device)
     if not _on_cuda(state.table, keys):
         plain = cuckoo_query_plain if fused else cuckoo_query_unfused_plain
         return plain(config, state.table, keys)
@@ -153,14 +176,14 @@ def cuckoo_query(config: CuckooConfig, state: CuckooState,
         launch, name = ((cuckoo_query_launch, "cuckoo_query") if fused else
                         (cuckoo_query_unfused_launch, "cuckoo_query_unfused"))
         with torch.cuda.device(keys.device):
-            launch(config, state.table, keys, hit)
+            launch(config, state.table, keys, hit, bk)
         LAUNCHES[name] += 1
     return hit
 
 
 def cuckoo_insert_direct(config: CuckooConfig, state: CuckooState,
                          keys: torch.Tensor, valid: torch.Tensor = None,
-                         fused: bool = True):
+                         fused: bool = True, *, block_keys: int = None):
     """Kernel-backed direct insert, no eviction -> (state', ok bool[n]).
 
     Keys with ``ok`` False (both buckets full) need the eviction-capable
@@ -173,6 +196,7 @@ def cuckoo_insert_direct(config: CuckooConfig, state: CuckooState,
     """
     n = _check_keys(keys)
     _check_state(config, state)
+    bk = _block_keys(config, "insert", block_keys, keys.device)
     valid = _valid_mask(valid, n, keys.device)
     if not _on_cuda(state.table, keys, valid):
         ok = cuckoo_insert_direct_plain(config, state.table, keys, valid)
@@ -184,14 +208,15 @@ def cuckoo_insert_direct(config: CuckooConfig, state: CuckooState,
                 (cuckoo_insert_launch, "cuckoo_insert_direct") if fused else
                 (cuckoo_insert_unfused_launch, "cuckoo_insert_unfused"))
             with torch.cuda.device(keys.device):
-                launch(config, state.table, keys, valid, ok)
+                launch(config, state.table, keys, valid, ok, bk)
             LAUNCHES[name] += 1
     count = state.count + ok.sum().to(torch.int32)
     return CuckooState(state.table, count), ok
 
 
 def cuckoo_insert_bulk(config: CuckooConfig, state: CuckooState,
-                       keys: torch.Tensor, valid: torch.Tensor = None):
+                       keys: torch.Tensor, valid: torch.Tensor = None, *,
+                       block_keys: int = None):
     """Kernel-backed bucket-major direct insert, no eviction -> (state',
     ok bool[n]).
 
@@ -201,10 +226,12 @@ def cuckoo_insert_bulk(config: CuckooConfig, state: CuckooState,
     host sync; ``kernels/cuckoo_insert_bulk.py``). ``ok`` comes back in
     batch order. Keys with ``ok`` False (both buckets full) need the
     eviction-capable core. ``valid`` (bool[n]) masks keys out; masked keys
-    report False.
+    report False. ``block_keys`` is the insert pass's tile (a block owns
+    half of it where the pass runs alone).
     """
     n = _check_keys(keys)
     _check_state(config, state)
+    bk = _block_keys(config, "bulk_insert", block_keys, keys.device)
     valid = _valid_mask(valid, n, keys.device)
     if not _on_cuda(state.table, keys, valid):
         ok = cuckoo_insert_bulk_plain(config, state.table, keys, valid)
@@ -213,7 +240,8 @@ def cuckoo_insert_bulk(config: CuckooConfig, state: CuckooState,
         ok = torch.empty((n,), dtype=torch.bool, device=keys.device)
         if n:
             with torch.cuda.device(keys.device):
-                cuckoo_insert_bulk_launch(config, state.table, keys, valid, ok)
+                cuckoo_insert_bulk_launch(config, state.table, keys, valid,
+                                          ok, block_keys=bk)
             LAUNCHES["cuckoo_insert_bulk"] += 1
     count = state.count + ok.sum().to(torch.int32)
     return CuckooState(state.table, count), ok
@@ -221,7 +249,7 @@ def cuckoo_insert_bulk(config: CuckooConfig, state: CuckooState,
 
 def cuckoo_apply_ops(config: CuckooConfig, state: CuckooState,
                      keys: torch.Tensor, ops: torch.Tensor,
-                     valid: torch.Tensor = None):
+                     valid: torch.Tensor = None, *, block_keys: int = None):
     """Kernel-backed mixed-op pass -> (state', ok bool[n]).
 
     ``ops``: int32[n] op codes (0 query / 1 insert / 2 delete); ``ok`` is
@@ -229,11 +257,14 @@ def cuckoo_apply_ops(config: CuckooConfig, state: CuckooState,
     resolve in batch order (DESIGN.md §9); on the GPU ops of different keys
     may take another order (``kernels/cuckoo_mixed.py``). Inserts are
     direct only: an insert with ``ok`` False needs the eviction-capable
-    core. On the GPU at most ``2**31 - 1`` ops a call.
+    core. On the GPU at most ``2**31 - 1`` ops a call. ``block_keys`` is
+    the tile of the route's mark and once-only launches (its walk keeps its
+    own grid).
     """
     n = _check_keys(keys)
     _check_state(config, state)
     _check(ops, "ops", torch.int32, (n,))
+    bk = _block_keys(config, "apply_ops", block_keys, keys.device)
     valid = _valid_mask(valid, n, keys.device)
     if not _on_cuda(state.table, keys, ops, valid):
         ok = cuckoo_mixed_plain(config, state.table, keys, ops, valid)
@@ -246,7 +277,7 @@ def cuckoo_apply_ops(config: CuckooConfig, state: CuckooState,
         if n:
             with torch.cuda.device(keys.device):
                 walked = cuckoo_mixed_route(config, state.table, keys, ops,
-                                            valid, ok)
+                                            valid, ok, block_keys=bk)
             LAUNCHES["cuckoo_mixed"] += 1
             LAUNCHES["cuckoo_mixed_walk"] += bool(walked)
     delta = (ok & (ops == OP_INSERT)).sum() - (ok & (ops == OP_DELETE)).sum()
@@ -456,7 +487,7 @@ def _kernel_variant(q, k, v, attn_softcap) -> str:
     variant = flash_variant(q.dtype, q.shape[3], v.shape[3])
     if variant is None:
         raise ValueError(f"flash_attention: head sizes D={q.shape[3]}, "
-                         f"Dv={v.shape[3]} exceed the kernel's 128")
+                         f"Dv={v.shape[3]} exceed the kernel's {FMA_DMAX}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if variant == "wgmma":
             if t.stride(-1) != 1:

@@ -43,8 +43,13 @@ SWEEP = [
     (1, 4, 1, 256, 256, 128, 128, False, None, 128, 128, "float32"),
     (1, 1, 8, 100, 130, 32, 32, True, None, 64, 64, "float32"),  # ragged
     (2, 2, 2, 128, 128, 64, 64, True, None, 128, 64, "bfloat16"),
+    # Head sizes past 128, which the Pallas kernel takes (gemma's 256;
+    # MLA's D 192 against Dv 128), at small B, H and S.
+    (1, 1, 2, 40, 48, 256, 256, True, None, 64, 64, "float32"),
+    (1, 1, 2, 40, 48, 192, 128, True, None, 64, 64, "bfloat16"),
 ]
-IDS = ["gqa3", "window64", "noncausal", "ragged", "bf16"]
+IDS = ["gqa3", "window64", "noncausal", "ragged", "bf16", "d256",
+       "d192dv128"]
 
 
 def _tol(dtype):
@@ -172,14 +177,34 @@ def test_kernel_route_checks_raise_before_launch():
         K.check_flash_kernel(qk.transpose(2, 3).contiguous().transpose(2, 3),
                              kk, vk)
     with pytest.raises(ValueError, match="exceed"):
-        wide = torch.zeros(qk.shape[:3] + (256,), dtype=torch.bfloat16)
-        K.check_flash_kernel(wide, torch.zeros(kk.shape[:2] + (256,),
+        wide = torch.zeros(qk.shape[:3] + (257,), dtype=torch.bfloat16)
+        K.check_flash_kernel(wide, torch.zeros(kk.shape[:2] + (257,),
                                                dtype=torch.bfloat16), vk)
     # Dtype and shape checks hold on both routes.
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         K.flash_attention(qk.half(), kk.half(), vk.half())
     with pytest.raises(ValueError, match="expected q"):
         K.flash_attention(qk, kk[:, :5], vk)
+
+
+@pytest.mark.parametrize("d,dv,variant", [
+    (256, 256, "fma"), (192, 128, "fma"), (128, 256, "fma"),
+    (128, 128, "wgmma"), (257, 128, None), (128, 257, None)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_check_flash_kernel_takes_head_sizes_up_to_256(d, dv, variant, dtype):
+    """The kernel takes D and Dv up to 256 in any combination, as the
+    Pallas kernel does: the FMA variant beyond the tensor cores' sizes;
+    past 256 it raises before any launch."""
+    q = torch.zeros((2, 3, 16, d), dtype=dtype)
+    k = torch.zeros((2, 16, d), dtype=dtype)
+    v = torch.zeros((2, 16, dv), dtype=dtype)
+    if variant is None:
+        with pytest.raises(ValueError, match="exceed the kernel's 256"):
+            K.check_flash_kernel(q, k, v)
+        return
+    if variant == "wgmma" and dtype == torch.float32:
+        variant = "fma"
+    assert K.check_flash_kernel(q, k, v) == variant
 
 
 def _padded(t, pad=8):

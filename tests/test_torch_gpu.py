@@ -87,6 +87,7 @@ from repro_torch.filters.blocked_bloom import BloomConfig
 from repro_torch.kernels import bloom as bloom_kernels
 from repro_torch.kernels.bloom import bloom_insert_plain, bloom_query_plain
 from repro_torch.core.cuckoo_filter import prepare_keys_plain
+from repro_torch.kernels import autotune as AT
 from repro_torch.kernels import ops as K
 from repro_torch.kernels.cuckoo_insert import cuckoo_insert_direct_plain
 from repro_torch.kernels import cuckoo_insert_bulk as bulk_module
@@ -956,7 +957,8 @@ def test_bloom_matches_plain(cuda, monkeypatch, wpb, k, hash_kind, case):
 # tensor-core head size, bf16 through the FMA variant (Dv != D), a
 # windowed bf16 case with a query offset, rows that see no key, GQA g = 8,
 # and ragged edges: Sq past 128 and not a multiple of it, Sk not a
-# multiple of the wgmma variant's key tile (96 at D = 128, 128 below).
+# multiple of the wgmma variant's key tile (96 at D = 128, 128 below);
+# last, head sizes past 128 (the FMA variant's bound of 256).
 FLASH_CASES = [
     (4, 3, 192, 256, 64, 32, True, None, 0, torch.float32),
     (4, 3, 192, 256, 64, 32, True, 64, 0, torch.float32),
@@ -972,6 +974,11 @@ FLASH_CASES = [
     (2, 3, 333, 517, 64, 64, True, None, 0, torch.bfloat16),
     (4, 2, 1000, 1000, 128, 128, True, 300, 0, torch.bfloat16),
     (2, 2, 200, 389, 128, 128, False, None, 0, torch.bfloat16),
+    # The FMA variant's wider bound: gemma's head size 256 in both dtypes,
+    # and MLA's D 192 against Dv 128.
+    (4, 2, 200, 260, 256, 256, True, None, 0, torch.float32),
+    (4, 2, 200, 260, 256, 256, True, None, 0, torch.bfloat16),
+    (2, 3, 130, 200, 192, 128, True, 64, 16, torch.bfloat16),
 ]
 
 
@@ -1361,3 +1368,86 @@ def test_dedup_on_the_card(cuda):
     d.flush()
     assert len(d.handle.levels) > 1 and d.stats["insert_failures"] == 0
     assert fresh_masked <= 2 and d.handle.count() == len(seen) - fresh_masked
+
+
+@pytest.mark.parametrize("op,windows", [
+    ("query", 1), ("insert", 1), ("bulk_insert", 1), ("bulk_insert", 16),
+    ("apply_ops", 1)], ids=["query", "insert", "bulk_insert-one-window",
+                            "bulk_insert-16-windows", "apply_ops"])
+def test_block_keys_candidates_match_plain(cuda, monkeypatch, op, windows):
+    """Every candidate tile of the autotuner, and the default, on keys that
+    share no bucket (so every order of the CASes gives the sequential
+    loop's outcome), half of them stored, in a batch that leaves a ragged
+    last tile at every candidate: the query's answers equal the plain
+    version's; the inserts' and the mixed ops' ``ok``, ``count`` and
+    every bucket's tag multiset equal the plain loop's, and every key they
+    accept is found. The bulk insert by both of its routes (the windowed
+    one's insert pass is compiled once for each tile)."""
+    cfg = _cfg(16, 16, "xor", "fmix32", num_buckets=1 << 16)
+    state, placed = _half_full(cfg, cuda, 21)
+    pool = torch.cat([placed[:6000], _keys(22, 6000, cuda)])
+    pool = pool[torch.randperm(pool.shape[0],
+                               generator=torch.Generator().manual_seed(5))
+                .to(cuda)]
+    keys = pool[_disjoint(cfg, pool)[:4099]]
+    n = keys.shape[0]
+    assert n == 4099
+    ops = torch.randint(0, 3, (n,), generator=torch.Generator().manual_seed(6),
+                        dtype=torch.int32).to(cuda)
+    if op == "bulk_insert":
+        _bulk_route(monkeypatch, cfg, n, windows)
+    if op == "query":
+        want = cuckoo_query_plain(cfg, state.table, keys)
+    else:
+        t_plain = state.table.clone()
+        plain = {"insert": lambda: cuckoo_insert_direct_plain(cfg, t_plain,
+                                                               keys),
+                 "bulk_insert": lambda: cuckoo_insert_bulk_plain(cfg, t_plain,
+                                                                 keys),
+                 "apply_ops": lambda: cuckoo_mixed_plain(cfg, t_plain, keys,
+                                                         ops)}[op]
+        ok_plain = plain()
+        multisets = _bucket_multisets(cfg, t_plain)
+    for bk in AT.CANDIDATES:
+        table = state.table.clone()
+        K.reset_launches()
+        out = AT.run_op(cfg, op, state._replace(table=table), keys, ops, bk)
+        torch.cuda.synchronize()
+        assert sum(K.LAUNCHES.values()) >= 1
+        if op == "query":
+            assert torch.equal(out, want), bk
+            continue
+        st, ok = out
+        assert torch.equal(ok, ok_plain), bk
+        delta = int(ok.sum()) if op != "apply_ops" else int(
+            (ok & (ops == 1)).sum() - (ok & (ops == 2)).sum())
+        assert int(st.count) == int(state.count) + delta, bk
+        assert torch.equal(_bucket_multisets(cfg, table), multisets), bk
+        accepted = ok if op != "apply_ops" else ok & (ops == 1)
+        assert bool(K.cuckoo_query(cfg, st, keys[accepted]).all()), bk
+
+
+def test_block_keys_refused_and_resolved(cuda):
+    """A tile no kernel takes raises before a launch; ``None`` takes the
+    tile recorded for the cell (the device's name in its key), which gives
+    the same answers."""
+    cfg = _cfg(16, 16, "xor", "fmix32")
+    state, placed = _half_full(cfg, cuda, 23)
+    K.reset_launches()
+    for bk in (128, 384, 4096):
+        with pytest.raises(ValueError, match="block_keys"):
+            K.cuckoo_query(cfg, state, placed, block_keys=bk)
+    assert K.LAUNCHES["cuckoo_query"] == 0
+    AT.clear()
+    try:
+        assert torch.cuda.get_device_name(cuda) in AT.cache_key(cfg, "query",
+                                                                cuda)
+        AT.record(cfg, "query", 2048, cuda)
+        assert AT.resolve_block_keys(cfg, "query", placed.device) == 2048
+        assert bool(K.cuckoo_query(cfg, state, placed).all())
+        AT.clear()
+        best = AT.autotune(cfg, "query", n=1 << 14, device=cuda)
+        assert best in AT.CANDIDATES
+        assert AT.resolve_block_keys(cfg, "query", cuda) == best
+    finally:
+        AT.clear()
