@@ -273,7 +273,51 @@ toolkit. Phases, one JSON line each:
    the timed tensors and timed beside SDPA (``enable_gqa`` for shared KV
    heads). The wgmma kernels'
    registers and spills from ``ptxas -v`` are printed after the build
-   (no spill allowed).
+   (no spill allowed; the six: three head sizes, with and without the
+   attention softcap).
+8c. kernel #11 at the served architectures' attention shapes
+   (``flash_model_shapes``, ``FLASH_MODEL_SHAPES``, bf16, causal): with
+   gemma2_2b's softcap of 50 at its shapes (H 8 / KVH 4, D 256) at S 4096
+   and at S 8192 under its 4096 window (the window bites), the wgmma
+   variant at D 128 with the cap and without, h2o_danube3_4b's D 120,
+   gemma2_2b's serving prefill with the cap (its uncapped time is
+   ``WIDE_HEADS``'s ``gemma2_2b_d256``), and
+   deepseek_v3_671b's MLA prefill (H 128, D 192 / Dv 128): each held to
+   the plain version as in 8b (scores
+   drawn large where capped, and the cap must move the output), then
+   timed (the kernel-layout wrapper, the model's call, the plain version,
+   SDPA where it computes the same function: no cap, no window) beside
+   the bound over the unmasked pairs.
+8d. the dense, MoE and MLA architectures (``serve_<arch>``):
+   ``gemma2_2b``, ``gemma3_4b``, ``h2o_danube3_4b``, ``chameleon_34b``,
+   ``mixtral_8x22b`` and ``deepseek_v3_671b`` at their published widths
+   (d_model, heads, head size, d_ff, experts, vocab), each at its depth on
+   the card (``MODEL_DEPTHS``: all layers, but mixtral 8 of 56 and
+   deepseek 4 of 61, its 3 dense layers and 1 MoE layer; chameleon's 48
+   cut only if they do not fit; the depth is in the record), built from a
+   seeded CUDA generator and served as in phase 8 (batch 4, 1024-token
+   prompts, 32 decode steps, the ten requests) with its gates: the
+   parameter count equal to the cut config's ``param_count`` plus its
+   norm scales, the prefix cache's counters, repeated prompts' tokens,
+   the flash kernel once a layer a prefill, the hash, direct-insert and
+   mixed kernels launched, the evicted entries freed, every logit finite.
+   Reported: prefill seconds and tokens/s, decode ms a step, peak device
+   memory, the cache entry's bytes. Then one served prefill again with
+   every attention call's kernel output held to the plain version on its
+   own inputs (``prefill_held_to_plain``, 1e-2 over the row's max): each
+   architecture's heads, window and cap as the served path hands them to
+   #11 (chameleon's H 64 / KVH 8 and mixtral's H 48 / KVH 8 with its
+   window included). ``gemma3_4b`` also runs one prefill
+   at S 2048, where its 1024 window bites: every attention call's kernel
+   output against the plain version on the same inputs (1e-2 over the
+   row's max) and the logits against a run whose attention is the plain
+   version throughout (rtol 5e-2, atol max(5e-2, 2e-2 max|ref|)). Each
+   MoE model's last layer runs ``models.moe.moe_apply`` on 1024 tokens,
+   at the config's capacity factor and at 1.0 (tokens drop there),
+   against its function written plainly on the card (``moe_plain``:
+   ``torch.topk``, ranks by a running count, one expert at a time, the
+   combine in float32): the same kept / dropped sets and slots, the
+   output within 2e-2 max|ref|.
 9. the main path again at 2^22 slots (an 8 MiB table, resident in L2);
    then phase 3b's comparison on two tables of 2^22 slots that stay in
    the L2 (``unfused_comparison_l2``): that fill's table at load 0.5 (fp
@@ -351,7 +395,10 @@ toolkit. Phases, one JSON line each:
    ``examples/kmer_index_torch.py`` by their ``main("cuda")``, launch
    counts zeroed just before each: quickstart's registry loop launches the
    cuckoo, Bloom (#8, #9) and GQF (G1, G2) kernels; ``kmer_index`` the
-   k-mer pack (#10).
+   k-mer pack (#10); ``examples/serve_with_prefix_filter_torch.py``
+   (``gemma2_2b`` reduced: head size 32, the wgmma variant with the
+   softcap) kernel #11 once a layer a prefill (4 x 8) and the guard's
+   kernels, with hits 2 and evictions 4.
 10. G1 and G2 against their plain loops at the GQF path's own shapes
    (``gqf_serial_vs_plain_at_path_shape``): the timed launches of phase
    4c (2^20 keys into the table before the fill's last batch; the 2^20
@@ -428,9 +475,10 @@ from repro_torch.kernels.kmer_pack import (  # noqa: E402
     kmer_pack_launch, kmer_pack_plain)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     bshd_views, flash_attention_launch, flash_attention_plain,
-    to_kernel_layout)
+    from_kernel_layout, to_kernel_layout)
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models import attention, build_model  # noqa: E402
+from repro_torch.models import moe as M  # noqa: E402
 from repro_torch.serve import PrefixCache, ServeEngine  # noqa: E402
 
 SEED = 20260316
@@ -529,6 +577,38 @@ FLASH_SHAPES = [
 WIDE_HEADS = {"gemma2_2b_d256": (4, 1024, 8, 4, 256, 256),
               "mla_d192_dv128": (4, 1024, 16, 16, 192, 128)}
 WIDE_HEADS_ROUNDS = 3            # samples of each timing (5-7 ms a call)
+# The dense, MoE and MLA architectures served at their published widths
+# (phase 8d), each at its depth on the card (None: all its layers),
+# reckoned from its config as bf16 weights against one 80 GB card:
+# mixtral_8x22b's layers hold 5.0 GB each (8 of 56: 41 GB);
+# deepseek_v3_671b's MoE layer 22.5 GB (its 3 dense layers and 1 MoE layer
+# of 61: 28 GB); chameleon_34b's 48 layers (68.6 GB) are cut only if the
+# card's free memory less MODEL_HEADROOM does not hold them.
+MODEL_DEPTHS = {"gemma2_2b": None, "gemma3_4b": None, "h2o_danube3_4b": None,
+                "chameleon_34b": None, "mixtral_8x22b": 8,
+                "deepseek_v3_671b": 4}
+MODEL_HEADROOM = 8 << 30         # caches, activations, the allocator's slack
+MOE_TOKENS = 1024                # moe_apply against its plain path
+GEMMA3_LONG = 2048               # a prefill where gemma3's 1024 window bites
+# Kernel #11 at the models' attention shapes, causal, bf16 (phase 8c):
+# label -> (B, S, H, KVH, D, Dv, window, softcap). gemma2_2b's local layer
+# with its cap of 50 at S 4096 (its window does not bite) and at S 8192
+# (it does); the wgmma variant with a cap (D 128) and without;
+# h2o_danube3_4b's D 120 (3840 / 32); gemma2_2b's serving prefill with its
+# cap (without it: WIDE_HEADS' gemma2_2b_d256); deepseek_v3_671b's MLA
+# prefill (H 128, D 192 / Dv 128).
+FLASH_MODEL_SHAPES = {
+    "gemma2_2b_cap50_s4096": (1, 4096, 8, 4, 256, 256, 4096, 50.0),
+    "gemma2_2b_cap50_s8192_window4096": (1, 8192, 8, 4, 256, 256, 4096, 50.0),
+    "wgmma_d128_cap50": (4, 1024, 32, 8, 128, 128, None, 50.0),
+    "wgmma_d128": (4, 1024, 32, 8, 128, 128, None, None),
+    "h2o_danube3_4b_d120": (4, 1024, 32, 8, 120, 120, None, None),
+    "gemma2_2b_serving_cap50": (4, 1024, 8, 4, 256, 256, None, 50.0),
+    "deepseek_v3_671b_mla": (4, 1024, 128, 128, 192, 128, None, None),
+}
+# The capacity factors of the moe_apply-vs-plain check: the config's (no
+# token drops at 1024 tokens on mixtral's 8 experts) and 1.0 (drops).
+MOE_CAPACITY_FACTORS = (None, 1.0)
 # The autotune phase: the main path's config and batch, and #6's windowed
 # route at the legacy bulk fill's batch (a key a bucket).
 AUTOTUNE_KEYS = 1 << 22
@@ -2441,13 +2521,15 @@ def query_shape(cfg, state, keys, fused=True, **rec) -> dict:
             * settled}
 
 
-def flash_check(label, q, k, v, causal, window, q_offset, kv_heads) -> dict:
+def flash_check(label, q, k, v, causal, window, q_offset, kv_heads,
+                attn_softcap=None) -> dict:
     """Kernel #11 against its plain version on one input (see
     ``FLASH_TOL``), its bf16 output against its float32 output rounded
     (equal), and, for bf16 inputs, the model-layout entry on strided
     [B, S, H, D] views of the same values (``kv_heads`` KV heads a batch
     row) against the kernel layout's outputs (equal, both dtypes)."""
-    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    kw = dict(causal=causal, window=window, q_offset=q_offset,
+              attn_softcap=attn_softcap)
     got = K.flash_attention(q, k, v, **kw)
     got_bf16 = K.flash_attention(q, k, v, out_dtype=torch.bfloat16, **kw)
     want = flash_attention_plain(q, k, v, **kw)
@@ -2841,6 +2923,401 @@ def serve_qwen(gen, bf16_rate):
           "profile_decode_step": decode_profile,
           "seconds": time.perf_counter() - t_start})
     return launches, layer0
+
+
+# ---------------------------------------------------------------------------
+# The dense, MoE and MLA architectures at their published widths, and
+# kernel #11 at their attention shapes (ROADMAP queue A items 16a, 16b).
+# ---------------------------------------------------------------------------
+
+def flash_bshd_plain(q, k, v, *, out_dtype=torch.float32, **kw):
+    """Kernel #11's plain version in the model's layout, on the card: the
+    call ``models.attention.flash_attention`` makes, without the kernel."""
+    return from_kernel_layout(flash_attention_plain(
+        *to_kernel_layout(q, k, v), **kw).to(out_dtype), q.shape[0])
+
+
+def flash_model_record(label, qkv, window, cap, bf16_rate, rounds: int = 3):
+    """Kernel #11 at one model's attention shape ([B, S, H, D] bf16,
+    causal): the kernel-layout wrapper's time on kernel-layout copies
+    (``ms``: one launch, bf16 output), the model's call on the model
+    layout (``model_layout_ms``: the FMA variant's copies included), the
+    plain version's, ``F.scaled_dot_product_attention``'s on [B, H, S, D]
+    views where it computes the same function (no softcap, no window;
+    else ``library_ms`` is None), and the bound over the unmasked pairs.
+    Rotated order, the median of ``rounds`` samples."""
+    import torch.nn.functional as F
+
+    q, k, v = qkv
+    B, S, H, D = q.shape
+    kw = dict(causal=True, window=window, attn_softcap=cap)
+    variant = K.check_flash_kernel(q, k, v, attn_softcap=cap)
+    qk, kk, vk = to_kernel_layout(q, k, v)
+    calls = {
+        "ms": lambda: K.flash_attention(qk, kk, vk, out_dtype=q.dtype, **kw),
+        "model_layout_ms": lambda: attention.flash_attention(
+            q, k, v, out_dtype=q.dtype, **kw)}
+    if cap is None and window is None:
+        gqa = {"enable_gqa": True} if k.shape[2] != H else {}
+        calls["library_ms"] = lambda: F.scaled_dot_product_attention(
+            *(t.transpose(1, 2) for t in qkv), is_causal=True, **gqa)
+    times = rotated_ms({n: (lambda fn=fn: cuda_ms(fn, reps=1))
+                        for n, fn in calls.items()}, rounds)
+    plain_ms = cuda_ms(lambda: flash_attention_plain(qk, kk, vk, **kw), reps=1)
+    out = torch.empty(q.shape[:3] + (v.shape[-1],), dtype=q.dtype,
+                      device="cuda")
+    nbytes = roofline.attention_bytes(q, k, v, out)
+    flops = roofline.attention_flops(B * H, S, k.shape[1], D, v.shape[-1],
+                                     causal=True, window=window)
+    del qk, kk, vk, out
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / bf16_rate * 1e3
+    return {"shape": [list(q.shape), list(k.shape), list(v.shape)],
+            "window": window, "attn_softcap": cap, "variant": variant,
+            "ms": times["ms"], "model_layout_ms": times["model_layout_ms"],
+            "plain_ms": plain_ms, "library_ms": times.get("library_ms"),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bound_bytes": nbytes, "bound_flops": flops,
+            "tflops_per_s": flops / (times["ms"] * 1e-3) / 1e12}
+
+
+def flash_model_shapes(gen, bf16_rate) -> dict:
+    """Phase 8c (see the module docstring). Returns the records by label."""
+    t0 = time.perf_counter()
+    errs, records = {}, {}
+    for label, (B, S, H, KVH, D, Dv, window, cap) in \
+            FLASH_MODEL_SHAPES.items():
+        # Scores large enough for the cap to bend them (x 4) where a cap
+        # is set; unit scale otherwise.
+        qk_scale = 4.0 if cap else 1.0
+        q, k, v = ((torch.randn((B, S, h, d), generator=gen, device="cuda")
+                    * s).to(torch.bfloat16)
+                   for h, d, s in ((H, D, qk_scale), (KVH, D, qk_scale),
+                                   (KVH, Dv, 0.3)))
+        errs[label] = flash_check(label, *to_kernel_layout(q, k, v), True,
+                                  window, 0, KVH, attn_softcap=cap)
+        if cap:
+            uncapped = flash_attention_plain(*to_kernel_layout(q, k, v),
+                                             causal=True, window=window)
+            capped = flash_attention_plain(*to_kernel_layout(q, k, v),
+                                           causal=True, window=window,
+                                           attn_softcap=cap)
+            errs[label]["cap_moves_output_by"] = float(
+                (uncapped - capped).abs().max())
+            check(errs[label]["cap_moves_output_by"] > 1e-2,
+                  f"flash {label}: the cap does not bend these scores")
+            del uncapped, capped
+        records[label] = flash_model_record(label, (q, k, v), window, cap,
+                                            bf16_rate)
+        del q, k, v
+        torch.cuda.empty_cache()
+    check(records["wgmma_d128_cap50"]["variant"] == "wgmma",
+          "flash: the capped D 128 case did not take the wgmma variant")
+    emit({"phase": "flash_model_shapes", "errors": errs, "records": records,
+          "tolerance": "as flash_attention_vs_plain (bf16 inputs: 1e-2 "
+                       "absolute and over the row's max)",
+          "seconds": time.perf_counter() - t0})
+    return records
+
+
+def vector_params(cfg) -> int:
+    """The parameters ``cfg.param_count()`` leaves out: the norm scales
+    (and QKV biases) of every layer and the final norm."""
+    d, hd = cfg.d_model, cfg.head_dim_()
+    total = d
+    for kind in cfg.layer_kinds():
+        total += 2 * d if "+" in kind else d              # ln1 (+ ln2)
+        if kind.startswith("mla"):
+            total += cfg.mla_q_lora_rank + cfg.mla_kv_lora_rank
+        else:
+            total += 2 * hd if cfg.qk_norm else 0
+            total += ((cfg.num_heads + 2 * cfg.num_kv_heads) * hd
+                      if cfg.qkv_bias else 0)
+    return total
+
+
+def depth_on_card(cfg, want, free_bytes: int) -> int:
+    """The deepest whole number of layers, at most ``want`` (None: all),
+    whose bf16 weights leave ``MODEL_HEADROOM`` of the card's free
+    memory."""
+    depth = cfg.num_layers if want is None else want
+    while depth > 1 and 2 * dataclasses.replace(
+            cfg, num_layers=depth).param_count() + MODEL_HEADROOM > free_bytes:
+        depth -= 1
+    return depth
+
+
+def prefill_held_to_plain(model, tokens) -> tuple:
+    """``model.prefill(tokens)`` with every attention call's kernel output
+    held to the plain version on the same inputs: returns the logits and
+    one record a call (its shapes, window, cap and errors), after checking
+    that each call is within 1e-2 of the plain version over its row's max
+    (the kernel writes bf16, the layer's dtype: that holds a dropped key
+    and a bf16 rounding apart)."""
+    kernel = K.flash_attention_bshd
+    calls = []
+
+    def checked(q, k, v, **kw):
+        out = kernel(q, k, v, **kw)
+        err, row_err = flash_errors(out, flash_bshd_plain(q, k, v, **{
+            n: x for n, x in kw.items() if n != "out_dtype"}))
+        calls.append({"shape": [list(t.shape) for t in (q, k, v)],
+                      "window": kw.get("window"),
+                      "attn_softcap": kw.get("attn_softcap"),
+                      "max_abs_err": err, "row_rel_err": row_err})
+        return out
+
+    try:
+        K.flash_attention_bshd = checked
+        logits, _ = model.prefill(tokens)
+    finally:
+        K.flash_attention_bshd = kernel
+    torch.cuda.synchronize()
+    worst = max(c["row_rel_err"] for c in calls)
+    check(worst <= 1e-2, f"{model.cfg.name} prefill: kernel vs plain {worst}")
+    return logits, calls
+
+
+def window_bites(model, cfg, gen) -> dict:
+    """gemma3_4b's prefill at S ``GEMMA3_LONG`` (its local layers' 1024
+    window bites): every attention call's kernel output held to the plain
+    version on the same inputs, then the logits against a run of the same
+    model whose attention is the plain version throughout."""
+    tokens = torch.randint(0, cfg.vocab_size, (1, GEMMA3_LONG),
+                           generator=gen, device="cuda")
+    logits, calls = prefill_held_to_plain(model, tokens)
+    kernel = K.flash_attention_bshd
+    try:
+        K.flash_attention_bshd = flash_bshd_plain
+        plain_logits, _ = model.prefill(tokens)
+    finally:
+        K.flash_attention_bshd = kernel
+    torch.cuda.synchronize()
+    local = sum(c["window"] == cfg.sliding_window for c in calls)
+    check(len(calls) == cfg.num_layers and local == sum(
+        kind.startswith("attn_local") for kind in cfg.layer_kinds()),
+          f"gemma3 long prefill: {len(calls)} calls, {local} windowed")
+    worst = max(c["row_rel_err"] for c in calls)
+    ref = plain_logits.float()
+    atol = max(5e-2, 2e-2 * float(ref.abs().max()))
+    diff = (logits - ref).abs()
+    check(bool((diff <= atol + 5e-2 * ref.abs()).all()),
+          f"gemma3 long prefill: logits vs the plain-attention run, max "
+          f"{float(diff.max())} (atol {atol})")
+    return {"tokens": GEMMA3_LONG, "window": cfg.sliding_window,
+            "windowed_calls": local, "calls": len(calls),
+            "max_row_rel_err": worst,
+            "max_abs_err": max(c["max_abs_err"] for c in calls),
+            "logits_max_abs_diff": float(diff.max()),
+            "logits_tolerance": "rtol 5e-2, atol max(5e-2, 2e-2 max|ref|) "
+                                "(tests/test_torch_serve.py's)"}
+
+
+def moe_plain(p, cfg, tokens, cap: int):
+    """``moe_apply``'s function written plainly on the card: ``torch.topk``,
+    each assignment's rank within its expert by a running count in (token,
+    choice) order, each expert's GLU on its kept tokens one expert at a
+    time, the combine summed in float32. Returns (slot and kept in flat
+    (token, choice) order, the output [T, d])."""
+    import torch.nn.functional as F
+
+    from repro_torch.models.layers import _ACTS, mlp_apply
+
+    E, k = cfg.num_experts, cfg.experts_per_token
+    logits = tokens.float() @ p.router
+    if cfg.router_fn == "sigmoid":
+        vals, idx = torch.topk(torch.sigmoid(logits), k, dim=-1)
+        weights = vals / torch.clamp_min(vals.sum(-1, keepdim=True), 1e-9)
+    else:
+        vals, idx = torch.topk(logits, k, dim=-1)
+        weights = torch.softmax(vals, dim=-1)
+    e = idx.reshape(-1)
+    rank = (F.one_hot(e, E).cumsum(0) - 1).gather(1, e[:, None])[:, 0]
+    kept = rank < cap
+    slot = torch.where(kept, e * cap + rank, torch.full_like(e, E * cap))
+    w = weights.reshape(-1)
+    act = _ACTS[cfg.act]
+    out = torch.zeros(tokens.shape, dtype=torch.float32, device=tokens.device)
+    for ex in range(E):
+        pos = torch.nonzero((e == ex) & kept)[:, 0]
+        if not pos.numel():
+            continue
+        xb = tokens[pos // k]
+        y = (act(xb @ p.wgate[ex]) * (xb @ p.wup[ex])) @ p.wdown[ex]
+        out.index_add_(0, pos // k, y.float() * w[pos, None])
+    if p.shared is not None:
+        out += mlp_apply(p.shared, tokens, act=cfg.act).float()
+    return slot, kept, out
+
+
+def moe_vs_plain(p, cfg, gen, cf: float) -> dict:
+    """``moe_apply`` on the card, on the served model's last (MoE) layer at
+    full width and capacity factor ``cf``, against :func:`moe_plain` on
+    ``MOE_TOKENS`` tokens: the same kept / dropped sets and slots, the
+    output within bf16 rounding (atol 2e-2 max|ref|,
+    tests/test_torch_moe_mla.py's)."""
+    x = torch.randn((1, MOE_TOKENS, cfg.d_model), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    tokens = x[0]
+    r = M.moe_dispatch(p.router, cfg, tokens, capacity_factor=cf)
+    out = M.moe_apply(p, cfg, x, capacity_factor=cf)[0]
+    slot, kept, want = moe_plain(p, cfg, tokens, r.cap)
+    torch.cuda.synchronize()
+    k = cfg.experts_per_token
+    check(torch.equal(r.token, r.order // k)
+          and torch.equal(r.kept, kept[r.order])
+          and torch.equal(r.slot, slot[r.order]),
+          f"moe {cfg.name}: the dispatch's kept sets or slots differ from "
+          "the plain path's")
+    err = float((out.float() - want).abs().max())
+    tol = 2e-2 * float(want.abs().max())
+    check(err <= tol, f"moe {cfg.name}: output differs from the plain "
+                      f"path by {err} (tolerance {tol})")
+    ms = cuda_ms(lambda: M.moe_apply(p, cfg, x, capacity_factor=cf), reps=3)
+    plain_ms = cuda_ms(lambda: moe_plain(p, cfg, tokens, r.cap), reps=1)
+    return {"tokens": MOE_TOKENS, "capacity_factor": cf, "cap": r.cap,
+            "assignments": int(kept.numel()),
+            "dropped": int((~kept).sum()), "max_abs_err": err,
+            "tolerance": tol, "ms": ms, "plain_ms": plain_ms}
+
+
+def serve_arch(arch: str, gen) -> dict:
+    """Phase 8d for one architecture (see the module docstring)."""
+    t_start = time.perf_counter()
+    full = get_config(arch)
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info()[0]
+    depth = depth_on_card(full, MODEL_DEPTHS[arch], free)
+    cfg = dataclasses.replace(full, num_layers=depth)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    model, build_s = timed_sync(lambda: build_model(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(SEED)))
+    params = sum(p.numel() for p in model.parameters())
+    params_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    vectors = sum(p.numel() for p in model.parameters() if p.ndim == 1)
+    check(len(model.layers) == depth, f"{arch}: {len(model.layers)} layers")
+    check(params - vectors == cfg.param_count()
+          and vectors == vector_params(cfg),
+          f"{arch}: {params} parameters ({vectors} in norms and biases), "
+          f"the config's count {cfg.param_count()} + {vector_params(cfg)}")
+    max_len = SERVE_PROMPT + SERVE_STEPS
+    pool = torch.randint(0, cfg.vocab_size,
+                         (SERVE_POOLS, SERVE_BATCH, SERVE_PROMPT),
+                         generator=gen, device="cuda").cpu().numpy()
+    pool = pool.astype(np.int32)
+    engine = ServeEngine(model, batch=SERVE_BATCH, max_len=max_len,
+                         prefix_cache_entries=SERVE_ENTRIES)
+
+    K.reset_launches()
+    first, requests = {}, []
+    for i in SERVE_SEQUENCE:
+        hits = engine.prefix_cache.stats["hits"]
+        (tokens, stats), sec = timed_sync(
+            lambda: engine.generate(pool[i], steps=SERVE_STEPS))
+        check(tokens.shape == (SERVE_BATCH, SERVE_STEPS + 1)
+              and ((tokens >= 0) & (tokens < cfg.vocab_size)).all(),
+              f"{arch}: request {i} tokens malformed")
+        check(np.array_equal(first.setdefault(i, tokens), tokens),
+              f"{arch}: prompt {i} served again gave other tokens")
+        requests.append({"pool": i, "seconds": sec,
+                         "hit": stats["hits"] > hits})
+    launches = dict(K.LAUNCHES)
+    entries = list(engine.prefix_cache.entries.values())
+    for logits, _ in entries:
+        check(bool(torch.isfinite(logits).all()), f"{arch}: cached logits")
+    entry_bytes = sum(t.numel() * t.element_size()
+                      for cache in entries[0][1] for t in cache)
+    del entries
+    stats = dict(stats)
+    slo = stats.pop("filter_service")
+    check(isinstance(engine.prefix_cache.filter, amq.CascadeHandle),
+          f"{arch}: the guard filter is not the auto-expanding cascade")
+    check(stats["hits"] == 2 and stats["evictions"] == 4
+          and stats["filtered"] + stats["misses"] == 8 and stats["stale"] == 0,
+          f"{arch}: prefix-cache stats {stats}")
+    prefills = len(SERVE_SEQUENCE) - stats["hits"]
+    check(launches["flash_attention"] == depth * prefills,
+          f"{arch}: flash kernel launched {launches['flash_attention']} "
+          f"times, not {depth} x {prefills}")
+    check_launches(arch, ("hash64", "cuckoo_insert_direct", "cuckoo_mixed",
+                          "flash_attention"))
+    peak = torch.cuda.max_memory_allocated() - base
+    held = torch.cuda.memory_allocated() - base
+    check(held <= params_bytes + SERVE_ENTRIES * entry_bytes + (1 << 29),
+          f"{arch}: {held} bytes held after the run: evicted entries were "
+          f"not freed (params {params_bytes}, entry {entry_bytes})")
+
+    # --- the model alone: prefill and decode times, every logit finite ----
+    tokens = torch.as_tensor(pool[0], device="cuda")
+    prefill_s = []
+    for _ in range(2):
+        (logits, caches), sec = timed_sync(lambda: model.prefill(tokens))
+        prefill_s.append(sec)
+    check(bool(torch.isfinite(logits).all()), f"{arch}: prefill logits")
+    caches = engine._grow_caches(caches, SERVE_PROMPT)
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    decode_s = []
+    for t in range(SERVE_STEPS):
+        (logits, caches), sec = timed_sync(
+            lambda: model.decode_step(tok, caches, SERVE_PROMPT + t))
+        check(bool(torch.isfinite(logits).all()), f"{arch}: decode {t} logits")
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        decode_s.append(sec)
+    del caches, logits, engine
+    # --- one served prefill again, every #11 call held to the plain version
+    # on its own inputs (this architecture's heads, window and cap) --------
+    logits, calls = prefill_held_to_plain(model, tokens)
+    check(len(calls) == depth and bool(torch.isfinite(logits).all()),
+          f"{arch}: {len(calls)} attention calls held to plain, not {depth}")
+    extra = {"kernel_vs_plain": {
+        "calls": len(calls),
+        "shapes": sorted({json.dumps([c["shape"], c["window"],
+                                      c["attn_softcap"]]) for c in calls}),
+        "max_row_rel_err": max(c["row_rel_err"] for c in calls),
+        "max_abs_err": max(c["max_abs_err"] for c in calls),
+        "tolerance": "1e-2 over the row's max (bf16 output)"}}
+    del logits, calls
+    if arch == "gemma3_4b":
+        extra["long_prefill_window"] = window_bites(model, cfg, gen)
+    if cfg.moe:
+        extra["moe_vs_plain"] = [
+            moe_vs_plain(model.layers[-1].ffn, cfg, gen,
+                         cf or cfg.capacity_factor)
+            for cf in MOE_CAPACITY_FACTORS]
+    del model
+    torch.cuda.empty_cache()
+    prefill_med = statistics.median(prefill_s)
+    decode_med = statistics.median(decode_s)
+    rec = {"arch": arch, "layers": depth, "published_layers": full.num_layers,
+           "reduced": ({"num_layers": [full.num_layers, depth]}
+                       if depth < full.num_layers else {}),
+           "d_model": cfg.d_model, "heads": [cfg.num_heads, cfg.num_kv_heads],
+           "head_dim": cfg.head_dim_(), "d_ff": cfg.d_ff,
+           "experts": [cfg.num_experts, cfg.experts_per_token,
+                       cfg.num_shared_experts, cfg.moe_d_ff],
+           "vocab": cfg.vocab_size, "layer_kinds": sorted(set(
+               cfg.layer_kinds())),
+           "params": params, "config_param_count": cfg.param_count(),
+           "norm_and_bias_params": vectors,
+           "published_param_count": full.param_count(),
+           "param_bytes": params_bytes, "free_bytes_before": free,
+           "build_seconds": build_s, "batch": SERVE_BATCH,
+           "prompt_len": SERVE_PROMPT, "steps": SERVE_STEPS,
+           "sequence": SERVE_SEQUENCE, "stats": stats, "requests": requests,
+           "launches": launches, "cache_entry_bytes": entry_bytes,
+           "prefill_seconds": prefill_med,
+           "prefill_tokens_per_s": SERVE_BATCH * SERVE_PROMPT / prefill_med,
+           "decode_ms_per_step": decode_med * 1e3,
+           "decode_tokens_per_s": SERVE_BATCH / decode_med,
+           "prefill_seconds_all": prefill_s,
+           "decode_ms_all": [x * 1e3 for x in decode_s],
+           "filter_slo": slo, "max_memory_allocated": peak,
+           "memory_held_after": held, **extra,
+           "seconds": time.perf_counter() - t_start}
+    emit({"phase": f"serve_{arch}", **rec})
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -4223,13 +4700,23 @@ def tools_phase() -> None:
               "bloom_query", "bloom_insert", "gqf_insert_serial",
               "gqf_delete_serial")),
             ("examples/kmer_index_torch.py", "kmer_index_torch",
-             ("kmer_pack",))):
+             ("kmer_pack",)),
+            ("examples/serve_with_prefix_filter_torch.py",
+             "serve_with_prefix_filter_torch",
+             ("flash_attention", "hash64", "cuckoo_insert_direct",
+              "cuckoo_mixed"))):
         module = load_file(rel, name)
         K.reset_launches()
-        _, out, secs = captured(module.main, "cuda")
+        result, out, secs = captured(module.main, "cuda")
         launched = {k: v for k, v in K.LAUNCHES.items() if v}
         check(all(launched.get(k) for k in kernels),
               f"{name}: launches {launched}, expected {kernels}")
+        if name == "serve_with_prefix_filter_torch":
+            # gemma2_2b reduced: 4 layers, 8 prefills of the 10 requests;
+            # its head size 32 takes the wgmma variant with the cap.
+            check(result["hits"] == 2 and result["evictions"] == 4
+                  and launched["flash_attention"] == 4 * 8,
+                  f"{name}: stats {result}, launches {launched}")
         examples[name] = {"seconds": secs, "launches": launched,
                           "output": out.strip().splitlines()}
     torch.cuda.empty_cache()
@@ -4262,7 +4749,7 @@ def main() -> int:
           "kernels": ptxas})
     wgmma = [r for n, r in ptxas.items() if "wgmma" in n]
     check("flash_attention" not in logs or (
-        len(wgmma) == 3 and all(r.get("spill_stores") == 0 for r in wgmma)),
+        len(wgmma) == 6 and all(r.get("spill_stores") == 0 for r in wgmma)),
           f"flash: the wgmma kernels' ptxas report {ptxas}")
     ptxas = ptxas_report(logs.get("bloom_insert", ""), "bloom_insert")
     emit({"phase": "bloom_insert_ptxas", "compiled": "bloom_insert" in logs,
@@ -4637,6 +5124,20 @@ def main() -> int:
     flash = flash_attention_vs_plain(gen, layer0, bf16_rate)
     del layer0
     torch.cuda.empty_cache()
+    # --- kernel #11 at the models' shapes, then the six architectures ------
+    # Their own generator: the phases after them draw the same keys as an
+    # older tree's.
+    model_gen = torch.Generator(device="cuda").manual_seed(SEED + 31)
+    flash["model_shapes"] = {
+        label: {k: r[k] for k in ("shape", "window", "attn_softcap",
+                                  "variant", "ms", "model_layout_ms",
+                                  "plain_ms", "library_ms", "bound_ms",
+                                  "bound_by")}
+        for label, r in flash_model_shapes(model_gen, bf16_rate).items()}
+    served = {arch: serve_arch(arch, model_gen) for arch in MODEL_DEPTHS}
+    flash["launches_by_phase"] = {
+        f"serve_{arch}": r["launches"]["flash_attention"]
+        for arch, r in served.items()}
 
     # Each kernel's launches come from the path that routes to it: the main
     # path, the legacy bulk fill (the bulk kernel), the fused-vs-unfused

@@ -241,7 +241,8 @@ ARCHS = (
     "mamba2_130m",
 )
 # The architectures whose config module the port has.
-PORTED = ("qwen1_5_4b",)
+PORTED = ("qwen1_5_4b", "gemma2_2b", "gemma3_4b", "h2o_danube3_4b",
+          "chameleon_34b", "mixtral_8x22b", "deepseek_v3_671b")
 
 _REGISTRY: Dict[str, ModelConfig] = {}
 

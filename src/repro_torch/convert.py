@@ -237,7 +237,12 @@ def model_params_from_reference(cfg, params) -> dict:
     ``j``); the port keeps one module per layer, so layer ``i`` of the
     port is repetition ``r`` of position ``j`` of its segment. Nested
     parameter names carry over unchanged (``mixer.wq.w``, ``ffn.up.w``,
-    ``ln1.scale``, ...)."""
+    ``ln1.scale``; MoE's ``ffn.router`` (float32), ``ffn.wgate`` /
+    ``ffn.wup`` / ``ffn.wdown`` ``[E, ...]`` and ``ffn.shared.*``; MLA's
+    ``mixer.wdq.w``, ``mixer.q_norm.scale``, ... ``mixer.wo.w``).
+    DeepSeek-V3's ``params["mtp"]`` (the multi-token-prediction block) is
+    skipped: only the JAX ``loss`` reads it, and the port's serving model
+    has none."""
     out = {}
     for top in ("embed", "final_norm", "head"):
         if top in params:

@@ -66,9 +66,9 @@ ARGTYPES = {
     "kmer_pack_launch": [_P, _P, _I64, _U32, _U32, _P],
     # q, k, v, out, B, then KVH, g, Sq, Sk, D, Dv, the strides of q, k, v
     # and out (int64 arrays), dtype, out dtype, variant, causal, window,
-    # q_offset, the scale and the stream.
+    # q_offset, the scale, the softcap (<= 0: none) and the stream.
     "flash_attention_launch": [_P, _P, _P, _P, _I64] + [_I32] * 6 + [_P] * 4
-                              + [_I32] * 6 + [_F32, _P],
+                              + [_I32] * 6 + [_F32, _F32, _P],
     # table, rem, home, valid, ok, count, n, num_slots, remainder bits,
     # max_probe, the stream.
     "gqf_insert_serial_launch": [_P] * 6 + [_I64, _U64, _U32, _U32, _P],

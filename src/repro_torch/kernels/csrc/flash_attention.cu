@@ -1,5 +1,5 @@
 // Flash attention forward: online softmax, causal and/or sliding-window
-// masks, GQA, float32 or bf16 output.
+// masks, an attention-logit softcap, GQA, float32 or bf16 output.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py:
 // flash_attention_pallas (_flash_kernel). That kernel ran a (B * KVH, g,
@@ -28,7 +28,10 @@
 // NEG_INF = -1e30, the running max is clamped at -1e20 before exp (so a
 // fully masked row gives p = 0), and the denominator has a floor of 1e-30
 // (such a row outputs 0). Out is float32 or bf16 (the float32 result
-// rounded once).
+// rounded once). With a softcap (cap > 0, gemma2's 50) the scaled float32
+// score s becomes cap * tanhf(s / cap) before the mask and the running
+// max, as the JAX model path computes it (accurate tanhf, not
+// tanh.approx).
 //
 // Bound: at the serving prefill (B 4, S 1024, 20 heads of 128, causal,
 // bf16 in and out) the least time is set by device-memory bytes (q, k, v
@@ -59,8 +62,11 @@
 //   round P to bf16 in registers as wgmma's A operand (the S fragment of
 //   keys 16k..16k+15 is the A fragment of k-step k) and add P V with V
 //   read MN-major through wgmma's transpose bit. S of tile t is issued
-//   with P V of tile t - 1, so the softmax runs while P V does. BC is 128
-//   keys at D <= 64 and 96 at D = 128: ptxas (CUDA 12.9) held the
+//   with P V of tile t - 1, so the softmax runs while P V does. With a
+//   softcap each score is scaled and capped (accurate tanhf) before the
+//   mask and the max, and only log2(e) is folded into the ex2; the capped
+//   kernels are instantiations of their own. BC is 128
+//   keys at D <= 64 and 96 at D = 128 (64 capped): ptxas (CUDA 12.9) held the
 //   consumer branch well below the registers setmaxnreg.inc grants, and
 //   128-key tiles at D = 128 (S, O and P alone take 160 registers a
 //   thread) spilled and serialised the wgmmas. TMA zero-fills K/V rows
@@ -101,6 +107,7 @@ struct Params {
   int g, sq, sk, d, dv, causal, window, q_offset;  // window < 0: none
   int out_bf16;                                    // 0: float32 out
   float scale;
+  float cap;                                       // <= 0: no softcap
 };
 
 __device__ __forceinline__ void store1(const Params& p, int64_t i, float a) {
@@ -134,6 +141,11 @@ __device__ __forceinline__ void key_range(const Params& p, int qp_first,
   key_range(p.sk, p.causal, p.window, qp_first, qp_last, lo, hi);
 }
 
+// The attention-logit softcap of a scaled score.
+__device__ __forceinline__ float softcap(float s, float cap) {
+  return cap * tanhf(s / cap);
+}
+
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
@@ -153,6 +165,7 @@ struct WgParams {
   int64_t ob, okvh, og, os;               // out strides (elements)
   int kvh, g, sq, sk, causal, window, q_offset, out_bf16;
   float scale_log2;                       // scale * log2(e)
+  float scale, cap;                       // the softcap's (CAP kernels)
 };
 
 // Shared-memory tiles of a head size: rows of D bf16 in sub-tiles of
@@ -284,6 +297,21 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d (64 x 64) (+)= A (64 x 16, shared, K-major) * B (16 x 64, shared,
+// K-major); scale_d 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // d (64 x 96) (+)= A (64 x 16, shared, K-major) * B (16 x 96, shared,
 // K-major); scale_d 0 overwrites d.
 __device__ __forceinline__ void wgmma_ss_n96(float (&d)[48], uint64_t da,
@@ -342,7 +370,9 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
                                          uint64_t db, int scale_d) {
-  if constexpr (N == 96)
+  if constexpr (N == 64)
+    wgmma_ss_n64(d, da, db, scale_d);
+  else if constexpr (N == 96)
     wgmma_ss_n96(d, da, db, scale_d);
   else
     wgmma_ss_n128(d, da, db, scale_d);
@@ -391,8 +421,9 @@ constexpr int wg_smem_bytes() {
 }
 
 // Grid (B * KVH * g, query tiles of WG_BQ); WG_THREADS threads; BC keys a
-// tile, STAGES tiles in flight.
-template <int D, int BC, int STAGES>
+// tile, STAGES tiles in flight; CAP: the softcap (a kernel of its own, so
+// the uncapped kernels keep their registers).
+template <int D, int BC, int STAGES, bool CAP>
 __global__ void __launch_bounds__(WG_THREADS, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap kmap,
@@ -512,8 +543,14 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     // probabilities against the new running max (kept on raw scores: the
     // scale is positive), one FFMA and one ex2 a score; returns the
     // factors the rows' earlier sums shrink by. Fragment element 4n + i
-    // is key kt + 8n + 2 tig + (i & 1) of row r0 (i < 2) or r1.
+    // is key kt + 8n + 2 tig + (i & 1) of row r0 (i < 2) or r1. With CAP
+    // every score is scaled and capped first, so the max runs on capped
+    // scores and only log2(e) is folded into the ex2.
     auto softmax = [&](int kt, float& c0, float& c1) {
+      if constexpr (CAP) {
+#pragma unroll
+        for (int i = 0; i < BC / 2; ++i) s[i] = softcap(s[i] * p.scale, p.cap);
+      }
       const bool masked = kt + BC > p.sk ||
                           (p.causal && kt + BC - 1 > wq_first) ||
                           (p.window >= 0 && wq_last - kt >= p.window);
@@ -535,7 +572,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       }
       const float mn0 = fmaxf(m0, quad_max(mx0));
       const float mn1 = fmaxf(m1, quad_max(mx1));
-      const float sl2 = p.scale_log2;
+      const float sl2 = CAP ? 1.4426950408889634f : p.scale_log2;
       const float b0 = fmaxf(mn0, M_FLOOR) * sl2, b1 = fmaxf(mn1, M_FLOOR) * sl2;
       c0 = ex2(fminf(m0 - mn0, 0.f) * sl2);
       c1 = ex2(fminf(m1 - mn1, 0.f) * sl2);
@@ -730,7 +767,8 @@ flash_fma_kernel(Params p) {
       const int qp = p.q_offset + q0 + row;
       float sc = 0.f;
       for (int c = 0; c < p.d; ++c) sc = fmaf(qs[row][c], kf[lane][c], sc);
-      const float x = allowed(p, qp, key) ? sc * p.scale : NEG_INF;
+      const float sx = p.cap > 0.f ? softcap(sc * p.scale, p.cap) : sc * p.scale;
+      const float x = allowed(p, qp, key) ? sx : NEG_INF;
       float mx = x;
 #pragma unroll
       for (int off = 16; off; off >>= 1)
@@ -830,7 +868,7 @@ bool tensor_map(CUtensorMap* map, const void* ptr, int rank,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D, int BC, int STAGES>
+template <int D, int BC, int STAGES, bool CAP>
 int launch_wgmma(const void* q, const void* k, const void* v, int64_t batch,
                  const int64_t* q_strides, const int64_t* k_strides,
                  const int64_t* v_strides, dim3 grid, const WgParams& p,
@@ -858,14 +896,31 @@ int launch_wgmma(const void* q, const void* k, const void* v, int64_t batch,
   const uint64_t bit = device < 64 ? uint64_t(1) << device : 0;
   if (!(set_on.load(std::memory_order_relaxed) & bit)) {
     const cudaError_t attr = cudaFuncSetAttribute(
-        flash_wgmma_kernel<D, BC, STAGES>,
+        flash_wgmma_kernel<D, BC, STAGES, CAP>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (attr != cudaSuccess) return int(attr);
     set_on.fetch_or(bit, std::memory_order_relaxed);
   }
-  flash_wgmma_kernel<D, BC, STAGES><<<grid, WG_THREADS, smem, stream>>>(
+  flash_wgmma_kernel<D, BC, STAGES, CAP><<<grid, WG_THREADS, smem, stream>>>(
       qmap, kmap, vmap, p);
   return int(cudaGetLastError());
+}
+
+// The wgmma kernel of head size D, three stages: BC keys a tile without a
+// softcap, BC_CAP with one (at D = 128 the capped softmax's tanhf
+// spilled beside 96-key tiles, so its tiles are 64 keys).
+template <int D, int BC, int BC_CAP>
+int launch_wgmma_d(const void* q, const void* k, const void* v,
+                   int64_t batch, const int64_t* q_strides,
+                   const int64_t* k_strides, const int64_t* v_strides,
+                   dim3 grid, const WgParams& p, cudaStream_t stream) {
+  return p.cap > 0.f
+             ? launch_wgmma<D, BC_CAP, 3, true>(q, k, v, batch, q_strides,
+                                                k_strides, v_strides, grid, p,
+                                                stream)
+             : launch_wgmma<D, BC, 3, false>(q, k, v, batch, q_strides,
+                                             k_strides, v_strides, grid, p,
+                                             stream);
 }
 
 // The FMA variant at head-size bound DMAX, its tiles in dynamic shared
@@ -898,37 +953,39 @@ int launch_fma(dim3 grid, const Params& p, cudaStream_t stream) {
 // <= 256, dtype 0 = float32 or 1 = bfloat16) takes the contiguous kernel
 // layout, q [batch * kvh, g, sq, d], k [batch * kvh, sk, d], v [..., dv],
 // out [batch * kvh, g, sq, dv], and ignores the strides. out_dtype 0 =
-// float32, 1 = bfloat16; window < 0: none. Returns the cudaError_t of the
-// launch (cudaErrorInvalidValue for arguments no variant takes).
+// float32, 1 = bfloat16; window < 0: none; cap <= 0: no softcap. Returns
+// the cudaError_t of the launch (cudaErrorInvalidValue for arguments no
+// variant takes).
 extern "C" __attribute__((visibility("default"))) int flash_attention_launch(
     const void* q, const void* k, const void* v, void* out, int64_t batch,
     int32_t kvh, int32_t g, int32_t sq, int32_t sk, int32_t d, int32_t dv,
     const int64_t* q_strides, const int64_t* k_strides,
     const int64_t* v_strides, const int64_t* o_strides, int32_t dtype,
     int32_t out_dtype, int32_t variant, int32_t causal, int32_t window,
-    int32_t q_offset, float scale, void* stream) {
+    int32_t q_offset, float scale, float cap, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t rows = batch * kvh * g;
   if (variant == 1) {
     if (dtype != 1 || d != dv) return int(cudaErrorInvalidValue);
     const WgParams p{out, o_strides[0], o_strides[1], o_strides[2],
                      o_strides[3], kvh, g, sq, sk, causal, window, q_offset,
-                     out_dtype == 1, scale * 1.4426950408889634f};
+                     out_dtype == 1, scale * 1.4426950408889634f, scale,
+                     cap};
     const dim3 grid(unsigned(rows), unsigned((sq + WG_BQ - 1) / WG_BQ));
     if (d == 128)
-      return launch_wgmma<128, 96, 3>(q, k, v, batch, q_strides, k_strides,
-                                  v_strides, grid, p, s);
+      return launch_wgmma_d<128, 96, 64>(q, k, v, batch, q_strides,
+                                         k_strides, v_strides, grid, p, s);
     if (d == 64)
-      return launch_wgmma<64, 128, 3>(q, k, v, batch, q_strides, k_strides,
-                                 v_strides, grid, p, s);
+      return launch_wgmma_d<64, 128, 128>(q, k, v, batch, q_strides,
+                                          k_strides, v_strides, grid, p, s);
     if (d == 32)
-      return launch_wgmma<32, 128, 3>(q, k, v, batch, q_strides, k_strides,
-                                 v_strides, grid, p, s);
+      return launch_wgmma_d<32, 128, 128>(q, k, v, batch, q_strides,
+                                          k_strides, v_strides, grid, p, s);
     return int(cudaErrorInvalidValue);
   }
   if (d > FMA_DMAX || dv > FMA_DMAX) return int(cudaErrorInvalidValue);
   const Params p{q, k, v, out, g, sq, sk, d, dv, causal, window, q_offset,
-                 out_dtype == 1, scale};
+                 out_dtype == 1, scale, cap};
   const dim3 grid(unsigned(rows), unsigned((sq + FMA_BQ - 1) / FMA_BQ));
   const bool wide = d > 128 || dv > 128;
   if (dtype == 0)

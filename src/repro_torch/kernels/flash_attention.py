@@ -143,12 +143,15 @@ def flash_variant(dtype: torch.dtype, d: int, dv: int):
 
 
 def flash_attention_launch(q, k, v, out, *, causal: bool, window,
-                           scale: float, q_offset: int, variant: str) -> None:
+                           scale: float, q_offset: int, variant: str,
+                           attn_softcap=None) -> None:
     """Launch the kernel on the current stream. q and out are ``(B, KVH,
     g, Sq, D)`` views, k and v ``(B, KVH, Sk, D)`` views (arguments already
     checked: one dtype; for ``"wgmma"`` D contiguous, strides of 16-byte
     multiples, 16-byte aligned; for ``"fma"`` the contiguous kernel layout
-    with KVH folded into B); out float32 or bfloat16."""
+    with KVH folded into B); out float32 or bfloat16. ``attn_softcap``
+    (None or 0: none) caps each scaled score, ``cap * tanh(s / cap)``,
+    before the mask, as :func:`flash_attention_plain` does."""
     B, KVH, g, Sq, D = q.shape
 
     def strides(t):
@@ -160,5 +163,6 @@ def flash_attention_launch(q, k, v, out, *, causal: bool, window,
         strides(out), DTYPES[q.dtype], DTYPES[out.dtype],
         int(variant == "wgmma"), int(bool(causal)),
         -1 if window is None else int(window), int(q_offset), float(scale),
+        float(attn_softcap or 0.0),
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(rc, "flash_attention")

@@ -466,11 +466,12 @@ def _as_bshd(q, k, v) -> tuple:
 def check_flash_kernel(q, k, v, attn_softcap=None) -> str:
     """What the kernel takes beyond the shape and dtype checks, for either
     layout (a k of three dimensions is the kernel layout's); returns its
-    variant. Raises on a softcap (the kernel has none, as the Pallas one
-    has none), on head sizes no variant takes, and on data the variant
-    cannot read: ``"wgmma"`` reads strided views (D contiguous, every other
-    stride a multiple of 16 bytes, 16-byte-aligned data); ``"fma"`` reads
-    contiguous copies in the kernel layout (16-byte-aligned data)."""
+    variant. Both variants take an attention softcap (a positive cap;
+    None or 0: none). Raises on a negative cap, on head sizes no variant
+    takes, and on data the variant cannot read: ``"wgmma"`` reads strided
+    views (D contiguous, every other stride a multiple of 16 bytes,
+    16-byte-aligned data); ``"fma"`` reads contiguous copies in the kernel
+    layout (16-byte-aligned data)."""
     if isinstance(k, torch.Tensor) and k.ndim == 3:
         q, k, v = _as_bshd(q, k, v)
     _check_flash(q, k, v)
@@ -479,11 +480,9 @@ def check_flash_kernel(q, k, v, attn_softcap=None) -> str:
 
 def _kernel_variant(q, k, v, attn_softcap) -> str:
     """:func:`check_flash_kernel` past the shape and dtype checks."""
-    if attn_softcap:
-        raise NotImplementedError(
-            "flash_attention: the CUDA kernel has no attention softcap "
-            "(neither has the Pallas kernel); softcap runs only on CPU "
-            "tensors")
+    if attn_softcap is not None and not attn_softcap >= 0:
+        raise ValueError(f"flash_attention: attn_softcap must be positive, "
+                         f"got {attn_softcap}")
     variant = flash_variant(q.dtype, q.shape[3], v.shape[3])
     if variant is None:
         raise ValueError(f"flash_attention: head sizes D={q.shape[3]}, "
@@ -523,11 +522,14 @@ def flash_attention_bshd(q, k, v, *, causal: bool = True, window=None,
     (float32, the accumulator's type, or bfloat16: the float32 result
     rounded once).
 
-    CPU tensors take the plain version on kernel-layout copies (``chunk_q``
-    x ``chunk_k`` tiles, softcap allowed). CUDA tensors launch the kernel or
-    raise: the ``wgmma`` variant (bf16, D == Dv in {32, 64, 128}) reads q,
-    k and v where they lie, strided views included, and writes a result
-    with q's dimension order: no copy on either side. A float32 call (or
+    ``attn_softcap`` (gemma2's 50) caps each scaled float32 score,
+    ``cap * tanh(s / cap)``, before the mask, as the JAX model path does;
+    both routes take it. CPU tensors take the plain version on
+    kernel-layout copies (``chunk_q`` x ``chunk_k`` tiles). CUDA tensors
+    launch the kernel or raise: the ``wgmma`` variant (bf16, D == Dv in
+    {32, 64, 128}) reads q, k and v where they lie, strided views
+    included, and writes a result with q's dimension order: no copy on
+    either side. A float32 call (or
     bf16 at other head sizes), the ``fma`` variant, copies q, k and v into
     the contiguous kernel layout (a no-op for :func:`flash_attention`'s
     views) and views its result back."""
@@ -551,7 +553,8 @@ def flash_attention_bshd(q, k, v, *, causal: bool = True, window=None,
     if out.numel():
         scale = scale if scale is not None else 1.0 / float(np.sqrt(q.shape[3]))
         flash_attention_launch(*views, causal=causal, window=window,
-                               scale=scale, q_offset=q_offset, variant=variant)
+                               scale=scale, q_offset=q_offset, variant=variant,
+                               attn_softcap=attn_softcap)
         LAUNCHES["flash_attention"] += 1
     return out if variant == "wgmma" else from_kernel_layout(out, B)
 

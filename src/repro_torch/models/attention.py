@@ -1,21 +1,24 @@
-"""Attention: GQA with RoPE, sliding windows and the KV cache.
+"""Attention: GQA with RoPE, sliding windows, softcap, QK-norm, and MLA.
 
-Port of ``repro.models.attention`` for the dense GQA mixer. Prefill runs
-:func:`flash_attention`: on CUDA tensors the hand-written kernel
-(``kernels/csrc/flash_attention.cu``), on CPU tensors its plain version,
-both through ``kernels.ops.flash_attention``. Decode (one query token) is
+Port of ``repro.models.attention``. Prefill runs :func:`flash_attention`:
+on CUDA tensors the hand-written kernel (``kernels/csrc/
+flash_attention.cu``), on CPU tensors its plain version, both through
+``kernels.ops.flash_attention_bshd``; both take the attention-logit
+softcap (gemma2's 50). Decode (one query token) is
 :func:`decode_attention`, plain torch ops over the valid part of the
 cache, as in the JAX package no Pallas kernel computes it.
 
-The KV cache is the port's mutable buffer: a decode step writes its token
-into ``cache.k`` / ``cache.v`` in place and returns the same
-:class:`KVCache` (the JAX package returns a new one), so a step moves no
-more than a token's worth of cache. A caller that keeps a cache for
-later (the serving engine's prefix cache) decodes on a copy.
+MLA (DeepSeek-V3's multi-head latent attention, :func:`mla_apply`)
+caches the compressed latent and the shared rope key (:class:`MLACache`);
+its prefill expands them to per-head keys (D 192) and values (Dv 128)
+for :func:`flash_attention`, and its decode runs the absorbed einsums
+(``cfg.mla_absorb``) or the naive expansion, plain torch ops as in JAX.
 
-Attention-logit softcap runs only on the CPU (the kernel has none, nor
-has the Pallas one); MLA waits with the other mixers (ROADMAP queue A
-item 16).
+The caches are the port's mutable buffers: a decode step writes its token
+into the cache in place and returns the same cache object (the JAX
+package returns a new one), so a step moves no more than a token's worth
+of cache. A caller that keeps a cache for later (the serving engine's
+prefix cache) decodes on a copy.
 """
 
 from __future__ import annotations
@@ -164,4 +167,120 @@ def gqa_apply(p: GQA, cfg, x, *, positions, window=None,
             else:
                 new_cache = KVCache(k.to(torch.bfloat16), v.to(torch.bfloat16))
     out = out.reshape(B, S, H * hd).to(x.dtype)
+    return dense_apply(p.wo, out), new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V3 Multi-head Latent Attention)
+# ---------------------------------------------------------------------------
+
+class MLACache(NamedTuple):
+    c_kv: torch.Tensor     # [B, S, kv_lora_rank]   compressed latent
+    k_rope: torch.Tensor   # [B, S, qk_rope_dim]    shared rope key
+
+
+class MLA(nn.Module):
+    """Projections and norms of one MLA layer."""
+
+    def __init__(self, wdq: Dense, q_norm: RMSNorm, wuq: Dense, wdkv: Dense,
+                 kv_norm: RMSNorm, wkr: Dense, wuk: Dense, wuv: Dense,
+                 wo: Dense):
+        super().__init__()
+        self.wdq, self.q_norm, self.wuq = wdq, q_norm, wuq
+        self.wdkv, self.kv_norm, self.wkr = wdkv, kv_norm, wkr
+        self.wuk, self.wuv, self.wo = wuk, wuv, wo
+
+
+def mla_init(gen, cfg, dtype=torch.bfloat16, device=None) -> MLA:
+    d = cfg.d_model
+    H = cfg.num_heads
+    rq, rkv = cfg.mla_q_lora_rank, cfg.mla_kv_lora_rank
+    dn, dr, dv = cfg.mla_qk_nope_dim, cfg.mla_qk_rope_dim, cfg.mla_v_dim
+    kw = dict(dtype=dtype, device=device)
+    return MLA(dense_init(gen, d, rq, **kw), rmsnorm_init(rq, device),
+               dense_init(gen, rq, H * (dn + dr), **kw),
+               dense_init(gen, d, rkv, **kw), rmsnorm_init(rkv, device),
+               dense_init(gen, d, dr, **kw),
+               dense_init(gen, rkv, H * dn, **kw),
+               dense_init(gen, rkv, H * dv, **kw),
+               dense_init(gen, H * dv, d, **kw))
+
+
+def _mla_expand(p: MLA, cfg, c_kv, k_rope):
+    """Per-head keys [B, S, H, dn + dr] and values [B, S, H, dv] from the
+    latent and the shared rope key."""
+    B, Sk = c_kv.shape[:2]
+    H = cfg.num_heads
+    dn, dr, dv = cfg.mla_qk_nope_dim, cfg.mla_qk_rope_dim, cfg.mla_v_dim
+    k_nope = dense_apply(p.wuk, c_kv).reshape(B, Sk, H, dn)
+    vfull = dense_apply(p.wuv, c_kv).reshape(B, Sk, H, dv)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, Sk, H, dr)], dim=-1)
+    return k, vfull
+
+
+def mla_apply(p: MLA, cfg, x, *, positions, cache: Optional[MLACache] = None,
+              cache_pos=None, update_cache=False):
+    """Returns (out, new_cache | None), as :func:`gqa_apply`: decode (x
+    [B, 1, d] with a cache) writes the token's latent and rope key into
+    the cache in place at ``cache_pos`` (an int)."""
+    B, S, _ = x.shape
+    H = cfg.num_heads
+    dn, dr, dv = cfg.mla_qk_nope_dim, cfg.mla_qk_rope_dim, cfg.mla_v_dim
+
+    q = dense_apply(p.wuq, rmsnorm_apply(p.q_norm, dense_apply(p.wdq, x)))
+    q = q.reshape(B, S, H, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+
+    c_kv = rmsnorm_apply(p.kv_norm, dense_apply(p.wdkv, x))      # [B,S,rkv]
+    k_rope = apply_rope(dense_apply(p.wkr, x)[:, :, None, :],
+                        positions, cfg.rope_theta)[:, :, 0]      # [B,S,dr]
+
+    decode = cache is not None and S == 1
+    new_cache = None
+    if decode:
+        cache.c_kv[:, cache_pos] = c_kv[:, 0].to(cache.c_kv.dtype)
+        cache.k_rope[:, cache_pos] = k_rope[:, 0].to(cache.k_rope.dtype)
+        new_cache = cache
+        # the valid part of the cache, the new token included
+        c_kv = cache.c_kv[:, :cache_pos + 1]
+        k_rope = cache.k_rope[:, :cache_pos + 1]
+    elif update_cache:
+        new_cache = MLACache(c_kv.to(torch.bfloat16), k_rope.to(torch.bfloat16))
+
+    scale = 1.0 / np.sqrt(dn + dr)
+    if decode and cfg.mla_absorb:
+        # Absorbed decode: W_uk folded into q and W_uv into the output, so
+        # attention runs in the rank-rkv latent space. The bf16 operands'
+        # float32 copies multiplied in float32: JAX's bf16 operands with
+        # preferred_element_type=float32, with the copies it avoids
+        # (ROADMAP queue C).
+        rkv = cfg.mla_kv_lora_rank
+        f32 = torch.float32
+        wuk = p.wuk.w.reshape(rkv, H, dn)
+        q_lat = torch.einsum("bhd,rhd->bhr", q_nope[:, 0].to(f32),
+                             wuk.to(f32))                        # [B,H,rkv]
+        s = (torch.einsum("bhr,bsr->bhs", q_lat.to(c_kv.dtype).to(f32),
+                          c_kv.to(f32))
+             + torch.einsum("bhp,bsp->bhs", q_rope[:, 0].to(f32),
+                            k_rope.to(f32))) * scale
+        pr = torch.softmax(s, dim=-1).to(c_kv.dtype)
+        ctx = torch.einsum("bhs,bsr->bhr", pr.to(f32), c_kv.to(f32))
+        wuv = p.wuv.w.reshape(rkv, H, dv)
+        out = torch.einsum("bhr,rhv->bhv", ctx.to(wuv.dtype).to(f32),
+                           wuv.to(f32))[:, None]
+    elif decode:
+        # naive decode: expand the cached latents to per-head K/V
+        k, vfull = _mla_expand(p, cfg, c_kv, k_rope)
+        qfull = torch.cat([q_nope, q_rope], dim=-1)
+        out = decode_attention(qfull, k, vfull, cache_pos + 1, scale=scale)
+    else:
+        # prefill: the expanded form through the flash kernel (D dn + dr
+        # against Dv dv: the kernel's FMA variant on the card)
+        k, vfull = _mla_expand(p, cfg, c_kv, k_rope)
+        qfull = torch.cat([q_nope, q_rope], dim=-1)
+        out = flash_attention(qfull, k, vfull, causal=True, scale=scale,
+                              chunk_q=cfg.chunk_q, chunk_k=cfg.chunk_k,
+                              out_dtype=x.dtype)
+    out = out.reshape(B, S, H * dv).to(x.dtype)
     return dense_apply(p.wo, out), new_cache

@@ -4,8 +4,12 @@ Port of ``repro.models.model``: :class:`Model` is an ``nn.Module`` that
 holds its parameters (the JAX ``Model`` is functional and takes them as
 an argument), drawn from an explicit ``torch.Generator`` on its device.
 Parameters do not require gradients, so serving builds no autograd
-graph. ``forward``, ``loss`` and ``encode`` wait for the training path (ROADMAP
-queue A item 16).
+graph. It serves every decoder whose mixer is attention (GQA or MLA) and
+whose FFN is an MLP or MoE. ``forward``, ``loss`` and ``encode`` wait for
+the training path (ROADMAP queue A item 16), and with them DeepSeek-V3's
+multi-token-prediction block: the JAX ``init`` builds it for
+``mtp_heads``, but only its ``loss`` reads it, so the serving model has
+none.
 """
 
 from __future__ import annotations
@@ -72,8 +76,8 @@ class Model(nn.Module):
     def prefill(self, tokens):
         """tokens: int [B, S]. Full-sequence forward building caches.
 
-        Returns (next-token logits float32 [B, V], caches: one KVCache a
-        layer, bf16).
+        Returns (next-token logits float32 [B, V], caches: one a layer,
+        bf16: a KVCache, or an MLACache for an MLA layer).
         """
         tokens = torch.as_tensor(tokens, device=self.device)
         x = self._embed(tokens)

@@ -1,12 +1,12 @@
 """Block assembly + layer stacks.
 
-Port of ``repro.models.transformer`` for the ``attn`` and ``attn_local``
-mixers with the ``mlp`` FFN. A *block* = pre-norm mixer + pre-norm FFN,
-both residual. The JAX package scans stacked parameters of repeating
-segments with ``lax.scan``; here a Python loop runs one module per layer
-(:func:`stack_prefill`, :func:`stack_decode`). MLA, SSM, RG-LRU and MoE
-blocks, ``stack_apply``, remat and the loss wait (ROADMAP queue A item
-16).
+Port of ``repro.models.transformer`` for the ``attn``, ``attn_local``
+and ``mla`` mixers with the ``mlp`` or ``moe`` FFN. A *block* = pre-norm
+mixer + pre-norm FFN, both residual. The JAX package scans stacked
+parameters of repeating segments with ``lax.scan``; here a Python loop
+runs one module per layer (:func:`stack_prefill`, :func:`stack_decode`).
+SSM and RG-LRU blocks, ``stack_apply``, remat and the loss wait (ROADMAP
+queue A item 16).
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ import torch
 from torch import nn
 
 from . import attention as A
+from . import moe as M
 from .layers import mlp_apply, mlp_init, rmsnorm_apply, rmsnorm_init
 
 
@@ -45,16 +46,21 @@ class Block(nn.Module):
 
 def block_init(gen, cfg, kind: str, device=None) -> Block:
     mixer, ffn = _mixer_kind(kind), _ffn_kind(kind)
-    if mixer not in ("attn", "attn_local"):
+    if mixer in ("attn", "attn_local"):
+        p = Block(kind, rmsnorm_init(cfg.d_model, device),
+                  A.gqa_init(gen, cfg, {}, device=device))
+    elif mixer == "mla":
+        p = Block(kind, rmsnorm_init(cfg.d_model, device),
+                  A.mla_init(gen, cfg, device=device))
+    else:
         raise _not_ported(f"the {mixer!r} mixer")
-    if ffn not in ("mlp", "none"):
-        raise _not_ported(f"the {ffn!r} FFN")
-    p = Block(kind, rmsnorm_init(cfg.d_model, device),
-              A.gqa_init(gen, cfg, {}, device=device))
     if ffn == "mlp":
         p.ln2 = rmsnorm_init(cfg.d_model, device)
         p.ffn = mlp_init(gen, cfg.d_model, cfg.d_ff, act=cfg.act,
                          device=device)
+    elif ffn == "moe":
+        p.ln2 = rmsnorm_init(cfg.d_model, device)
+        p.ffn = M.moe_init(gen, cfg, device=device)
     return p
 
 
@@ -72,6 +78,9 @@ def block_apply(p: Block, cfg, kind: str, x, *, positions, cache=None,
             p.mixer, cfg, h, positions=positions,
             window=cfg.sliding_window, causal=cfg.causal,
             attn_softcap=cfg.attn_softcap, **kw)
+    elif mixer == "mla":
+        out, new_cache = A.mla_apply(p.mixer, cfg, h, positions=positions,
+                                     **kw)
     else:
         raise _not_ported(f"the {mixer!r} mixer")
     x = x + out
@@ -79,6 +88,10 @@ def block_apply(p: Block, cfg, kind: str, x, *, positions, cache=None,
     if ffn == "mlp":
         x = x + mlp_apply(p.ffn, rmsnorm_apply(p.ln2, x, cfg.norm_eps),
                           act=cfg.act)
+    elif ffn == "moe":
+        x = x + M.moe_apply(p.ffn, cfg,
+                            rmsnorm_apply(p.ln2, x, cfg.norm_eps),
+                            capacity_factor=cfg.capacity_factor)
     elif ffn != "none":
         raise _not_ported(f"the {ffn!r} FFN")
     return x, new_cache
@@ -88,15 +101,19 @@ def _empty_cache(cfg, kind: str, batch: int, max_len: int, device=None):
     """Empty (zero) bf16 cache of one layer, for decode."""
     mixer = _mixer_kind(kind)
     hd = cfg.head_dim_()
+    kw = dict(dtype=torch.bfloat16, device=device)
     if mixer == "attn":
         length = max_len
     elif mixer == "attn_local":
         length = min(cfg.sliding_window, max_len)
+    elif mixer == "mla":
+        return A.MLACache(
+            torch.zeros((batch, max_len, cfg.mla_kv_lora_rank), **kw),
+            torch.zeros((batch, max_len, cfg.mla_qk_rope_dim), **kw))
     else:
         raise _not_ported(f"the {mixer!r} cache")
     shape = (batch, length, cfg.num_kv_heads, hd)
-    return A.KVCache(torch.zeros(shape, dtype=torch.bfloat16, device=device),
-                     torch.zeros(shape, dtype=torch.bfloat16, device=device))
+    return A.KVCache(torch.zeros(shape, **kw), torch.zeros(shape, **kw))
 
 
 # ---------------------------------------------------------------------------
@@ -111,7 +128,7 @@ def stack_init(gen, cfg, device=None) -> nn.ModuleList:
 
 def stack_prefill(layers, cfg, x, *, positions):
     """Forward + build per-layer caches. Returns (x, caches)."""
-    caches: List[A.KVCache] = []
+    caches: list = []
     for p in layers:
         x, c = block_apply(p, cfg, p.kind, x, positions=positions,
                            update_cache=True)
@@ -130,6 +147,7 @@ def stack_decode(layers, cfg, x, caches, *, positions, cache_pos: int):
 
 
 def init_caches(cfg, batch: int, max_len: int, device=None):
-    """Empty decode caches, one :class:`~.attention.KVCache` a layer."""
+    """Empty decode caches, one a layer (:class:`~.attention.KVCache`, or
+    :class:`~.attention.MLACache` for an MLA layer)."""
     return [_empty_cache(cfg, kind, batch, max_len, device)
             for kind in cfg.layer_kinds()]

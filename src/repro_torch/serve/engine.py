@@ -22,7 +22,6 @@ import numpy as np
 import torch
 
 from ..models import Model
-from ..models.attention import KVCache
 from .prefix_cache import PrefixCache
 
 
@@ -77,7 +76,7 @@ class ServeEngine:
                 self.prefix_cache.insert(prompts.reshape(-1),
                                          (logits, caches))
         if reuse_prefix:  # the entry keeps its caches; decode on a copy
-            caches = [KVCache(c.k.clone(), c.v.clone()) for c in caches]
+            caches = [type(c)(*(t.clone() for t in c)) for c in caches]
 
         out = []
         tok = torch.argmax(logits, dim=-1).to(torch.int32)

@@ -16,10 +16,11 @@ inputs made from a seed with numpy:
 Tolerances are that file's: 1e-4 in float32 (the sums run in another
 order) and 2e-2 in bf16 (the Pallas kernel rounds its output to bf16).
 ``decode_attention`` is held against the JAX package's at 1e-5 (float32
-products of the same bf16 values). The kernel route's checks (softcap,
-dtype, strides, alignment) raise before any launch, so they run here on
-CPU tensors; the kernel itself is held against the plain version on the card
-in ``tests/test_torch_gpu.py``.
+products of the same bf16 values). The kernel route's checks (dtype,
+strides, alignment, a negative softcap; a softcap itself is taken by
+both variants) raise before any launch, so they run here on CPU tensors;
+the kernel itself is held against the plain version on the card in
+``tests/test_torch_gpu.py``.
 """
 
 import functools
@@ -135,8 +136,8 @@ def test_out_dtype_rounds_the_float32_result_once(i):
 
 
 def test_softcap_and_offset_on_the_cpu():
-    """The plain version takes what the kernel does not (a softcap) and a
-    query offset, as the JAX function does."""
+    """The plain version takes a softcap and a query offset, as the JAX
+    function does (the kernel takes both too: tests/test_torch_gpu.py)."""
     q, k, v = _inputs(0)
     want = RA.flash_attention(q, k, v, causal=True, attn_softcap=5.0,
                               q_offset=64, chunk_q=64, chunk_k=64)
@@ -167,8 +168,13 @@ def test_kernel_route_checks_raise_before_launch():
     qk, kk, vk = (_torch(a) for a in _kernel_layout(*_inputs(4)))
     assert K.check_flash_kernel(qk, kk, vk) == "wgmma"
     assert K.check_flash_kernel(qk.float(), kk.float(), vk.float()) == "fma"
-    with pytest.raises(NotImplementedError, match="softcap"):
-        K.check_flash_kernel(qk, kk, vk, attn_softcap=50.0)
+    # A softcap keeps the variant (it was refused before the kernel had
+    # one); a negative cap is refused.
+    assert K.check_flash_kernel(qk, kk, vk, attn_softcap=50.0) == "wgmma"
+    assert K.check_flash_kernel(qk.float(), kk.float(), vk.float(),
+                                attn_softcap=50.0) == "fma"
+    with pytest.raises(ValueError, match="softcap"):
+        K.check_flash_kernel(qk, kk, vk, attn_softcap=-1.0)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         K.check_flash_kernel(qk.half(), kk.half(), vk.half())
     with pytest.raises(TypeError, match="dtypes differ"):

@@ -46,9 +46,13 @@ kernel (both variants: wgmma for bf16 at head sizes 32/64/128, FMA
 otherwise) matches its plain version at 1e-4 in float32 and, for bf16
 inputs, at 1e-2 in absolute error and in error over each row's largest
 value; its bf16 output is its float32 output rounded; the model-layout
-entry on strided [B, S, H, D] views gives the same bits; and the reduced
-qwen served on the card through ``ServeEngine`` matches the same model on
-the CPU. The lifecycle on the card: a snapshot and ``from_snapshot``
+entry on strided [B, S, H, D] views gives the same bits; both variants
+take the attention softcap (and the FMA variant danube's head size 120)
+at the plain version's tolerances; the reduced qwen served on the card
+through ``ServeEngine`` matches the same model on the CPU, and so do the
+six newer architectures, reduced, in prefill, caches and decode (the
+MoE ones also with an MoE layer feeding another, each router's top-k
+pinned to the CPU's). The lifecycle on the card: a snapshot and ``from_snapshot``
 round trip (the twin's table equal word for word, owned: an insert into
 it leaves the original and the snapshot as they were), a cascade whose
 levels span fp 8, 16 and 32 at bucket 16 (XOR, fmix32), each level's
@@ -65,6 +69,8 @@ reshards exactly. Dedup on the card: ``sequence_keys`` and the Bloom
 dedup equal the CPU's; a streaming deduper on a cascade of shards masks
 every repeat.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -1041,17 +1047,203 @@ def test_flash_attention_matches_plain(cuda, case):
         assert K.LAUNCHES["flash_attention"] == 2
 
 
+# (BK, g, Sq, Sk, D, Dv, window, cap, dtype), causal: the softcap on both
+# variants (gemma2_2b's cap 50 and head size 256 on the FMA variant, with
+# and without its 4096 window biting; the wgmma variant at D 128 and 64),
+# and h2o_danube3_4b's head size 120 (3840 / 32) uncapped. Scores are
+# drawn large (x 4) so that the cap bends them.
+FLASH_CAP_CASES = [
+    (4, 2, 200, 260, 256, 256, None, 50.0, torch.bfloat16),
+    (2, 2, 300, 300, 256, 256, 128, 50.0, torch.float32),
+    (2, 2, 300, 300, 128, 128, None, 50.0, torch.bfloat16),
+    (3, 2, 333, 517, 64, 64, 200, 20.0, torch.bfloat16),
+    (4, 4, 130, 130, 120, 120, None, None, torch.bfloat16),
+    (4, 4, 130, 130, 120, 120, 64, 50.0, torch.float32),
+]
+
+
+@pytest.mark.parametrize("case", FLASH_CAP_CASES, ids=lambda c: "{}x{}x{}x{}d{}v{}w{}cap{}{}".format(*c[:8], str(c[8])[6:]))
+def test_flash_attention_softcap_and_model_heads_match_plain(cuda, case):
+    BK, g, Sq, Sk, D, Dv, window, cap, dtype = case
+    gen = torch.Generator(device=cuda).manual_seed(Sq * Sk + D + 1)
+    q = (torch.randn((BK, g, Sq, D), generator=gen, device=cuda) * 4).to(dtype)
+    k = (torch.randn((BK, Sk, D), generator=gen, device=cuda) * 4).to(dtype)
+    v = (torch.randn((BK, Sk, Dv), generator=gen, device=cuda) * 0.3).to(dtype)
+    kw = dict(causal=True, window=window, attn_softcap=cap)
+    variant = K.check_flash_kernel(q, k, v, attn_softcap=cap)
+    assert variant == ("wgmma" if dtype == torch.bfloat16 and D in (64, 128)
+                       else "fma")
+    K.reset_launches()
+    got = K.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["flash_attention"] == 1
+    want = flash_attention_plain(q, k, v, **kw)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    else:
+        err = (got - want).abs()
+        row = want.abs().amax(-1, keepdim=True).clamp_min(1e-30)
+        assert float(err.max()) <= 1e-2
+        assert float((err / row).max()) <= 1e-2
+    if cap:
+        # The cap bends these scores: without it the output is another.
+        plain = flash_attention_plain(q, k, v, causal=True, window=window)
+        assert float((plain - want).abs().max()) > 1e-2
+
+
 def test_flash_attention_refuses_what_it_cannot_take(cuda):
     q = torch.zeros((2, 1, 8, 64), dtype=torch.bfloat16, device=cuda)
     k = torch.zeros((2, 8, 64), dtype=torch.bfloat16, device=cuda)
-    with pytest.raises(NotImplementedError, match="softcap"):
-        K.flash_attention(q, k, k, attn_softcap=30.0)
+    # A softcap is taken (it was refused before the kernel had one): the
+    # capped output is its plain version's.
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    qc, kc = ((torch.randn(t.shape, generator=gen, device=cuda) * 4)
+              .to(torch.bfloat16) for t in (q, k))
+    got = K.flash_attention(qc, kc, kc, attn_softcap=30.0)
+    want = flash_attention_plain(qc, kc, kc, attn_softcap=30.0)
+    assert float((got - want).abs().max()) <= 1e-2
+    with pytest.raises(ValueError, match="softcap"):
+        K.flash_attention(q, k, k, attn_softcap=-1.0)
     with pytest.raises(ValueError, match="contiguous"):
         K.flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3), k, k)
     with pytest.raises(TypeError):
         K.flash_attention(q.half(), k.half(), k.half())
     with pytest.raises(TypeError, match="out_dtype"):
         K.flash_attention(q, k, k, out_dtype=torch.float16)
+
+
+def _close_to_cpu(got, ref):
+    """The model tolerance (tests/test_torch_serve.py's): rtol 5e-2, atol
+    max(5e-2, 2e-2 max|ref|)."""
+    ref = ref.float().numpy()
+    atol = max(5e-2, 2e-2 * float(np.abs(ref).max()))
+    np.testing.assert_allclose(got.float().cpu().numpy(), ref, rtol=5e-2,
+                               atol=atol)
+
+
+def _reduced_on_the_card(cuda, cfg, on_gpu=None):
+    """``cfg`` built on the CPU (seed 4) and the same weights on the card:
+    prefill logits and caches (72 tokens), then three teacher-forced
+    decode steps, the CPU's run first, at the model tolerance; #11
+    launched once a layer in the card's prefill. ``on_gpu`` is entered
+    around the card's run."""
+    import contextlib
+
+    from repro_torch.models import build_model
+
+    cpu = build_model(cfg, device="cpu", seed=4)
+    gpu = build_model(cfg, device=cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    tokens = torch.as_tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 80)).astype(np.int32))
+
+    def run(model):
+        logits, caches = model.prefill(tokens[:, :72].to(model_device(model)))
+        outs = [logits, *(t for c in caches for t in c)]
+        big = model.init_caches(2, 80)
+        for d, c in zip(big, caches):
+            for dd, cc in zip(d, c):
+                dd[:, :cc.shape[1]] = cc
+        for pos in range(72, 75):
+            logits, big = model.decode_step(
+                tokens[:, pos].to(model_device(model)), big, pos)
+            outs.append(logits)
+        return outs
+
+    def model_device(model):
+        return next(model.parameters()).device
+
+    want = run(cpu)
+    with on_gpu or contextlib.nullcontext():
+        K.reset_launches()
+        got = run(gpu)
+        torch.cuda.synchronize()
+    assert K.LAUNCHES["flash_attention"] == cfg.num_layers
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        _close_to_cpu(g, w)
+
+
+@pytest.mark.parametrize("arch", ["gemma2_2b", "gemma3_4b", "h2o_danube3_4b",
+                                  "chameleon_34b", "mixtral_8x22b",
+                                  "deepseek_v3_671b"])
+def test_reduced_archs_on_the_card(cuda, arch):
+    """Each newer architecture, reduced, on the card against the same
+    weights on the CPU: prefill logits and caches, then three decode
+    steps, at the model tolerance; #11 launched once a layer a prefill
+    (gemma2's head size 32 with its softcap: the capped wgmma kernel).
+    One period of layers, as tests/test_torch_models.py cuts them, so an
+    MoE layer is the last: routing is discontinuous, and a bf16 rounding
+    that moves a router score across a near-tie on one device changes a
+    token's experts and every later layer's keys. The MoE architectures
+    deeper, their routing pinned: the test below."""
+    from repro_torch.configs import get_config
+
+    small = get_config(arch).reduced()
+    _reduced_on_the_card(cuda, dataclasses.replace(small, num_layers=max(
+        len(small.local_global_pattern or (1,)), small.first_dense_layers + 1)))
+
+
+@pytest.mark.parametrize("arch,layers", [("mixtral_8x22b", 2),
+                                         ("deepseek_v3_671b", 5)])
+def test_moe_archs_with_pinned_routing_on_the_card(cuda, arch, layers):
+    """The MoE architectures, reduced, with an MoE layer feeding another
+    (mixtral at its reduced depth, 2; deepseek's 3 dense layers and two
+    MoE layers), on the card against the CPU as above, each router's top-k
+    on the card pinned to the CPU's choice for the same call (the card's
+    own scores gathered at the CPU's experts, in the CPU's order). So a
+    near-tie that rounds the other way on the card cannot change a
+    token's experts, and any other difference still fails: every router
+    score on the card must match the CPU's at the model tolerance, and
+    where the card's own top-k differs from the pinned one, the card's
+    score gap between the two is at most that tolerance. The number of
+    such rows and the largest gap are printed."""
+    import contextlib
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as M
+
+    cfg = dataclasses.replace(get_config(arch).reduced(), num_layers=layers)
+    real = M.top_k
+    chosen, flips = [], []
+
+    def recording(scores, k):
+        vals, idx = real(scores, k)
+        chosen.append((scores.clone(), idx.clone()))
+        return vals, idx
+
+    def pinned(scores, k):
+        ref, idx = chosen[len(flips)]
+        _close_to_cpu(scores, ref)
+        idx = idx.to(scores.device)
+        own_vals, own = real(scores, k)
+        vals = scores.gather(-1, idx)
+        differ = (own.sort(-1).values != idx.sort(-1).values).any(-1)
+        gap = own_vals[..., -1] - vals.min(-1).values
+        ref = ref.float().numpy()
+        atol = max(5e-2, 2e-2 * float(np.abs(ref).max()))
+        flips.append((int(differ.sum()),
+                      float(gap[differ].max()) if bool(differ.any()) else 0.0))
+        assert flips[-1][1] <= atol
+        return vals, idx
+
+    @contextlib.contextmanager
+    def pin():
+        M.top_k = pinned
+        try:
+            yield
+        finally:
+            M.top_k = real
+
+    M.top_k = recording
+    try:
+        _reduced_on_the_card(cuda, cfg, on_gpu=pin())
+    finally:
+        M.top_k = real
+    moe_layers = layers - cfg.first_dense_layers
+    assert len(flips) == len(chosen) == 4 * moe_layers
+    print(f"{arch}: {sum(n for n, _ in flips)} rows routed otherwise on the "
+          f"card, largest score gap {max(g for _, g in flips)}")
 
 
 def test_serve_engine_on_the_card(cuda):

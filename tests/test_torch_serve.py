@@ -88,7 +88,7 @@ def test_configs_match():
     assert port.segments() == ref.segments()
     assert port.param_count() == ref.param_count() == 3_560_898_560
     with pytest.raises(NotImplementedError, match="item 16"):
-        get_config("gemma2_2b")
+        get_config("hubert_xlarge")
 
 
 def test_model_params_from_reference():
