@@ -276,39 +276,50 @@ toolkit. Phases, one JSON line each:
    (no spill allowed; the six: three head sizes, with and without the
    attention softcap).
 8c. kernel #11 at the served architectures' attention shapes
-   (``flash_model_shapes``, ``FLASH_MODEL_SHAPES``, bf16, causal): with
+   (``flash_model_shapes``, ``FLASH_MODEL_SHAPES``, bf16): with
    gemma2_2b's softcap of 50 at its shapes (H 8 / KVH 4, D 256) at S 4096
    and at S 8192 under its 4096 window (the window bites), the wgmma
    variant at D 128 with the cap and without, h2o_danube3_4b's D 120,
    gemma2_2b's serving prefill with the cap (its uncapped time is
    ``WIDE_HEADS``'s ``gemma2_2b_d256``), and
-   deepseek_v3_671b's MLA prefill (H 128, D 192 / Dv 128): each held to
-   the plain version as in 8b (scores
-   drawn large where capped, and the cap must move the output), then
-   timed (the kernel-layout wrapper, the model's call, the plain version,
-   SDPA where it computes the same function: no cap, no window) beside
-   the bound over the unmasked pairs.
-8d. the dense, MoE and MLA architectures (``serve_<arch>``):
-   ``gemma2_2b``, ``gemma3_4b``, ``h2o_danube3_4b``, ``chameleon_34b``,
-   ``mixtral_8x22b`` and ``deepseek_v3_671b`` at their published widths
-   (d_model, heads, head size, d_ff, experts, vocab), each at its depth on
+   deepseek_v3_671b's MLA prefill (H 128, D 192 / Dv 128), all causal;
+   hubert_xlarge's encoder attention (non-causal, H 16, D 80) and
+   recurrentgemma_9b's local MQA (H 16 / KVH 1, D 256, its 2048 window
+   wider than the 1024-token prompt): each held to the plain version as
+   in 8b (scores drawn large where capped, and the cap must move the
+   output), then timed (the kernel-layout wrapper, the model's call, the
+   plain version, SDPA where it computes the same function: no cap, and
+   no window or one that hides no key) beside the bound over the
+   unmasked pairs.
+8d. the dense, MoE, MLA and recurrent architectures
+   (``serve_<arch>``): ``gemma2_2b``, ``gemma3_4b``, ``h2o_danube3_4b``,
+   ``chameleon_34b``, ``mixtral_8x22b``, ``deepseek_v3_671b``,
+   ``mamba2_130m`` (attention-free SSD) and ``recurrentgemma_9b`` (RG-LRU
+   blocks, every third layer local MQA) at their published widths
+   (d_model, heads, head size, d_ff, experts, state, vocab), each at its depth on
    the card (``MODEL_DEPTHS``: all layers, but mixtral 8 of 56 and
    deepseek 4 of 61, its 3 dense layers and 1 MoE layer; chameleon's 48
    cut only if they do not fit; the depth is in the record), built from a
    seeded CUDA generator and served as in phase 8 (batch 4, 1024-token
    prompts, 32 decode steps, the ten requests) with its gates: the
-   parameter count equal to the cut config's ``param_count`` plus its
-   norm scales, the prefix cache's counters, repeated prompts' tokens,
-   the flash kernel once a layer a prefill, the hash, direct-insert and
-   mixed kernels launched, the evicted entries freed, every logit finite.
+   parameter count equal to the cut config's ``param_count`` plus what it
+   leaves out (norm scales, biases, the SSM's and RG-LRU's vectors and
+   2-D conv weights: ``vector_params``, ``conv_params``), the prefix
+   cache's counters, repeated prompts' tokens, the flash kernel once an
+   attention layer a prefill (none in mamba2, 12 of recurrentgemma's 38),
+   the hash, direct-insert and mixed kernels launched, the evicted entries
+   freed, every logit finite.
    Reported: prefill seconds and tokens/s, decode ms a step, peak device
-   memory, the cache entry's bytes. Then one served prefill again with
+   memory, the cache entry's bytes, one prefill under ``torch.profiler``
+   (``profile_prefill``: busy, idle share, top operators and kernels).
+   Then one served prefill again with
    every attention call's kernel output held to the plain version on its
    own inputs (``prefill_held_to_plain``, 1e-2 over the row's max): each
    architecture's heads, window and cap as the served path hands them to
    #11 (chameleon's H 64 / KVH 8 and mixtral's H 48 / KVH 8 with its
-   window included). ``gemma3_4b`` also runs one prefill
-   at S 2048, where its 1024 window bites: every attention call's kernel
+   window included). ``gemma3_4b`` and ``recurrentgemma_9b`` also run one
+   prefill at batch 1 and S 2048 and 4096 (``WINDOW_PREFILL``), where their
+   1024 and 2048 windows bite: every attention call's kernel
    output against the plain version on the same inputs (1e-2 over the
    row's max) and the logits against a run whose attention is the plain
    version throughout (rtol 5e-2, atol max(5e-2, 2e-2 max|ref|)). Each
@@ -318,6 +329,22 @@ toolkit. Phases, one JSON line each:
    ``torch.topk``, ranks by a running count, one expert at a time, the
    combine in float32): the same kept / dropped sets and slots, the
    output within 2e-2 max|ref|.
+8e. the encoder (``encode_hubert_xlarge``): ``hubert_xlarge``'s 48 layers
+   at d 1280 (random bf16 weights from a seeded CUDA generator) encode 4 x
+   1024 frames (about 20 s of audio at 50 frames a second) drawn from the
+   seeded CUDA generator through ``Model.encode``. Gates: every logit
+   [4, 1024, 504] finite; the parameter count equal to ``param_count``
+   less the vocab x d embedding it counts and a ``frames`` model lacks,
+   plus the norm scales; #11 launched once a layer an encode, non-causal,
+   each call held to the plain version on its own inputs (1e-2 over the
+   row's max); a second encode equal bit for bit; the logits against a
+   run whose attention is the plain version, within 1.5x (largest and
+   relative difference) of the floor that two plain runs differing only
+   in their float32 summation order (key chunks of 1024 and 256) set:
+   48 layers grow a bf16 rounding that lands the other way to a few per
+   cent of the logits whatever computes the attention. Reported: encode
+   seconds, frames/s, peak device memory, one encode under
+   ``torch.profiler``.
 9. the main path again at 2^22 slots (an 8 MiB table, resident in L2);
    then phase 3b's comparison on two tables of 2^22 slots that stay in
    the L2 (``unfused_comparison_l2``): that fill's table at load 0.5 (fp
@@ -586,25 +613,42 @@ WIDE_HEADS_ROUNDS = 3            # samples of each timing (5-7 ms a call)
 # card's free memory less MODEL_HEADROOM does not hold them.
 MODEL_DEPTHS = {"gemma2_2b": None, "gemma3_4b": None, "h2o_danube3_4b": None,
                 "chameleon_34b": None, "mixtral_8x22b": 8,
-                "deepseek_v3_671b": 4}
+                "deepseek_v3_671b": 4, "mamba2_130m": None,
+                "recurrentgemma_9b": None}
 MODEL_HEADROOM = 8 << 30         # caches, activations, the allocator's slack
 MOE_TOKENS = 1024                # moe_apply against its plain path
-GEMMA3_LONG = 2048               # a prefill where gemma3's 1024 window bites
-# Kernel #11 at the models' attention shapes, causal, bf16 (phase 8c):
-# label -> (B, S, H, KVH, D, Dv, window, softcap). gemma2_2b's local layer
+# One prefill at batch 1 where each windowed architecture's window bites:
+# gemma3's 1024, recurrentgemma's 2048.
+WINDOW_PREFILL = {"gemma3_4b": 2048, "recurrentgemma_9b": 4096}
+# The encoder phase: hubert_xlarge on 4 x 1024 frames (~20 s of audio at
+# its 50 Hz frame rate).
+ENCODE_ARCH, ENCODE_BATCH, ENCODE_FRAMES = "hubert_xlarge", 4, 1024
+# The plain attention's key chunk of the encoder's floor run (the
+# config's is 1024): the same function, summed in another float32 order.
+ENCODE_FLOOR_CHUNK_K = 256
+# Kernel #11 at the models' attention shapes, bf16 (phase 8c): label ->
+# (B, S, H, KVH, D, Dv, window, softcap, causal). gemma2_2b's local layer
 # with its cap of 50 at S 4096 (its window does not bite) and at S 8192
 # (it does); the wgmma variant with a cap (D 128) and without;
 # h2o_danube3_4b's D 120 (3840 / 32); gemma2_2b's serving prefill with its
 # cap (without it: WIDE_HEADS' gemma2_2b_d256); deepseek_v3_671b's MLA
-# prefill (H 128, D 192 / Dv 128).
+# prefill (H 128, D 192 / Dv 128); hubert_xlarge's encoder (non-causal,
+# H 16, D 80: 1280 / 16) and recurrentgemma_9b's local MQA (H 16 on one
+# KV head, D 256) at the serving batch and prompt, where its 2048 window
+# hides no key.
 FLASH_MODEL_SHAPES = {
-    "gemma2_2b_cap50_s4096": (1, 4096, 8, 4, 256, 256, 4096, 50.0),
-    "gemma2_2b_cap50_s8192_window4096": (1, 8192, 8, 4, 256, 256, 4096, 50.0),
-    "wgmma_d128_cap50": (4, 1024, 32, 8, 128, 128, None, 50.0),
-    "wgmma_d128": (4, 1024, 32, 8, 128, 128, None, None),
-    "h2o_danube3_4b_d120": (4, 1024, 32, 8, 120, 120, None, None),
-    "gemma2_2b_serving_cap50": (4, 1024, 8, 4, 256, 256, None, 50.0),
-    "deepseek_v3_671b_mla": (4, 1024, 128, 128, 192, 128, None, None),
+    "gemma2_2b_cap50_s4096": (1, 4096, 8, 4, 256, 256, 4096, 50.0, True),
+    "gemma2_2b_cap50_s8192_window4096": (1, 8192, 8, 4, 256, 256, 4096, 50.0,
+                                         True),
+    "wgmma_d128_cap50": (4, 1024, 32, 8, 128, 128, None, 50.0, True),
+    "wgmma_d128": (4, 1024, 32, 8, 128, 128, None, None, True),
+    "h2o_danube3_4b_d120": (4, 1024, 32, 8, 120, 120, None, None, True),
+    "gemma2_2b_serving_cap50": (4, 1024, 8, 4, 256, 256, None, 50.0, True),
+    "deepseek_v3_671b_mla": (4, 1024, 128, 128, 192, 128, None, None, True),
+    "hubert_xlarge_noncausal_d80": (4, 1024, 16, 16, 80, 80, None, None,
+                                    False),
+    "recurrentgemma_9b_mqa_d256": (4, 1024, 16, 1, 256, 256, 2048, None,
+                                   True),
 }
 # The capacity factors of the moe_apply-vs-plain check: the config's (no
 # token drops at 1024 tokens on mixtral's 8 experts) and 1.0 (drops).
@@ -2937,30 +2981,32 @@ def flash_bshd_plain(q, k, v, *, out_dtype=torch.float32, **kw):
         *to_kernel_layout(q, k, v), **kw).to(out_dtype), q.shape[0])
 
 
-def flash_model_record(label, qkv, window, cap, bf16_rate, rounds: int = 3):
-    """Kernel #11 at one model's attention shape ([B, S, H, D] bf16,
-    causal): the kernel-layout wrapper's time on kernel-layout copies
-    (``ms``: one launch, bf16 output), the model's call on the model
-    layout (``model_layout_ms``: the FMA variant's copies included), the
-    plain version's, ``F.scaled_dot_product_attention``'s on [B, H, S, D]
-    views where it computes the same function (no softcap, no window;
-    else ``library_ms`` is None), and the bound over the unmasked pairs.
-    Rotated order, the median of ``rounds`` samples."""
+def flash_model_record(label, qkv, window, cap, bf16_rate, rounds: int = 3,
+                       causal: bool = True):
+    """Kernel #11 at one model's attention shape ([B, S, H, D] bf16): the
+    kernel-layout wrapper's time on kernel-layout copies (``ms``: one
+    launch, bf16 output), the model's call on the model layout
+    (``model_layout_ms``: the FMA variant's copies included), the plain
+    version's, ``F.scaled_dot_product_attention``'s on [B, H, S, D] views
+    where it computes the same function (no softcap, and no window or one
+    that hides no key; else ``library_ms`` is None), and the bound over
+    the unmasked pairs. Rotated order, the median of ``rounds``
+    samples."""
     import torch.nn.functional as F
 
     q, k, v = qkv
     B, S, H, D = q.shape
-    kw = dict(causal=True, window=window, attn_softcap=cap)
+    kw = dict(causal=causal, window=window, attn_softcap=cap)
     variant = K.check_flash_kernel(q, k, v, attn_softcap=cap)
     qk, kk, vk = to_kernel_layout(q, k, v)
     calls = {
         "ms": lambda: K.flash_attention(qk, kk, vk, out_dtype=q.dtype, **kw),
         "model_layout_ms": lambda: attention.flash_attention(
             q, k, v, out_dtype=q.dtype, **kw)}
-    if cap is None and window is None:
+    if cap is None and (window is None or window >= k.shape[1]):
         gqa = {"enable_gqa": True} if k.shape[2] != H else {}
         calls["library_ms"] = lambda: F.scaled_dot_product_attention(
-            *(t.transpose(1, 2) for t in qkv), is_causal=True, **gqa)
+            *(t.transpose(1, 2) for t in qkv), is_causal=causal, **gqa)
     times = rotated_ms({n: (lambda fn=fn: cuda_ms(fn, reps=1))
                         for n, fn in calls.items()}, rounds)
     plain_ms = cuda_ms(lambda: flash_attention_plain(qk, kk, vk, **kw), reps=1)
@@ -2968,12 +3014,13 @@ def flash_model_record(label, qkv, window, cap, bf16_rate, rounds: int = 3):
                       device="cuda")
     nbytes = roofline.attention_bytes(q, k, v, out)
     flops = roofline.attention_flops(B * H, S, k.shape[1], D, v.shape[-1],
-                                     causal=True, window=window)
+                                     causal=causal, window=window)
     del qk, kk, vk, out
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / bf16_rate * 1e3
     return {"shape": [list(q.shape), list(k.shape), list(v.shape)],
-            "window": window, "attn_softcap": cap, "variant": variant,
+            "causal": causal, "window": window, "attn_softcap": cap,
+            "variant": variant,
             "ms": times["ms"], "model_layout_ms": times["model_layout_ms"],
             "plain_ms": plain_ms, "library_ms": times.get("library_ms"),
             "bound_ms": max(bytes_ms, ops_ms),
@@ -2986,7 +3033,7 @@ def flash_model_shapes(gen, bf16_rate) -> dict:
     """Phase 8c (see the module docstring). Returns the records by label."""
     t0 = time.perf_counter()
     errs, records = {}, {}
-    for label, (B, S, H, KVH, D, Dv, window, cap) in \
+    for label, (B, S, H, KVH, D, Dv, window, cap, causal) in \
             FLASH_MODEL_SHAPES.items():
         # Scores large enough for the cap to bend them (x 4) where a cap
         # is set; unit scale otherwise.
@@ -2995,7 +3042,7 @@ def flash_model_shapes(gen, bf16_rate) -> dict:
                     * s).to(torch.bfloat16)
                    for h, d, s in ((H, D, qk_scale), (KVH, D, qk_scale),
                                    (KVH, Dv, 0.3)))
-        errs[label] = flash_check(label, *to_kernel_layout(q, k, v), True,
+        errs[label] = flash_check(label, *to_kernel_layout(q, k, v), causal,
                                   window, 0, KVH, attn_softcap=cap)
         if cap:
             uncapped = flash_attention_plain(*to_kernel_layout(q, k, v),
@@ -3009,7 +3056,7 @@ def flash_model_shapes(gen, bf16_rate) -> dict:
                   f"flash {label}: the cap does not bend these scores")
             del uncapped, capped
         records[label] = flash_model_record(label, (q, k, v), window, cap,
-                                            bf16_rate)
+                                            bf16_rate, causal=causal)
         del q, k, v
         torch.cuda.empty_cache()
     check(records["wgmma_d128_cap50"]["variant"] == "wgmma",
@@ -3022,19 +3069,55 @@ def flash_model_shapes(gen, bf16_rate) -> dict:
 
 
 def vector_params(cfg) -> int:
-    """The parameters ``cfg.param_count()`` leaves out: the norm scales
-    (and QKV biases) of every layer and the final norm."""
+    """The 1-D parameters ``cfg.param_count()`` leaves out: the norm
+    scales (and QKV biases) of every layer and the final norm; the SSM's
+    ``conv_b``, ``A_log``, ``dt_bias``, ``D`` and gated norm; the
+    RG-LRU's ``conv_b``, ``lambda`` and the ``wa`` / ``wx`` biases
+    (``ssm_init``, ``rglru_init``)."""
     d, hd = cfg.d_model, cfg.head_dim_()
     total = d
     for kind in cfg.layer_kinds():
         total += 2 * d if "+" in kind else d              # ln1 (+ ln2)
         if kind.startswith("mla"):
             total += cfg.mla_q_lora_rank + cfg.mla_kv_lora_rank
+        elif kind.startswith("ssm"):
+            d_in = cfg.ssm_expand * d
+            total += (d_in + 2 * cfg.ssm_state) + 3 * cfg.ssm_heads + d_in
+        elif kind.startswith("rglru"):
+            total += 4 * (cfg.rglru_width or d)
         else:
             total += 2 * hd if cfg.qk_norm else 0
             total += ((cfg.num_heads + 2 * cfg.num_kv_heads) * hd
                       if cfg.qkv_bias else 0)
     return total
+
+
+def conv_params(cfg) -> int:
+    """The 2-D parameters ``cfg.param_count()`` leaves out: each SSM's and
+    RG-LRU's depthwise conv weights ``[conv1d_width, channels]``."""
+    total = 0
+    for kind in cfg.layer_kinds():
+        if kind.startswith("ssm"):
+            total += cfg.conv1d_width * (cfg.ssm_expand * cfg.d_model
+                                         + 2 * cfg.ssm_state)
+        elif kind.startswith("rglru"):
+            total += cfg.conv1d_width * (cfg.rglru_width or cfg.d_model)
+    return total
+
+
+def attention_layers(cfg) -> int:
+    """The layers whose mixer launches #11 once a prefill or an encode."""
+    return sum(kind.split("+")[0] in ("attn", "attn_local", "mla")
+               for kind in cfg.layer_kinds())
+
+
+def model_params(model) -> tuple:
+    """(all parameters, the 1-D ones, the conv weights) of ``model``."""
+    named = list(model.named_parameters())
+    return (sum(p.numel() for _, p in named),
+            sum(p.numel() for _, p in named if p.ndim == 1),
+            sum(p.numel() for n, p in named
+                if p.ndim == 2 and n.endswith("conv_w")))
 
 
 def depth_on_card(cfg, want, free_bytes: int) -> int:
@@ -3048,13 +3131,13 @@ def depth_on_card(cfg, want, free_bytes: int) -> int:
     return depth
 
 
-def prefill_held_to_plain(model, tokens) -> tuple:
-    """``model.prefill(tokens)`` with every attention call's kernel output
-    held to the plain version on the same inputs: returns the logits and
-    one record a call (its shapes, window, cap and errors), after checking
-    that each call is within 1e-2 of the plain version over its row's max
-    (the kernel writes bf16, the layer's dtype: that holds a dropped key
-    and a bf16 rounding apart)."""
+def held_to_plain(label: str, run) -> tuple:
+    """``run()`` (a prefill or an encode) with every attention call's
+    kernel output held to the plain version on the same inputs: returns
+    its result and one record a call (its shapes, causal flag, window, cap
+    and errors), after checking that each call is within 1e-2 of the
+    plain version over its row's max (the kernel writes bf16, the layer's
+    dtype: that holds a dropped key and a bf16 rounding apart)."""
     kernel = K.flash_attention_bshd
     calls = []
 
@@ -3063,6 +3146,7 @@ def prefill_held_to_plain(model, tokens) -> tuple:
         err, row_err = flash_errors(out, flash_bshd_plain(q, k, v, **{
             n: x for n, x in kw.items() if n != "out_dtype"}))
         calls.append({"shape": [list(t.shape) for t in (q, k, v)],
+                      "causal": kw.get("causal", True),
                       "window": kw.get("window"),
                       "attn_softcap": kw.get("attn_softcap"),
                       "max_abs_err": err, "row_rel_err": row_err})
@@ -3070,42 +3154,73 @@ def prefill_held_to_plain(model, tokens) -> tuple:
 
     try:
         K.flash_attention_bshd = checked
-        logits, _ = model.prefill(tokens)
+        out = run()
     finally:
         K.flash_attention_bshd = kernel
     torch.cuda.synchronize()
-    worst = max(c["row_rel_err"] for c in calls)
-    check(worst <= 1e-2, f"{model.cfg.name} prefill: kernel vs plain {worst}")
+    worst = max((c["row_rel_err"] for c in calls), default=0.0)
+    check(worst <= 1e-2, f"{label}: kernel vs plain {worst}")
+    return out, calls
+
+
+def prefill_held_to_plain(model, tokens) -> tuple:
+    """``model.prefill(tokens)`` through :func:`held_to_plain`: the logits
+    and one record an attention call."""
+    (logits, _), calls = held_to_plain(f"{model.cfg.name} prefill",
+                                       lambda: model.prefill(tokens))
     return logits, calls
 
 
-def window_bites(model, cfg, gen) -> dict:
-    """gemma3_4b's prefill at S ``GEMMA3_LONG`` (its local layers' 1024
-    window bites): every attention call's kernel output held to the plain
-    version on the same inputs, then the logits against a run of the same
-    model whose attention is the plain version throughout."""
-    tokens = torch.randint(0, cfg.vocab_size, (1, GEMMA3_LONG),
-                           generator=gen, device="cuda")
-    logits, calls = prefill_held_to_plain(model, tokens)
+def with_plain_attention(run, **over):
+    """``run()`` with the plain version in every attention call (its
+    arguments updated by ``over``: another ``chunk_k`` sums in another
+    float32 order)."""
     kernel = K.flash_attention_bshd
     try:
-        K.flash_attention_bshd = flash_bshd_plain
-        plain_logits, _ = model.prefill(tokens)
+        K.flash_attention_bshd = lambda q, k, v, **kw: flash_bshd_plain(
+            q, k, v, **{**kw, **over})
+        out = run()
     finally:
         K.flash_attention_bshd = kernel
     torch.cuda.synchronize()
+    return out
+
+
+def logit_diffs(got, ref) -> dict:
+    """How far ``got`` lies from ``ref``: the largest and mean absolute
+    difference, the relative (Frobenius) one, and the share of rows whose
+    argmax agrees."""
+    d = (got - ref).float()
+    return {"max_abs": float(d.abs().max()), "mean_abs": float(d.abs().mean()),
+            "rel_fro": float(torch.linalg.vector_norm(d)
+                             / torch.linalg.vector_norm(ref.float())),
+            "argmax_agree": float((got.argmax(-1) == ref.argmax(-1))
+                                  .float().mean())}
+
+
+def window_bites(model, cfg, gen) -> dict:
+    """One prefill at batch 1 and S ``WINDOW_PREFILL[arch]``, where the
+    local layers' window bites (gemma3_4b's 1024, recurrentgemma_9b's
+    2048): every attention call's kernel output held to the plain version
+    on the same inputs, then the logits against a run of the same model
+    whose attention is the plain version throughout."""
+    S = WINDOW_PREFILL[cfg.name]
+    tokens = torch.randint(0, cfg.vocab_size, (1, S), generator=gen,
+                           device="cuda")
+    logits, calls = prefill_held_to_plain(model, tokens)
+    plain_logits, _ = with_plain_attention(lambda: model.prefill(tokens))
     local = sum(c["window"] == cfg.sliding_window for c in calls)
-    check(len(calls) == cfg.num_layers and local == sum(
+    check(len(calls) == attention_layers(cfg) and local == sum(
         kind.startswith("attn_local") for kind in cfg.layer_kinds()),
-          f"gemma3 long prefill: {len(calls)} calls, {local} windowed")
+          f"{cfg.name} long prefill: {len(calls)} calls, {local} windowed")
     worst = max(c["row_rel_err"] for c in calls)
     ref = plain_logits.float()
     atol = max(5e-2, 2e-2 * float(ref.abs().max()))
     diff = (logits - ref).abs()
     check(bool((diff <= atol + 5e-2 * ref.abs()).all()),
-          f"gemma3 long prefill: logits vs the plain-attention run, max "
+          f"{cfg.name} long prefill: logits vs the plain-attention run, max "
           f"{float(diff.max())} (atol {atol})")
-    return {"tokens": GEMMA3_LONG, "window": cfg.sliding_window,
+    return {"tokens": S, "window": cfg.sliding_window,
             "windowed_calls": local, "calls": len(calls),
             "max_row_rel_err": worst,
             "max_abs_err": max(c["max_abs_err"] for c in calls),
@@ -3182,6 +3297,19 @@ def moe_vs_plain(p, cfg, gen, cf: float) -> dict:
             "tolerance": tol, "ms": ms, "plain_ms": plain_ms}
 
 
+def calls_summary(calls) -> dict:
+    """The records of :func:`held_to_plain`, summed up."""
+    return {"calls": len(calls),
+            "shapes": sorted({json.dumps([c["shape"], c["causal"],
+                                          c["window"], c["attn_softcap"]])
+                              for c in calls}),
+            "max_row_rel_err": max((c["row_rel_err"] for c in calls),
+                                   default=None),
+            "max_abs_err": max((c["max_abs_err"] for c in calls),
+                               default=None),
+            "tolerance": "1e-2 over the row's max (bf16 output)"}
+
+
 def serve_arch(arch: str, gen) -> dict:
     """Phase 8d for one architecture (see the module docstring)."""
     t_start = time.perf_counter()
@@ -3194,14 +3322,15 @@ def serve_arch(arch: str, gen) -> dict:
     base = torch.cuda.memory_allocated()
     model, build_s = timed_sync(lambda: build_model(
         cfg, generator=torch.Generator(device="cuda").manual_seed(SEED)))
-    params = sum(p.numel() for p in model.parameters())
+    params, vectors, convs = model_params(model)
     params_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
-    vectors = sum(p.numel() for p in model.parameters() if p.ndim == 1)
     check(len(model.layers) == depth, f"{arch}: {len(model.layers)} layers")
-    check(params - vectors == cfg.param_count()
-          and vectors == vector_params(cfg),
-          f"{arch}: {params} parameters ({vectors} in norms and biases), "
-          f"the config's count {cfg.param_count()} + {vector_params(cfg)}")
+    check(params - vectors - convs == cfg.param_count()
+          and vectors == vector_params(cfg) and convs == conv_params(cfg),
+          f"{arch}: {params} parameters ({vectors} in norms, biases and "
+          f"vectors, {convs} in conv weights), the config's count "
+          f"{cfg.param_count()} + {vector_params(cfg)} + {conv_params(cfg)}")
+    attn = attention_layers(cfg)
     max_len = SERVE_PROMPT + SERVE_STEPS
     pool = torch.randint(0, cfg.vocab_size,
                          (SERVE_POOLS, SERVE_BATCH, SERVE_PROMPT),
@@ -3238,11 +3367,11 @@ def serve_arch(arch: str, gen) -> dict:
           and stats["filtered"] + stats["misses"] == 8 and stats["stale"] == 0,
           f"{arch}: prefix-cache stats {stats}")
     prefills = len(SERVE_SEQUENCE) - stats["hits"]
-    check(launches["flash_attention"] == depth * prefills,
+    check(launches["flash_attention"] == attn * prefills,
           f"{arch}: flash kernel launched {launches['flash_attention']} "
-          f"times, not {depth} x {prefills}")
-    check_launches(arch, ("hash64", "cuckoo_insert_direct", "cuckoo_mixed",
-                          "flash_attention"))
+          f"times, not {attn} attention layers x {prefills}")
+    check_launches(arch, ("hash64", "cuckoo_insert_direct", "cuckoo_mixed")
+                   + (("flash_attention",) if attn else ()))
     peak = torch.cuda.max_memory_allocated() - base
     held = torch.cuda.memory_allocated() - base
     check(held <= params_bytes + SERVE_ENTRIES * entry_bytes + (1 << 29),
@@ -3256,6 +3385,7 @@ def serve_arch(arch: str, gen) -> dict:
         (logits, caches), sec = timed_sync(lambda: model.prefill(tokens))
         prefill_s.append(sec)
     check(bool(torch.isfinite(logits).all()), f"{arch}: prefill logits")
+    _, prefill_profile = profiled(lambda: model.prefill(tokens), top=12)
     caches = engine._grow_caches(caches, SERVE_PROMPT)
     tok = torch.argmax(logits, dim=-1).to(torch.int32)
     decode_s = []
@@ -3269,17 +3399,11 @@ def serve_arch(arch: str, gen) -> dict:
     # --- one served prefill again, every #11 call held to the plain version
     # on its own inputs (this architecture's heads, window and cap) --------
     logits, calls = prefill_held_to_plain(model, tokens)
-    check(len(calls) == depth and bool(torch.isfinite(logits).all()),
-          f"{arch}: {len(calls)} attention calls held to plain, not {depth}")
-    extra = {"kernel_vs_plain": {
-        "calls": len(calls),
-        "shapes": sorted({json.dumps([c["shape"], c["window"],
-                                      c["attn_softcap"]]) for c in calls}),
-        "max_row_rel_err": max(c["row_rel_err"] for c in calls),
-        "max_abs_err": max(c["max_abs_err"] for c in calls),
-        "tolerance": "1e-2 over the row's max (bf16 output)"}}
+    check(len(calls) == attn and bool(torch.isfinite(logits).all()),
+          f"{arch}: {len(calls)} attention calls held to plain, not {attn}")
+    extra = {"kernel_vs_plain": calls_summary(calls)}
     del logits, calls
-    if arch == "gemma3_4b":
+    if arch in WINDOW_PREFILL:
         extra["long_prefill_window"] = window_bites(model, cfg, gen)
     if cfg.moe:
         extra["moe_vs_plain"] = [
@@ -3297,10 +3421,13 @@ def serve_arch(arch: str, gen) -> dict:
            "head_dim": cfg.head_dim_(), "d_ff": cfg.d_ff,
            "experts": [cfg.num_experts, cfg.experts_per_token,
                        cfg.num_shared_experts, cfg.moe_d_ff],
+           "ssm": [cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state,
+                   cfg.ssm_chunk] if cfg.ssm else None,
+           "rglru_width": cfg.rglru_width or None,
            "vocab": cfg.vocab_size, "layer_kinds": sorted(set(
-               cfg.layer_kinds())),
+               cfg.layer_kinds())), "attention_layers": attn,
            "params": params, "config_param_count": cfg.param_count(),
-           "norm_and_bias_params": vectors,
+           "norm_and_bias_params": vectors, "conv_params": convs,
            "published_param_count": full.param_count(),
            "param_bytes": params_bytes, "free_bytes_before": free,
            "build_seconds": build_s, "batch": SERVE_BATCH,
@@ -3314,9 +3441,98 @@ def serve_arch(arch: str, gen) -> dict:
            "prefill_seconds_all": prefill_s,
            "decode_ms_all": [x * 1e3 for x in decode_s],
            "filter_slo": slo, "max_memory_allocated": peak,
-           "memory_held_after": held, **extra,
+           "memory_held_after": held, "profile_prefill": prefill_profile,
+           **extra,
            "seconds": time.perf_counter() - t_start}
     emit({"phase": f"serve_{arch}", **rec})
+    return rec
+
+
+def encode_arch(gen) -> dict:
+    """Phase 8e (see the module docstring)."""
+    t_start = time.perf_counter()
+    cfg = get_config(ENCODE_ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    model, build_s = timed_sync(lambda: build_model(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(SEED)))
+    params, vectors, convs = model_params(model)
+    params_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    embedding = cfg.vocab_size * cfg.d_model
+    check(len(model.layers) == cfg.num_layers == 48 and model.embed is None,
+          f"{ENCODE_ARCH}: {len(model.layers)} layers")
+    check(params - vectors == cfg.param_count() - embedding
+          and vectors == vector_params(cfg) and convs == 0,
+          f"{ENCODE_ARCH}: {params} parameters ({vectors} in norms), the "
+          f"config's count {cfg.param_count()} - {embedding} + "
+          f"{vector_params(cfg)}")
+    frames = torch.randn((ENCODE_BATCH, ENCODE_FRAMES, cfg.d_model),
+                         generator=gen, device="cuda")
+
+    # --- the main path: one encode, launches counted from zero -----------
+    K.reset_launches()
+    logits, sec = timed_sync(lambda: model.encode(frames))
+    launches = dict(K.LAUNCHES)
+    check(launches["flash_attention"] == cfg.num_layers,
+          f"{ENCODE_ARCH}: flash kernel launched "
+          f"{launches['flash_attention']} times an encode, not "
+          f"{cfg.num_layers}")
+    check_launches(ENCODE_ARCH, ("flash_attention",))
+    check(logits.dtype == torch.float32
+          and logits.shape == (ENCODE_BATCH, ENCODE_FRAMES, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()),
+          f"{ENCODE_ARCH}: logits {tuple(logits.shape)} not all finite")
+    encode_s = [sec] + [timed_sync(lambda: model.encode(frames))[1]
+                        for _ in range(2)]
+    peak = torch.cuda.max_memory_allocated() - base
+    _, profile = profiled(lambda: model.encode(frames), top=12)
+
+    # --- every #11 call held to the plain version, then the logits against
+    # a run whose attention is the plain version throughout -----------------
+    again, calls = held_to_plain(f"{ENCODE_ARCH} encode",
+                                 lambda: model.encode(frames))
+    check(len(calls) == cfg.num_layers
+          and not any(c["causal"] for c in calls),
+          f"{ENCODE_ARCH}: {len(calls)} attention calls held to plain")
+    check(torch.equal(again, logits),
+          f"{ENCODE_ARCH}: a second encode of the same frames differs")
+    plain = with_plain_attention(lambda: model.encode(frames))
+    # The floor: two plain-attention runs that differ only in the order of
+    # their float32 sums (one key chunk of 1024, four of 256). Through 48
+    # layers a bf16 rounding that lands the other way grows to a few per
+    # cent of the logits whatever computes the attention, so the kernel's
+    # run is held to that floor, not to the few-layer model tolerance.
+    floor = logit_diffs(with_plain_attention(
+        lambda: model.encode(frames), chunk_k=ENCODE_FLOOR_CHUNK_K), plain)
+    diff = logit_diffs(logits, plain)
+    check(diff["max_abs"] <= 1.5 * floor["max_abs"]
+          and diff["rel_fro"] <= 1.5 * floor["rel_fro"],
+          f"{ENCODE_ARCH}: logits vs the plain-attention run {diff}, more "
+          f"than 1.5x the floor of two plain runs {floor}")
+    del model, logits, frames, again, plain
+    torch.cuda.empty_cache()
+    med = statistics.median(encode_s)
+    rec = {"arch": ENCODE_ARCH, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "heads": [cfg.num_heads, cfg.num_kv_heads],
+           "head_dim": cfg.head_dim_(), "d_ff": cfg.d_ff,
+           "vocab": cfg.vocab_size, "causal": cfg.causal,
+           "params": params, "config_param_count": cfg.param_count(),
+           "embedding_not_built": embedding, "norm_params": vectors,
+           "param_bytes": params_bytes, "build_seconds": build_s,
+           "batch": ENCODE_BATCH, "frames": ENCODE_FRAMES,
+           "launches": launches, "encode_seconds": med,
+           "frames_per_s": ENCODE_BATCH * ENCODE_FRAMES / med,
+           "encode_seconds_all": encode_s, "max_memory_allocated": peak,
+           "profile_encode": profile,
+           "kernel_vs_plain": calls_summary(calls),
+           "logits_vs_plain_attention": diff,
+           "logits_floor_plain_vs_plain": floor,
+           "logits_tolerance": "max_abs and rel_fro within 1.5x the floor "
+                               "(plain attention at chunk_k 1024 against "
+                               f"{ENCODE_FLOOR_CHUNK_K})",
+           "seconds": time.perf_counter() - t_start}
+    emit({"phase": f"encode_{ENCODE_ARCH}", **rec})
     return rec
 
 
@@ -5129,8 +5345,9 @@ def main() -> int:
     # older tree's.
     model_gen = torch.Generator(device="cuda").manual_seed(SEED + 31)
     flash["model_shapes"] = {
-        label: {k: r[k] for k in ("shape", "window", "attn_softcap",
-                                  "variant", "ms", "model_layout_ms",
+        label: {k: r[k] for k in ("shape", "causal", "window",
+                                  "attn_softcap", "variant", "ms",
+                                  "model_layout_ms",
                                   "plain_ms", "library_ms", "bound_ms",
                                   "bound_by")}
         for label, r in flash_model_shapes(model_gen, bf16_rate).items()}
@@ -5138,6 +5355,8 @@ def main() -> int:
     flash["launches_by_phase"] = {
         f"serve_{arch}": r["launches"]["flash_attention"]
         for arch, r in served.items()}
+    flash["launches_by_phase"][f"encode_{ENCODE_ARCH}"] = encode_arch(
+        model_gen)["launches"]["flash_attention"]
 
     # Each kernel's launches come from the path that routes to it: the main
     # path, the legacy bulk fill (the bulk kernel), the fused-vs-unfused

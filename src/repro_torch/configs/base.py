@@ -3,9 +3,8 @@
 Port of ``repro.configs.base``: :class:`ModelConfig` has the same fields,
 defaults, ``layer_kinds``, ``segments``, ``param_count`` and ``reduced()``
 (a copy: the port imports nothing of the JAX package). One ``<arch>.py``
-per ported architecture registers its full-size config; an architecture
-whose config module is not ported yet raises ``NotImplementedError`` from
-:func:`get_config`.
+per architecture registers its full-size config; :func:`get_config`
+resolves all ten and raises ``KeyError`` for any other name.
 """
 
 from __future__ import annotations
@@ -240,9 +239,8 @@ ARCHS = (
     "recurrentgemma_9b",
     "mamba2_130m",
 )
-# The architectures whose config module the port has.
-PORTED = ("qwen1_5_4b", "gemma2_2b", "gemma3_4b", "h2o_danube3_4b",
-          "chameleon_34b", "mixtral_8x22b", "deepseek_v3_671b")
+# The architectures whose config module the port has: all of them.
+PORTED = ARCHS
 
 _REGISTRY: Dict[str, ModelConfig] = {}
 
@@ -256,11 +254,7 @@ def get_config(name: str) -> ModelConfig:
     """Look up an architecture config by registry name (hyphen or underscore)."""
     key = name.replace("-", "_")
     if key not in _REGISTRY:
-        if key in ARCHS and key not in PORTED:
-            raise NotImplementedError(
-                f"the {key} config is not ported to repro_torch yet "
-                "(ROADMAP queue A item 16)")
-        if key not in ARCHS:
+        if key not in PORTED:
             raise KeyError(f"unknown architecture {name!r}; known: {ARCHS}")
         importlib.import_module(f"repro_torch.configs.{key}")
     return _REGISTRY[key]

@@ -239,8 +239,12 @@ def model_params_from_reference(cfg, params) -> dict:
     parameter names carry over unchanged (``mixer.wq.w``, ``ffn.up.w``,
     ``ln1.scale``; MoE's ``ffn.router`` (float32), ``ffn.wgate`` /
     ``ffn.wup`` / ``ffn.wdown`` ``[E, ...]`` and ``ffn.shared.*``; MLA's
-    ``mixer.wdq.w``, ``mixer.q_norm.scale``, ... ``mixer.wo.w``).
-    DeepSeek-V3's ``params["mtp"]`` (the multi-token-prediction block) is
+    ``mixer.wdq.w``, ``mixer.q_norm.scale``, ... ``mixer.wo.w``; the
+    SSM's ``mixer.in_proj.w``, ``mixer.conv_w``, ``mixer.A_log``, ...
+    ``mixer.norm.scale``; the RG-LRU's ``mixer.wa.b``, ``mixer.lambda``,
+    ...), whatever the segments (RecurrentGemma: a 3-layer period x 12,
+    then one ``rglru+mlp`` layer x 2). A ``frames`` model (HuBERT) has no
+    ``embed``. DeepSeek-V3's ``params["mtp"]`` (the multi-token-prediction block) is
     skipped: only the JAX ``loss`` reads it, and the port's serving model
     has none."""
     out = {}

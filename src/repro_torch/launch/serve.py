@@ -4,11 +4,13 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1_5_4b \\
         --reduced --device cpu --requests 8 --steps 16
 
-``--arch`` takes every ported config: ``qwen1_5_4b``, ``gemma2_2b``,
+``--arch`` takes the nine decoders: ``qwen1_5_4b``, ``gemma2_2b``,
 ``gemma3_4b``, ``h2o_danube3_4b``, ``chameleon_34b``, ``mixtral_8x22b``,
-``deepseek_v3_671b`` (the others raise ``NotImplementedError``). Runs on
-the GPU unless ``--device`` names another device; without a CUDA device
-the default raises.
+``deepseek_v3_671b``, ``mamba2_130m`` and ``recurrentgemma_9b``; the
+encoder ``hubert_xlarge`` raises ``ValueError`` (``ServeEngine``: it has
+no autoregressive serve; ``Model.encode`` runs it). Runs on the GPU
+unless ``--device`` names another device; without a CUDA device the
+default raises.
 """
 
 from __future__ import annotations

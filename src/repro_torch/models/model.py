@@ -1,15 +1,17 @@
-"""Model facade: parameters, prefill and decode for the serving path.
+"""Model facade: parameters, the forward, prefill and decode.
 
 Port of ``repro.models.model``: :class:`Model` is an ``nn.Module`` that
 holds its parameters (the JAX ``Model`` is functional and takes them as
 an argument), drawn from an explicit ``torch.Generator`` on its device.
 Parameters do not require gradients, so serving builds no autograd
-graph. It serves every decoder whose mixer is attention (GQA or MLA) and
-whose FFN is an MLP or MoE. ``forward``, ``loss`` and ``encode`` wait for
-the training path (ROADMAP queue A item 16), and with them DeepSeek-V3's
-multi-token-prediction block: the JAX ``init`` builds it for
-``mtp_heads``, but only its ``loss`` reads it, so the serving model has
-none.
+graph. It runs every registered architecture: the decoders (attention,
+MLA, SSM and RG-LRU mixers; MLP, MoE or no FFN) serve through
+``prefill`` / ``decode_step``, and the ``frames`` encoder
+(``hubert_xlarge``) runs ``encode``. ``loss`` and its chunked cross
+entropy wait for the training path (ROADMAP queue A item 16e), and with
+them DeepSeek-V3's multi-token-prediction block: the JAX ``init`` builds
+it for ``mtp_heads``, but only its ``loss`` reads it, so the port's model
+has none.
 """
 
 from __future__ import annotations
@@ -27,8 +29,9 @@ from .layers import (dense_apply, dense_init, embed_apply, embed_init,
 
 
 class Model(nn.Module):
-    """Decoder-only LM: ``embed``, ``layers`` (one block each),
-    ``final_norm`` and, without tied embeddings, ``head``.
+    """``embed`` (none for the ``frames`` frontend), ``layers`` (one block
+    each), ``final_norm`` and, without tied embeddings or with the
+    ``frames`` frontend, ``head``.
 
     ``device`` defaults to the generator's device, else the GPU (raising
     when there is none; pass ``device="cpu"`` for the CPU). Parameters are
@@ -39,24 +42,28 @@ class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, *, device=None,
                  generator: Optional[torch.Generator] = None, seed: int = 0):
         super().__init__()
-        if cfg.frontend == "frames":
-            raise ValueError("encoder-only arch has no autoregressive serve")
         self.cfg = cfg
         if device is None and generator is not None:
             device = generator.device
         device = resolve_device(device)
         gen = generator or torch.Generator(device=device).manual_seed(seed)
-        self.embed = embed_init(gen, cfg.vocab_size, cfg.d_model, device=device)
+        frames = cfg.frontend == "frames"
+        self.embed = (None if frames else
+                      embed_init(gen, cfg.vocab_size, cfg.d_model, device=device))
         self.layers = T.stack_init(gen, cfg, device)
         self.final_norm = rmsnorm_init(cfg.d_model, device)
-        self.head = (None if cfg.tie_embeddings else
-                     dense_init(gen, cfg.d_model, cfg.vocab_size, device=device))
+        self.head = (dense_init(gen, cfg.d_model, cfg.vocab_size, device=device)
+                     if frames or not cfg.tie_embeddings else None)
 
     @property
     def device(self) -> torch.device:
-        return self.embed.table.device
+        return self.final_norm.scale.device
 
     # -- shared pieces ----------------------------------------------------
+    def _serving(self):
+        if self.cfg.frontend == "frames":
+            raise ValueError("encoder-only arch has no autoregressive serve")
+
     def _embed(self, tokens):
         x = embed_apply(self.embed, tokens)
         if self.cfg.embed_scale:
@@ -72,13 +79,35 @@ class Model(nn.Module):
             logits = embed_logits(self.embed, x)
         return softcap(logits, self.cfg.final_softcap)
 
+    # -- the forward without caches ------------------------------------------
+    def forward(self, batch) -> torch.Tensor:
+        """batch: ``{"tokens": int [B, S]}``, or ``{"frames": [B, S,
+        d_model]}`` for the ``frames`` frontend (cast to bf16). Returns the
+        last layer's output [B, S, d_model], before the final norm."""
+        if self.cfg.frontend == "frames":
+            x = torch.as_tensor(batch["frames"], device=self.device).to(
+                torch.bfloat16)
+        else:
+            x = self._embed(torch.as_tensor(batch["tokens"],
+                                            device=self.device))
+        B, S = x.shape[0], x.shape[1]
+        positions = torch.arange(S, device=x.device).expand(B, S)
+        return T.stack_apply(self.layers, self.cfg, x, positions=positions)
+
+    def encode(self, frames) -> torch.Tensor:
+        """The encoder's logits for ``frames`` [B, S, d_model]: float32
+        [B, S, vocab]."""
+        return self._logits(self.forward({"frames": frames}))
+
     # -- serving ------------------------------------------------------------
     def prefill(self, tokens):
         """tokens: int [B, S]. Full-sequence forward building caches.
 
         Returns (next-token logits float32 [B, V], caches: one a layer,
-        bf16: a KVCache, or an MLACache for an MLA layer).
+        bf16: a KVCache, or an MLACache for an MLA layer; an SSMCache or
+        RGLRUCache, whose state is float32, for a recurrent layer).
         """
+        self._serving()
         tokens = torch.as_tensor(tokens, device=self.device)
         x = self._embed(tokens)
         B, S = x.shape[0], x.shape[1]
@@ -90,7 +119,9 @@ class Model(nn.Module):
 
     def decode_step(self, token, caches, pos: int):
         """token: int [B]; pos: absolute position of this token. Writes the
-        token's keys and values into ``caches`` in place."""
+        token's keys and values into the attention caches in place (a
+        recurrent layer's cache is replaced in the returned list)."""
+        self._serving()
         token = torch.as_tensor(token, device=self.device)
         x = self._embed(token[:, None])
         B = x.shape[0]

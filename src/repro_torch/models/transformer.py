@@ -1,12 +1,13 @@
 """Block assembly + layer stacks.
 
-Port of ``repro.models.transformer`` for the ``attn``, ``attn_local``
-and ``mla`` mixers with the ``mlp`` or ``moe`` FFN. A *block* = pre-norm
-mixer + pre-norm FFN, both residual. The JAX package scans stacked
-parameters of repeating segments with ``lax.scan``; here a Python loop
-runs one module per layer (:func:`stack_prefill`, :func:`stack_decode`).
-SSM and RG-LRU blocks, ``stack_apply``, remat and the loss wait (ROADMAP
-queue A item 16).
+Port of ``repro.models.transformer`` for every mixer (``attn``,
+``attn_local``, ``mla``, ``ssm``, ``rglru``) with an ``mlp``, ``moe`` or
+no FFN. A *block* = pre-norm mixer + pre-norm FFN, both residual. The
+JAX package scans stacked parameters of repeating segments with
+``lax.scan``; here a Python loop runs one module per layer:
+:func:`stack_apply` (the forward without caches: the encoder's path),
+:func:`stack_prefill` and :func:`stack_decode`. Remat comes with the
+training path (ROADMAP queue A item 16e).
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ from torch import nn
 
 from . import attention as A
 from . import moe as M
+from . import rglru as R
+from . import ssm as SSM
 from .layers import mlp_apply, mlp_init, rmsnorm_apply, rmsnorm_init
 
 
@@ -28,11 +31,6 @@ def _mixer_kind(kind: str) -> str:
 def _ffn_kind(kind: str) -> str:
     parts = kind.split("+")
     return parts[1] if len(parts) > 1 else "none"
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP queue A item 16)")
 
 
 class Block(nn.Module):
@@ -52,8 +50,14 @@ def block_init(gen, cfg, kind: str, device=None) -> Block:
     elif mixer == "mla":
         p = Block(kind, rmsnorm_init(cfg.d_model, device),
                   A.mla_init(gen, cfg, device=device))
-    else:
-        raise _not_ported(f"the {mixer!r} mixer")
+    elif mixer == "ssm":
+        p = Block(kind, rmsnorm_init(cfg.d_model, device),
+                  SSM.ssm_init(gen, cfg, device=device))
+    elif mixer == "rglru":
+        p = Block(kind, rmsnorm_init(cfg.d_model, device),
+                  R.rglru_init(gen, cfg, device=device))
+    else:  # pragma: no cover
+        raise ValueError(mixer)
     if ffn == "mlp":
         p.ln2 = rmsnorm_init(cfg.d_model, device)
         p.ffn = mlp_init(gen, cfg.d_model, cfg.d_ff, act=cfg.act,
@@ -81,8 +85,14 @@ def block_apply(p: Block, cfg, kind: str, x, *, positions, cache=None,
     elif mixer == "mla":
         out, new_cache = A.mla_apply(p.mixer, cfg, h, positions=positions,
                                      **kw)
-    else:
-        raise _not_ported(f"the {mixer!r} mixer")
+    elif mixer == "ssm":
+        out, new_cache = SSM.ssm_apply(p.mixer, cfg, h, cache=cache,
+                                       update_cache=update_cache)
+    elif mixer == "rglru":
+        out, new_cache = R.rglru_apply(p.mixer, cfg, h, cache=cache,
+                                       update_cache=update_cache)
+    else:  # pragma: no cover
+        raise ValueError(mixer)
     x = x + out
 
     if ffn == "mlp":
@@ -92,16 +102,30 @@ def block_apply(p: Block, cfg, kind: str, x, *, positions, cache=None,
         x = x + M.moe_apply(p.ffn, cfg,
                             rmsnorm_apply(p.ln2, x, cfg.norm_eps),
                             capacity_factor=cfg.capacity_factor)
-    elif ffn != "none":
-        raise _not_ported(f"the {ffn!r} FFN")
+    elif ffn != "none":  # pragma: no cover
+        raise ValueError(ffn)
     return x, new_cache
 
 
 def _empty_cache(cfg, kind: str, batch: int, max_len: int, device=None):
-    """Empty (zero) bf16 cache of one layer, for decode."""
+    """Empty (zero) cache of one layer, for decode: bf16, but for the
+    float32 recurrent states (the SSM's ``state``, the RG-LRU's ``h``),
+    which have no sequence axis."""
     mixer = _mixer_kind(kind)
     hd = cfg.head_dim_()
     kw = dict(dtype=torch.bfloat16, device=device)
+    f32 = dict(dtype=torch.float32, device=device)
+    if mixer == "ssm":
+        conv_dim = cfg.ssm_expand * cfg.d_model + 2 * cfg.ssm_state
+        return SSM.SSMCache(
+            torch.zeros((batch, cfg.conv1d_width - 1, conv_dim), **kw),
+            torch.zeros((batch, cfg.ssm_heads, cfg.ssm_head_dim,
+                         cfg.ssm_state), **f32))
+    if mixer == "rglru":
+        W = cfg.rglru_width or cfg.d_model
+        return R.RGLRUCache(
+            torch.zeros((batch, W), **f32),
+            torch.zeros((batch, cfg.conv1d_width - 1, W), **kw))
     if mixer == "attn":
         length = max_len
     elif mixer == "attn_local":
@@ -110,8 +134,8 @@ def _empty_cache(cfg, kind: str, batch: int, max_len: int, device=None):
         return A.MLACache(
             torch.zeros((batch, max_len, cfg.mla_kv_lora_rank), **kw),
             torch.zeros((batch, max_len, cfg.mla_qk_rope_dim), **kw))
-    else:
-        raise _not_ported(f"the {mixer!r} cache")
+    else:  # pragma: no cover
+        raise ValueError(mixer)
     shape = (batch, length, cfg.num_kv_heads, hd)
     return A.KVCache(torch.zeros(shape, **kw), torch.zeros(shape, **kw))
 
@@ -126,6 +150,13 @@ def stack_init(gen, cfg, device=None) -> nn.ModuleList:
                          for kind in cfg.layer_kinds())
 
 
+def stack_apply(layers, cfg, x, *, positions):
+    """Forward through every layer, no caches."""
+    for p in layers:
+        x, _ = block_apply(p, cfg, p.kind, x, positions=positions)
+    return x
+
+
 def stack_prefill(layers, cfg, x, *, positions):
     """Forward + build per-layer caches. Returns (x, caches)."""
     caches: list = []
@@ -137,7 +168,8 @@ def stack_prefill(layers, cfg, x, *, positions):
 
 
 def stack_decode(layers, cfg, x, caches, *, positions, cache_pos: int):
-    """Single-token step updating caches (in place). Returns (x, caches)."""
+    """Single-token step. Attention caches are updated in place; an SSM or
+    RG-LRU layer returns a new cache. Returns (x, caches)."""
     new_caches = []
     for p, cache in zip(layers, caches):
         x, c = block_apply(p, cfg, p.kind, x, positions=positions,
@@ -147,7 +179,8 @@ def stack_decode(layers, cfg, x, caches, *, positions, cache_pos: int):
 
 
 def init_caches(cfg, batch: int, max_len: int, device=None):
-    """Empty decode caches, one a layer (:class:`~.attention.KVCache`, or
-    :class:`~.attention.MLACache` for an MLA layer)."""
+    """Empty decode caches, one a layer (:class:`~.attention.KVCache`;
+    :class:`~.attention.MLACache`, :class:`~.ssm.SSMCache` or
+    :class:`~.rglru.RGLRUCache` for an MLA, SSM or RG-LRU layer)."""
     return [_empty_cache(cfg, kind, batch, max_len, device)
             for kind in cfg.layer_kinds()]

@@ -8,10 +8,13 @@ prefill's attention runs the flash-attention kernel, and the guard
 filter's admissions and evictions the cuckoo kernels.
 
 Cache entries are (logits, caches) on the model's device. Decode writes
-into its caches in place (``models.attention``), so each request decodes
-on a copy of its entry's caches and the entry stays as its prefill left
-it; an LRU eviction drops the cache's reference to an entry, which frees
-it once the request that evicted it returns.
+into its attention caches in place (``models.attention``), so each
+request decodes on a copy of its entry's caches and the entry stays as
+its prefill left it; an LRU eviction drops the cache's reference to an
+entry, which frees it once the request that evicted it returns. A
+recurrent layer's cache (the SSM's conv window and float32 state, the
+RG-LRU's float32 ``h`` and conv window) has no sequence axis: growing it
+copies it whole, and decode replaces it rather than writing into it.
 """
 
 from __future__ import annotations
@@ -37,7 +40,11 @@ class ServeEngine:
         lives on the model's device unless ``prefix_cache_kw`` names
         another); ``prefix_cache_service_kw`` configures the guard
         filter's micro-batching service, whose SLO snapshot rides the
-        stats returned by :meth:`generate` under ``"filter_service"``."""
+        stats returned by :meth:`generate` under ``"filter_service"``.
+        An encoder (the ``frames`` frontend) raises ``ValueError``, as
+        the JAX engine does."""
+        if model.cfg.frontend == "frames":
+            raise ValueError("encoder-only arch has no autoregressive serve")
         self.model = model
         self.batch = batch
         self.max_len = max_len

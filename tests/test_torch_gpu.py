@@ -985,6 +985,11 @@ FLASH_CASES = [
     (4, 2, 200, 260, 256, 256, True, None, 0, torch.float32),
     (4, 2, 200, 260, 256, 256, True, None, 0, torch.bfloat16),
     (2, 3, 130, 200, 192, 128, True, 64, 16, torch.bfloat16),
+    # The served encoder's and RG-LRU hybrid's attention: hubert_xlarge's
+    # (non-causal, 16 heads of 80: FMA) and recurrentgemma_9b's local MQA
+    # (16 query heads on one KV head, D 256) with its 2048 window biting.
+    (16, 1, 300, 300, 80, 80, False, None, 0, torch.bfloat16),
+    (1, 16, 2100, 2100, 256, 256, True, 2048, 0, torch.bfloat16),
 ]
 
 
@@ -1121,12 +1126,18 @@ def _close_to_cpu(got, ref):
                                atol=atol)
 
 
+def _attention_layers(cfg) -> int:
+    """The layers whose mixer launches #11 in a prefill."""
+    return sum(kind.split("+")[0] in ("attn", "attn_local", "mla")
+               for kind in cfg.layer_kinds())
+
+
 def _reduced_on_the_card(cuda, cfg, on_gpu=None):
     """``cfg`` built on the CPU (seed 4) and the same weights on the card:
     prefill logits and caches (72 tokens), then three teacher-forced
     decode steps, the CPU's run first, at the model tolerance; #11
-    launched once a layer in the card's prefill. ``on_gpu`` is entered
-    around the card's run."""
+    launched once an attention layer in the card's prefill. ``on_gpu`` is
+    entered around the card's run."""
     import contextlib
 
     from repro_torch.models import build_model
@@ -1158,7 +1169,7 @@ def _reduced_on_the_card(cuda, cfg, on_gpu=None):
         K.reset_launches()
         got = run(gpu)
         torch.cuda.synchronize()
-    assert K.LAUNCHES["flash_attention"] == cfg.num_layers
+    assert K.LAUNCHES["flash_attention"] == _attention_layers(cfg)
     assert len(got) == len(want)
     for g, w in zip(got, want):
         _close_to_cpu(g, w)
@@ -1166,13 +1177,16 @@ def _reduced_on_the_card(cuda, cfg, on_gpu=None):
 
 @pytest.mark.parametrize("arch", ["gemma2_2b", "gemma3_4b", "h2o_danube3_4b",
                                   "chameleon_34b", "mixtral_8x22b",
-                                  "deepseek_v3_671b"])
+                                  "deepseek_v3_671b", "mamba2_130m",
+                                  "recurrentgemma_9b"])
 def test_reduced_archs_on_the_card(cuda, arch):
     """Each newer architecture, reduced, on the card against the same
     weights on the CPU: prefill logits and caches, then three decode
-    steps, at the model tolerance; #11 launched once a layer a prefill
-    (gemma2's head size 32 with its softcap: the capped wgmma kernel).
-    One period of layers, as tests/test_torch_models.py cuts them, so an
+    steps, at the model tolerance; #11 launched once an attention layer a
+    prefill (gemma2's head size 32 with its softcap: the capped wgmma
+    kernel; none in mamba2, one of recurrentgemma's three). One period of
+    layers, as tests/test_torch_models.py and test_torch_recurrent.py cut
+    them, so an
     MoE layer is the last: routing is discontinuous, and a bf16 rounding
     that moves a router score across a near-tie on one device changes a
     token's experts and every later layer's keys. The MoE architectures
@@ -1181,7 +1195,30 @@ def test_reduced_archs_on_the_card(cuda, arch):
 
     small = get_config(arch).reduced()
     _reduced_on_the_card(cuda, dataclasses.replace(small, num_layers=max(
-        len(small.local_global_pattern or (1,)), small.first_dense_layers + 1)))
+        len(small.local_global_pattern or small.block_pattern or (1,)),
+        small.first_dense_layers + 1)))
+
+
+def test_reduced_encoder_on_the_card(cuda):
+    """hubert_xlarge reduced (two layers) on the card against the same
+    weights on the CPU: ``encode``'s logits at the model tolerance, #11
+    launched non-causal once a layer."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config("hubert_xlarge").reduced()
+    cpu = build_model(cfg, device="cpu", seed=4)
+    gpu = build_model(cfg, device=cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    frames = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(2, 100, cfg.d_model)).astype(np.float32))
+    want = cpu.encode(frames)
+    K.reset_launches()
+    got = gpu.encode(frames.to(cuda))
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["flash_attention"] == cfg.num_layers == 2
+    assert got.shape == (2, 100, cfg.vocab_size)
+    _close_to_cpu(got, want)
 
 
 @pytest.mark.parametrize("arch,layers", [("mixtral_8x22b", 2),

@@ -87,8 +87,8 @@ def test_configs_match():
     assert port.layer_kinds() == ref.layer_kinds()
     assert port.segments() == ref.segments()
     assert port.param_count() == ref.param_count() == 3_560_898_560
-    with pytest.raises(NotImplementedError, match="item 16"):
-        get_config("hubert_xlarge")
+    with pytest.raises(KeyError, match="unknown architecture"):
+        get_config("qwen1_5_5b")
 
 
 def test_model_params_from_reference():
