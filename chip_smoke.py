@@ -6,7 +6,7 @@
 From the repository root, on a machine with one NVIDIA H100 and the CUDA
 toolkit. Phases, one JSON line each:
 
-1. build — the twelve CUDA sources from ``src/repro_torch/kernels/csrc``
+1. build — the thirteen CUDA sources from ``src/repro_torch/kernels/csrc``
    (``nvcc``, ``sm_90a``, in parallel), with the build seconds and the
    card's name and power limit; then the registers and spills that
    ``ptxas -v`` gives the flash-attention kernels (``flash_ptxas``) and
@@ -426,7 +426,40 @@ toolkit. Phases, one JSON line each:
    (``gemma2_2b`` reduced: head size 32, the wgmma variant with the
    softcap) kernel #11 once a layer a prefill (4 x 8) and the guard's
    kernels, with hits 2 and evictions 4.
-10. G1 and G2 against their plain loops at the GQF path's own shapes
+10. training. ``flash_bwd``: kernel #11's backward
+   (``csrc/flash_attention_bwd.cu``, three launches, no atomics) at
+   ``FLASH_BWD_SHAPES`` (qwen1_5_4b's training shape B 2, S 2048, H 20,
+   D 128, causal; gemma2's D 256 with its cap of 50; danube's D 120;
+   hubert's non-causal D 80; recurrentgemma's MQA at D 256 under its 2048
+   window at S 4096; deepseek's MLA, H 128, D 192 / Dv 128), bf16: the
+   forward kernel's row log-sum-exp against the plain forward's; the
+   float32 dQ, dK, dV against ``flash_attention_bwd_plain`` on the same
+   inputs at ``FLASH_BWD_TOL`` of each tensor's largest value; two
+   launches bit-equal; the wrapper's bf16 gradients equal to the launch's
+   float32 ones rounded; timed beside its plain version, its bound and,
+   where SDPA computes the same function, SDPA's backward alone (timed
+   only). ``train_qwen1_5_4b``: ``launch.train``'s path at full width (40
+   layers, 3.56e9 parameters, batch 2 x 2048, ``--dedup`` on a
+   ``for_capacity(..., hash_kind="fmix32")`` filter, 8 steps, full remat,
+   no checkpoint), launch counts zeroed just before and read just after:
+   every loss and grad norm finite; #11 80 times and its backward 40
+   times a step (twice and once a layer); the dedup's query and insert
+   kernels once a step; the first loss held to the loss of the model as
+   built (the same seed) on the same batch through plain attention
+   (``TRAIN_PLAIN_TOL``, relative: the first CE is not ln V, see
+   ``TRAIN_MARGIN``'s note); the last step's loss and the first batch's
+   loss after training below the first by ``TRAIN_MARGIN`` of it.
+   Reported: each step's ms (the first apart), tokens/s, the peak of
+   allocated memory, launches a step. ``train_mamba2_130m_resume``:
+   mamba2_130m at full width (batch 8 x 256) through ``TrainingRunner``,
+   6 steps checkpointed every 3 (into a temporary directory, removed
+   after), and a run failing at step 3 and resumed into a freshly built
+   model and state: every parameter and moment, the step and every loss
+   bit-equal. ``train_example``: ``examples/train_lm_dedup_torch.py`` by
+   its ``main`` at its default sizes (200 steps, a failure at 100, resumed
+   from the checkpoint at 100) and with ``--device-budget-bytes 4096
+   --steps 400`` (a level demoted to host RAM: gated).
+11. G1 and G2 against their plain loops at the GQF path's own shapes
    (``gqf_serial_vs_plain_at_path_shape``): the timed launches of phase
    4c (2^20 keys into the table before the fill's last batch; the 2^20
    deletes) replayed by the host loops on CPU copies of the same tables
@@ -434,7 +467,9 @@ toolkit. Phases, one JSON line each:
    the loops (tens of seconds each) run after every host-bound phase.
 
 Before the last line: the ``nvidia-smi`` name and power limit, then the
-``kernels`` line (the 11 TPU kernels, then G1 and G2). The last line is
+``kernels`` line (the 11 TPU kernels, then G1, G2 and #11's backward,
+``flash_attention_bwd``, its launches those of ``train_qwen1_5_4b``). The
+last line is
 ``{"ok": true, "device": {...}}``. Any
 failed check raises and exits non-zero without it. Nothing here imports
 JAX or the JAX package.
@@ -501,9 +536,11 @@ from repro_torch.kernels.bloom import (  # noqa: E402
 from repro_torch.kernels.kmer_pack import (  # noqa: E402
     kmer_pack_launch, kmer_pack_plain)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    bshd_views, flash_attention_launch, flash_attention_plain,
-    from_kernel_layout, to_kernel_layout)
+    bshd_views, flash_attention_bwd_launch, flash_attention_bwd_plain,
+    flash_attention_launch, flash_attention_plain, from_kernel_layout,
+    to_kernel_layout)
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.launch import train as LT  # noqa: E402
 from repro_torch.models import attention, build_model  # noqa: E402
 from repro_torch.models import moe as M  # noqa: E402
 from repro_torch.serve import PrefixCache, ServeEngine  # noqa: E402
@@ -663,6 +700,49 @@ AUTOTUNE_ITERS = 10
 # from a quarter of that capacity under half that table's bytes.
 TOOLS_CAPACITY = 1 << 24
 TOOLS_KEYS = LIFE_CAPACITY
+# The backward kernel (phase 10) at the training shape and at each other
+# architecture's attention shape, bf16: label -> (B, S, H, KVH, D, Dv,
+# window, softcap, causal). qwen1_5_4b's (the training phase's); gemma2's
+# D 256 with its cap of 50; h2o_danube3_4b's D 120; hubert_xlarge's
+# non-causal D 80; recurrentgemma_9b's MQA (g 16) at D 256 under its 2048
+# window at S 4096, where the window bites; deepseek_v3_671b's MLA (H 128,
+# D 192 / Dv 128).
+FLASH_BWD_SHAPES = {
+    "qwen1_5_4b_train": (2, 2048, 20, 20, 128, 128, None, None, True),
+    "gemma2_2b_d256_cap50": (2, 2048, 8, 4, 256, 256, None, 50.0, True),
+    "h2o_danube3_4b_d120": (2, 2048, 32, 8, 120, 120, None, None, True),
+    "hubert_xlarge_noncausal_d80": (2, 2048, 16, 16, 80, 80, None, None,
+                                    False),
+    "recurrentgemma_9b_mqa_d256_window2048": (1, 4096, 16, 1, 256, 256, 2048,
+                                              None, True),
+    "deepseek_v3_671b_mla": (1, 2048, 128, 128, 192, 128, None, None, True),
+}
+# The gradients' largest error over each tensor's largest value, float32
+# against float32: the same products summed in other orders, expf against
+# torch.exp (measured at most 7.2e-6 at the six shapes on an H100 80GB
+# HBM3 at 700 W). The log-sum-exp, absolute (measured at most 1.2e-5).
+FLASH_BWD_TOL = 1e-4
+FLASH_LSE_TOL = 1e-4
+# Training at full width (phase 11): the launcher's path, qwen1_5_4b's 40
+# layers, batch 2 x 2048 tokens, --dedup, 8 steps at the launcher's lr, a
+# fresh batch a step as the launcher draws them. The first loss is not ln
+# V: the JAX init's tied embedding has std 1, so the readout's logits have
+# std ~sqrt(2560) and the first CE was 446.1 (on an H100 at 700 W). It
+# is held instead to the loss of the model as built (the same seed) on
+# the same batch through plain attention, relative (measured 1.2e-4: bf16
+# activations through 40 layers, another float32 order in attention); the
+# last step's loss and the first batch's after training must lie below
+# the first by TRAIN_MARGIN of it (measured 20.5 % and 19.6 %).
+TRAIN_ARCH, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = "qwen1_5_4b", 8, 2, 2048
+TRAIN_LR = 3e-4
+TRAIN_PLAIN_TOL = 2e-3
+TRAIN_MARGIN = 0.05
+# The resume gate (phase 12): mamba2_130m at full width, the launcher's
+# batch 8 x 256 tokens, 6 steps checkpointed every 3, one run failing at
+# step 3 and resumed.
+TRAIN_RESUME_ARCH = "mamba2_130m"
+TRAIN_RESUME_STEPS, TRAIN_RESUME_FAIL, TRAIN_RESUME_EVERY = 6, 3, 3
+TRAIN_RESUME_BATCH, TRAIN_RESUME_SEQ = 8, 256
 # H100 SXM HBM3 rate (NVIDIA data sheet, at the full 700 W).
 HBM_BYTES_PER_S = 3.35e12
 TPU_KERNELS = {
@@ -682,6 +762,8 @@ TPU_KERNELS = {
 LOOP_KERNELS = {
     "gqf_insert_serial": "src/repro/filters/quotient.py:97",
     "gqf_delete_serial": "src/repro/filters/quotient.py:165",
+    # The attention scan whose gradient JAX derives (no Pallas backward).
+    "flash_attention_bwd": "src/repro/models/attention.py:38",
 }
 SOURCES = {
     "hash64": "src/repro_torch/kernels/csrc/hash64.cu",
@@ -697,6 +779,7 @@ SOURCES = {
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "gqf_insert_serial": "src/repro_torch/kernels/csrc/gqf_serial.cu",
     "gqf_delete_serial": "src/repro_torch/kernels/csrc/gqf_serial.cu",
+    "flash_attention_bwd": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
 }
 # Kernel #10's instantiations in the package under test: forward and, where
 # ``ops.kmer_pack`` takes ``canonical`` (the kernel canonicalizes in the same
@@ -4942,6 +5025,343 @@ def tools_phase() -> None:
           "seconds": time.perf_counter() - t0})
 
 
+# --- training (phases 10-13) -------------------------------------------------
+
+def flash_bwd_record(label, B, S, H, KVH, D, Dv, window, cap, causal, gen,
+                     bf16_rate, rounds: int = 3) -> dict:
+    """The backward kernel at one attention shape (bf16 inputs, the bf16
+    output the model path asks for): the forward kernel's row log-sum-exp
+    against the plain forward's; the kernel's float32 dQ, dK and dV (one
+    launch of the three-kernel route on kernel-layout copies) against
+    :func:`flash_attention_bwd_plain` on the same inputs (q, k, v, the
+    kernel's output and log-sum-exp, a seeded cotangent), each as its
+    largest error over the tensor's largest value; a second launch bit-equal
+    to the first; the wrapper (``ops.flash_attention_bwd``, model layout,
+    bf16 gradients) equal to the launch's float32 rounded once. Timed:
+    the launch, the wrapper, the plain version and, where SDPA computes
+    the same function (no cap; no window, or one that hides no key), its
+    backward alone (``library_ms``, on [B, H, S, D] views; timed only).
+    The bound: bytes (q, k, v, out, dout, lse read once; dq, dk, dv
+    written once, bf16) over the HBM rate, FLOP (2 x pairs x (3 D + 2 Dv):
+    the five products of the score shape, 2.5 times the forward's at D ==
+    Dv) over the dense bf16 rate."""
+    import torch.nn.functional as F
+
+    qk_scale = 4.0 if cap else 1.0
+    q, k, v = ((torch.randn((B, S, h, d), generator=gen, device="cuda")
+                * sc).to(torch.bfloat16)
+               for h, d, sc in ((H, D, qk_scale), (KVH, D, qk_scale),
+                                (KVH, Dv, 0.3)))
+    kw = dict(causal=causal, window=window, attn_softcap=cap)
+    out, lse = K.flash_attention_bshd(q, k, v, out_dtype=torch.bfloat16,
+                                      return_lse=True, **kw)
+    dout = torch.randn(out.shape, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    qk, kk, vk = to_kernel_layout(q, k, v)
+    _, lse_plain = flash_attention_plain(qk, kk, vk, return_lse=True, **kw)
+    lse_err = float((lse - lse_plain).abs().max())
+    del lse_plain
+    ok_, dok = (t.flatten(0, 1).contiguous().float() for t in
+                (bshd_views(out, k, v)[0], bshd_views(dout, k, v)[0]))
+    scale = 1.0 / float(np.sqrt(D))
+
+    def launch():
+        grads = tuple(torch.empty(t.shape, dtype=torch.float32, device="cuda")
+                      for t in (qk, kk, vk))
+        flash_attention_bwd_launch(qk, kk, vk, ok_, dok, lse, *grads,
+                                   scale=scale, q_offset=0, **kw)
+        return grads
+
+    got = launch()
+    again = launch()
+    want = flash_attention_bwd_plain(qk, kk, vk, ok_, dok, lse, **kw)
+    torch.cuda.synchronize()
+    names = ("dq", "dk", "dv")
+    errs = {n: float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
+            for n, g, w in zip(names, got, want)}
+    bit_equal = all(torch.equal(a, b) for a, b in zip(got, again))
+    wrapped = K.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+
+    def kv(t):                 # [BK, S, Dk] -> [B, S, KVH, Dk]
+        return t.reshape(B, KVH, S, t.shape[-1]).transpose(1, 2)
+
+    rounded = (from_kernel_layout(got[0], B), kv(got[1]), kv(got[2]))
+    wrapper_equal = all(torch.equal(w, r.to(torch.bfloat16))
+                        for w, r in zip(wrapped, rounded))
+    check(all(torch.isfinite(g).all() for g in got),
+          f"flash_bwd {label}: not finite")
+    check(bit_equal, f"flash_bwd {label}: two launches differ")
+    check(wrapper_equal, f"flash_bwd {label}: the wrapper's bf16 gradients "
+                         f"are not the launch's float32 ones rounded")
+    check(max(errs.values()) <= FLASH_BWD_TOL,
+          f"flash_bwd {label}: differs from its plain version {errs} "
+          f"(tolerance {FLASH_BWD_TOL})")
+    check(lse_err <= FLASH_LSE_TOL,
+          f"flash_bwd {label}: the log-sum-exp differs by {lse_err}")
+    del again, want, wrapped, rounded
+    calls = {"ms": launch,
+             "wrapper_ms": lambda: K.flash_attention_bwd(q, k, v, out, dout,
+                                                         lse, **kw)}
+    if cap is None and (window is None or window >= S):
+        gqa = {"enable_gqa": True} if KVH != H else {}
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt,
+                                                 is_causal=causal, **gqa)
+        lib_dout = dout.transpose(1, 2)
+        calls["library_ms"] = lambda: torch.autograd.grad(
+            lib_out, (qt, kt, vt), lib_dout, retain_graph=True)
+    times = rotated_ms({n: (lambda fn=fn: cuda_ms(fn, reps=1))
+                        for n, fn in calls.items()}, rounds)
+    plain_ms = cuda_ms(lambda: flash_attention_bwd_plain(
+        qk, kk, vk, ok_, dok, lse, **kw), reps=1)
+    pairs = roofline.attention_pairs(S, S, causal=causal, window=window)
+    flops = 2.0 * B * H * pairs * (3 * D + 2 * Dv)
+    nbytes = (2 * sum(t.numel() for t in (q, k, v, out, dout, q, k, v))
+              + 4 * lse.numel())
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / bf16_rate * 1e3
+    return {"shape": [list(q.shape), list(k.shape), list(v.shape)],
+            "causal": causal, "window": window, "attn_softcap": cap,
+            "max_abs_err": max(errs.values()), "rel_err": errs,
+            "lse_max_abs_err": lse_err, "two_launches_bit_equal": bit_equal,
+            "ms": times["ms"], "wrapper_ms": times["wrapper_ms"],
+            "plain_ms": plain_ms, "library_ms": times.get("library_ms"),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bound_bytes": nbytes, "bound_flops": flops,
+            "tflops_per_s": flops / (times["ms"] * 1e-3) / 1e12}
+
+
+def flash_bwd_phase(gen, bf16_rate) -> dict:
+    """Phase 10 (see the module docstring). Returns the records by
+    label."""
+    t0 = time.perf_counter()
+    records = {label: flash_bwd_record(label, *shape, gen, bf16_rate)
+               for label, shape in FLASH_BWD_SHAPES.items()}
+    torch.cuda.empty_cache()
+    emit({"phase": "flash_bwd", "records": records,
+          "tolerance": f"{FLASH_BWD_TOL} of each gradient's largest value "
+                       "(float32 against float32: the kernel and the plain "
+                       "version sum the same products in other orders, and "
+                       f"expf against torch.exp); the log-sum-exp "
+                       f"{FLASH_LSE_TOL} absolute; two launches bit-equal",
+          "seconds": time.perf_counter() - t0})
+    return records
+
+
+def train_qwen_phase() -> dict:
+    """Phase 11 (see the module docstring)."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    argv = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--batch",
+            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--dedup",
+            "--ckpt-every", "0", "--seed", str(SEED), "--lr", str(TRAIN_LR)]
+    K.reset_launches()
+    run, printed, seconds = captured(lambda: LT.train(LT.parse_args(argv)))
+    launches = dict(K.LAUNCHES)
+    steps = run["steps"]
+    cfg = get_config(TRAIN_ARCH)
+    losses = [s["loss"] for s in steps]
+    check(len(steps) == TRAIN_STEPS and all(
+        np.isfinite(s["loss"]) and np.isfinite(s["grad_norm"]) for s in steps),
+          f"{TRAIN_ARCH}: a loss or grad norm is not finite: {steps}")
+    check(all(s["flash_forward"] == 2 * cfg.num_layers
+              and s["flash_backward"] == cfg.num_layers for s in steps),
+          f"{TRAIN_ARCH}: flash launches a step {[(s['flash_forward'], s['flash_backward']) for s in steps]}"
+          f" (full remat: 2 forward and 1 backward a layer)")
+    check(launches["cuckoo_query"] >= TRAIN_STEPS
+          and launches["cuckoo_insert_direct"] >= TRAIN_STEPS,
+          f"{TRAIN_ARCH}: the dedup's kernels did not run: {launches}")
+    check(run["dedup_masked"][0] == 0,
+          f"{TRAIN_ARCH}: the first batch had masked rows")
+    model = run["model"]
+    n_params = run["params"]
+    # The first batch again (its dedup mask: every row fresh), through the
+    # trained model, and through the model as it was built (the same seed)
+    # with the kernel and with plain attention.
+    data = DataConfig(vocab_size=cfg.vocab_size, batch=TRAIN_BATCH,
+                      seq_len=TRAIN_SEQ, seed=SEED)
+    batch0 = make_batch(data, 0)
+    with torch.no_grad():
+        trained_loss = float(model.loss(batch0))
+    # One more step (the next batch, no dedup) under torch.profiler: where
+    # a step's device time goes.
+    from repro_torch.train import AdamWConfig, make_train_step
+    step = make_train_step(model, AdamWConfig(
+        lr=TRAIN_LR, warmup_steps=5, total_steps=TRAIN_STEPS))
+    _, profile = profiled(lambda: float(step(
+        model, run["opt_state"], make_batch(data, TRAIN_STEPS))[2]["loss"]))
+    run["opt_state"] = None
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        model.requires_grad_(False)
+        del model, run["model"]
+        torch.cuda.empty_cache()
+        initial = build_model(cfg, seed=SEED)
+        initial_loss = float(initial.loss(batch0))
+        plain_loss = float(with_plain_attention(lambda: initial.loss(batch0)))
+    del initial
+    torch.cuda.empty_cache()
+    first = losses[0]
+    rec = {"phase": f"train_{TRAIN_ARCH}", "layers": cfg.num_layers,
+           "params": n_params, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "lr": TRAIN_LR, "losses": losses,
+           "grad_norms": [s["grad_norm"] for s in steps],
+           "step_ms": [s["seconds"] * 1e3 for s in steps],
+           "first_step_ms": steps[0]["seconds"] * 1e3,
+           "later_step_ms": statistics.median(
+               s["seconds"] * 1e3 for s in steps[1:]),
+           "tokens_per_s": run["tokens_per_s"],
+           "peak_gib": run["peak_bytes"] / 2**30,
+           "flash_launches_per_step": {"forward": steps[0]["flash_forward"],
+                                       "backward": steps[0]["flash_backward"]},
+           "launches": launches, "dedup_masked": run["dedup_masked"],
+           "ln_vocab": float(np.log(cfg.vocab_size)),
+           "first_batch_loss": {"first_step": first,
+                                "initial_model_kernel": initial_loss,
+                                "initial_model_plain_attention": plain_loss,
+                                "trained_model": trained_loss},
+           "profile_step": profile,
+           "seconds": time.perf_counter() - t0,
+           "printed_tail": printed[-400:]}
+    emit(rec)
+    check(abs(initial_loss - first) <= 1e-3 * abs(first),
+          f"{TRAIN_ARCH}: the first step's loss {first} is not the built "
+          f"model's {initial_loss} on the same batch")
+    check(abs(plain_loss - first) <= TRAIN_PLAIN_TOL * abs(first),
+          f"{TRAIN_ARCH}: the first loss {first} against plain attention's "
+          f"{plain_loss} (tolerance {TRAIN_PLAIN_TOL} relative)")
+    check(max(losses[-1], trained_loss) < (1 - TRAIN_MARGIN) * first,
+          f"{TRAIN_ARCH}: the loss did not fall by {TRAIN_MARGIN} of the "
+          f"first: {losses}, the first batch after training {trained_loss}")
+    return rec
+
+
+def mamba_run(tmp: str, fail_at=None) -> tuple:
+    """``TRAIN_RESUME_ARCH`` at full width for ``TRAIN_RESUME_STEPS`` steps
+    through ``TrainingRunner`` (checkpoints every ``TRAIN_RESUME_EVERY``
+    steps into ``tmp``): uninterrupted, or failing at ``fail_at`` and
+    resumed by a fresh runner into a freshly built model and state.
+    Returns (model, opt_state, each step's loss)."""
+    from repro_torch.train import (AdamWConfig, TrainingRunner,
+                                   init_train_state, make_train_step)
+    cfg = get_config(TRAIN_RESUME_ARCH)
+    data = DataConfig(vocab_size=cfg.vocab_size, batch=TRAIN_RESUME_BATCH,
+                      seq_len=TRAIN_RESUME_SEQ, seed=SEED)
+    opt_cfg = AdamWConfig(warmup_steps=5, total_steps=TRAIN_RESUME_STEPS)
+
+    def fresh():
+        return init_train_state(build_model(cfg, seed=SEED), opt_cfg)
+
+    losses = {}
+
+    def data_fn(step):
+        return make_batch(data, step)
+
+    def log(line):
+        pass
+
+    def runner(fail):
+        base = make_train_step(model, opt_cfg)
+
+        def step_fn(p, o, b):
+            p, o, m = base(p, o, b)
+            losses[int(o.step)] = float(m["loss"])
+            return p, o, m
+
+        return TrainingRunner(step_fn, data_fn, tmp,
+                              ckpt_every=TRAIN_RESUME_EVERY, fail_at_step=fail)
+
+    model, opt = fresh()
+    try:
+        model, opt, _ = runner(fail_at).run(model, opt, TRAIN_RESUME_STEPS,
+                                            log_fn=log)
+    except RuntimeError:
+        del model, opt
+        torch.cuda.empty_cache()
+        model, opt = fresh()
+        model, opt, start = runner(None).resume(model, opt)
+        check(start == fail_at, f"resumed at {start}, not {fail_at}")
+        model, opt, _ = runner(None).run(model, opt, TRAIN_RESUME_STEPS,
+                                         start_step=start, log_fn=log)
+    return model, opt, [losses[s] for s in sorted(losses)]
+
+
+def train_resume_phase() -> dict:
+    """Phase 12 (see the module docstring)."""
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        a_model, a_opt, a_losses = mamba_run(os.path.join(tmp, "a"))
+        b_model, b_opt, b_losses = mamba_run(os.path.join(tmp, "b"),
+                                             fail_at=TRAIN_RESUME_FAIL)
+        torch.cuda.synchronize()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    a_params = dict(a_model.named_parameters())
+    diffs = {}
+    for name, p in b_model.named_parameters():
+        for kind, x, y in (("param", p, a_params[name]),
+                           ("m", b_opt.m[name], a_opt.m[name]),
+                           ("v", b_opt.v[name], a_opt.v[name])):
+            if not torch.equal(x, y):
+                diffs[f"{kind} {name}"] = float((x.float() - y.float())
+                                                .abs().max())
+    rec = {"phase": f"train_{TRAIN_RESUME_ARCH}_resume",
+           "steps": TRAIN_RESUME_STEPS, "fail_at": TRAIN_RESUME_FAIL,
+           "batch": TRAIN_RESUME_BATCH, "seq": TRAIN_RESUME_SEQ,
+           "params": sum(p.numel() for p in a_model.parameters()),
+           "losses_uninterrupted": a_losses, "losses_resumed": b_losses,
+           "steps_equal": int(a_opt.step) == int(b_opt.step),
+           "leaves_differing": len(diffs), "differences": dict(
+               sorted(diffs.items(), key=lambda kv: -kv[1])[:10]),
+           "seconds": time.perf_counter() - t0}
+    emit(rec)
+    check(all(np.isfinite(a_losses)) and len(a_losses) == TRAIN_RESUME_STEPS,
+          f"{TRAIN_RESUME_ARCH}: losses {a_losses}")
+    check(a_losses == b_losses and rec["steps_equal"] and not diffs,
+          f"{TRAIN_RESUME_ARCH}: the resumed run differs from the "
+          f"uninterrupted one: {rec}")
+    del a_model, b_model, a_opt, b_opt, a_params
+    torch.cuda.empty_cache()
+    return rec
+
+
+def train_example_phase() -> dict:
+    """Phase 13 (see the module docstring)."""
+    t0 = time.perf_counter()
+    example = load_file("examples/train_lm_dedup_torch.py",
+                        "train_lm_dedup_torch")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_example_")
+    runs = {}
+    try:
+        for label, argv in (("default", []),
+                            ("tiered", ["--device-budget-bytes", "4096",
+                                        "--steps", "400"])):
+            out, printed, seconds = captured(
+                example.main, argv + ["--ckpt-dir", os.path.join(tmp, label)])
+            steps = 400 if label == "tiered" else 200
+            check(out["resumed_at"] == steps // 2
+                  and out["final_step"] == steps
+                  and all(np.isfinite(out["losses"]))
+                  and out["duplicates"] > 0,
+                  f"train example ({label}): {out}")
+            rec = {k: out[k] for k in ("params", "resumed_at", "duplicates",
+                                       "losses", "final_step")}
+            if label == "tiered":
+                ts = out["tier_stats"]
+                check(ts["cold_levels"] > 0 and ts["host_bytes"] > 0,
+                      f"train example (tiered): nothing tiered out: {ts}")
+                rec["tier_stats"], rec["keys"] = ts, out["keys"]
+            runs[label] = {**rec, "seconds": seconds}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "train_example", "runs": runs,
+          "seconds": time.perf_counter() - t0})
+    return runs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4963,9 +5383,11 @@ def main() -> int:
     ptxas = ptxas_report(logs.get("flash_attention", ""), "flash_")
     emit({"phase": "flash_ptxas", "compiled": "flash_attention" in logs,
           "kernels": ptxas})
+    # Three head sizes, capped and not, with and without the rows'
+    # log-sum-exp (the training path's).
     wgmma = [r for n, r in ptxas.items() if "wgmma" in n]
     check("flash_attention" not in logs or (
-        len(wgmma) == 6 and all(r.get("spill_stores") == 0 for r in wgmma)),
+        len(wgmma) == 12 and all(r.get("spill_stores") == 0 for r in wgmma)),
           f"flash: the wgmma kernels' ptxas report {ptxas}")
     ptxas = ptxas_report(logs.get("bloom_insert", ""), "bloom_insert")
     emit({"phase": "bloom_insert_ptxas", "compiled": "bloom_insert" in logs,
@@ -5030,6 +5452,9 @@ def main() -> int:
     check("cuckoo_insert_bulk" not in logs or (ptxas and all(
         r.get("spill_stores") == 0 for r in ptxas.values())),
           f"cuckoo_insert_bulk: the kernels' ptxas report {ptxas}")
+    emit({"phase": "flash_bwd_ptxas",
+          "compiled": "flash_attention_bwd" in logs,
+          "kernels": ptxas_report(logs.get("flash_attention_bwd", ""), "")})
     ptxas = ptxas_threads(logs.get("gqf_serial", ""), "gqf")
     emit({"phase": "gqf_serial_ptxas", "compiled": "gqf_serial" in logs,
           "kernels": ptxas})
@@ -5472,6 +5897,37 @@ def main() -> int:
     # --- the autotuner on the main path's config, then the tools ---------
     autotune_phase(cfg)
     tools_phase()
+
+    # --- training: #11's backward, qwen1_5_4b, the resume gate, the example
+    train_gen = torch.Generator(device="cuda").manual_seed(SEED + 34)
+    emit({"phase": "train_start",
+          "memory_allocated_gib": torch.cuda.memory_allocated() / 2**30})
+    t_train = time.perf_counter()
+    bwd = flash_bwd_phase(train_gen, bf16_rate)
+    trained = train_qwen_phase()
+    train_resume_phase()
+    train_example_phase()
+    emit({"phase": "train_seconds", "seconds": time.perf_counter() - t_train})
+    row = bwd["qwen1_5_4b_train"]
+    kernels.append({
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": SOURCES["flash_attention_bwd"],
+        "replaces": LOOP_KERNELS["flash_attention_bwd"],
+        "launches": trained["launches"]["flash_attention_bwd"],
+        "launches_path": f"train_{TRAIN_ARCH}",
+        "launches_per_step": trained["flash_launches_per_step"]["backward"],
+        **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                               "bound_by", "library_ms", "wrapper_ms",
+                               "bound_bytes", "bound_flops", "tflops_per_s",
+                               "lse_max_abs_err")},
+        "max_abs_err_is": "the largest error over the tensor's largest value "
+                          "of dq, dk, dv (float32)",
+        "shapes": {label: {k: r[k] for k in (
+            "shape", "causal", "window", "attn_softcap", "max_abs_err",
+            "lse_max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by")} for label, r in bwd.items()},
+        "note": "replaces no TPU kernel: JAX differentiates its attention "
+                "scan; kernel #11's backward, CUDA cores, no atomics"})
 
     # --- G1 and G2 against their plain loops at the GQF path's shapes -----
     # Last: the host loops (tens of seconds each) then cannot disturb the

@@ -30,6 +30,9 @@
 * :func:`op_batch_from_reference` carries a JAX ``OpBatch``.
 * :func:`model_params_from_reference` turns the JAX ``Model.init``
   parameter tree (as numpy arrays) into the port's ``Model`` state dict.
+* :func:`train_state_from_reference` carries a JAX training state,
+  ``(params, AdamWState)`` as numpy arrays with float32 or ``QTensor``
+  moments, into the port's state dict and ``AdamWState``.
 """
 
 from __future__ import annotations
@@ -48,6 +51,7 @@ from .filters.blocked_bloom import BloomConfig, BloomState
 from .filters.cpu_reference import PyCuckooConfig, PyCuckooFilter
 from .filters.quotient import GQFState
 from .filters.two_choice import TCFState
+from .train.optimizer import AdamWState, _quantize
 
 # State fields that carry uint32 bits (held as int32 in the port).
 UINT32_FIELDS = ("table", "stash", "key_lo", "key_hi")
@@ -227,7 +231,7 @@ def _flatten(tree, prefix: str, out: dict) -> None:
             out[f"{prefix}{name}"] = sub
 
 
-def model_params_from_reference(cfg, params) -> dict:
+def model_params_from_reference(cfg, params, *, mtp: bool = False) -> dict:
     """The JAX ``Model.init(key)`` tree (leaves as numpy arrays) -> the
     port's ``Model`` state dict (CPU tensors, same values and dtypes):
     load it with ``model.load_state_dict``.
@@ -244,13 +248,16 @@ def model_params_from_reference(cfg, params) -> dict:
     ``mixer.norm.scale``; the RG-LRU's ``mixer.wa.b``, ``mixer.lambda``,
     ...), whatever the segments (RecurrentGemma: a 3-layer period x 12,
     then one ``rglru+mlp`` layer x 2). A ``frames`` model (HuBERT) has no
-    ``embed``. DeepSeek-V3's ``params["mtp"]`` (the multi-token-prediction block) is
-    skipped: only the JAX ``loss`` reads it, and the port's serving model
-    has none."""
+    ``embed``. DeepSeek-V3's ``params["mtp"]`` (the multi-token-prediction
+    block) is carried into ``mtp.norm.*`` / ``mtp.block.*`` with ``mtp``
+    (a model that trains: ``Model.init_mtp``); without it the block is
+    skipped, as the port's serving model has none."""
     out = {}
-    for top in ("embed", "final_norm", "head"):
+    for top in ("embed", "final_norm", "head") + (("mtp",) if mtp else ()):
         if top in params:
             _flatten(params[top], f"{top}.", out)
+    if mtp and "mtp" not in params:
+        raise ValueError("mtp=True but the reference params hold no 'mtp'")
     layer = 0
     for (period, reps), seg in zip(cfg.segments(), params["stack"]):
         for r in range(reps):
@@ -263,3 +270,46 @@ def model_params_from_reference(cfg, params) -> dict:
     if layer != cfg.num_layers:
         raise ValueError(f"params hold {layer} layers, config {cfg.num_layers}")
     return {name: _tensor(arr) for name, arr in out.items()}
+
+
+def _dequantized(tree, found: list):
+    """The moment tree with each ``QTensor`` (duck-typed: ``q``, ``scale``,
+    ``shape``) dequantized to a float32 numpy array; each one met is
+    appended to ``found``."""
+    if hasattr(tree, "q") and hasattr(tree, "scale") and hasattr(tree, "shape"):
+        found.append(tree.shape)
+        blocks = np.asarray(tree.q, np.float32) * np.asarray(
+            tree.scale, np.float32)[:, None]
+        n = int(np.prod(tree.shape)) if tree.shape else 1
+        return blocks.reshape(-1)[:n].reshape(tree.shape)
+    if isinstance(tree, dict):
+        return {k: _dequantized(v, found) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_dequantized(v, found) for v in tree)
+    return np.asarray(tree)
+
+
+def train_state_from_reference(cfg, params, opt_state, *,
+                               mtp: bool = False) -> tuple:
+    """A JAX training state -> ``(state dict, AdamWState)`` of the port
+    (CPU tensors): ``params`` as :func:`model_params_from_reference`
+    carries them, and ``opt_state`` (``step``, ``m``, ``v`` trees of the
+    params' structure) with each moment under its parameter's name.
+    Float32 moments carry bit for bit. ``QTensor`` moments (int8 blocks
+    of 256 over the flattened leaf) are dequantized, split into the
+    port's per-layer leaves and quantized again per leaf: a stacked JAX
+    leaf's blocks span layers, so the carried int8 moments equal JAX's
+    only where a segment has one repetition, and are otherwise a
+    re-rounding of them."""
+
+    def moments(tree):
+        found = []
+        named = model_params_from_reference(cfg, _dequantized(tree, found),
+                                            mtp=mtp)
+        if found:
+            return {n: _quantize(t.to(torch.float32)) for n, t in named.items()}
+        return {n: t.to(torch.float32) for n, t in named.items()}
+
+    step = torch.tensor(int(np.asarray(opt_state.step)), dtype=torch.int32)
+    return (model_params_from_reference(cfg, params, mtp=mtp),
+            AdamWState(step, moments(opt_state.m), moments(opt_state.v)))

@@ -27,7 +27,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("hash64", "cuckoo_query", "cuckoo_query_unfused", "cuckoo_insert",
            "cuckoo_insert_unfused", "cuckoo_insert_bulk", "cuckoo_mixed",
            "bloom_query", "bloom_insert", "kmer_pack", "flash_attention",
-           "gqf_serial")
+           "flash_attention_bwd", "gqf_serial")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -66,9 +66,15 @@ ARGTYPES = {
     "kmer_pack_launch": [_P, _P, _I64, _U32, _U32, _P],
     # q, k, v, out, B, then KVH, g, Sq, Sk, D, Dv, the strides of q, k, v
     # and out (int64 arrays), dtype, out dtype, variant, causal, window,
-    # q_offset, the scale, the softcap (<= 0: none) and the stream.
+    # q_offset, the scale, the softcap (<= 0: none), lse (null: not
+    # written) and the stream.
     "flash_attention_launch": [_P, _P, _P, _P, _I64] + [_I32] * 6 + [_P] * 4
-                              + [_I32] * 6 + [_F32, _F32, _P],
+                              + [_I32] * 6 + [_F32, _F32, _P, _P],
+    # q, k, v, out, dout, lse, delta, dq, dk, dv, BK, then g, Sq, Sk, D,
+    # Dv, dtype, causal, window, q_offset, the scale, the softcap and the
+    # stream.
+    "flash_attention_bwd_launch": [_P] * 10 + [_I64] + [_I32] * 9
+                                  + [_F32, _F32, _P],
     # table, rem, home, valid, ok, count, n, num_slots, remainder bits,
     # max_probe, the stream.
     "gqf_insert_serial_launch": [_P] * 6 + [_I64, _U64, _U32, _U32, _P],

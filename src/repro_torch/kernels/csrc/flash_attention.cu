@@ -32,6 +32,15 @@
 // score s becomes cap * tanhf(s / cap) before the mask and the running
 // max, as the JAX model path computes it (accurate tanhf, not
 // tanh.approx).
+// Asked for it (a non-null lse pointer, the training path), each variant
+// also writes every query row's log-sum-exp of its scaled (capped)
+// scores at its finish, float32 [B * KVH, g, Sq], from the running max
+// and denominator it already holds: the backward
+// (flash_attention_bwd.cu) recomputes P from it. The FMA variant's
+// log-sum-exp kernels are instantiations of their own, in both
+// variants, so the serving ones compile as they did without it (a
+// runtime branch cost the FMA variant 3-6 % at D 256 and the wgmma
+// variant 1-2 % back to back).
 //
 // Bound: at the serving prefill (B 4, S 1024, 20 heads of 128, causal,
 // bf16 in and out) the least time is set by device-memory bytes (q, k, v
@@ -108,6 +117,7 @@ struct Params {
   int out_bf16;                                    // 0: float32 out
   float scale;
   float cap;                                       // <= 0: no softcap
+  float* lse;                                      // null: not written
 };
 
 __device__ __forceinline__ void store1(const Params& p, int64_t i, float a) {
@@ -166,6 +176,7 @@ struct WgParams {
   int kvh, g, sq, sk, causal, window, q_offset, out_bf16;
   float scale_log2;                       // scale * log2(e)
   float scale, cap;                       // the softcap's (CAP kernels)
+  float* lse;                             // null: not written
 };
 
 // Shared-memory tiles of a head size: rows of D bf16 in sub-tiles of
@@ -422,8 +433,10 @@ constexpr int wg_smem_bytes() {
 
 // Grid (B * KVH * g, query tiles of WG_BQ); WG_THREADS threads; BC keys a
 // tile, STAGES tiles in flight; CAP: the softcap (a kernel of its own, so
-// the uncapped kernels keep their registers).
-template <int D, int BC, int STAGES, bool CAP>
+// the uncapped kernels keep their registers); LSE: write the rows'
+// log-sum-exp (a kernel of its own, so the serving kernels are as
+// before).
+template <int D, int BC, int STAGES, bool CAP, bool LSE>
 __global__ void __launch_bounds__(WG_THREADS, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap kmap,
@@ -669,6 +682,17 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     }
     for (int t = te; t < ntiles; ++t) release();
 
+    // The rows' log-sum-exp of the scaled (capped) scores, for the
+    // backward: the running max is on raw scores without a cap.
+    if (LSE && tig == 0) {
+      const float sl = CAP ? 1.f : p.scale;
+      if (r0 < p.sq)
+        p.lse[int64_t(row) * p.sq + r0] =
+            fmaxf(m0, M_FLOOR) * sl + logf(fmaxf(l0, L_FLOOR));
+      if (r1 < p.sq)
+        p.lse[int64_t(row) * p.sq + r1] =
+            fmaxf(m1, M_FLOOR) * sl + logf(fmaxf(l1, L_FLOOR));
+    }
     // Scale by 1 / l, round once, store rows inside Sq.
     const float d0 = 1.f / fmaxf(l0, L_FLOOR), d1 = 1.f / fmaxf(l1, L_FLOOR);
     const int64_t base = b * p.ob + kvh * p.okvh + h * p.og;
@@ -712,7 +736,9 @@ constexpr int fma_smem_bytes() {
          (FMA_BQ * DMAX + FMA_BKT * (DMAX + 1) + FMA_BKT * DMAX);
 }
 
-template <typename T, int DMAX>
+// LSE: write each row's log-sum-exp (an instantiation of its own, so the
+// serving kernels compile as they did without it).
+template <typename T, int DMAX, bool LSE>
 __global__ void __launch_bounds__(THREADS)
 flash_fma_kernel(Params p) {
   extern __shared__ __align__(16) float fma_smem[];
@@ -799,6 +825,10 @@ flash_fma_kernel(Params p) {
     const int row = q0 + warp * FMA_ROWS + r;
     if (row >= p.sq) continue;
     const float den = fmaxf(l[r], L_FLOOR);
+    if constexpr (LSE) {
+      if (lane == 0)
+        p.lse[int64_t(bh) * p.sq + row] = fmaxf(m[r], M_FLOOR) + logf(den);
+    }
 #pragma unroll
     for (int j = 0; j < DMAX / 32; ++j) {
       const int c = lane + 32 * j;
@@ -868,7 +898,7 @@ bool tensor_map(CUtensorMap* map, const void* ptr, int rank,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D, int BC, int STAGES, bool CAP>
+template <int D, int BC, int STAGES, bool CAP, bool LSE>
 int launch_wgmma(const void* q, const void* k, const void* v, int64_t batch,
                  const int64_t* q_strides, const int64_t* k_strides,
                  const int64_t* v_strides, dim3 grid, const WgParams& p,
@@ -896,12 +926,13 @@ int launch_wgmma(const void* q, const void* k, const void* v, int64_t batch,
   const uint64_t bit = device < 64 ? uint64_t(1) << device : 0;
   if (!(set_on.load(std::memory_order_relaxed) & bit)) {
     const cudaError_t attr = cudaFuncSetAttribute(
-        flash_wgmma_kernel<D, BC, STAGES, CAP>,
+        flash_wgmma_kernel<D, BC, STAGES, CAP, LSE>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (attr != cudaSuccess) return int(attr);
     set_on.fetch_or(bit, std::memory_order_relaxed);
   }
-  flash_wgmma_kernel<D, BC, STAGES, CAP><<<grid, WG_THREADS, smem, stream>>>(
+  flash_wgmma_kernel<D, BC, STAGES, CAP, LSE><<<grid, WG_THREADS, smem,
+                                                 stream>>>(
       qmap, kmap, vmap, p);
   return int(cudaGetLastError());
 }
@@ -909,23 +940,39 @@ int launch_wgmma(const void* q, const void* k, const void* v, int64_t batch,
 // The wgmma kernel of head size D, three stages: BC keys a tile without a
 // softcap, BC_CAP with one (at D = 128 the capped softmax's tanhf
 // spilled beside 96-key tiles, so its tiles are 64 keys).
+template <int D, int BC, int BC_CAP, bool LSE>
+int launch_wgmma_cap(const void* q, const void* k, const void* v,
+                     int64_t batch, const int64_t* q_strides,
+                     const int64_t* k_strides, const int64_t* v_strides,
+                     dim3 grid, const WgParams& p, cudaStream_t stream) {
+  return p.cap > 0.f
+             ? launch_wgmma<D, BC_CAP, 3, true, LSE>(
+                   q, k, v, batch, q_strides, k_strides, v_strides, grid, p,
+                   stream)
+             : launch_wgmma<D, BC, 3, false, LSE>(
+                   q, k, v, batch, q_strides, k_strides, v_strides, grid, p,
+                   stream);
+}
+
+// ... and the log-sum-exp instantiation where `p.lse` is set (the serving
+// kernels compile as they did without it).
 template <int D, int BC, int BC_CAP>
 int launch_wgmma_d(const void* q, const void* k, const void* v,
                    int64_t batch, const int64_t* q_strides,
                    const int64_t* k_strides, const int64_t* v_strides,
                    dim3 grid, const WgParams& p, cudaStream_t stream) {
-  return p.cap > 0.f
-             ? launch_wgmma<D, BC_CAP, 3, true>(q, k, v, batch, q_strides,
-                                                k_strides, v_strides, grid, p,
-                                                stream)
-             : launch_wgmma<D, BC, 3, false>(q, k, v, batch, q_strides,
-                                             k_strides, v_strides, grid, p,
-                                             stream);
+  return p.lse != nullptr
+             ? launch_wgmma_cap<D, BC, BC_CAP, true>(
+                   q, k, v, batch, q_strides, k_strides, v_strides, grid, p,
+                   stream)
+             : launch_wgmma_cap<D, BC, BC_CAP, false>(
+                   q, k, v, batch, q_strides, k_strides, v_strides, grid, p,
+                   stream);
 }
 
 // The FMA variant at head-size bound DMAX, its tiles in dynamic shared
 // memory (the attribute set once a device, as for the wgmma variant).
-template <typename T, int DMAX>
+template <typename T, int DMAX, bool LSE>
 int launch_fma(dim3 grid, const Params& p, cudaStream_t stream) {
   constexpr int smem = fma_smem_bytes<DMAX>();
   static std::atomic<uint64_t> set_on{0};
@@ -935,13 +982,25 @@ int launch_fma(dim3 grid, const Params& p, cudaStream_t stream) {
   const uint64_t bit = device < 64 ? uint64_t(1) << device : 0;
   if (!(set_on.load(std::memory_order_relaxed) & bit)) {
     const cudaError_t attr = cudaFuncSetAttribute(
-        flash_fma_kernel<T, DMAX>,
+        flash_fma_kernel<T, DMAX, LSE>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (attr != cudaSuccess) return int(attr);
     set_on.fetch_or(bit, std::memory_order_relaxed);
   }
-  flash_fma_kernel<T, DMAX><<<grid, THREADS, smem, stream>>>(p);
+  flash_fma_kernel<T, DMAX, LSE><<<grid, THREADS, smem, stream>>>(p);
   return int(cudaGetLastError());
+}
+
+// The FMA variant's instantiation: head-size bound 256 where `wide`, else
+// 128; the log-sum-exp one where `p.lse` is set.
+template <typename T>
+int launch_fma_lse(bool wide, dim3 grid, const Params& p,
+                   cudaStream_t stream) {
+  if (p.lse != nullptr)
+    return wide ? launch_fma<T, 256, true>(grid, p, stream)
+                : launch_fma<T, 128, true>(grid, p, stream);
+  return wide ? launch_fma<T, 256, false>(grid, p, stream)
+              : launch_fma<T, 128, false>(grid, p, stream);
 }
 
 }  // namespace
@@ -953,7 +1012,10 @@ int launch_fma(dim3 grid, const Params& p, cudaStream_t stream) {
 // <= 256, dtype 0 = float32 or 1 = bfloat16) takes the contiguous kernel
 // layout, q [batch * kvh, g, sq, d], k [batch * kvh, sk, d], v [..., dv],
 // out [batch * kvh, g, sq, dv], and ignores the strides. out_dtype 0 =
-// float32, 1 = bfloat16; window < 0: none; cap <= 0: no softcap. Returns
+// float32, 1 = bfloat16; window < 0: none; cap <= 0: no softcap. lse, if
+// not null, receives each query row's log-sum-exp of its scaled (capped)
+// scores, float32 [batch * kvh, g, sq] (the backward's input; serving
+// passes null and the kernels do the same work as without it). Returns
 // the cudaError_t of the launch (cudaErrorInvalidValue for arguments no
 // variant takes).
 extern "C" __attribute__((visibility("default"))) int flash_attention_launch(
@@ -962,7 +1024,7 @@ extern "C" __attribute__((visibility("default"))) int flash_attention_launch(
     const int64_t* q_strides, const int64_t* k_strides,
     const int64_t* v_strides, const int64_t* o_strides, int32_t dtype,
     int32_t out_dtype, int32_t variant, int32_t causal, int32_t window,
-    int32_t q_offset, float scale, float cap, void* stream) {
+    int32_t q_offset, float scale, float cap, float* lse, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t rows = batch * kvh * g;
   if (variant == 1) {
@@ -970,7 +1032,7 @@ extern "C" __attribute__((visibility("default"))) int flash_attention_launch(
     const WgParams p{out, o_strides[0], o_strides[1], o_strides[2],
                      o_strides[3], kvh, g, sq, sk, causal, window, q_offset,
                      out_dtype == 1, scale * 1.4426950408889634f, scale,
-                     cap};
+                     cap, lse};
     const dim3 grid(unsigned(rows), unsigned((sq + WG_BQ - 1) / WG_BQ));
     if (d == 128)
       return launch_wgmma_d<128, 96, 64>(q, k, v, batch, q_strides,
@@ -985,12 +1047,10 @@ extern "C" __attribute__((visibility("default"))) int flash_attention_launch(
   }
   if (d > FMA_DMAX || dv > FMA_DMAX) return int(cudaErrorInvalidValue);
   const Params p{q, k, v, out, g, sq, sk, d, dv, causal, window, q_offset,
-                 out_dtype == 1, scale, cap};
+                 out_dtype == 1, scale, cap, lse};
   const dim3 grid(unsigned(rows), unsigned((sq + FMA_BQ - 1) / FMA_BQ));
   const bool wide = d > 128 || dv > 128;
   if (dtype == 0)
-    return wide ? launch_fma<float, 256>(grid, p, s)
-                : launch_fma<float, 128>(grid, p, s);
-  return wide ? launch_fma<__nv_bfloat16, 256>(grid, p, s)
-              : launch_fma<__nv_bfloat16, 128>(grid, p, s);
+    return launch_fma_lse<float>(wide, grid, p, s);
+  return launch_fma_lse<__nv_bfloat16>(wide, grid, p, s);
 }

@@ -1,6 +1,7 @@
-"""Flash attention forward: the CUDA kernel's binding and its plain version.
+"""Flash attention, forward and backward: the CUDA kernels' bindings and
+their plain versions.
 
-The kernel (``csrc/flash_attention.cu``) replaces ``repro/kernels/
+The forward kernel (``csrc/flash_attention.cu``) replaces ``repro/kernels/
 flash_attention.py: flash_attention_pallas``. :func:`flash_attention_plain`
 computes the same function with torch ops: the online-softmax loop of
 ``repro/models/attention.py: flash_attention`` in the kernel layout.
@@ -8,6 +9,14 @@ computes the same function with torch ops: the online-softmax loop of
 ``kernels.ops.flash_attention_bshd`` (the model's layout) pick one by the
 device the tensors live on; ``models.attention.flash_attention`` reaches
 both through the second.
+
+The backward kernel (``csrc/flash_attention_bwd.cu``) replaces no TPU
+kernel: the JAX package differentiates its XLA attention scan. It takes
+the forward's row log-sum-exp (:func:`flash_attention_plain` with
+``return_lse``; the forward kernel writes it when given ``lse``), and
+:func:`flash_attention_bwd_plain` is its plain version: the same
+gradients from P recomputed chunk by chunk. ``kernels.ops``'s autograd
+function joins the two.
 
 Kernel layout: q ``[BK, g, Sq, D]``, k ``[BK, Sk, D]``, v ``[BK, Sk,
 Dv]`` with ``BK = B * KVH`` (query head ``h`` of KV head ``h // g``); the
@@ -54,12 +63,25 @@ def key_range(sk: int, qp_first: int, qp_last: int, *, causal: bool,
     return lo, hi
 
 
+def _allowed(qpos, kpos, causal, window):
+    allowed = torch.ones((qpos.shape[0], kpos.shape[0]), dtype=torch.bool,
+                         device=qpos.device)
+    if causal:
+        allowed &= kpos[None, :] <= qpos[:, None]
+    if window is not None:
+        allowed &= (qpos[:, None] - kpos[None, :]) < window
+    return allowed
+
+
 def flash_attention_plain(q, k, v, *, causal=True, window=None, scale=None,
                           q_offset=0, attn_softcap=None, chunk_q=512,
-                          chunk_k=1024) -> torch.Tensor:
+                          chunk_k=1024, return_lse=False):
     """Online-softmax attention in float32, ``chunk_q`` query rows by
     ``chunk_k`` keys at a time; chunks the mask hides entirely are skipped
-    (they would leave the accumulators as they are)."""
+    (they would leave the accumulators as they are). With ``return_lse``
+    also each query row's log-sum-exp of its scaled (capped) scores,
+    float32 ``[BK, g, Sq]``: ``max(m, -1e20) + log(max(l, 1e-30))``, the
+    backward's input (a row that sees no key gets about -1e20)."""
     BK, g, Sq, D = q.shape
     Sk, Dv = k.shape[1], v.shape[-1]
     scale = scale if scale is not None else 1.0 / np.sqrt(D)
@@ -67,6 +89,7 @@ def flash_attention_plain(q, k, v, *, causal=True, window=None, scale=None,
     dev = q.device
     qf, kf, vf = q.float(), k.float(), v.float()
     out = torch.zeros((BK, g, Sq, Dv), dtype=torch.float32, device=dev)
+    lse = torch.empty((BK, g, Sq), dtype=torch.float32, device=dev)
     for q0 in range(0, Sq, chunk_q):
         q1 = min(q0 + chunk_q, Sq)
         qpos = q_offset + torch.arange(q0, q1, device=dev)
@@ -81,12 +104,7 @@ def flash_attention_plain(q, k, v, *, causal=True, window=None, scale=None,
             s = torch.einsum("bgqd,bcd->bgqc", qf[:, :, q0:q1],
                              kf[:, k0:k1]) * scale
             s = _softcap(s, attn_softcap)
-            allowed = torch.ones((q1 - q0, k1 - k0), dtype=torch.bool, device=dev)
-            if causal:
-                allowed &= kpos[None, :] <= qpos[:, None]
-            if window is not None:
-                allowed &= (qpos[:, None] - kpos[None, :]) < window
-            s = torch.where(allowed, s, NEG_INF)
+            s = torch.where(_allowed(qpos, kpos, causal, window), s, NEG_INF)
             m_new = torch.maximum(m, s.amax(dim=-1))
             m_safe = torch.clamp_min(m_new, NEG_INF * 1e-10)
             p = torch.exp(s - m_safe[..., None])
@@ -96,7 +114,60 @@ def flash_attention_plain(q, k, v, *, causal=True, window=None, scale=None,
                                                        vf[:, k0:k1])
             m = m_new
         out[:, :, q0:q1] = acc / torch.clamp_min(l, 1e-30)[..., None]
-    return out
+        lse[:, :, q0:q1] = (torch.clamp_min(m, NEG_INF * 1e-10)
+                            + torch.log(torch.clamp_min(l, 1e-30)))
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_bwd_plain(q, k, v, out, dout, lse, *, causal=True,
+                              window=None, scale=None, q_offset=0,
+                              attn_softcap=None, chunk_q=512,
+                              chunk_k=1024) -> tuple:
+    """The gradients (dq, dk, dv), float32 in q's, k's and v's kernel-layout
+    shapes, of :func:`flash_attention_plain`'s function given the forward's
+    ``out`` and row log-sum-exp ``lse`` and the cotangent ``dout``: chunk
+    by chunk, P = exp(capped score - lse) recomputed, dS = P (dP - delta)
+    with delta = rowsum(dout * out), times the softcap's derivative ``1 -
+    (capped / cap)^2`` and the scale; dk and dv sum over the g query heads
+    of a KV head. Masked pairs give nothing; fully masked chunks are
+    skipped."""
+    BK, g, Sq, D = q.shape
+    Sk = k.shape[1]
+    scale = scale if scale is not None else 1.0 / np.sqrt(D)
+    chunk_q, chunk_k = max(1, min(chunk_q, Sq)), max(1, min(chunk_k, Sk))
+    dev = q.device
+    qf, kf, vf = q.float(), k.float(), v.float()
+    do = dout.float()
+    delta = (do * out.float()).sum(-1)                        # [BK, g, Sq]
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=dev)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=dev)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=dev)
+    for q0 in range(0, Sq, chunk_q):
+        q1 = min(q0 + chunk_q, Sq)
+        qpos = q_offset + torch.arange(q0, q1, device=dev)
+        lo, hi = key_range(Sk, q_offset + q0, q_offset + q1 - 1,
+                           causal=causal, window=window)
+        for k0 in range((lo // chunk_k) * chunk_k, hi, chunk_k):
+            k1 = min(k0 + chunk_k, Sk)
+            kpos = torch.arange(k0, k1, device=dev)
+            s = torch.einsum("bgqd,bcd->bgqc", qf[:, :, q0:q1],
+                             kf[:, k0:k1]) * scale
+            if attn_softcap:
+                t = torch.tanh(s / attn_softcap)
+                s = attn_softcap * t
+            allowed = _allowed(qpos, kpos, causal, window)
+            p = torch.where(allowed, torch.exp(s - lse[:, :, q0:q1, None]),
+                            0.0)
+            dov = do[:, :, q0:q1]
+            dv[:, k0:k1] += torch.einsum("bgqc,bgqd->bcd", p, dov)
+            dp = torch.einsum("bgqd,bcd->bgqc", dov, vf[:, k0:k1])
+            ds = p * (dp - delta[:, :, q0:q1, None])
+            if attn_softcap:
+                ds = ds * (1.0 - t * t)
+            ds = ds * scale
+            dq[:, :, q0:q1] += torch.einsum("bgqc,bcd->bgqd", ds, kf[:, k0:k1])
+            dk[:, k0:k1] += torch.einsum("bgqc,bgqd->bcd", ds, qf[:, :, q0:q1])
+    return dq, dk, dv
 
 
 def bshd_views(q, k, v) -> tuple:
@@ -144,14 +215,16 @@ def flash_variant(dtype: torch.dtype, d: int, dv: int):
 
 def flash_attention_launch(q, k, v, out, *, causal: bool, window,
                            scale: float, q_offset: int, variant: str,
-                           attn_softcap=None) -> None:
+                           attn_softcap=None, lse=None) -> None:
     """Launch the kernel on the current stream. q and out are ``(B, KVH,
     g, Sq, D)`` views, k and v ``(B, KVH, Sk, D)`` views (arguments already
     checked: one dtype; for ``"wgmma"`` D contiguous, strides of 16-byte
     multiples, 16-byte aligned; for ``"fma"`` the contiguous kernel layout
     with KVH folded into B); out float32 or bfloat16. ``attn_softcap``
     (None or 0: none) caps each scaled score, ``cap * tanh(s / cap)``,
-    before the mask, as :func:`flash_attention_plain` does."""
+    before the mask, as :func:`flash_attention_plain` does. ``lse``
+    (contiguous float32 ``[B * KVH, g, Sq]``, or None) receives the rows'
+    log-sum-exp, as :func:`flash_attention_plain` returns it."""
     B, KVH, g, Sq, D = q.shape
 
     def strides(t):
@@ -163,6 +236,27 @@ def flash_attention_launch(q, k, v, out, *, causal: bool, window,
         strides(out), DTYPES[q.dtype], DTYPES[out.dtype],
         int(variant == "wgmma"), int(bool(causal)),
         -1 if window is None else int(window), int(q_offset), float(scale),
-        float(attn_softcap or 0.0),
+        float(attn_softcap or 0.0), None if lse is None else lse.data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(rc, "flash_attention")
+
+
+def flash_attention_bwd_launch(q, k, v, out, dout, lse, dq, dk, dv, *,
+                               causal: bool, window, scale: float,
+                               q_offset: int, attn_softcap=None) -> None:
+    """Launch the backward kernel on the current stream: q, k, v (one
+    dtype, float32 or bfloat16), ``out``, ``dout`` (float32) and ``lse``
+    contiguous in the kernel layout, ``dq``, ``dk``, ``dv`` contiguous
+    float32 of q's, k's and v's shapes (arguments already checked). The
+    ``delta`` scratch (float32 ``[BK, g, Sq]``) is allocated here."""
+    BK, g, Sq, D = q.shape
+    delta = torch.empty(lse.shape, dtype=torch.float32, device=q.device)
+    rc = build.load("flash_attention_bwd").flash_attention_bwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), BK, g, Sq, k.shape[1], D, v.shape[-1],
+        DTYPES[q.dtype], int(bool(causal)),
+        -1 if window is None else int(window), int(q_offset), float(scale),
+        float(attn_softcap or 0.0),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(rc, "flash_attention_bwd")

@@ -41,6 +41,8 @@ from .cuckoo_query import (cuckoo_query_launch, cuckoo_query_plain,
                            cuckoo_query_unfused_launch,
                            cuckoo_query_unfused_plain)
 from .flash_attention import (DTYPES as FLASH_DTYPES, FMA_DMAX, bshd_views,
+                              flash_attention_bwd_launch,
+                              flash_attention_bwd_plain,
                               flash_attention_launch, flash_attention_plain,
                               flash_variant, from_kernel_layout,
                               kernel_strides, to_kernel_layout)
@@ -53,7 +55,8 @@ LAUNCHES = {"hash64": 0, "cuckoo_query": 0, "cuckoo_query_unfused": 0,
             "cuckoo_insert_direct": 0, "cuckoo_insert_unfused": 0,
             "cuckoo_insert_bulk": 0, "cuckoo_mixed": 0, "cuckoo_mixed_walk": 0,
             "bloom_query": 0, "bloom_insert": 0, "kmer_pack": 0,
-            "flash_attention": 0, "gqf_insert_serial": 0,
+            "flash_attention": 0, "flash_attention_bwd": 0,
+            "gqf_insert_serial": 0,
             "gqf_delete_serial": 0}
 
 _KERNEL_WPB = (1, 2, 4, 8, 16, 32)
@@ -515,7 +518,8 @@ def flash_attention(q, k, v, **kw) -> torch.Tensor:
 def flash_attention_bshd(q, k, v, *, causal: bool = True, window=None,
                          scale=None, q_offset: int = 0, attn_softcap=None,
                          chunk_q: int = 512, chunk_k: int = 1024,
-                         out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                         out_dtype: torch.dtype = torch.float32,
+                         return_lse: bool = False):
     """Attention forward in the model's layout: q ``[B, Sq, H, D]``, k
     ``[B, Sk, KVH, D]``, v ``[B, Sk, KVH, Dv]`` (query head ``h`` reads KV
     head ``h // (H // KVH)``) -> ``[B, Sq, H, Dv]`` of ``out_dtype``
@@ -532,16 +536,35 @@ def flash_attention_bshd(q, k, v, *, causal: bool = True, window=None,
     either side. A float32 call (or
     bf16 at other head sizes), the ``fma`` variant, copies q, k and v into
     the contiguous kernel layout (a no-op for :func:`flash_attention`'s
-    views) and views its result back."""
+    views) and views its result back.
+
+    Where autograd records (grad mode on and q, k or v requiring a
+    gradient), the call goes through :class:`FlashAttentionFunction`: the
+    forward also keeps each row's log-sum-exp, and the backward is
+    :func:`flash_attention_bwd` (the backward kernel on the card, its
+    plain version on the CPU). ``return_lse`` also returns that
+    log-sum-exp, float32 ``[B * KVH, g, Sq]`` (outside autograd)."""
     _check_flash(q, k, v)
     _check_out_dtype(out_dtype)
-    B = q.shape[0]
+    opts = dict(causal=causal, window=window, scale=scale, q_offset=q_offset,
+                attn_softcap=attn_softcap, chunk_q=chunk_q, chunk_k=chunk_k)
+    if (not return_lse and torch.is_grad_enabled()
+            and any(t.requires_grad for t in (q, k, v))):
+        return FlashAttentionFunction.apply(q, k, v, opts, out_dtype)
+    out, lse = _flash_forward(q, k, v, opts, out_dtype, return_lse)
+    return (out, lse) if return_lse else out
+
+
+def _flash_forward(q, k, v, opts: dict, out_dtype, with_lse: bool) -> tuple:
+    """:func:`flash_attention_bshd`'s forward past its checks: (out, the
+    rows' log-sum-exp if ``with_lse`` else None)."""
+    B, Sq = q.shape[:2]
     if not _on_cuda(q, k, v):
-        return from_kernel_layout(flash_attention_plain(
-            *to_kernel_layout(q, k, v), causal=causal, window=window,
-            scale=scale, q_offset=q_offset, attn_softcap=attn_softcap,
-            chunk_q=chunk_q, chunk_k=chunk_k).to(out_dtype), B)
-    variant = _kernel_variant(q, k, v, attn_softcap)
+        out = flash_attention_plain(*to_kernel_layout(q, k, v),
+                                    return_lse=with_lse, **opts)
+        out, lse = out if with_lse else (out, None)
+        return from_kernel_layout(out.to(out_dtype), B), lse
+    variant = _kernel_variant(q, k, v, opts["attn_softcap"])
     if variant == "wgmma":
         out = torch.empty_like(q, dtype=out_dtype)
         views = (*bshd_views(q, k, v), bshd_views(out, k, v)[0])
@@ -550,13 +573,97 @@ def flash_attention_bshd(q, k, v, *, causal: bool = True, window=None,
         out = torch.empty(qk.shape[:3] + (vk.shape[2],), dtype=out_dtype,
                           device=q.device)
         views = (qk[:, None], kk[:, None], vk[:, None], out[:, None])
+    BK, g = B * k.shape[2], q.shape[2] // k.shape[2]
+    lse = (torch.empty((BK, g, Sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     if out.numel():
+        scale = opts["scale"]
         scale = scale if scale is not None else 1.0 / float(np.sqrt(q.shape[3]))
-        flash_attention_launch(*views, causal=causal, window=window,
-                               scale=scale, q_offset=q_offset, variant=variant,
-                               attn_softcap=attn_softcap)
+        flash_attention_launch(*views, causal=opts["causal"],
+                               window=opts["window"], scale=scale,
+                               q_offset=opts["q_offset"], variant=variant,
+                               attn_softcap=opts["attn_softcap"], lse=lse)
         LAUNCHES["flash_attention"] += 1
-    return out if variant == "wgmma" else from_kernel_layout(out, B)
+    return (out if variant == "wgmma" else from_kernel_layout(out, B)), lse
+
+
+def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
+                        window=None, scale=None, q_offset: int = 0,
+                        attn_softcap=None, chunk_q: int = 512,
+                        chunk_k: int = 1024) -> tuple:
+    """The gradients (dq, dk, dv) of :func:`flash_attention_bshd` in the
+    model's layout, each in its input's shape and dtype: ``out`` is the
+    forward's result (either dtype), ``dout`` its cotangent and ``lse``
+    the rows' log-sum-exp the forward returned (``return_lse``).
+
+    CPU tensors take :func:`.flash_attention.flash_attention_bwd_plain` on
+    kernel-layout copies. CUDA tensors launch the backward kernel (any
+    head sizes up to 256, either dtype, on contiguous kernel-layout
+    copies, ``out`` and ``dout`` widened to float32) or raise; it sums in
+    float32 in a fixed order (no atomics), so two launches on the same
+    inputs give the same bits."""
+    _check_flash(q, k, v)
+    B, Sq, H, D = q.shape
+    Sk, KVH, Dv = k.shape[1], k.shape[2], v.shape[3]
+    if tuple(out.shape) != (B, Sq, H, Dv) or out.shape != dout.shape:
+        raise ValueError(f"out and dout: expected {[B, Sq, H, Dv]}, got "
+                         f"{list(out.shape)}, {list(dout.shape)}")
+    if tuple(lse.shape) != (B * KVH, H // KVH, Sq) or lse.dtype != torch.float32:
+        raise ValueError(f"lse: expected float32 {[B * KVH, H // KVH, Sq]}, "
+                         f"got {lse.dtype}{list(lse.shape)}")
+    qk, kk, vk = to_kernel_layout(q, k, v)
+    ok, dok = (t.flatten(0, 1).contiguous() for t in
+               (bshd_views(out, k, v)[0], bshd_views(dout, k, v)[0]))
+    opts = dict(causal=causal, window=window, scale=scale, q_offset=q_offset,
+                attn_softcap=attn_softcap)
+    if not _on_cuda(q, k, v, out, dout, lse):
+        dq, dk, dv = flash_attention_bwd_plain(qk, kk, vk, ok, dok, lse,
+                                               chunk_q=chunk_q,
+                                               chunk_k=chunk_k, **opts)
+    else:
+        if D > FMA_DMAX or Dv > FMA_DMAX:
+            raise ValueError(f"flash_attention_bwd: head sizes D={D}, Dv={Dv} "
+                             f"exceed the kernel's {FMA_DMAX}")
+        if B * KVH * (H // KVH) >= 2**31 or Sq > 65535 * 16 or Sk > 65535 * 16:
+            raise ValueError(f"flash_attention_bwd: grid too large for "
+                             f"{list(q.shape)}, {list(k.shape)}")
+        dq = torch.empty(qk.shape, dtype=torch.float32, device=q.device)
+        dk = torch.empty(kk.shape, dtype=torch.float32, device=q.device)
+        dv = torch.empty(vk.shape, dtype=torch.float32, device=q.device)
+        if dq.numel() and dk.numel():
+            if opts["scale"] is None:
+                opts["scale"] = 1.0 / float(np.sqrt(D))
+            flash_attention_bwd_launch(qk, kk, vk, ok.float(), dok.float(),
+                                       lse.contiguous(), dq, dk, dv, **opts)
+            LAUNCHES["flash_attention_bwd"] += 1
+        else:
+            for t in (dq, dk, dv):
+                t.zero_()
+
+    def kv_back(t):            # [BK, Sk, Dk] -> [B, Sk, KVH, Dk]
+        return t.reshape(B, KVH, Sk, t.shape[-1]).transpose(1, 2)
+
+    return (from_kernel_layout(dq, B).to(q.dtype), kv_back(dk).to(k.dtype),
+            kv_back(dv).to(v.dtype))
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """:func:`flash_attention_bshd` under autograd: the forward keeps q, k,
+    v, its result and the rows' log-sum-exp; the backward is
+    :func:`flash_attention_bwd` on them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, opts, out_dtype):
+        out, lse = _flash_forward(q, k, v, opts, out_dtype, True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.opts = opts
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, lse, **ctx.opts)
+        return dq, dk, dv, None, None
 
 
 def _check_out_dtype(out_dtype) -> None:

@@ -25,6 +25,8 @@ LOGITS_CHUNK = 16384
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
+    """A parameter built without a gradient (serving's default);
+    ``train.init_train_state`` turns gradients on."""
     return nn.Parameter(t, requires_grad=False)
 
 

@@ -6,16 +6,22 @@ no FFN. A *block* = pre-norm mixer + pre-norm FFN, both residual. The
 JAX package scans stacked parameters of repeating segments with
 ``lax.scan``; here a Python loop runs one module per layer:
 :func:`stack_apply` (the forward without caches: the encoder's path),
-:func:`stack_prefill` and :func:`stack_decode`. Remat comes with the
-training path (ROADMAP queue A item 16e).
+:func:`stack_prefill` and :func:`stack_decode`. With ``remat``,
+:func:`stack_apply` recomputes each layer in the backward, as the JAX
+package's ``jax.checkpoint`` of its scanned period does
+(``cfg.remat_policy``: ``"full"`` saves only each layer's input,
+``"dots"`` also the outputs of the non-batched matmuls, ``"none"``
+nothing more than without remat).
 """
 
 from __future__ import annotations
 
-from typing import List
+import functools
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from . import attention as A
 from . import moe as M
@@ -150,11 +156,47 @@ def stack_init(gen, cfg, device=None) -> nn.ModuleList:
                          for kind in cfg.layer_kinds())
 
 
-def stack_apply(layers, cfg, x, *, positions):
-    """Forward through every layer, no caches."""
+def _save_dots(ctx, op, *args, **kwargs):
+    """The ``"dots"`` policy: keep the outputs of the non-batched matmuls
+    (``x @ w`` reaches ``aten.mm``; JAX's
+    ``dots_with_no_batch_dims_saveable``), recompute the rest."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_REMAT_CONTEXT = {
+    # "full": recompute the whole layer in the backward; only its input
+    # stays resident.
+    "full": None,
+    # "dots": save the matmul outputs as well: a faster backward, much
+    # higher residency.
+    "dots": functools.partial(create_selective_checkpoint_contexts,
+                              _save_dots),
+}
+
+
+def stack_apply(layers, cfg, x, *, positions, remat: bool = False):
+    """Forward through every layer, no caches. With ``remat`` (and grad
+    mode on) each layer runs under ``torch.utils.checkpoint`` by
+    ``cfg.remat_policy`` (``"none"``: no checkpoint)."""
+    policy = cfg.remat_policy if remat and torch.is_grad_enabled() else "none"
+    if policy not in ("none", *_REMAT_CONTEXT):
+        raise ValueError(f"remat_policy: expected full, dots or none, got "
+                         f"{policy!r}")
     for p in layers:
-        x, _ = block_apply(p, cfg, p.kind, x, positions=positions)
+        if policy == "none":
+            x, _ = block_apply(p, cfg, p.kind, x, positions=positions)
+            continue
+        kw = {} if _REMAT_CONTEXT[policy] is None else {
+            "context_fn": _REMAT_CONTEXT[policy]}
+        x = checkpoint(_block_out, p, cfg, x, positions, use_reentrant=False,
+                       preserve_rng_state=False, **kw)
     return x
+
+
+def _block_out(p, cfg, x, positions):
+    return block_apply(p, cfg, p.kind, x, positions=positions)[0]
 
 
 def stack_prefill(layers, cfg, x, *, positions):

@@ -15,6 +15,8 @@ entry, which frees it once the request that evicted it returns. A
 recurrent layer's cache (the SSM's conv window and float32 state, the
 RG-LRU's float32 ``h`` and conv window) has no sequence axis: growing it
 copies it whole, and decode replaces it rather than writing into it.
+``generate`` runs under ``torch.no_grad()``: serving a model whose
+parameters train builds no autograd graph.
 """
 
 from __future__ import annotations
@@ -63,6 +65,7 @@ class ServeEngine:
                 d[:, :s.shape[1]] = s
         return big
 
+    @torch.no_grad()
     def generate(self, prompts: np.ndarray, steps: int, *,
                  greedy: bool = True, reuse_prefix: bool = True
                  ) -> Tuple[np.ndarray, Dict]:

@@ -1680,3 +1680,190 @@ def test_block_keys_refused_and_resolved(cuda):
         assert AT.resolve_block_keys(cfg, "query", cuda) == best
     finally:
         AT.clear()
+
+
+# --- training: #11's backward, a train step of each architecture ----------
+
+def _bwd_inputs(case, cuda):
+    BK, g, Sq, Sk, D, Dv, causal, window, q_offset, dtype = case
+    gen = torch.Generator(device=cuda).manual_seed(Sq * Sk + D + 1)
+    kv = 2 if BK % 2 == 0 else 1
+    q, k, v = ((torch.randn(shape, generator=gen, device=cuda) * s).to(dtype)
+               for shape, s in (((BK // kv, Sq, kv * g, D), 1.0),
+                                ((BK // kv, Sk, kv, D), 1.0),
+                                ((BK // kv, Sk, kv, Dv), 0.3)))
+    dout = torch.randn(q.shape[:3] + (Dv,), generator=gen, device=cuda)
+    return q, k, v, dout, dict(causal=causal, window=window,
+                               q_offset=q_offset)
+
+
+@pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: "{}x{}x{}x{}d{}v{}c{}w{}o{}{}".format(*c[:9], str(c[9])[6:]))
+def test_flash_attention_bwd_matches_plain(cuda, case):
+    """The backward kernel at every forward case (model layout, KV heads
+    shared by g query heads): its float32 gradients against the plain
+    backward on the same inputs (the kernel's output and log-sum-exp) at
+    1e-4 of each gradient's largest value (chip_smoke.py's FLASH_BWD_TOL:
+    the same float32 products summed in other orders), two launches bit
+    for bit, one launch counted a call, and the kernel's log-sum-exp
+    within 1e-4 of the plain forward's on rows that see a key."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_launch, flash_attention_bwd_plain,
+        to_kernel_layout)
+
+    q, k, v, dout, kw = _bwd_inputs(case, cuda)
+    out, lse = K.flash_attention_bshd(q, k, v, out_dtype=q.dtype,
+                                      return_lse=True, **kw)
+    dout = dout.to(out.dtype)
+    qk, kk, vk = to_kernel_layout(q, k, v)
+    _, lse_plain = flash_attention_plain(qk, kk, vk, return_lse=True, **kw)
+    seen = lse_plain > -1e19
+    if bool(seen.any()):
+        assert float((lse - lse_plain)[seen].abs().max()) <= 1e-4
+    K.reset_launches()
+    got = K.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+    again = K.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["flash_attention_bwd"] == 2
+    for a, b, t in zip(got, again, (q, k, v)):
+        assert torch.equal(a, b) and a.dtype == t.dtype and a.shape == t.shape
+    ok, dok = (x.flatten(0, 1).contiguous().float() for x in (
+        K.bshd_views(out, k, v)[0], K.bshd_views(dout, k, v)[0]))
+    grads = tuple(torch.empty(t.shape, dtype=torch.float32, device=cuda)
+                  for t in (qk, kk, vk))
+    flash_attention_bwd_launch(qk, kk, vk, ok, dok, lse, *grads,
+                               scale=1.0 / float(np.sqrt(q.shape[3])), **kw)
+    want = flash_attention_bwd_plain(qk, kk, vk, ok, dok, lse, **kw)
+    torch.cuda.synchronize()
+    for g, w in zip(grads, want):
+        scale = float(w.abs().max())
+        assert float((g - w).abs().max()) <= 1e-4 * max(scale, 1e-30)
+    if kw["window"] == 0:
+        assert not any(bool(g.any()) for g in grads)
+
+
+def test_flash_attention_bwd_refuses_what_it_cannot_take(cuda):
+    q = torch.zeros((1, 8, 2, 272), dtype=torch.bfloat16, device=cuda)
+    lse = torch.zeros((2, 1, 8), dtype=torch.float32, device=cuda)
+    with pytest.raises(ValueError, match="exceed"):
+        K.flash_attention_bwd(q, q, q, q, q, lse)
+    with pytest.raises(ValueError, match="lse"):
+        K.flash_attention_bwd(q[..., :64], q[..., :64], q[..., :64],
+                              q[..., :64], q[..., :64], lse[:, :, :4])
+
+
+def _grads_close_to_cpu(got, ref, what):
+    """Each gradient within 5e-2 of its largest value on the CPU (the
+    tests/test_torch_train.py bound against JAX: bf16 products rounded at
+    other places)."""
+    assert set(got) == set(ref), what
+    for name, r in ref.items():
+        r = r.float().numpy()
+        g = got[name].float().cpu().numpy()
+        scale = max(float(np.abs(r).max()), 1e-30)
+        assert float(np.abs(g - r).max()) <= 5e-2 * scale, (what, name)
+
+
+TRAIN_ARCHS = ["qwen1_5_4b", "gemma2_2b", "gemma3_4b", "h2o_danube3_4b",
+               "chameleon_34b", "mixtral_8x22b", "deepseek_v3_671b",
+               "mamba2_130m", "recurrentgemma_9b", "hubert_xlarge"]
+
+
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_train_step_on_the_card(cuda, arch):
+    """One training step of each architecture, reduced (B 2, S 40, a 1-D
+    dedup mask; hubert: frames, labels, a [B, S] mask; deepseek with its
+    MTP block), on the card against the same weights on the CPU: the loss
+    at the model tolerance and every gradient within 5e-2 of its largest
+    value, full remat, #11 launched twice and its backward once an
+    attention layer. The MoE architectures' routers are pinned to the
+    CPU's top-k, as in test_moe_archs_with_pinned_routing_on_the_card
+    (every call of the step, the recomputed forward's too); then one
+    AdamW update on each device, the parameters within a bf16 step and
+    2.5 lr of each other."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models import moe as M
+    from repro_torch.train import AdamWConfig, adamw_init, adamw_update
+
+    cfg = get_config(arch).reduced()
+    cpu = build_model(cfg, device="cpu", seed=4)
+    cpu.init_mtp(seed=5)
+    gpu = build_model(cfg, device=cuda)
+    gpu.init_mtp(seed=5)
+    gpu.load_state_dict(cpu.state_dict())
+    for m in (cpu, gpu):
+        m.requires_grad_(True)
+    rng = np.random.default_rng(6)
+    if cfg.frontend == "frames":
+        batch = {"frames": rng.normal(size=(2, 40, cfg.d_model)),
+                 "labels": rng.integers(0, cfg.vocab_size, (2, 40)),
+                 "mask": rng.random((2, 40)) < 0.8}
+    else:
+        batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 41)),
+                 "mask": np.array([True, False])}
+    batch = {k: torch.from_numpy(np.asarray(v, np.float32 if k == "frames"
+                                            else None)) for k, v in batch.items()}
+    batch = {k: (v.to(torch.int32) if v.dtype == torch.int64 else v)
+             for k, v in batch.items()}
+
+    real, chosen, n_pinned = M.top_k, [], [0]
+
+    def recording(scores, k):
+        vals, idx = real(scores, k)
+        chosen.append(idx.clone())
+        return vals, idx
+
+    def pinned(scores, k):
+        idx = chosen[n_pinned[0]].to(scores.device)
+        n_pinned[0] += 1
+        return scores.gather(-1, idx), idx
+
+    def step(model, pick):
+        names, params = zip(*model.named_parameters())
+        M.top_k = pick
+        try:
+            loss = model.loss({k: v.to(model.device) for k, v in batch.items()})
+            grads = torch.autograd.grad(loss, params)
+        finally:
+            M.top_k = real
+        return loss.detach(), dict(zip(names, grads))
+
+    want_loss, want = step(cpu, recording)
+    K.reset_launches()
+    loss, got = step(gpu, pinned if cfg.moe else real)
+    torch.cuda.synchronize()
+    layers = _attention_layers(cfg) + (1 if cpu.mtp is not None else 0)
+    assert K.LAUNCHES["flash_attention"] == 2 * _attention_layers(cfg) + \
+        (layers - _attention_layers(cfg))
+    assert K.LAUNCHES["flash_attention_bwd"] == layers
+    assert n_pinned[0] == (len(chosen) if cfg.moe else 0)
+    _close_to_cpu(loss.reshape(1), want_loss.reshape(1))
+    _grads_close_to_cpu(got, want, arch)
+    opt = AdamWConfig(warmup_steps=1)
+    new = []
+    for model, grads in ((cpu, want), (gpu, got)):
+        adamw_update(opt, grads, adamw_init(opt, model), model)
+        new.append(dict(model.named_parameters()))
+    for name, p in new[0].items():
+        np.testing.assert_allclose(new[1][name].detach().float().cpu().numpy(),
+                                   p.detach().float().numpy(), rtol=2 ** -7,
+                                   atol=2.5 * opt.lr, err_msg=name)
+
+
+def test_launch_train_on_the_card(cuda, tmp_path):
+    """``launch.train`` on the card (reduced qwen, ``--dedup``): finite
+    losses, #11 twice and its backward once a layer a step, the dedup's
+    query and insert kernels launched each step, the peak memory read."""
+    from repro_torch.launch import train as launch_train
+
+    K.reset_launches()
+    out = launch_train.main(["--arch", "qwen1_5_4b", "--reduced", "--steps",
+                             "3", "--batch", "2", "--seq", "64", "--dedup",
+                             "--ckpt-dir", str(tmp_path)])
+    layers = out["model"].cfg.num_layers
+    assert all(np.isfinite(s["loss"]) for s in out["steps"])
+    assert all(s["flash_forward"] == 2 * layers and
+               s["flash_backward"] == layers for s in out["steps"])
+    assert K.LAUNCHES["cuckoo_query"] >= 3
+    assert K.LAUNCHES["cuckoo_insert_direct"] >= 3
+    assert out["peak_bytes"] > 0 and out["device"].startswith("cuda")
